@@ -1,0 +1,22 @@
+"""optix_raytracer_tpu_torch — the PyTorch + CUDA port of optix_raytracer_tpu.
+
+A second package beside the JAX one, held against it on the same inputs.
+It follows the JAX package's layout so each module's counterpart is easy to
+find:
+
+  core/       RNG, vector math, rays, camera, film
+  shade/      materials, sampling, the parallelogram area light
+  accel/      triangle geometry, brute-force intersection (CUDA kernels 1-2)
+  scene/      the torch DeviceScene and the built-in Cornell box
+  wavefront/  the lock-step engine and the fused path-trace kernel (kernel 3)
+  apps/       the Cornell path tracer CLI
+  csrc/       the hand-written CUDA C++ kernels, built on first use by
+              `kernels.py`
+
+Plain functions on tensors; every constructor that makes tensors from host
+data takes an explicit `device`. On a CPU tensor each kernel wrapper runs the
+kernel's plain PyTorch version; on a CUDA tensor it launches the kernel or
+raises. This package never imports JAX.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,74 @@
+"""Progressive Cornell-box path tracer (counterpart of `apps/pathtracer.py`).
+
+    python -m optix_raytracer_tpu_torch.apps.pathtracer --file cornell.ppm \\
+        --dim 1920x1088 --samples 32 --launch-samples 16 --depth 4
+
+On a CUDA device each launch is one fused-kernel launch (kernel 3). PNG
+output needs Pillow; .ppm needs nothing beyond numpy.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+# Both JAX-package helpers are host-only: argparse, and numpy for uint8.
+from optix_raytracer_tpu.apps._cli import parse_dim
+from optix_raytracer_tpu.io.image import save_image
+
+from ..core import film as film_mod
+from ..scene.builtins import cornell_box, cornell_camera
+from ..wavefront.engine import render_accumulate
+
+
+def render(width=768, height=768, samples=16, max_depth=4, chunk_size=65536,
+           scene=None, camera=None, film=None, samples_per_launch=None,
+           device="cuda"):
+    """Render on `device` → (linear radiance [H, W, 3], Film, rays_traced)."""
+    scene = scene if scene is not None else cornell_box(device)
+    cam = (camera if camera is not None
+           else cornell_camera(width, height)).params(device)
+    film = film if film is not None else film_mod.Film.create(height, width,
+                                                              device)
+    spl = samples_per_launch or samples
+    rays = torch.zeros((), dtype=torch.int64, device=device)
+    done = 0
+    while done < samples:
+        step = min(spl, samples - done)
+        film, r = render_accumulate(scene, cam, film, width, height,
+                                    samples_per_launch=step,
+                                    max_depth=max_depth,
+                                    chunk_size=chunk_size)
+        rays = rays + r
+        done += step
+    return film.accum, film, rays
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Cornell-box path tracer")
+    p.add_argument("--file", default="cornell.png")
+    p.add_argument("--dim", default="768x768")
+    p.add_argument("--samples", type=int, default=64)
+    p.add_argument("--launch-samples", type=int, default=16,
+                   help="samples per launch (reference default 16)")
+    p.add_argument("--depth", type=int, default=4)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    w, h = parse_dim(args.dim)
+    device = torch.device(args.device)
+
+    t0 = time.perf_counter()
+    accum, film, rays = render(w, h, samples=args.samples,
+                               max_depth=args.depth,
+                               samples_per_launch=args.launch_samples,
+                               device=device)
+    img = film_mod.make_color(accum).cpu().numpy()   # synchronises
+    dt = time.perf_counter() - t0
+    save_image(args.file, img)
+    print(f"wrote {args.file} ({w}x{h}, {args.samples} spp, {dt:.2f}s, "
+          f"{int(rays) / dt / 1e6:.2f} Mrays/s, "
+          f"{w * h * args.samples / dt / 1e6:.2f} Msamples/s, on {device})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,55 @@
+"""Film: progressive accumulation buffer and sRGB output (counterpart of
+`core/film.py`)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class Film:
+    """Progressive-render state.
+
+    accum: [H, W, 3] float32 running mean of linear radiance. subframe:
+    int64 scalar tensor on the device, the samples accumulated so far; it
+    seeds the RNG of the next launch and is never read back to the host.
+    With `track_variance`, `sq` holds the running mean of squared per-launch
+    estimates and `launches` counts launches (the engine's `_merge_launch`).
+    """
+    accum: torch.Tensor
+    subframe: torch.Tensor
+    sq: Optional[torch.Tensor] = None
+    launches: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, height, width, device, track_variance: bool = False):
+        def zeros3():
+            return torch.zeros((height, width, 3), dtype=torch.float32,
+                               device=device)
+
+        def zero_int():
+            return torch.zeros((), dtype=torch.int64, device=device)
+
+        return cls(accum=zeros3(), subframe=zero_int(),
+                   sq=zeros3() if track_variance else None,
+                   launches=zero_int() if track_variance else None)
+
+
+def linear_to_srgb(c):
+    """Exact sRGB OETF (reference `cuda/helpers.h:37-42`)."""
+    c = torch.clamp(c, 0.0, 1.0)
+    lo = 12.92 * c
+    hi = 1.055 * torch.pow(torch.clamp_min(c, 1e-8), 1.0 / 2.4) - 0.055
+    return torch.where(c < 0.0031308, lo, hi)
+
+
+def make_color(radiance):
+    """Linear radiance [..., 3] → uint8 RGBA, sRGB-encoded, with the
+    reference's `quantizeUnsigned8Bits` rounding (x * 255.99999, floor)."""
+    srgb = linear_to_srgb(radiance)
+    rgb = torch.clamp(srgb * 255.99999, 0.0, 255.0).to(torch.uint8)
+    alpha = torch.full(rgb.shape[:-1] + (1,), 255, dtype=torch.uint8,
+                       device=rgb.device)
+    return torch.cat([rgb, alpha], dim=-1)

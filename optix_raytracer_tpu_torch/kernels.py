@@ -1,0 +1,127 @@
+"""Build, load and count the hand-written CUDA kernels under `csrc/`.
+
+The kernels are CUDA C++ for `sm_90a` with a plain C interface. On first use
+`nvcc` compiles every `csrc/*.cu` into one shared library under `_build/`,
+keyed by a hash of the sources and flags, and `ctypes` loads it. Nothing is
+built or loaded at import time, so the CPU tests import this module freely.
+
+`LAUNCHES` counts launches per kernel: each wrapper adds one where it
+launches its kernel and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).parent / "csrc"
+_BUILD = Path(__file__).parent / "_build"
+
+# No --use_fast_math. -fmad=false keeps every product and sum rounded on
+# its own, as PyTorch's elementwise ops round them, so the kernels and their
+# plain versions take the same branches on the same rays.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES = {"bf_closest": 0, "bf_any": 0, "pt_fused_cornell": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # tri, tri_mat, m, org, dir, tmin, tmax, n, t, prim, mat, uv, normal, stream
+    "ort_bf_closest": (_P, _P, _I, _P, _P, _P, _P, _I,
+                       _P, _P, _P, _P, _P, _P),
+    # tri, m, org, dir, tmin, tmax, n, occ, stream
+    "ort_bf_any": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
+    # tri, m, mats, k, light, cam, subframe, width, height, full_w, full_h,
+    # y0, spl, max_depth, rad, count, stream
+    "ort_pt_fused_cornell": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _P, _P, _P),
+}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if this source hash has not been built yet.
+    Returns (path, seconds spent compiling in this call)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out_dir = _BUILD / h.hexdigest()[:16]
+    lib_path = out_dir / "libort_kernels.so"
+    if lib_path.exists():
+        return lib_path, 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libort_kernels.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, lib_path)   # atomic, so concurrent builds agree
+    return lib_path, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def lib() -> ctypes.CDLL:
+    path, _ = build()
+    so = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(so, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    so.ort_error_string.argtypes = [ctypes.c_int]
+    so.ort_error_string.restype = ctypes.c_char_p
+    return so
+
+
+def check(err: int, name: str):
+    """Raise if a launch returned a CUDA error (`cudaGetLastError`)."""
+    if err != 0:
+        msg = lib().ort_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype, shape, device):
+    """Wrapper-side argument check: device, dtype, shape, contiguity."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

@@ -1,0 +1,32 @@
+"""Shared helpers of the port's parity tests: hand the JAX package's scene and
+camera over to optix_raytracer_tpu_torch as numpy arrays, so both sides
+compute on the same bits."""
+import numpy as np
+
+from optix_raytracer_tpu_torch.core.camera import camera_params_from_numpy
+from optix_raytracer_tpu_torch.scene.device_scene import device_scene_from_numpy
+
+
+def scene_fields(jscene):
+    """JAX DeviceScene → the numpy field dict of device_scene_from_numpy."""
+    g, m, light = jscene.geom, jscene.materials, jscene.area_light
+    arrays = dict(
+        tri_consts=g.tri_consts, face_normal=g.face_normal, valid=g.valid,
+        tri_mat=jscene.tri_mat, mat_kind=m.kind, mat_base_color=m.base_color,
+        mat_emission=m.emission, mat_metallic=m.metallic,
+        mat_roughness=m.roughness, mat_ior=m.ior, mat_kr=m.kr,
+        light_corner=light.corner, light_v1=light.v1, light_v2=light.v2,
+        light_normal=light.normal, light_emission=light.emission,
+        miss_color=jscene.miss_color)
+    fields = {k: np.array(v) for k, v in arrays.items()}
+    fields["features"] = tuple(jscene.features)
+    return fields
+
+
+def torch_scene(jscene, device="cpu"):
+    return device_scene_from_numpy(scene_fields(jscene), device)
+
+
+def torch_cam(jcam_params, device="cpu"):
+    return camera_params_from_numpy(
+        {k: np.array(v) for k, v in jcam_params.items()}, device)
