@@ -6,8 +6,10 @@ find:
 
   core/       RNG, vector math, rays, camera, film
   shade/      materials, sampling, the parallelogram area light
-  accel/      triangle geometry, brute-force intersection (CUDA kernels 1-2)
-  scene/      the torch DeviceScene and the built-in Cornell box
+  accel/      triangle geometry, brute-force intersection (CUDA kernels 1-2),
+              the cluster-culled large-mesh traversal (kernels 4-6), morton
+              codes and the binding to the native SAH builder
+  scene/      the torch DeviceScene, the built-in Cornell box and knot
   wavefront/  the lock-step engine and the fused path-trace kernel (kernel 3)
   apps/       the Cornell path tracer CLI
   csrc/       the hand-written CUDA C++ kernels, built on first use by

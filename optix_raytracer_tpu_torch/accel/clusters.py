@@ -1,0 +1,674 @@
+"""Cluster-culled intersection for large meshes: kernels 4-6 and their plain
+versions (counterpart of `accel/clusters.py`; the kernels are
+`csrc/clusters.cu`).
+
+Triangles are chunked along a spatial order into clusters of 128
+(`build_clusters`). A query packs its rays as [N, 8] (o, d, tmin, tmax) in
+blocks of SUB = 256 and then:
+
+1. culls every (block, cluster) pair: the interval cull (`_block_cull`,
+   plain PyTorch) for tile-coherent primaries, or the exact per-ray slab
+   test (kernel 4, `exact_cull`) for scattered wavefronts, which also emits
+   one crossing bit per 32-ray group;
+2. sorts each block's crossed clusters front to back (`_cull`: one int32 sort
+   whose key carries the cluster id and the group bits in the low bits of
+   the entry distance);
+3. walks each block's list (kernel 5, `walk_closest`; kernel 6, `walk_any`),
+   pair-testing the block's rays against the cluster's 128 triangles, with
+   the walk gated per 32-ray group where the exact cull's bits allow it.
+
+Every function mirrors the JAX one of the same name and returns the same
+values for the same inputs: the cluster table bit for bit, culls and lists bit
+for bit, hit ids equal. The JAX package's grid of 16 blocks per step
+(GROUPS) is kept in the padding and in the shapes of the cull outputs
+([n_super, GROUPS, c_pad]) so the two can be compared directly.
+
+On CUDA tensors the kernel wrappers launch the kernels; on CPU tensors they
+run the plain versions. The supercluster tier (more than
+MAX_STREAM_CLUSTERS clusters) is not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..core.rays import Hits, Rays
+from ..core.vecmath import dot
+from .geometry import TriangleGeometry
+from .morton import interleave, morton3d, quantize
+
+LANES = 128                 # triangles per cluster
+SUB = 256                   # rays per block
+GROUP_ROWS = 32             # rays per walk-gating group (8 per block)
+GROUPS = 16                 # blocks per JAX grid step (padding unit: SUPER)
+SUPER = SUB * GROUPS
+MAX_CLUSTERS = 1024         # exact-cull / gated-walk cap (10 id bits)
+MAX_STREAM_CLUSTERS = 8192  # per-cluster list cap (13 id bits)
+SC_CLUSTERS = 32            # supercluster size (its tier is not ported)
+COMP_ROWS = 32              # constants per cluster slot, see ClusterSet
+
+_DEGEN_EPS = 1e-12
+_BIG = 3.0e38
+
+
+@dataclasses.dataclass
+class ClusterSet:
+    """Triangle clusters in pair-test layout (the JAX ClusterSet).
+
+    comp:      [C, 32, 128] f32, per-slot constants as rows: 0-8 m_inv,
+               9-11 offset, 12-14 unit face normal, 15 pad, 16 original
+               prim id (-1 = padding), 17 material id, 18-20 corner-0
+               shading normal, 21-23 corner 1 minus corner 0, 24-26 corner
+               2 minus corner 0, 27-31 pad. Padding slots are all zero
+               (never hit).
+    aabb:      [C_rows, 6, 128] f32 cluster AABBs, 128 clusters per row
+               (rows lox loy loz hix hiy hiz); padding clusters inverted.
+    slot_prim: [C*128] int32 original triangle id per slot (-1 = padding).
+    """
+    comp: torch.Tensor
+    aabb: torch.Tensor
+    slot_prim: torch.Tensor
+    num_clusters: int = 0
+
+    @property
+    def num_rows(self) -> int:
+        return self.aabb.shape[0]
+
+    @property
+    def c_pad(self) -> int:
+        return self.num_rows * LANES
+
+
+def build_clusters(geom: TriangleGeometry, tri_mat=None,
+                   order=None) -> ClusterSet:
+    """Chunk a mesh into 128-triangle clusters along `order` ([M] triangle
+    permutation, e.g. the SAH leaf order), or along the morton order of the
+    triangle AABB centroids. tri_mat: optional [M] material ids, baked into
+    the table."""
+    dev = geom.tri_consts.device
+    n = geom.num_triangles
+    c = -(-n // LANES)
+    c_rows = max(1, -(-c // LANES))
+    # The supercluster tier rounds the row count up (clusters.py:140-141);
+    # kept so the table keeps the reference's layout at every size.
+    c_alloc = (-(-c // SC_CLUSTERS) * SC_CLUSTERS
+               if c > MAX_STREAM_CLUSTERS else c)
+    n_slots = c_alloc * LANES
+
+    v0, e1, e2 = geom.v0, geom.e1, geom.e2
+    tri_lo = torch.minimum(v0, torch.minimum(v0 + e1, v0 + e2))
+    tri_hi = torch.maximum(v0, torch.maximum(v0 + e1, v0 + e2))
+    if order is None:
+        centroid = 0.5 * (tri_lo + tri_hi)
+        codes = morton3d(centroid, tri_lo.amin(dim=0), tri_hi.amax(dim=0))
+        order = torch.argsort(codes, stable=True).to(torch.int32)
+    elif isinstance(order, torch.Tensor):
+        order = order.to(device=dev, dtype=torch.int32)
+    else:
+        order = torch.tensor(np.asarray(order), dtype=torch.int32, device=dev)
+
+    slot_prim = torch.cat([order, torch.full((n_slots - n,), -1,
+                                             dtype=torch.int32, device=dev)])
+    safe = torch.clamp_min(slot_prim, 0).to(torch.int64)
+    live = (slot_prim >= 0).to(torch.float32)
+
+    consts = geom.tri_consts[safe] * live[:, None]          # [n_slots, 16]
+    mat = (torch.as_tensor(tri_mat, device=dev)[safe] if tri_mat is not None
+           else torch.zeros((n_slots,), dtype=torch.int32, device=dev))
+    extra = torch.stack([
+        slot_prim.to(torch.float32),
+        torch.where(slot_prim >= 0, mat.to(torch.float32), -1.0)], dim=1)
+    cn = geom.corner_normal[safe] * live[:, None, None]     # [n_slots, 3, 3]
+    nrows = torch.cat([cn[:, 0], cn[:, 1] - cn[:, 0], cn[:, 2] - cn[:, 0]],
+                      dim=1)
+    allc = torch.cat([consts, extra, nrows,
+                      torch.zeros((n_slots, 5), dtype=torch.float32,
+                                  device=dev)], dim=1)
+    comp = allc.reshape(c_alloc, LANES, COMP_ROWS).transpose(1, 2)
+
+    lo = torch.where(live[:, None] > 0, tri_lo[safe], _BIG)
+    hi = torch.where(live[:, None] > 0, tri_hi[safe], -_BIG)
+    cl_lo = lo.reshape(c_alloc, LANES, 3).amin(dim=1)
+    cl_hi = hi.reshape(c_alloc, LANES, 3).amax(dim=1)
+    c_pad = c_rows * LANES
+    fill = c_pad - c_alloc
+    cl_lo = torch.cat([cl_lo, torch.full((fill, 3), _BIG, device=dev)])
+    cl_hi = torch.cat([cl_hi, torch.full((fill, 3), -_BIG, device=dev)])
+    aabb = torch.cat([cl_lo, cl_hi], dim=1).reshape(c_rows, LANES, 6)
+    return ClusterSet(comp=comp.contiguous(),
+                      aabb=aabb.transpose(1, 2).contiguous(),
+                      slot_prim=slot_prim, num_clusters=c)
+
+
+def _aabb_rows(cl: ClusterSet) -> torch.Tensor:
+    """[c_pad, 6] cluster AABBs (lo xyz, hi xyz)."""
+    return cl.aabb.transpose(1, 2).reshape(-1, 6)
+
+
+# ---------------------------------------------------------------------------
+# Culling
+# ---------------------------------------------------------------------------
+
+def _pack_rays(rays: Rays, n_padded: int) -> torch.Tensor:
+    """Rays → dense [n_padded, 8] (ox oy oz dx dy dz tmin tmax). Padding rays
+    are all zero: an empty window, never hit."""
+    packed = torch.cat([rays.origin, rays.direction, rays.tmin[:, None],
+                        rays.tmax[:, None]], dim=1).to(torch.float32)
+    pad = n_padded - packed.shape[0]
+    if pad:
+        packed = torch.cat([packed, packed.new_zeros((pad, 8))])
+    return packed.contiguous()
+
+
+def _block_chunks(n_blocks: int, per_block: int, budget: int = 1 << 25):
+    """Ranges of blocks whose [blocks, per_block] planes stay under budget."""
+    step = max(1, budget // max(per_block, 1))
+    return [(s, min(s + step, n_blocks)) for s in range(0, n_blocks, step)]
+
+
+def _block_cull(cl: ClusterSet, packed, n_blocks: int, c_pad: int):
+    """Conservative (block, cluster) slab test by interval arithmetic over
+    each block's ray bundle (clusters.py:327-386) → (mask [n_blocks, c_pad]
+    bool, tnear [n_blocks, c_pad] f32, a lower bound on every ray's entry).
+    Plain PyTorch, in chunks of blocks to bound the [B, C, 3] planes."""
+    blk = packed.reshape(n_blocks, SUB, 8)
+    ab = _aabb_rows(cl)
+    lo, hi = ab[None, :, 0:3], ab[None, :, 3:6]               # [1, C, 3]
+    mask = torch.empty((n_blocks, c_pad), dtype=torch.bool,
+                       device=packed.device)
+    tnear = torch.empty((n_blocks, c_pad), dtype=torch.float32,
+                        device=packed.device)
+    for s, e in _block_chunks(n_blocks, 3 * c_pad):
+        b = blk[s:e]
+        o_lo = b[:, :, 0:3].amin(dim=1)[:, None, :]          # [B, 1, 3]
+        o_hi = b[:, :, 0:3].amax(dim=1)[:, None, :]
+        d_lo = b[:, :, 3:6].amin(dim=1)[:, None, :]
+        d_hi = b[:, :, 3:6].amax(dim=1)[:, None, :]
+        tmin_lo = b[:, :, 6].amin(dim=1)[:, None]            # [B, 1]
+        tmax_hi = b[:, :, 7].amax(dim=1)[:, None]
+
+        consistent = (d_lo > _DEGEN_EPS) | (d_hi < -_DEGEN_EPS)
+        i_lo = 1.0 / torch.where(consistent, d_hi, 1.0)      # inv interval
+        i_hi = 1.0 / torch.where(consistent, d_lo, 1.0)
+
+        def plane_interval(p):
+            a_lo = p - o_hi
+            a_hi = p - o_lo
+            p1, p2 = a_lo * i_lo, a_lo * i_hi
+            p3, p4 = a_hi * i_lo, a_hi * i_hi
+            t_lo = torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4))
+            t_hi = torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4))
+            return t_lo, t_hi
+
+        t0_lo, t0_hi = plane_interval(lo)                    # [B, C, 3]
+        t1_lo, t1_hi = plane_interval(hi)
+        tn_axis_lo = torch.where(consistent, torch.minimum(t0_lo, t1_lo),
+                                 -_BIG)
+        tf_axis_hi = torch.where(consistent, torch.maximum(t0_hi, t1_hi),
+                                 _BIG)
+        L = torch.maximum(tn_axis_lo.amax(dim=2), tmin_lo)   # [B, C]
+        U = torch.minimum(tf_axis_hi.amin(dim=2), tmax_hi)
+        mask[s:e] = L <= U
+        tnear[s:e] = torch.clamp_min(L, 0.0)
+    return mask, tnear
+
+
+def exact_cull_plain(aabb, packed, n_blocks: int, c_pad: int):
+    """Plain version of kernel 4: for each 256-ray block and each cluster,
+    (tn [n_blocks, c_pad] f32, gm [n_blocks, c_pad] int32). tn is the
+    minimum of max(t_entry, 0) over the block's live rays whose window
+    crosses the cluster's AABB, or _BIG; bit g of gm is set when a ray of the
+    block's g-th 32-ray group crosses. The slab test is
+    `_exact_cull_kernel`'s (clusters.py:270-289): the +-1e12 pseudo-inverse
+    below 1e-12 and its min/max order."""
+    ab = aabb.transpose(1, 2).reshape(c_pad, 6)
+    blk = packed.reshape(n_blocks, SUB, 8)
+    tn_out = torch.empty((n_blocks, c_pad), dtype=torch.float32,
+                         device=packed.device)
+    gm_out = torch.empty((n_blocks, c_pad), dtype=torch.int32,
+                         device=packed.device)
+    shifts = torch.arange(SUB // GROUP_ROWS, device=packed.device,
+                          dtype=torch.int32)
+    for s, e in _block_chunks(n_blocks, SUB * c_pad):
+        a = blk[s:e]                                         # [B, 256, 8]
+        tmin, tmax = a[:, :, 6:7], a[:, :, 7:8]
+        live = tmax > tmin
+        tn = torch.full((e - s, SUB, c_pad), -_BIG, device=packed.device)
+        tf = torch.full((e - s, SUB, c_pad), _BIG, device=packed.device)
+        for ax in range(3):
+            d = a[:, :, 3 + ax:4 + ax]
+            inv = torch.where(torch.abs(d) > _DEGEN_EPS, 1.0 / d,
+                              torch.where(d < 0, -1e12, 1e12))
+            o = a[:, :, ax:ax + 1]
+            t0 = (ab[None, None, :, ax] - o) * inv
+            t1 = (ab[None, None, :, ax + 3] - o) * inv
+            tn = torch.maximum(tn, torch.minimum(t0, t1))
+            tf = torch.minimum(tf, torch.maximum(t0, t1))
+        cross = ((torch.maximum(tn, tmin) <= torch.minimum(tf, tmax))
+                 & live)
+        tn_out[s:e] = torch.where(cross, torch.clamp_min(tn, 0.0),
+                                  _BIG).amin(dim=1)
+        grp = cross.reshape(e - s, SUB // GROUP_ROWS, GROUP_ROWS,
+                            c_pad).any(dim=2).to(torch.int32)
+        gm_out[s:e] = (grp << shifts[None, :, None]).sum(dim=1,
+                                                         dtype=torch.int32)
+    return tn_out, gm_out
+
+
+def exact_cull(aabb, packed, n_blocks: int, c_pad: int):
+    """Kernel 4 (replaces `_exact_cull_kernel`, clusters.py:231-302): see
+    exact_cull_plain for what it computes."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return exact_cull_plain(aabb, packed, n_blocks, c_pad)
+    if dev.type != "cuda":
+        raise ValueError(f"exact_cull: unsupported device {dev}")
+    if c_pad > MAX_CLUSTERS or c_pad % LANES:
+        raise ValueError(f"exact_cull: c_pad {c_pad} must be a multiple of "
+                         f"{LANES} up to {MAX_CLUSTERS}")
+    kernels.require(aabb, "aabb", torch.float32, (c_pad // LANES, 6, LANES),
+                    dev)
+    kernels.require(packed, "packed rays", torch.float32, (n_blocks * SUB, 8),
+                    dev)
+    tn = torch.empty((n_blocks, c_pad), dtype=torch.float32, device=dev)
+    gm = torch.empty((n_blocks, c_pad), dtype=torch.int32, device=dev)
+    if n_blocks == 0:
+        return tn, gm
+    with torch.cuda.device(dev):
+        err = kernels.lib().ort_cluster_cull_exact(
+            aabb.data_ptr(), c_pad, packed.data_ptr(), n_blocks,
+            tn.data_ptr(), gm.data_ptr(), kernels.stream_ptr(dev))
+        kernels.LAUNCHES["cluster_cull_exact"] += 1
+    kernels.check(err, "cluster_cull_exact")
+    return tn, gm
+
+
+def _cull_tables(tn, gm):
+    """Kernel 4's outputs → (mask bool, tnear f32, gmask int32), each
+    [n_blocks, c_pad] (clusters.py:323-324). A zero entry is made +0.0, so
+    `_compact`'s sort key never sees a sign bit."""
+    mask = tn < _BIG
+    return mask, torch.where(mask, tn, 0.0) + 0.0, gm
+
+
+def _exact_block_cull(cl: ClusterSet, packed, n_blocks: int, c_pad: int):
+    """Kernel 4 → (mask, tnear, gmask) (clusters.py:305-324)."""
+    return _cull_tables(*exact_cull(cl.aabb, packed, n_blocks, c_pad))
+
+
+def _cull(cl: ClusterSet, packed, n_super: int, c_pad: int,
+          exact: bool = False):
+    """Cull + compaction (clusters.py:1028-1084) → (counts [S, G, 1] int32,
+    lists [S, G, c_pad] int32, tnear_sorted [S, G, c_pad] f32). A list entry
+    packs the cluster id in bits 0-15 and the walk's 8 group bits in bits
+    16-23 (0xFF when the cull gives none). The exact cull runs only when
+    `exact` and c_pad <= MAX_CLUSTERS; otherwise the interval cull."""
+    n_blocks = n_super * GROUPS
+    if exact and c_pad <= MAX_CLUSTERS:
+        mask, tnear, gmask = _exact_block_cull(cl, packed, n_blocks, c_pad)
+    else:
+        mask, tnear = _block_cull(cl, packed, n_blocks, c_pad)
+        gmask = None
+    return _compact(cl, mask, tnear, gmask, n_super)
+
+
+def _compact(cl: ClusterSet, mask, tnear, gmask, n_super: int):
+    """Each block's crossed clusters, front to back: one int32 sort whose key
+    carries the id (and the group bits) in the low mantissa bits of the
+    non-negative entry distance, whose bit pattern sorts like its value;
+    truncating those bits lowers the exit threshold, which stays
+    conservative."""
+    c_pad = mask.shape[1]
+    ids = torch.arange(c_pad, dtype=torch.int32, device=mask.device)[None, :]
+    hit = mask & (ids < cl.num_clusters)
+    counts = hit.sum(dim=1, dtype=torch.int32)
+    key = torch.clamp_min(torch.where(hit, tnear, _BIG), 0.0)
+    bits = key.view(torch.int32)
+    id_bits = 10 if c_pad <= 1024 else 13
+    if c_pad > (1 << id_bits):
+        raise ValueError(f"{c_pad} clusters do not fit the {id_bits} id bits "
+                         f"of the cull's sort key")
+    if gmask is not None:
+        low = ids | (torch.where(hit, gmask, 0) << id_bits)
+        low_bits = id_bits + 8
+    else:
+        low = ids
+        low_bits = id_bits
+    low_mask = (1 << low_bits) - 1
+    skey = torch.sort((bits & ~low_mask) | low, dim=1).values
+    id_mask = (1 << id_bits) - 1
+    gm_sorted = ((skey >> id_bits) & 0xFF if gmask is not None
+                 else torch.full_like(skey, 0xFF))
+    order = (skey & id_mask) | (gm_sorted << 16)
+    tnear_sorted = (skey & ~low_mask).view(torch.float32)
+    shape = (n_super, GROUPS, c_pad)
+    return (counts.reshape(n_super, GROUPS, 1), order.reshape(shape),
+            tnear_sorted.reshape(shape))
+
+
+# ---------------------------------------------------------------------------
+# The walks: kernels 5 and 6 and their plain versions
+# ---------------------------------------------------------------------------
+
+def _pair_test(blk, ox, oy, oz, dx, dy, dz):
+    """Woop test of ray columns [B, R, 1] against cluster constant rows
+    blk [B, 32, 128] (`_pair_test`, clusters.py:206-224) → (tt, uu, vv, dpz),
+    each [B, R, 128]."""
+    def row(j):
+        return blk[:, None, j, :]
+    opx = ox * row(0) + oy * row(1) + oz * row(2) + row(9)
+    opy = ox * row(3) + oy * row(4) + oz * row(5) + row(10)
+    opz = ox * row(6) + oy * row(7) + oz * row(8) + row(11)
+    dpx = dx * row(0) + dy * row(1) + dz * row(2)
+    dpy = dx * row(3) + dy * row(4) + dz * row(5)
+    dpz = dx * row(6) + dy * row(7) + dz * row(8)
+    inv = 1.0 / dpz
+    tt = -opz * inv
+    uu = opx + tt * dpx
+    vv = opy + tt * dpy
+    return tt, uu, vv, dpz
+
+
+def _pair_ok(blk, a, gm, gate):
+    """Pair tests of the rays a [B, 256, 8] against their blocks' current
+    clusters blk [B, 32, 128], with the group gate gm [B] applied →
+    (ok, tt, uu, vv), each [B, 256, 128]."""
+    cols = [a[:, :, j:j + 1] for j in range(8)]
+    tt, uu, vv, dpz = _pair_test(blk, *cols[:6])
+    ok = ((torch.abs(dpz) > _DEGEN_EPS)
+          & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (tt > cols[6]) & (tt < cols[7]))
+    if gate:
+        group = torch.arange(SUB, device=a.device) // GROUP_ROWS
+        bit = (gm[:, None] >> group[None, :].to(gm.dtype)) & 1
+        ok = ok & (bit > 0)[:, :, None]
+    return ok, tt, uu, vv
+
+
+def _walk_inputs(counts, lists, packed):
+    nb = counts.numel()
+    return (counts.reshape(nb), lists.reshape(nb, -1),
+            packed.reshape(nb, SUB, 8))
+
+
+def walk_closest_plain(counts, lists, tnear, comp, packed, gate: bool,
+                       block_chunk: int = 256):
+    """Plain version of kernel 5 → rows [n_padded, 8] f32 (t u v nx ny nz
+    prim mat; a miss is t = tmax, zeros, prim = mat = -1).
+
+    Each block walks its whole list in order. A pair counts when it passes
+    the Woop test with tmin < t < tmax. The winner is the smallest t; among
+    equal t the lowest slot (lane) wins, and among equal lanes the earlier
+    cluster: exactly the running per-lane minimum with a strict `<` and the
+    lowest-winning-lane pick of `_step_closest` / `_emit_closest`
+    (clusters.py:393-450). The normal is n0 + u*d10 + v*d20, unnormalised.
+    `tnear` is not read: the plain walk has no early exit."""
+    del tnear
+    counts, lists, rays = _walk_inputs(counts, lists, packed)
+    dev = packed.device
+    nb = counts.shape[0]
+    shape = (nb, SUB)
+    bt = rays[:, :, 7].clone()
+    blane = torch.full(shape, LANES, dtype=torch.int64, device=dev)
+    rec = torch.zeros((nb, SUB, 5), dtype=torch.float32, device=dev)
+    ids = torch.full((nb, SUB, 2), -1.0, dtype=torch.float32, device=dev)
+    max_count = int(counts.max()) if nb else 0
+    for k in range(max_count):
+        walking = torch.nonzero(counts > k)[:, 0]
+        for s in range(0, walking.shape[0], block_chunk):
+            b = walking[s:s + block_chunk]
+            entry = lists[b, k]
+            blk = comp[(entry & 0xFFFF).to(torch.int64)]     # [B, 32, 128]
+            ok, tt, uu, vv = _pair_ok(blk, rays[b], (entry >> 16) & 0xFF,
+                                      gate)
+            tk, lane = torch.where(ok, tt, torch.inf).min(dim=2)
+            found = ok.any(dim=2)
+            better = found & ((tk < bt[b]) | ((tk == bt[b]) & (lane < blane[b])))
+            li = lane[:, :, None]
+            u = uu.gather(2, li)[:, :, 0]
+            v = vv.gather(2, li)[:, :, 0]
+            c = blk.gather(2, li[:, None, :, 0].expand(-1, COMP_ROWS, -1))
+            n0, d10, d20 = c[:, 18:21], c[:, 21:24], c[:, 24:27]  # [B, 3, 256]
+            nrm = n0 + u[:, None] * d10 + v[:, None] * d20
+            new_rec = torch.cat([u[..., None], v[..., None],
+                                 nrm.transpose(1, 2)], dim=2)
+            new_ids = c[:, 16:18].transpose(1, 2)
+            bt[b] = torch.where(better, tk, bt[b])
+            blane[b] = torch.where(better, lane, blane[b])
+            rec[b] = torch.where(better[..., None], new_rec, rec[b])
+            ids[b] = torch.where(better[..., None], new_ids, ids[b])
+    rows = torch.cat([bt[..., None], rec, ids], dim=2)
+    return rows.reshape(nb * SUB, 8)
+
+
+def walk_any_plain(counts, lists, tnear, comp, packed, gate: bool,
+                   block_chunk: int = 256):
+    """Plain version of kernel 6 → occ [n_padded] int32: 1 where some pair of
+    the ray's block's whole list passes the Woop test with tmin < t < tmax
+    (dead rays never do). `tnear` is not read: no early exit."""
+    del tnear
+    counts, lists, rays = _walk_inputs(counts, lists, packed)
+    nb = counts.shape[0]
+    occ = torch.zeros((nb, SUB), dtype=torch.bool, device=packed.device)
+    max_count = int(counts.max()) if nb else 0
+    for k in range(max_count):
+        walking = torch.nonzero(counts > k)[:, 0]
+        for s in range(0, walking.shape[0], block_chunk):
+            b = walking[s:s + block_chunk]
+            entry = lists[b, k]
+            blk = comp[(entry & 0xFFFF).to(torch.int64)]
+            ok, _, _, _ = _pair_ok(blk, rays[b], (entry >> 16) & 0xFF, gate)
+            occ[b] = occ[b] | ok.any(dim=2)
+    return occ.reshape(nb * SUB).to(torch.int32)
+
+
+def _walk_args(name, counts, lists, tnear, comp, packed):
+    dev = packed.device
+    nb = counts.numel()
+    c_pad = lists.shape[-1]
+    kernels.require(counts, "counts", torch.int32, counts.shape, dev)
+    kernels.require(lists, "lists", torch.int32, lists.shape, dev)
+    kernels.require(tnear, "tnear", torch.float32, lists.shape, dev)
+    if lists.numel() != nb * c_pad or tnear.numel() != nb * c_pad:
+        raise ValueError(f"{name}: lists / tnear must hold {nb} x {c_pad}")
+    kernels.require(comp, "comp", torch.float32,
+                    (comp.shape[0], COMP_ROWS, LANES), dev)
+    kernels.require(packed, "packed rays", torch.float32, (nb * SUB, 8), dev)
+    return nb, c_pad
+
+
+def walk_closest(counts, lists, tnear, comp, packed, gate: bool):
+    """Kernel 5 (replaces `_closest_kernel` and `_closest_kernel_stream`,
+    clusters.py:453, 537; pallas_call at :1150): see walk_closest_plain."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return walk_closest_plain(counts, lists, tnear, comp, packed, gate)
+    if dev.type != "cuda":
+        raise ValueError(f"walk_closest: unsupported device {dev}")
+    nb, c_pad = _walk_args("walk_closest", counts, lists, tnear, comp, packed)
+    rows = torch.empty((nb * SUB, 8), dtype=torch.float32, device=dev)
+    if nb == 0:
+        return rows
+    with torch.cuda.device(dev):
+        err = kernels.lib().ort_cluster_closest(
+            counts.data_ptr(), lists.data_ptr(), tnear.data_ptr(),
+            comp.data_ptr(), comp.shape[0], packed.data_ptr(), nb, c_pad,
+            int(gate), rows.data_ptr(), kernels.stream_ptr(dev))
+        kernels.LAUNCHES["cluster_closest"] += 1
+    kernels.check(err, "cluster_closest")
+    return rows
+
+
+def walk_any(counts, lists, tnear, comp, packed, gate: bool):
+    """Kernel 6 (replaces `_any_kernel` and `_any_kernel_stream`,
+    clusters.py:669, 603; pallas_call at :1372): see walk_any_plain."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return walk_any_plain(counts, lists, tnear, comp, packed, gate)
+    if dev.type != "cuda":
+        raise ValueError(f"walk_any: unsupported device {dev}")
+    nb, c_pad = _walk_args("walk_any", counts, lists, tnear, comp, packed)
+    occ = torch.empty((nb * SUB,), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return occ
+    with torch.cuda.device(dev):
+        err = kernels.lib().ort_cluster_any(
+            counts.data_ptr(), lists.data_ptr(), tnear.data_ptr(),
+            comp.data_ptr(), comp.shape[0], packed.data_ptr(), nb, c_pad,
+            int(gate), occ.data_ptr(), kernels.stream_ptr(dev))
+        kernels.LAUNCHES["cluster_any"] += 1
+    kernels.check(err, "cluster_any")
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# Queries
+# ---------------------------------------------------------------------------
+
+def _check_tier(cl: ClusterSet):
+    if cl.num_clusters > MAX_STREAM_CLUSTERS:
+        raise NotImplementedError(
+            f"{cl.num_clusters} clusters: the supercluster tier (past "
+            f"{MAX_STREAM_CLUSTERS} clusters) is not ported yet (ROADMAP.md "
+            f"Queue 2)")
+
+
+def _padded(n: int) -> int:
+    return -(-n // SUPER) * SUPER
+
+
+def _closest_core(cl: ClusterSet, packed, exact=False, group_walk=False):
+    """Cull + walk over packed [n_padded, 8] rays → (rows [n_padded, 8],
+    counts [n_super, GROUPS, 1]). The walk is gated only on the exact cull
+    of the resident tier, as `_closest_core` (clusters.py:1095-1164)."""
+    _check_tier(cl)
+    n_super = packed.shape[0] // SUPER
+    counts, lists, tnear = _cull(cl, packed, n_super, cl.c_pad, exact=exact)
+    gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
+    return walk_closest(counts, lists, tnear, cl.comp, packed, gate), counts
+
+
+def _any_core(cl: ClusterSet, packed, exact=False, group_walk=False):
+    """Cull + occlusion walk → int32 [n_padded], empty blocks cleared
+    (clusters.py:1329-1388)."""
+    _check_tier(cl)
+    n_super = packed.shape[0] // SUPER
+    counts, lists, tnear = _cull(cl, packed, n_super, cl.c_pad, exact=exact)
+    gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
+    occ = walk_any(counts, lists, tnear, cl.comp, packed, gate)
+    live = torch.repeat_interleave(counts.reshape(-1) > 0, SUB)
+    return torch.where(live, occ, 0)
+
+
+def _hits_from_rows(rows, live, tmax) -> Hits:
+    """Hits from per-ray rows [N, 8] and the live-block mask [N]
+    (clusters.py:1167-1194): the interpolated normal is normalised, with a
+    length under 1e-8 giving a zero normal."""
+    t, u, v = rows[:, 0], rows[:, 1], rows[:, 2]
+    normal = rows[:, 3:6]
+    nlen = torch.sqrt(dot(normal, normal))[:, None]
+    normal = torch.where(nlen > 1e-8, normal / torch.clamp_min(nlen, 1e-12),
+                         0.0)
+    prim = torch.where(live, rows[:, 6], -1.0).to(torch.int32)
+    mat = torch.where(live, rows[:, 7], -1.0).to(torch.int32)
+    hit = prim >= 0
+    hit3 = hit[:, None]
+    return Hits(t=torch.where(hit, t, tmax), prim_id=prim,
+                inst_id=torch.where(hit, 0, -1).to(torch.int32), mat_id=mat,
+                uv=torch.where(hit3, torch.stack([u, v], dim=-1), 0.0),
+                normal=torch.where(hit3, normal, 0.0))
+
+
+def closest_hit(cl: ClusterSet, rays: Rays, exact: bool = False,
+                group_walk: bool = False) -> Hits:
+    """Closest hit of a flat [N] ray batch. exact=True for scattered
+    wavefronts; group_walk gates the walk per 32-ray group (exact only)."""
+    n = rays.tmin.shape[0]
+    packed = _pack_rays(rays, _padded(n))
+    rows, counts = _closest_core(cl, packed, exact=exact,
+                                 group_walk=group_walk)
+    live = torch.repeat_interleave(counts.reshape(-1) > 0, SUB)[:n]
+    return _hits_from_rows(rows[:n], live, rays.tmax)
+
+
+def any_hit(cl: ClusterSet, rays: Rays, exact: bool = False,
+            group_walk: bool = False) -> torch.Tensor:
+    """Occlusion of a flat [N] ray batch → bool [N]."""
+    n = rays.tmin.shape[0]
+    packed = _pack_rays(rays, _padded(n))
+    return _any_core(cl, packed, exact=exact, group_walk=group_walk)[:n] != 0
+
+
+def coherence_key(cl: ClusterSet, rays: Rays, okey_bits: int = 2,
+                  dkey_bits: int = 5) -> torch.Tensor:
+    """[N] int64 sort key holding a 32-bit word: origin-cell morton (major)
+    | direction morton (minor), 0xFFFFFFFF for dead rays so they sort to the
+    tail (clusters.py:1220-1249)."""
+    ab = _aabb_rows(cl)
+    real = (torch.arange(ab.shape[0], device=ab.device)
+            < cl.num_clusters)[:, None]
+    lo = torch.where(real, ab[:, 0:3], _BIG).amin(dim=0)
+    hi = torch.where(real, ab[:, 3:6], -_BIG).amax(dim=0)
+    extent = torch.clamp_min(hi - lo, 1e-12)
+    okey = interleave(quantize((rays.origin - lo) / extent, okey_bits))
+    dkey = interleave(quantize(rays.direction * 0.5 + 0.5, dkey_bits))
+    key = (okey << (3 * dkey_bits)) | dkey
+    return torch.where(rays.tmax <= rays.tmin, 0xFFFFFFFF, key)
+
+
+def _sorted_perm(cl: ClusterSet, rays: Rays, n_padded: int):
+    """Stable coherence permutation over the padded ray count."""
+    n = rays.tmin.shape[0]
+    key = coherence_key(cl, rays)
+    key = torch.cat([key, key.new_full((n_padded - n,), 0xFFFFFFFF)])
+    return torch.argsort(key, stable=True)
+
+
+def closest_hit_sorted(cl: ClusterSet, rays: Rays,
+                       group_walk: bool = False) -> Hits:
+    """closest_hit of scattered rays: coherence-sorted, exact cull, then
+    scattered back (clusters.py:1262-1283)."""
+    n = rays.tmin.shape[0]
+    n_padded = _padded(n)
+    packed = _pack_rays(rays, n_padded)
+    perm = _sorted_perm(cl, rays, n_padded)
+    rows, counts = _closest_core(cl, packed[perm], exact=True,
+                                 group_walk=group_walk)
+    live = torch.repeat_interleave(counts.reshape(-1) > 0, SUB)
+    cols = torch.cat([rows, live[:, None].to(torch.float32)], dim=1)
+    back = torch.zeros_like(cols)
+    back[perm] = cols
+    return _hits_from_rows(back[:n, :8], back[:n, 8] > 0.0, rays.tmax)
+
+
+def any_hit_sorted(cl: ClusterSet, rays: Rays,
+                   group_walk: bool = False) -> torch.Tensor:
+    """any_hit of scattered rays with the coherence pre-sort."""
+    n = rays.tmin.shape[0]
+    n_padded = _padded(n)
+    packed = _pack_rays(rays, n_padded)
+    perm = _sorted_perm(cl, rays, n_padded)
+    occ = _any_core(cl, packed[perm], exact=True, group_walk=group_walk)
+    back = torch.empty_like(occ)
+    back[perm] = occ
+    return back[:n] != 0
+
+
+def traversal_stats(cl: ClusterSet, rays: Rays) -> dict:
+    """How many clusters each 256-ray block walks under the interval cull
+    (clusters.py:1299-1326) → dict of Python floats."""
+    _check_tier(cl)
+    n_padded = _padded(rays.tmin.shape[0])
+    packed = _pack_rays(rays, n_padded)
+    counts, _, _ = _cull(cl, packed, n_padded // SUPER, cl.c_pad)
+    c = counts.reshape(-1).to(torch.float64)
+    return {
+        "mean_clusters_per_block": float(c.mean()),
+        "max_clusters_per_block": float(c.max()),
+        "mean_tris_tested_per_ray": float(c.mean() * LANES),
+        "empty_block_fraction": float((c == 0).to(torch.float64).mean()),
+    }
+

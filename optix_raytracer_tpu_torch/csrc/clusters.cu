@@ -1,0 +1,299 @@
+// Cluster-culled traversal for large meshes: the exact cull and the two
+// cluster walks (kernels 4-6 of the port).
+//
+// Replaces, in optix_raytracer_tpu/accel/clusters.py:
+//   kernel 4  cluster_cull_exact_kernel  <- _exact_cull_kernel (:231), called
+//             by _exact_block_cull (pallas_call at :312);
+//   kernel 5  cluster_closest_kernel     <- _closest_kernel (:453) and
+//             _closest_kernel_stream (:537), called by _closest_core (:1150);
+//   kernel 6  cluster_any_kernel         <- _any_kernel (:669) and
+//             _any_kernel_stream (:603), called by _any_core (:1372).
+//
+// Rays arrive packed as [N, 8] f32 (ox oy oz dx dy dz tmin tmax) in blocks of
+// kSub = 256; a cluster is 128 triangle slots whose constants are
+// comp[c] = [32 rows][128 slots] f32 (accel/clusters.py ClusterSet).
+//
+// Kernel 4. What bounds it: FP32 issue, ~20 operations per (ray, cluster)
+// pair on 32 bytes of staged ray data. Design: one CTA per 256-ray block; the
+// block's rays (origin, pseudo-inverse direction, window) are staged once in
+// shared memory as two float4 per ray; each thread owns clusters c = tid,
+// tid + 256, ... and loops over the 256 rays, whose loads are broadcasts. The
+// minimum entry and the 8 group bits need no cross-thread reduction, so the
+// result is deterministic.
+//
+// Kernels 5 and 6. What bounds them: FP32 issue in the Woop pair tests
+// (~30 operations per ray and triangle slot); a list entry moves 6 KB (any)
+// or 11.5 KB (closest) of constants from L2 (25k-triangle table: 3.2 MB) or
+// HBM (500k: 64 MB) into shared memory for 256 rays. Design: one CTA of 256
+// threads per block, one thread per ray. Each warp is one 32-ray gate group,
+// so a clear gate bit skips the cluster for the whole warp without
+// divergence. For each list entry the CTA stages the cluster's test
+// constants slot-major ([128][12], three 16-byte broadcast loads per slot)
+// and the closest kernel also its ids and normal rows; each thread then
+// tests its ray against the 128 slots in _pair_test's order of operations.
+// One kernel serves the resident (<= 1024 clusters) and the streaming tier:
+// the table is read through L2 either way.
+//
+// Closest hit: a thread keeps one running best and replaces it when
+// t < best or (t == best and slot < best slot): over the list order this
+// equals the reference's per-lane running minimum with a strict `<` and its
+// lowest-winning-lane pick. The walk stops early only when every ray of the
+// block already holds a hit nearer than the next cluster's (truncated,
+// hence lower) front-to-back bound, strictly; a warp whose rays all do skips
+// its tests. Any hit: dead rays start resolved and report 0; a ray resolves
+// when occluded or when the next bound passes its tmax; the CTA stops when
+// every ray is resolved. Both exits leave the results of the whole-list walk
+// of the plain versions unchanged.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kSub = 256;        // rays per block (clusters.py SUB)
+constexpr int kLanes = 128;      // triangle slots per cluster (LANES)
+constexpr int kCompRows = 32;    // constant rows per cluster
+constexpr int kTestRows = 12;    // m_inv (9) + offsets (3)
+constexpr int kExtRow0 = 16;     // prim, mat, n0 (3), d10 (3), d20 (3)
+constexpr int kExtRows = 11;
+constexpr float kBig = 3.0e38f;  // clusters.py _BIG
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, tmin, tmax;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
+                                        size_t i) {
+  const float4* p = reinterpret_cast<const float4*>(rays + 8 * i);
+  const float4 a = p[0], b = p[1];
+  return Ray{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+}
+
+// _exact_cull_kernel's finite pseudo-inverse: +-1e12 below |d| = 1e-12.
+__device__ __forceinline__ float pseudo_inv(float d) {
+  return fabsf(d) > ort::kDegenEps ? __frcp_rn(d) : (d < 0.f ? -1e12f : 1e12f);
+}
+
+__global__ void __launch_bounds__(kSub)
+cluster_cull_exact_kernel(const float* __restrict__ aabb, int c_pad,
+                          const float* __restrict__ rays,
+                          float* __restrict__ tn_out,
+                          int* __restrict__ gm_out) {
+  __shared__ float4 s_org[kSub];   // ox oy oz tmin
+  __shared__ float4 s_inv[kSub];   // 1/dx 1/dy 1/dz tmax
+  const int tid = threadIdx.x;
+  const size_t b = blockIdx.x;
+  const Ray r = load_ray(rays, b * kSub + tid);
+  const bool live = r.tmax > r.tmin;
+  s_org[tid] = make_float4(r.ox, r.oy, r.oz, r.tmin);
+  s_inv[tid] = make_float4(pseudo_inv(r.dx), pseudo_inv(r.dy),
+                           pseudo_inv(r.dz), r.tmax);
+  const int any_live = __syncthreads_or(live);
+  float* tn_row = tn_out + b * c_pad;
+  int* gm_row = gm_out + b * c_pad;
+  for (int c = tid; c < c_pad; c += kSub) {
+    float tnb = kBig;
+    unsigned gm = 0u;
+    if (any_live) {
+      const float* ab = aabb + (c / kLanes) * 6 * kLanes + (c % kLanes);
+      const float lox = ab[0], loy = ab[kLanes], loz = ab[2 * kLanes];
+      const float hix = ab[3 * kLanes], hiy = ab[4 * kLanes],
+                  hiz = ab[5 * kLanes];
+      for (int j = 0; j < kSub; ++j) {
+        const float4 o = s_org[j];
+        const float4 iv = s_inv[j];
+        if (!(iv.w > o.w)) continue;            // dead ray: never crosses
+        float tn = -kBig, tf = kBig;
+        float t0 = __fmul_rn(__fsub_rn(lox, o.x), iv.x);
+        float t1 = __fmul_rn(__fsub_rn(hix, o.x), iv.x);
+        tn = fmaxf(tn, fminf(t0, t1));
+        tf = fminf(tf, fmaxf(t0, t1));
+        t0 = __fmul_rn(__fsub_rn(loy, o.y), iv.y);
+        t1 = __fmul_rn(__fsub_rn(hiy, o.y), iv.y);
+        tn = fmaxf(tn, fminf(t0, t1));
+        tf = fminf(tf, fmaxf(t0, t1));
+        t0 = __fmul_rn(__fsub_rn(loz, o.z), iv.z);
+        t1 = __fmul_rn(__fsub_rn(hiz, o.z), iv.z);
+        tn = fmaxf(tn, fminf(t0, t1));
+        tf = fminf(tf, fmaxf(t0, t1));
+        if (fmaxf(tn, o.w) <= fminf(tf, iv.w)) {
+          tnb = fminf(tnb, fmaxf(tn, 0.f));
+          gm |= 1u << (j >> 5);
+        }
+      }
+    }
+    tn_row[c] = tnb;
+    gm_row[c] = static_cast<int>(gm);
+  }
+}
+
+// Stage comp[c] rows 0-11 slot-major into s_tri ([128][12] floats).
+__device__ __forceinline__ void stage_test_rows(float* s_tri,
+                                                const float* __restrict__ src) {
+  for (int i = threadIdx.x; i < kTestRows * kLanes; i += kSub) {
+    const int row = i / kLanes, slot = i % kLanes;
+    s_tri[slot * kTestRows + row] = src[i];
+  }
+}
+
+__device__ __forceinline__ void slot_consts(const float4* s_tri4, int j,
+                                            float* c) {
+  const float4 a = s_tri4[3 * j], b = s_tri4[3 * j + 1],
+               d = s_tri4[3 * j + 2];
+  c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
+  c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+  c[8] = d.x; c[9] = d.y; c[10] = d.z; c[11] = d.w;
+}
+
+__global__ void __launch_bounds__(kSub)
+cluster_closest_kernel(const int* __restrict__ counts,
+                       const int* __restrict__ lists,
+                       const float* __restrict__ tnear,
+                       const float* __restrict__ comp, int n_comp,
+                       const float* __restrict__ rays, int c_pad, int gate,
+                       float* __restrict__ out) {
+  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
+  __shared__ float s_ext[kExtRows * kLanes];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const size_t b = blockIdx.x;
+  const size_t ray = b * kSub + tid;
+  const Ray r = load_ray(rays, ray);
+  const bool dead = !(r.tmax > r.tmin);
+  const int count = counts[b];
+  const int* lst = lists + b * c_pad;
+  const float* tnl = tnear + b * c_pad;
+
+  float bt = r.tmax;
+  int blane = kLanes;
+  float bu = 0.f, bv = 0.f, bnx = 0.f, bny = 0.f, bnz = 0.f;
+  float bprim = -1.f, bmat = -1.f;
+  for (int k = 0; k < count; ++k) {
+    const int entry = lst[k];
+    const int c = entry & 0xFFFF;
+    const unsigned gm = gate ? (static_cast<unsigned>(entry) >> 16) & 0xFFu
+                             : 0xFFu;
+    const bool done = dead || bt < tnl[k];
+    // Barrier before restaging; ends the walk once every ray is done.
+    if (__syncthreads_and(done)) break;
+    if (c >= n_comp) continue;
+    const float* src = comp + static_cast<size_t>(c) * kCompRows * kLanes;
+    stage_test_rows(s_tri, src);
+    for (int i = tid; i < kExtRows * kLanes; i += kSub)
+      s_ext[i] = src[kExtRow0 * kLanes + i];
+    __syncthreads();
+    const bool warp_done = __all_sync(kFull, done);
+    if (!((gm >> warp) & 1u) || warp_done) continue;
+    const float4* s_tri4 = reinterpret_cast<const float4*>(s_tri);
+    for (int j = 0; j < kLanes; ++j) {
+      float cst[kTestRows];
+      slot_consts(s_tri4, j, cst);
+      float tt, uu, vv, dpz;
+      ort::tri_test(cst, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tt, uu, vv,
+                    dpz);
+      if (ort::tri_accept(tt, uu, vv, dpz, r.tmin, r.tmax) &&
+          (tt < bt || (tt == bt && j < blane))) {
+        bt = tt;
+        blane = j;
+        bu = uu;
+        bv = vv;
+        const float* e = s_ext + j;
+        bprim = e[0];
+        bmat = e[kLanes];
+        bnx = __fadd_rn(__fadd_rn(e[2 * kLanes], __fmul_rn(uu, e[5 * kLanes])),
+                        __fmul_rn(vv, e[8 * kLanes]));
+        bny = __fadd_rn(__fadd_rn(e[3 * kLanes], __fmul_rn(uu, e[6 * kLanes])),
+                        __fmul_rn(vv, e[9 * kLanes]));
+        bnz = __fadd_rn(__fadd_rn(e[4 * kLanes], __fmul_rn(uu, e[7 * kLanes])),
+                        __fmul_rn(vv, e[10 * kLanes]));
+      }
+    }
+  }
+  float4* o = reinterpret_cast<float4*>(out + 8 * ray);
+  o[0] = make_float4(bt, bu, bv, bnx);
+  o[1] = make_float4(bny, bnz, bprim, bmat);
+}
+
+__global__ void __launch_bounds__(kSub)
+cluster_any_kernel(const int* __restrict__ counts,
+                   const int* __restrict__ lists,
+                   const float* __restrict__ tnear,
+                   const float* __restrict__ comp, int n_comp,
+                   const float* __restrict__ rays, int c_pad, int gate,
+                   int* __restrict__ occ_out) {
+  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const size_t b = blockIdx.x;
+  const size_t ray = b * kSub + tid;
+  const Ray r = load_ray(rays, ray);
+  const bool dead = !(r.tmax > r.tmin);
+  const int count = counts[b];
+  const int* lst = lists + b * c_pad;
+  const float* tnl = tnear + b * c_pad;
+
+  bool occ = false;
+  for (int k = 0; k < count; ++k) {
+    const int entry = lst[k];
+    const int c = entry & 0xFFFF;
+    const unsigned gm = gate ? (static_cast<unsigned>(entry) >> 16) & 0xFFu
+                             : 0xFFu;
+    const bool resolved = dead || occ || r.tmax < tnl[k];
+    if (__syncthreads_and(resolved)) break;
+    if (c >= n_comp) continue;
+    stage_test_rows(s_tri, comp + static_cast<size_t>(c) * kCompRows * kLanes);
+    __syncthreads();
+    const bool warp_done = __all_sync(kFull, resolved);
+    if (!((gm >> warp) & 1u) || warp_done || resolved) continue;
+    const float4* s_tri4 = reinterpret_cast<const float4*>(s_tri);
+    for (int j = 0; j < kLanes; ++j) {
+      float cst[kTestRows];
+      slot_consts(s_tri4, j, cst);
+      float tt, uu, vv, dpz;
+      ort::tri_test(cst, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tt, uu, vv,
+                    dpz);
+      if (ort::tri_accept(tt, uu, vv, dpz, r.tmin, r.tmax)) {
+        occ = true;
+        break;
+      }
+    }
+  }
+  occ_out[ray] = (occ && !dead) ? 1 : 0;
+}
+
+}  // namespace
+
+extern "C" int ort_cluster_cull_exact(const float* aabb, int c_pad,
+                                      const float* rays, int n_blocks,
+                                      float* tn, int* gm, void* stream) {
+  if (n_blocks > 0) {
+    cluster_cull_exact_kernel<<<n_blocks, kSub, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        aabb, c_pad, rays, tn, gm);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ort_cluster_closest(const int* counts, const int* lists,
+                                   const float* tnear, const float* comp,
+                                   int n_comp, const float* rays,
+                                   int n_blocks, int c_pad, int gate,
+                                   float* out, void* stream) {
+  if (n_blocks > 0) {
+    cluster_closest_kernel<<<n_blocks, kSub, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+        counts, lists, tnear, comp, n_comp, rays, c_pad, gate, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ort_cluster_any(const int* counts, const int* lists,
+                               const float* tnear, const float* comp,
+                               int n_comp, const float* rays, int n_blocks,
+                               int c_pad, int gate, int* occ, void* stream) {
+  if (n_blocks > 0) {
+    cluster_any_kernel<<<n_blocks, kSub, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        counts, lists, tnear, comp, n_comp, rays, c_pad, gate, occ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -30,7 +30,8 @@ _BUILD = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"bf_closest": 0, "bf_any": 0, "pt_fused_cornell": 0}
+LAUNCHES = {"bf_closest": 0, "bf_any": 0, "pt_fused_cornell": 0,
+            "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +45,12 @@ _SIGNATURES = {
     # y0, spl, max_depth, rad, count, stream
     "ort_pt_fused_cornell": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                              _I, _I, _I, _P, _P, _P),
+    # aabb, c_pad, rays, n_blocks, tn, gm, stream
+    "ort_cluster_cull_exact": (_P, _I, _P, _I, _P, _P, _P),
+    # counts, lists, tnear, comp, n_comp, rays, n_blocks, c_pad, gate, out,
+    # stream
+    "ort_cluster_closest": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
+    "ort_cluster_any": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
 }
 
 
@@ -68,8 +75,9 @@ def _sources():
 
 
 def build() -> tuple[Path, float]:
-    """Compile the library if this source hash has not been built yet.
-    Returns (path, seconds spent compiling in this call)."""
+    """Compile the library if this source hash has not been built yet: one
+    `nvcc` per source, all started together, then one link. Returns (path,
+    seconds spent compiling in this call)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
@@ -79,14 +87,36 @@ def build() -> tuple[Path, float]:
     if lib_path.exists():
         return lib_path, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libort_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
+    tag = os.getpid()
+    # -Xptxas=-v reports registers, shared memory and spills per kernel; the
+    # report goes to nvcc.log beside the library.
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas=-v"]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        jobs.append((obj, subprocess.Popen(
+            [_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors, log = [], []
+    for obj, proc in jobs:
+        _, err = proc.communicate()
+        log.append(f"== {obj.name}\n{err}")
+        if proc.returncode != 0:
+            errors.append(f"{obj.name}: nvcc failed ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    tmp = out_dir / f"libort_kernels.{tag}.tmp.so"
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                          *[str(obj) for obj, _ in jobs]],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
+    (out_dir / "nvcc.log").write_text("\n".join(log))
     os.replace(tmp, lib_path)   # atomic, so concurrent builds agree
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     return lib_path, time.perf_counter() - t0
 
 

@@ -1,4 +1,5 @@
-"""The Cornell box and its camera (counterpart of `scene/builtins.py:18-141`).
+"""The Cornell box, the trefoil-knot scene and their cameras (counterpart of
+`scene/builtins.py:18-141, 196-274`).
 
 The data tables are a copy of the JAX package's (a CPU test holds them
 equal): the JAX module cannot be imported without JAX.
@@ -84,3 +85,87 @@ def cornell_camera(width, height) -> Camera:
     vertical field of view."""
     return Camera(eye=(278.0, 273.0, -900.0), lookat=(278.0, 273.0, 330.0),
                   up=(0.0, 1.0, 0.0), fov_y=35.0, aspect=width / height)
+
+
+def trefoil_mesh(segments: int = 140, sides: int = 45, tube_radius=0.35,
+                 scale=1.0):
+    """Procedural trefoil-knot tube: 2*segments*sides triangles with smooth
+    per-vertex normals → (vertices [V,3] f32, indices [M,3] i32,
+    normals [V,3] f32)."""
+    t = np.linspace(0.0, 2.0 * np.pi, segments, endpoint=False)
+    # Trefoil curve + analytic tangent.
+    p = np.stack([np.sin(t) + 2.0 * np.sin(2.0 * t),
+                  np.cos(t) - 2.0 * np.cos(2.0 * t),
+                  -np.sin(3.0 * t)], axis=1)
+    dp = np.stack([np.cos(t) + 4.0 * np.cos(2.0 * t),
+                   -np.sin(t) + 4.0 * np.sin(2.0 * t),
+                   -3.0 * np.cos(3.0 * t)], axis=1)
+    tan = dp / np.linalg.norm(dp, axis=1, keepdims=True)
+    # Stable frame: project a fixed up-ish vector out of the tangent.
+    ref = np.tile(np.array([0.37, 0.61, 0.71]), (segments, 1))
+    n = ref - np.sum(ref * tan, axis=1, keepdims=True) * tan
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    b = np.cross(tan, n)
+
+    phi = np.linspace(0.0, 2.0 * np.pi, sides, endpoint=False)
+    ring = (np.cos(phi)[None, :, None] * n[:, None, :]
+            + np.sin(phi)[None, :, None] * b[:, None, :])   # [S, sides, 3]
+    verts = (p[:, None, :] + tube_radius * ring) * scale
+    normals = ring.reshape(-1, 3).astype(np.float32)
+    verts = verts.reshape(-1, 3).astype(np.float32)
+
+    ii, jj = np.meshgrid(np.arange(segments), np.arange(sides),
+                         indexing="ij")
+    i2 = (ii + 1) % segments
+    j2 = (jj + 1) % sides
+    a = ii * sides + jj
+    b_ = ii * sides + j2
+    c = i2 * sides + jj
+    d = i2 * sides + j2
+    tri1 = np.stack([a, b_, d], axis=-1).reshape(-1, 3)
+    tri2 = np.stack([a, d, c], axis=-1).reshape(-1, 3)
+    idx = np.stack([tri1, tri2], axis=1).reshape(-1, 3)
+    return verts, np.asarray(idx, np.int32), normals
+
+
+KNOT_MATERIALS = [
+    {"kind": mat.DIFFUSE, "base_color": (0.75, 0.55, 0.25)},  # knot
+    {"kind": mat.DIFFUSE, "base_color": (0.65, 0.65, 0.70)},  # floor
+]
+
+
+def knot_scene(segments: int = 140, sides: int = 45, *,
+               device) -> DeviceScene:
+    """Large-mesh scene: a trefoil-knot tube (2*segments*sides smooth
+    triangles) over a two-triangle floor, lit by an overhead parallelogram
+    light."""
+    verts, idx, normals = trefoil_mesh(segments, sides)
+    lo = verts.min(axis=0)
+    hi = verts.max(axis=0)
+    ext = float(np.max(hi - lo))
+    fy = lo[1] - 0.1 * ext
+    f0 = len(verts)
+    floor = np.array([
+        [lo[0] - ext, fy, lo[2] - ext], [hi[0] + ext, fy, lo[2] - ext],
+        [hi[0] + ext, fy, hi[2] + ext], [lo[0] - ext, fy, hi[2] + ext]],
+        np.float32)
+    verts = np.concatenate([verts, floor])
+    normals = np.concatenate(
+        [normals, np.tile(np.array([[0, 1, 0]], np.float32), (4, 1))])
+    idx = np.concatenate([idx, np.array(
+        [[f0, f0 + 2, f0 + 1], [f0, f0 + 3, f0 + 2]], np.int32)])
+    tri_mat = np.concatenate([
+        np.zeros(len(idx) - 2, np.int32), np.ones(2, np.int32)])
+
+    ly = hi[1] + 1.2 * ext
+    light = ParallelogramLight.make(
+        (lo[0], ly, lo[2]), (hi[0] - lo[0], 0.0, 0.0),
+        (0.0, 0.0, hi[2] - lo[2]), (10.0, 10.0, 10.0), device)
+    return make_device_scene(verts, idx, tri_mat, KNOT_MATERIALS, device,
+                             area_light=light, normals=normals,
+                             miss_color=(0.0, 0.0, 0.0))
+
+
+def knot_camera(width, height) -> Camera:
+    return Camera(eye=(0.0, 2.5, -9.0), lookat=(0.0, 0.0, 0.0),
+                  up=(0.0, 1.0, 0.0), fov_y=45.0, aspect=width / height)

@@ -1,18 +1,23 @@
-"""The torch DeviceScene, Cornell subset (counterpart of
-`scene/device_scene.py:32-175, 474`).
+"""The torch DeviceScene (counterpart of `scene/device_scene.py:32-175,
+474-560`).
 
-The port's scene holds triangle geometry, per-triangle material ids, the
-material table, the parallelogram area light, the miss color and the static
-feature tags. Custom prims, instances, clusters, BVHs, textures, volumes and
-motion are not ported yet (ROADMAP.md Queue 1 items 6-9).
+The port's scene holds triangle geometry (with per-corner shading normals),
+per-triangle material ids, the material table, the parallelogram area light,
+the miss color, the static feature tags and, for a mesh past the
+brute-force kernels' 512 triangles, the cluster table of the large-mesh
+traversal. Custom prims, instances, BVHs, textures, volumes and motion are
+not ported yet (ROADMAP.md Queue 1 items 7-9).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..accel import clusters as cluster_mod
+from ..accel import native
 from ..accel.geometry import TriangleGeometry, build_triangle_geometry
 from ..shade.lights import ParallelogramLight
 from ..shade.materials import MaterialTable, make_material_table
@@ -20,6 +25,10 @@ from ..shade.materials import MaterialTable, make_material_table
 # Feature tags of the JAX DeviceScene that the slice does not render yet.
 UNPORTED_FEATURES = {"glass": 7, "mirror": 7, "pbr": 7, "cutouts": 8,
                      "volume": 9}
+
+# Meshes past the brute-force kernels' budget get a cluster table
+# (accel/pallas_bf.py MAX_SMEM_TRIS, scene/device_scene.py:533-542).
+MAX_SMEM_TRIS = 512
 
 
 @dataclasses.dataclass
@@ -30,10 +39,15 @@ class DeviceScene:
     area_light: ParallelogramLight      # NEE target
     miss_color: torch.Tensor            # [3] constant background
     features: tuple = ()
+    clusters: Optional[cluster_mod.ClusterSet] = None
 
     @property
     def num_triangles(self):
         return self.geom.num_triangles
+
+    @property
+    def has_clusters(self) -> bool:
+        return self.clusters is not None and self.clusters.num_clusters > 0
 
     @property
     def device(self):
@@ -46,6 +60,12 @@ class DeviceScene:
                 raise NotImplementedError(
                     f"scene feature {f!r} is not ported yet (ROADMAP.md "
                     f"Queue 1 item {UNPORTED_FEATURES[f]})")
+        if self.geom.smooth and not self.has_clusters:
+            # The JAX engine interpolates these with shading_frame
+            # (engine.py:316-333); the cluster walk does it in the kernel.
+            raise NotImplementedError(
+                "smooth normals without a cluster table need shading_frame, "
+                "which is not ported yet (ROADMAP.md Queue 1 item 2)")
 
 
 def _check_tri_mat(tri_mat, num_tris, num_mats):
@@ -58,33 +78,58 @@ def _check_tri_mat(tri_mat, num_tris, num_mats):
     return tri_mat
 
 
+def _build_cluster_table(geom: TriangleGeometry, tri_mat: torch.Tensor):
+    """The cluster table of a mesh past MAX_SMEM_TRIS triangles, in SAH leaf
+    order, or morton order without the native builder
+    (scene/device_scene.py:533-542); None for a smaller mesh."""
+    n = geom.num_triangles
+    if n <= MAX_SMEM_TRIS:
+        return None
+    if -(-n // cluster_mod.LANES) > cluster_mod.MAX_STREAM_CLUSTERS:
+        raise NotImplementedError(
+            f"{n} triangles: meshes past "
+            f"{cluster_mod.MAX_STREAM_CLUSTERS * cluster_mod.LANES} triangles "
+            f"need the supercluster tier, which is not ported yet "
+            f"(ROADMAP.md Queue 2)")
+    return cluster_mod.build_clusters(geom, tri_mat,
+                                      order=native.sah_leaf_order(geom))
+
+
 def make_device_scene(vertices, indices, tri_mat, materials, device,
-                      area_light=None, miss_color=(0.0, 0.0, 0.0)):
-    """Triangle mesh + material dicts → DeviceScene on `device`."""
+                      area_light=None, miss_color=(0.0, 0.0, 0.0),
+                      normals=None):
+    """Triangle mesh + material dicts → DeviceScene on `device`. normals:
+    optional per-vertex [V, 3] shading normals."""
     if area_light is None:
         area_light = ParallelogramLight.make(
             (0, 0, 0), (1, 0, 0), (0, 0, 1), (0.0, 0.0, 0.0), device)
     table = make_material_table(materials, device)
-    geom = build_triangle_geometry(vertices, indices, device)
-    tri_mat = _check_tri_mat(tri_mat, geom.num_triangles, table.num)
+    geom = build_triangle_geometry(vertices, indices, device, normals=normals)
+    tri_mat = torch.as_tensor(
+        _check_tri_mat(tri_mat, geom.num_triangles, table.num), device=device)
     return DeviceScene(
-        geom=geom, tri_mat=torch.as_tensor(tri_mat, device=device),
-        materials=table, area_light=area_light,
+        geom=geom, tri_mat=tri_mat, materials=table, area_light=area_light,
         miss_color=torch.as_tensor(miss_color, dtype=torch.float32,
-                                   device=device))
+                                   device=device),
+        clusters=_build_cluster_table(geom, tri_mat))
 
 
 def device_scene_from_numpy(fields, device) -> DeviceScene:
     """Build the port's scene from a JAX DeviceScene's fields, handed over as
     numpy arrays so both sides compute on the same bits. Keys:
 
-      tri_consts [M,16], face_normal [M,3], valid [M]   (scene.geom)
+      tri_consts [M,16], face_normal [M,3], valid [M], v0 / e1 / e2 [M,3],
+      corner_normal [M,3,3], smooth (bool)              (scene.geom)
       tri_mat [M]
       mat_kind, mat_base_color, mat_emission, mat_metallic, mat_roughness,
       mat_ior, mat_kr                                   (scene.materials)
       light_corner, light_v1, light_v2, light_normal, light_emission
       miss_color [3]
       features (tuple of str)
+      num_clusters, cluster_comp [C,32,128], cluster_aabb [C_rows,6,128],
+      cluster_slot_prim [C*128]                       (scene.clusters)
+
+    A scene without a cluster table has num_clusters 0.
     """
     def f32(key):
         return torch.as_tensor(np.array(fields[key], np.float32),
@@ -94,7 +139,9 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
         tri_consts=f32("tri_consts").contiguous(),
         face_normal=f32("face_normal"),
         valid=torch.as_tensor(np.array(fields["valid"], bool),
-                              device=device))
+                              device=device),
+        v0=f32("v0"), e1=f32("e1"), e2=f32("e2"),
+        corner_normal=f32("corner_normal"), smooth=bool(fields["smooth"]))
     kind = np.asarray(fields["mat_kind"], np.int32)
     table = MaterialTable(
         kind=torch.as_tensor(kind, device=device),
@@ -106,8 +153,18 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
         normal=f32("light_normal"), emission=f32("light_emission"))
     tri_mat = _check_tri_mat(fields["tri_mat"], geom.num_triangles,
                              kind.shape[0])
+    clusters = None
+    if int(fields["num_clusters"]) > 0:
+        clusters = cluster_mod.ClusterSet(
+            comp=f32("cluster_comp").contiguous(),
+            aabb=f32("cluster_aabb").contiguous(),
+            slot_prim=torch.as_tensor(
+                np.array(fields["cluster_slot_prim"], np.int32),
+                device=device),
+            num_clusters=int(fields["num_clusters"]))
     return DeviceScene(geom=geom,
                        tri_mat=torch.as_tensor(tri_mat, device=device),
                        materials=table, area_light=light,
                        miss_color=f32("miss_color"),
-                       features=tuple(fields.get("features", ())))
+                       features=tuple(fields.get("features", ())),
+                       clusters=clusters)

@@ -1,22 +1,54 @@
-"""Scene-level intersection, brute-force branch only (counterpart of
-`wavefront/intersect.py:78-200`). Prims, instances, clusters, BVHs, motion
-and cutout any-hit are not ported yet (ROADMAP.md Queue 1 items 6-9); the
-port's DeviceScene has none of them."""
+"""Scene-level intersection (counterpart of `wavefront/intersect.py:78-200`):
+the cluster-culled traversal for a scene with a cluster table, brute force
+otherwise. Prims, instances, BVHs, motion and cutout any-hit are not ported
+yet (ROADMAP.md Queue 1 items 7-9); the port's DeviceScene has none of them.
+
+In the JAX package the cluster branch runs only on a TPU; in the port a
+cluster table alone selects it, on any device (the CPU runs the kernels'
+plain versions).
+"""
 from __future__ import annotations
 
 from typing import Optional
 
 from ..accel import bruteforce as bf
+from ..accel import clusters as cluster_mod
 from ..core.rays import Hits, Rays
 from ..scene.device_scene import DeviceScene
 
 
+def _flat_call(fn, rays: Rays):
+    """Run a flat-[N] query over rays of any batch shape."""
+    batch_shape = tuple(rays.batch_shape)
+    n = 1
+    for s in batch_shape:
+        n *= s
+    out = fn(rays.reshape(n))
+    if isinstance(out, Hits):
+        return Hits(**{f: getattr(out, f).reshape(
+            batch_shape + getattr(out, f).shape[1:])
+            for f in ("t", "prim_id", "inst_id", "mat_id", "uv", "normal")})
+    return out.reshape(batch_shape)
+
+
 def scene_closest(scene: DeviceScene, rays: Rays,
-                  chunk_size: Optional[int] = None) -> Hits:
+                  chunk_size: Optional[int] = None, exact: bool = False,
+                  group_walk: bool = False) -> Hits:
+    """exact=True (already-sorted scattered wavefronts) takes the exact
+    cull; group_walk gates the walk per 32-ray group on the exact cull's
+    bits. Both are ignored by brute force."""
+    if scene.has_clusters:
+        return _flat_call(lambda r: cluster_mod.closest_hit(
+            scene.clusters, r, exact=exact, group_walk=group_walk), rays)
     return bf.intersect_closest(scene.geom, rays, tri_mat=scene.tri_mat,
                                 chunk_size=chunk_size)
 
 
 def scene_any(scene: DeviceScene, rays: Rays,
-              chunk_size: Optional[int] = None):
+              chunk_size: Optional[int] = None, group_walk: bool = False):
+    """Occlusion. NEE shadow wavefronts are mixed-liveness even when
+    tile-coherent, so the cluster path always takes the exact cull."""
+    if scene.has_clusters:
+        return _flat_call(lambda r: cluster_mod.any_hit(
+            scene.clusters, r, exact=True, group_walk=group_walk), rays)
     return bf.intersect_any(scene.geom, rays, chunk_size=chunk_size)

@@ -4,18 +4,22 @@ Marked `gpu`; every test skips when `torch.cuda.is_available()` is false
 (decided in a fixture, never at import). Run on a CUDA machine with
 `python -m pytest tests/test_torch_gpu.py -m gpu`. Bars: hit ids and
 occlusion equal, t within rtol 1e-5, uv 1e-4, normals 1e-5
-(test_pallas_intersect.py); the fused kernel's ray counts equal and its
-radiance within atol 2e-3 / rtol 1e-3 (test_fused_kernel.py)."""
+(test_pallas_intersect.py); the exact cull's tables bit-equal; ray counts
+equal and radiance within atol 2e-3 / rtol 1e-3 (test_fused_kernel.py)."""
 import numpy as np
 import pytest
 import torch
 
 from optix_raytracer_tpu_torch import kernels
+from optix_raytracer_tpu_torch.accel import clusters as C
 from optix_raytracer_tpu_torch.accel import pallas_bf
 from optix_raytracer_tpu_torch.accel.geometry import build_triangle_geometry
+from optix_raytracer_tpu_torch.core.film import Film
 from optix_raytracer_tpu_torch.core.rays import Rays
-from optix_raytracer_tpu_torch.scene.builtins import cornell_box, cornell_camera
-from optix_raytracer_tpu_torch.wavefront import pallas_pt
+from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
+                                                     cornell_camera,
+                                                     knot_camera, knot_scene)
+from optix_raytracer_tpu_torch.wavefront import engine, pallas_pt
 
 pytestmark = pytest.mark.gpu
 
@@ -106,3 +110,99 @@ def test_fused_kernel_row_tiles(cuda):
     np.testing.assert_array_equal(
         torch.cat([p[0] for p in parts]).cpu().numpy(), full.cpu().numpy())
     assert sum(int(p[1]) for p in parts) == int(c_full)
+
+
+def _knot_rays(n, seed, device):
+    """Rays toward the small knot with mixed windows, some dead."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rng.uniform(-2.5, 2.5, (n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = rng.choice([1e16, 5.0, 9.0], n).astype(np.float32)
+    tmax[::7] = 0.0
+    return Rays(*(torch.as_tensor(a, device=device) for a in (
+        o, d, np.full(n, 1e-3, np.float32), tmax)))
+
+
+def _assert_hits_equal(out, ref):
+    for k in ("prim_id", "mat_id", "inst_id"):
+        np.testing.assert_array_equal(getattr(out, k).cpu().numpy(),
+                                      getattr(ref, k).cpu().numpy())
+    hit = ref.prim_id.cpu().numpy() >= 0
+    assert hit.any() and (~hit).any()
+    for k, tol in (("t", dict(rtol=1e-5)), ("uv", dict(atol=1e-4)),
+                   ("normal", dict(atol=1e-5))):
+        np.testing.assert_allclose(getattr(out, k).cpu().numpy(),
+                                   getattr(ref, k).cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("exact,gate,segments,sides",
+                         [(False, False, 20, 14), (True, False, 20, 14),
+                          (True, True, 20, 14), (True, True, 512, 125)])
+def test_cluster_kernels_match_plain(cuda, exact, gate, segments, sides):
+    """Kernels 4-6 against their plain versions on the same inputs; the
+    128,002-triangle knot has 1,001 clusters, the resident tier's c_pad of
+    1024 (four clusters per cull thread)."""
+    cl = knot_scene(segments, sides, device=cuda).clusters
+    rays = _knot_rays(20000, 5, cuda)
+    n = rays.tmin.shape[0]
+    packed = C._pack_rays(rays, C._padded(n))
+    nb, c_pad = packed.shape[0] // C.SUB, cl.c_pad
+    if exact:
+        before = kernels.LAUNCHES["cluster_cull_exact"]
+        tn, gm = C.exact_cull(cl.aabb, packed, nb, c_pad)
+        assert kernels.LAUNCHES["cluster_cull_exact"] == before + 1
+        tn_p, gm_p = C.exact_cull_plain(cl.aabb, packed, nb, c_pad)
+        assert torch.equal(tn.view(torch.int32), tn_p.view(torch.int32))
+        assert torch.equal(gm, gm_p)
+    counts, lists, tnear = C._cull(cl, packed, nb // C.GROUPS, c_pad,
+                                   exact=exact)
+    args = (counts, lists, tnear, cl.comp, packed, gate)
+    rows, rows_p = C.walk_closest(*args), C.walk_closest_plain(*args)
+    live = torch.repeat_interleave(counts.reshape(-1) > 0, C.SUB)[:n]
+    _assert_hits_equal(C._hits_from_rows(rows[:n], live, rays.tmax),
+                       C._hits_from_rows(rows_p[:n], live, rays.tmax))
+    occ, occ_p = C.walk_any(*args), C.walk_any_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, occ_p) and 0 < int(occ.sum()) < n
+
+
+@pytest.mark.parametrize("max_clusters", [1024, 2])
+def test_cluster_queries_match_cpu(cuda, monkeypatch, max_clusters):
+    """Whole queries on the card (kernels) against the same queries on CPU
+    tensors (plain versions); MAX_CLUSTERS = 2 takes the streaming tier's
+    dispatch (interval cull, no gating)."""
+    monkeypatch.setattr(C, "MAX_CLUSTERS", max_clusters)
+    gpu = knot_scene(20, 14, device=cuda).clusters
+    cpu = knot_scene(20, 14, device="cpu").clusters
+    rays = _knot_rays(9000, 6, "cpu")
+    rays_g = Rays(*(getattr(rays, f).to(cuda) for f in
+                    ("origin", "direction", "tmin", "tmax")))
+    for exact in (False, True):
+        _assert_hits_equal(C.closest_hit(gpu, rays_g, exact=exact,
+                                         group_walk=True),
+                           C.closest_hit(cpu, rays, exact=exact,
+                                         group_walk=True))
+        assert torch.equal(C.any_hit(gpu, rays_g, exact=exact).cpu(),
+                           C.any_hit(cpu, rays, exact=exact))
+    _assert_hits_equal(C.closest_hit_sorted(gpu, rays_g),
+                       C.closest_hit_sorted(cpu, rays))
+    assert torch.equal(C.any_hit_sorted(gpu, rays_g).cpu(),
+                       C.any_hit_sorted(cpu, rays))
+
+
+def test_knot_launch_on_card(cuda):
+    """The knot's sample-major launch against its sequential oracle on the
+    card, and against the same launch on the CPU."""
+    w, h = 32, 24
+    runs = {}
+    for dev, impl in ((cuda, "auto"), (cuda, "wavefront"), ("cpu", "auto")):
+        scene = knot_scene(20, 14, device=dev)
+        film, rays = engine.render_accumulate(
+            scene, knot_camera(w, h).params(dev), Film.create(h, w, dev), w,
+            h, samples_per_launch=8, max_depth=3, impl=impl)
+        runs[(str(dev), impl)] = (film.accum.cpu().numpy(), int(rays))
+    ref_img, ref_rays = runs[("cpu", "auto")]
+    for img, rays in runs.values():
+        assert rays == ref_rays
+        np.testing.assert_allclose(img, ref_img, atol=2e-3, rtol=1e-3)

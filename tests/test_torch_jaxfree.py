@@ -1,6 +1,8 @@
 """The port needs no JAX: in a process where `import jax` and `import flax`
 fail, the package imports, renders an 8x8 1-spp Cornell box on the CPU and
-saves it as a PNG."""
+saves it as a PNG, and builds the small knot scene (its cluster table through
+the port's own native binding, or morton order without a compiler) and
+renders it 8x8 at 8 samples per launch through the sample-major path."""
 import os
 import subprocess
 import sys
@@ -21,6 +23,16 @@ save_image(sys.argv[1], img)
 back = load_image(sys.argv[1])
 assert back.shape == (8, 8, 4) and (back == img).all()
 assert np.isfinite(accum.numpy()).all() and int(rays) > 64
+from optix_raytracer_tpu_torch.core.film import Film
+from optix_raytracer_tpu_torch.scene.builtins import knot_camera, knot_scene
+from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
+knot = knot_scene(20, 14, device="cpu")
+assert knot.has_clusters and knot.clusters.num_clusters == 5
+film, rays = render_accumulate(knot, knot_camera(8, 8).params("cpu"),
+                               Film.create(8, 8, "cpu"), 8, 8,
+                               samples_per_launch=8, max_depth=2)
+assert np.isfinite(film.accum.numpy()).all() and int(rays) > 8 * 8 * 8
+assert float(film.accum.mean()) > 0
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 print("OK")

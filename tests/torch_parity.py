@@ -10,9 +10,13 @@ from optix_raytracer_tpu_torch.scene.device_scene import device_scene_from_numpy
 def scene_fields(jscene):
     """JAX DeviceScene → the numpy field dict of device_scene_from_numpy."""
     g, m, light = jscene.geom, jscene.materials, jscene.area_light
+    cl = jscene.clusters
     arrays = dict(
         tri_consts=g.tri_consts, face_normal=g.face_normal, valid=g.valid,
-        tri_mat=jscene.tri_mat, mat_kind=m.kind, mat_base_color=m.base_color,
+        v0=g.v0, e1=g.e1, e2=g.e2, corner_normal=g.corner_normal,
+        cluster_comp=cl.comp, cluster_aabb=cl.aabb,
+        cluster_slot_prim=cl.slot_prim, tri_mat=jscene.tri_mat,
+        mat_kind=m.kind, mat_base_color=m.base_color,
         mat_emission=m.emission, mat_metallic=m.metallic,
         mat_roughness=m.roughness, mat_ior=m.ior, mat_kr=m.kr,
         light_corner=light.corner, light_v1=light.v1, light_v2=light.v2,
@@ -20,6 +24,8 @@ def scene_fields(jscene):
         miss_color=jscene.miss_color)
     fields = {k: np.array(v) for k, v in arrays.items()}
     fields["features"] = tuple(jscene.features)
+    fields["smooth"] = bool(g.smooth)
+    fields["num_clusters"] = int(cl.num_clusters)
     return fields
 
 

@@ -1,14 +1,18 @@
 """Where the time of one headline launch goes in the PyTorch/CUDA port.
 
-Profiles one Cornell launch (default 1920x1088, 16 samples per launch,
-depth 4) through the fused kernel (impl="fused") and through the lock-step
-wavefront (impl="wavefront") with torch.profiler, and prints for each: the
-wall time of the launch, the device time summed over kernels, the device's
-idle share of the window, and the kernels that take the most device time.
-Needs a CUDA device; with --out DIR it also writes the Chrome traces there.
+--scene cornell (the default) profiles one Cornell launch (default
+1920x1088, 16 samples per launch, depth 4) through the fused kernel
+(impl="fused") and through the lock-step wavefront (impl="wavefront");
+--scene knot profiles one launch of the 25,202-triangle knot scene
+(knot_scene(200, 63); default depth 3) through the sample-major path
+(impl="spl") and the sequential, coherence-sorted path (impl="wavefront"),
+both over the cluster kernels. torch.profiler prints for each: the wall time
+of the launch, the device time summed over kernels, the device's idle share
+of the window, and the kernels that take the most device time. Needs a CUDA
+device; with --out DIR it also writes the Chrome traces there.
 
-    python tools/profile_torch_port.py [--dim 1920x1088] [--spl 16]
-        [--depth 4] [--out DIR]
+    python tools/profile_torch_port.py [--scene cornell|knot]
+        [--dim 1920x1088] [--spl 16] [--depth N] [--out DIR]
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ def _busy_us(events):
     return busy
 
 
-def profile(impl, scene, cam, w, h, spl, depth, out_dir):
+def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
     from optix_raytracer_tpu_torch.core.film import Film
@@ -57,7 +61,8 @@ def profile(impl, scene, cam, w, h, spl, depth, out_dir):
         wall = time.perf_counter() - t0
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out_dir, f"trace_{impl}.json"))
+        prof.export_chrome_trace(os.path.join(out_dir,
+                                              f"trace_{tag}_{impl}.json"))
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us(kernels)
@@ -67,7 +72,7 @@ def profile(impl, scene, cam, w, h, spl, depth, out_dir):
         d[0] += 1
         d[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return dict(impl=impl, wall_ms=wall * 1e3, rays=int(rays),
+    return dict(scene=tag, impl=impl, wall_ms=wall * 1e3, rays=int(rays),
                 device_busy_ms=busy / 1e3,
                 idle_share_of_wall=1.0 - busy / 1e3 / (wall * 1e3),
                 kernel_launches=len(kernels),
@@ -77,24 +82,31 @@ def profile(impl, scene, cam, w, h, spl, depth, out_dir):
 
 def main():
     p = argparse.ArgumentParser()
+    p.add_argument("--scene", choices=("cornell", "knot"), default="cornell")
     p.add_argument("--dim", default="1920x1088")
     p.add_argument("--spl", type=int, default=16)
-    p.add_argument("--depth", type=int, default=4)
+    p.add_argument("--depth", type=int, default=None,
+                   help="bounces (default 4 for cornell, 3 for knot)")
     p.add_argument("--out", default=None,
                    help="directory for the Chrome traces (none by default)")
     args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_port: needs a CUDA device")
-    from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
-                                                         cornell_camera)
+    from optix_raytracer_tpu_torch.scene import builtins
     w, h = (int(v) for v in args.dim.split("x"))
     dev = torch.device("cuda")
-    scene = cornell_box(dev)
-    cam = cornell_camera(w, h).params(dev)
-    for impl in ("fused", "wavefront"):
-        print(json.dumps(profile(impl, scene, cam, w, h, args.spl,
-                                 args.depth, args.out)), flush=True)
+    if args.scene == "knot":
+        scene = builtins.knot_scene(200, 63, device=dev)
+        cam = builtins.knot_camera(w, h).params(dev)
+        impls, depth = ("spl", "wavefront"), args.depth or 3
+    else:
+        scene = builtins.cornell_box(dev)
+        cam = builtins.cornell_camera(w, h).params(dev)
+        impls, depth = ("fused", "wavefront"), args.depth or 4
+    for impl in impls:
+        print(json.dumps(profile(args.scene, impl, scene, cam, w, h,
+                                 args.spl, depth, args.out)), flush=True)
 
 
 if __name__ == "__main__":
