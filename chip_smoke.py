@@ -37,9 +37,26 @@ HEADLINE = dict(width=1920, height=1088, spl=16, depth=4)   # bench.py:18-21
 KNOT = dict(segments=200, sides=63, width=1920, height=1088, spl=16,
             depth=3)
 KNOT_STREAM = dict(segments=1000, sides=250)                # bench.py:124
+# bench.py:361's 4.0M-triangle mesh on the lit knot_scene, at the knot
+# headline's frame, spl and depth: the supercluster tier (kernels 5c/6c)
+KNOT_SC = dict(segments=1450, sides=1380, width=1920, height=1088, spl=16,
+               depth=3)
 # List entries (block x cluster pairs, 32,768 ray-triangle tests each) past
 # which the plain walks run on a subset of blocks (about 2 s on the card).
 PLAIN_WALK_ENTRIES = 200_000
+# The same for the plain supercluster walks, counted in member visits
+# (block x crossed member cluster).
+PLAIN_SC_VISITS = 60_000
+
+# The card's peaks for the bound of each kernel (H100 SXM data sheet, dense,
+# at 700 W): FP32 outside the tensor cores, and HBM3.
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+PAIR_OPS = 30      # FP32 operations of one Woop ray-triangle test
+SLAB_OPS = 20      # FP32 operations of one ray-box slab test
+RAY_BYTES = 32     # ox oy oz dx dy dz tmin tmax
+SLOT_BYTES = 4 * 128               # one constant row of a 128-slot cluster
+CLOSEST_ROWS, ANY_ROWS = 23, 12    # rows a closest / any-hit walk reads
 
 
 class SmokeFailure(RuntimeError):
@@ -58,6 +75,131 @@ def phase(name, **fields):
 
 def to_np(t):
     return t.detach().cpu().numpy()
+
+
+def bound(ops, nbytes):
+    """The least time the card could take for work of `ops` FP32 operations
+    moving `nbytes` bytes: the larger of ops / FP32 peak and bytes / HBM
+    rate → dict(bound_ms, bound_by)."""
+    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def live_rays(packed):
+    """Live rays (tmax > tmin) per 32-ray group of packed rays → [n_blocks,
+    8] int64."""
+    return (packed[:, 7] > packed[:, 6]).reshape(-1, 8, 32).sum(2)
+
+
+def listed_entries(counts, lists):
+    """The valid entries of per-block lists → (blocks [E], box ids [E]),
+    each int64; the group bits of an entry are dropped."""
+    import torch
+    nb = counts.numel()
+    lst = lists.reshape(nb, -1)
+    valid = (torch.arange(lst.shape[1], device=lst.device)[None]
+             < counts.reshape(nb, 1))
+    be, ke = torch.nonzero(valid, as_tuple=True)
+    return be, (lst[be, ke] & 0xFFFF).to(torch.int64)
+
+
+def member_visits(counts, lists, member, packed, chunk=4096):
+    """Member visits of kernels 5c/6c per block [n_blocks] int64: for each
+    listed supercluster, the members that some live ray of the block
+    crosses (the block-union mask the kernels and their plain versions
+    walk)."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    nb = counts.numel()
+    rays = packed.reshape(nb, C.SUB, 8)
+    be, se = listed_entries(counts, lists)
+    visits = torch.zeros(nb, dtype=torch.int64, device=packed.device)
+    for i in range(0, be.numel(), chunk):
+        b, s = be[i:i + chunk], se[i:i + chunk]
+        visits.index_add_(0, b, C._member_cross(rays[b], member[s])
+                          .any(dim=1).sum(dim=1))
+    return visits
+
+
+def needed_work(counts, lists, boxes, n_real, packed, end, occluded=0):
+    """The least work of a walk over these lists: for each listed entry
+    (block b, box s) and each ray of block b, the members of boxes[s]
+    ([S, 6, M]: lo xyz, hi xyz of M boxes; member c of s is cluster
+    s * M + c, a real one below n_real) that the ray's own slab test
+    crosses on [tmin, end]. `end` [n_padded] is the ray's closest hit for a
+    closest walk (a walk must open every box the ray enters before it), its
+    tmax for an any-hit walk, or its tmin for a ray that needs no walk; each
+    of the `occluded` rays adds one pair test, its hit. → dict(entries,
+    pairs (ray x crossed member x 128 triangles), slabs (ray x entry x M,
+    over the entries where the ray crosses a member), members (distinct
+    members crossed), listed (distinct listed boxes))."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    nb, m = counts.numel(), boxes.shape[2]
+    ends = packed.clone()
+    ends[:, 7] = end
+    rays = ends.reshape(nb, C.SUB, 8)
+    be, se = listed_entries(counts, lists)
+    used = torch.zeros((boxes.shape[0], m), dtype=torch.int64,
+                       device=packed.device)
+    lane = torch.arange(m, device=packed.device)
+    pairs = slabs = 0
+    chunk = max(1, (1 << 25) // (C.SUB * m))
+    for i in range(0, be.numel(), chunk):
+        b, s = be[i:i + chunk], se[i:i + chunk]
+        real = (s[:, None] * m + lane[None]) < n_real           # [B, M]
+        cross = C._member_cross(rays[b], boxes[s]) & real[:, None]
+        pairs += int(cross.sum()) * C.LANES
+        slabs += int(cross.any(dim=2).sum()) * m
+        used.index_put_((s,), cross.any(dim=1).to(torch.int64),
+                        accumulate=True)
+    return dict(entries=int(be.numel()), pairs=pairs + int(occluded),
+                slabs=slabs, members=int((used > 0).sum()),
+                listed=int(se.unique().numel()))
+
+
+def walk_bound(counts, lists, boxes, n_real, packed, out, closest, sc=0):
+    """Bound of a walk on all blocks of these lists, from needed_work with
+    the walk's own result: out is the closest walk's rows (the hit t ends
+    each ray's window) or the any-hit walk's occlusion. The pair tests (and,
+    for the supercluster walks, sc > 0, the member slab tests) over the FP32
+    peak; the rays, counts, listed entries (id + bound), the listed
+    superclusters' member boxes, the crossed members' rows and the output
+    over the HBM rate."""
+    import torch
+    if closest:
+        work = needed_work(counts, lists, boxes, n_real, packed, out[:, 0])
+    else:
+        hit = out != 0
+        work = needed_work(counts, lists, boxes, n_real, packed,
+                           torch.where(hit, packed[:, 6], packed[:, 7]),
+                           occluded=int(hit.sum()))
+    n_padded = packed.shape[0]
+    rows = CLOSEST_ROWS if closest else ANY_ROWS
+    nbytes = (n_padded * (RAY_BYTES + (RAY_BYTES if closest else 4))
+              + (n_padded // 256) * 4 + work["entries"] * 8
+              + work["listed"] * 6 * sc * 4
+              + work["members"] * rows * SLOT_BYTES)
+    ops = PAIR_OPS * work["pairs"] + (SLAB_OPS * work["slabs"] if sc else 0)
+    return dict(bound(ops, nbytes), pairs=work["pairs"])
+
+
+def fmt(r):
+    """A parity result as phase fields: times to the microsecond, each
+    bound as its milliseconds and what bounds it, and a walk's bound its
+    needed pair tests."""
+    out = {}
+    for k, v in r.items():
+        if k.endswith("_bound"):
+            out[f"{k}_ms"] = f"{v['bound_ms']:.3f}({v['bound_by']})"
+            if "pairs" in v:
+                out[f"{k}_pairs"] = v["pairs"]
+        elif isinstance(v, float) and k.endswith("ms"):
+            out[k] = f"{v:.3f}"
+        else:
+            out[k] = v
+    return out
 
 
 def cuda_ms(fn, reps):
@@ -176,16 +318,19 @@ def timed_launches(scene, cam, W, H, spl, depth, impl, launches, dev):
     continuing its film → (film, rays of the timed launches, seconds, peak
     bytes, first film, rays of the first launch, kernel launch counts of
     this path alone: set to 0 just before its first launch, read just after
-    its last)."""
+    its last; the warm-up's seconds)."""
     import torch
     from optix_raytracer_tpu_torch import kernels
     from optix_raytracer_tpu_torch.core.film import Film
     from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
+    torch.cuda.synchronize()
     kernels.reset_launches()
+    t0 = time.perf_counter()
     first, first_rays = render_accumulate(
         scene, cam, Film.create(H, W, dev), W, H, spl, depth, impl=impl)
-    film = first
     torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    film = first
     torch.cuda.reset_peak_memory_stats(dev)
     rays = []
     t0 = time.perf_counter()
@@ -198,7 +343,7 @@ def timed_launches(scene, cam, W, H, spl, depth, impl, launches, dev):
     counts = dict(kernels.LAUNCHES)
     return (film, int(sum(int(r) for r in rays)), dt,
             torch.cuda.max_memory_allocated(dev), first, int(first_rays),
-            counts)
+            counts, first_s)
 
 
 def tile_order(width, height):
@@ -293,16 +438,59 @@ def hits_dict(h):
                                        "normal")}
 
 
+def cull_parity(cl, packed, what, out):
+    """Kernel 4 against its plain version on cl's table (a cluster set, or
+    the supercluster facade): tn / gm and the compacted counts / lists /
+    bounds bit-equal. Adds its CUDA-event times and bound to `out` and
+    returns the kernel's compacted lists."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    n_blocks, c_pad = packed.shape[0] // C.SUB, cl.c_pad
+    n_super = n_blocks // C.GROUPS
+    tn_k, gm_k = C.exact_cull(cl.aabb, packed, n_blocks, c_pad)
+    tn_p, gm_p = C.exact_cull_plain(cl.aabb, packed, n_blocks, c_pad)
+    require(torch.equal(tn_k.view(torch.int32), tn_p.view(torch.int32))
+            and torch.equal(gm_k, gm_p), f"{what}: exact cull differs")
+    culled = C._compact(cl, *C._cull_tables(tn_k, gm_k), n_super)
+    culled_p = C._compact(cl, *C._cull_tables(tn_p, gm_p), n_super)
+    require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(culled, culled_p)),
+            f"{what}: counts / lists / bounds differ")
+    live = int(live_rays(packed).sum())
+    out.update(
+        cull_ms=cuda_ms(lambda: C.exact_cull(cl.aabb, packed, n_blocks,
+                                             c_pad), 10),
+        cull_plain_ms=cuda_ms(lambda: C.exact_cull_plain(
+            cl.aabb, packed, n_blocks, c_pad), 1),
+        cull_bound=bound(SLAB_OPS * live * cl.num_clusters,
+                         packed.shape[0] * RAY_BYTES + c_pad * 24
+                         + n_blocks * c_pad * 8))
+    return culled
+
+
+def block_subset(weights, budget, *tensors):
+    """Every k-th block of the [n_blocks, ...] tensors, k chosen so the
+    subset's weights (list entries, member visits) sum to about `budget` →
+    (blocks or None when all fit, the tensors cut to them)."""
+    import torch
+    stride = max(1, -(-int(weights.sum()) // budget))
+    if stride == 1:
+        return None, tensors
+    blocks = torch.arange(0, weights.shape[0], stride, device=weights.device)
+    return blocks, tuple(t[blocks].contiguous() for t in tensors)
+
+
 def cluster_parity(cl, rays, exact, gate, what):
     """Kernels 4-6 against their plain versions on one ray set: the exact
     cull's tn / gm and the compacted counts / lists / bounds bit-equal, the
     walks' hits within compare_hits and their occlusion equal. Returns the
-    errors and the CUDA-event times (kernel and plain, on the same inputs).
+    errors, the kernels' CUDA-event times and bounds on all blocks, and the
+    plain versions' times.
 
     The plain walks test every listed (ray block, cluster) pair with torch
-    ops; past PLAIN_WALK_ENTRIES list entries both walks are compared and
-    timed on every k-th block only (`walk_blocks` says how many), and the
-    kernels' time on all blocks is reported beside it."""
+    ops; past PLAIN_WALK_ENTRIES list entries both walks are compared, and
+    the plain ones timed, on every k-th block only (`walk_blocks` says how
+    many; the kernels' times there are `*_subset_ms`)."""
     import torch
     from optix_raytracer_tpu_torch.accel import clusters as C
     n = rays.tmin.shape[0]
@@ -311,34 +499,15 @@ def cluster_parity(cl, rays, exact, gate, what):
     n_blocks, n_super, c_pad = n_padded // C.SUB, n_padded // C.SUPER, cl.c_pad
     out = dict(cull_err=0.0)
     if exact and c_pad <= C.MAX_CLUSTERS:
-        tn_k, gm_k = C.exact_cull(cl.aabb, packed, n_blocks, c_pad)
-        tn_p, gm_p = C.exact_cull_plain(cl.aabb, packed, n_blocks, c_pad)
-        require(torch.equal(tn_k.view(torch.int32), tn_p.view(torch.int32))
-                and torch.equal(gm_k, gm_p), f"{what}: exact cull differs")
-        culled = C._compact(cl, *C._cull_tables(tn_k, gm_k), n_super)
-        culled_p = C._compact(cl, *C._cull_tables(tn_p, gm_p), n_super)
-        require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                    for a, b in zip(culled, culled_p)),
-                f"{what}: counts / lists / bounds differ")
-        out.update(
-            cull_ms=cuda_ms(lambda: C.exact_cull(cl.aabb, packed, n_blocks,
-                                                 c_pad), 10),
-            cull_plain_ms=cuda_ms(lambda: C.exact_cull_plain(
-                cl.aabb, packed, n_blocks, c_pad), 1))
+        culled = cull_parity(cl, packed, what, out)
     else:
         culled = C._cull(cl, packed, n_super, c_pad, exact=exact)
     counts, lists, tnear = (t.reshape(n_blocks, -1) for t in culled)
     full = (counts, lists, tnear, cl.comp, packed)
-    entries = int(counts.sum())
-    stride = max(1, -(-entries // PLAIN_WALK_ENTRIES))
-    if stride > 1:
-        blocks = torch.arange(0, n_blocks, stride, device=packed.device)
-        part = (counts[blocks].contiguous(), lists[blocks].contiguous(),
-                tnear[blocks].contiguous(), cl.comp,
-                packed.reshape(n_blocks, C.SUB, 8)[blocks].reshape(-1, 8)
-                .contiguous())
-    else:
-        blocks, part = None, full
+    blocks, (pc, pl, pt, pp) = block_subset(
+        counts, PLAIN_WALK_ENTRIES, counts, lists, tnear,
+        packed.reshape(n_blocks, C.SUB, 8))
+    part = (pc, pl, pt, cl.comp, pp.reshape(-1, 8))
     tmax = part[4][:, 7]
     live = torch.repeat_interleave(part[0].reshape(-1) > 0, C.SUB)
 
@@ -353,20 +522,86 @@ def cluster_parity(cl, rays, exact, gate, what):
     out["any_mismatches"] = int((occ_k != occ_p).sum())
     require(out["any_mismatches"] == 0, f"{what}: occlusion differs")
     out["occluded"] = int(occ_k.sum())
-    out["mean_clusters_per_block"] = entries / n_blocks
+    out["mean_clusters_per_block"] = int(counts.sum()) / n_blocks
     out["walk_blocks"] = (f"{part[0].shape[0]} of {n_blocks}"
                           if blocks is not None else "all")
+    boxes = C._aabb_rows(cl)[:, :, None]                     # [c_pad, 6, 1]
     out.update(
-        closest_ms=cuda_ms(lambda: C.walk_closest(*part, gate), 10),
+        closest_ms=cuda_ms(lambda: C.walk_closest(*full, gate), 10),
         closest_plain_ms=cuda_ms(lambda: C.walk_closest_plain(*part, gate),
                                  1),
-        any_ms=cuda_ms(lambda: C.walk_any(*part, gate), 10),
-        any_plain_ms=cuda_ms(lambda: C.walk_any_plain(*part, gate), 1))
+        any_ms=cuda_ms(lambda: C.walk_any(*full, gate), 10),
+        any_plain_ms=cuda_ms(lambda: C.walk_any_plain(*part, gate), 1),
+        closest_bound=walk_bound(counts, lists, boxes, cl.num_clusters,
+                                 packed, C.walk_closest(*full, gate), True),
+        any_bound=walk_bound(counts, lists, boxes, cl.num_clusters, packed,
+                             C.walk_any(*full, gate), False))
     if blocks is not None:
         out.update(
-            closest_all_blocks_ms=cuda_ms(lambda: C.walk_closest(*full, gate),
-                                          10),
-            any_all_blocks_ms=cuda_ms(lambda: C.walk_any(*full, gate), 10))
+            closest_subset_ms=cuda_ms(lambda: C.walk_closest(*part, gate), 10),
+            any_subset_ms=cuda_ms(lambda: C.walk_any(*part, gate), 10))
+    return out
+
+
+def sc_parity(cl, rays, exact, what, timed):
+    """Kernels 5c and 6c (and kernel 4 on the supercluster facade, where the
+    cull is exact) against their plain versions on one ray set: cull tables
+    and lists bit-equal, 5c's rows bit-equal, 6c's occlusion equal. Both
+    walks are compared; the `timed` one ("closest" or "any") is timed on all
+    blocks (mean of 10) and, plain, on the compared blocks, and its bound
+    counted on all blocks (walk_bound). Past PLAIN_SC_VISITS member visits
+    the comparison runs on every k-th block. closest_err is the max abs
+    difference of the rows, any_mismatches the differing occlusion flags."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    n = rays.tmin.shape[0]
+    n_padded = C._padded(n)
+    packed = C._pack_rays(rays, n_padded)
+    n_blocks, n_super = n_padded // C.SUB, n_padded // C.SUPER
+    cull_aabb, member, n_sc = C._sc_tables(cl)
+    facade = C._sc_facade(cl, cull_aabb, n_sc)
+    out = dict(cull_err=0.0)
+    if exact:
+        culled = cull_parity(facade, packed, what, out)
+    else:
+        culled = C._cull(facade, packed, n_super, facade.c_pad, exact=False)
+    counts, lists, tnear = (t.reshape(n_blocks, -1) for t in culled)
+    visits = member_visits(counts, lists, member, packed)
+    blocks, (pc, pl, pt, pp) = block_subset(
+        visits, PLAIN_SC_VISITS, counts, lists, tnear,
+        packed.reshape(n_blocks, C.SUB, 8))
+    full = (counts, lists, tnear, cl.comp, member, packed)
+    part = (pc, pl, pt, cl.comp, member, pp.reshape(-1, 8))
+    rows_k = C.walk_sc_closest(*part)
+    rows_p = C.walk_sc_closest_plain(*part)
+    out["closest_err"] = float(torch.where(
+        rows_k == rows_p, 0.0, (rows_k - rows_p).abs()).max())
+    require(torch.equal(rows_k.view(torch.int32), rows_p.view(torch.int32)),
+            f"{what}: sc closest rows differ from the plain version "
+            f"(max abs err {out['closest_err']})")
+    live = torch.repeat_interleave(pc.reshape(-1) > 0, C.SUB)
+    hits = C._hits_from_rows(rows_k, live, part[5][:, 7])
+    occ_k, occ_p = C.walk_sc_any(*part), C.walk_sc_any_plain(*part)
+    out["any_mismatches"] = int((occ_k != occ_p).sum())
+    require(out["any_mismatches"] == 0, f"{what}: sc occlusion differs")
+    closest = timed == "closest"
+    walk = C.walk_sc_closest if closest else C.walk_sc_any
+    plain = C.walk_sc_closest_plain if closest else C.walk_sc_any_plain
+    entries = int(counts.sum())
+    out.update(
+        rows_bit_equal=True,
+        compared_hits=int((hits.prim_id >= 0).sum()),
+        compared_occluded=int(occ_k.sum()),
+        entries_per_block=entries / n_blocks,
+        members_per_entry=int(visits.sum()) / max(entries, 1),
+        member_visits=int(visits.sum()),
+        walk_blocks=(f"{pc.shape[0]} of {n_blocks}" if blocks is not None
+                     else "all"),
+        **{f"{timed}_ms": cuda_ms(lambda: walk(*full), 10),
+           f"{timed}_plain_ms": cuda_ms(lambda: plain(*part), 1),
+           f"{timed}_bound": walk_bound(counts, lists, member,
+                                        cl.num_clusters, packed, walk(*full),
+                                        closest, sc=member.shape[2])})
     return out
 
 
@@ -409,8 +644,7 @@ def knot_phases(dev, card, record):
         res[name] = r = cluster_parity(cl, rays, exact, gate,
                                        f"knot25k {name}")
         phase(f"b knot25k {name}", rays=W * H, exact=exact, gated=gate,
-              **{k: (f"{v:.3f}" if isinstance(v, float) and k.endswith("ms")
-                     else v) for k, v in r.items()})
+              **fmt(r))
     stats = C.traversal_stats(cl, prim)
     del prim, shadow, bounce
 
@@ -431,23 +665,24 @@ def knot_phases(dev, card, record):
             res[name] = r = cluster_parity(cl, rays, exact, gate,
                                            f"knot25k {name}")
             phase(f"b knot25k {name}", rays=rays.tmin.shape[0], exact=exact,
-                  gated=gate,
-                  **{k: (f"{v:.3f}" if isinstance(v, float)
-                         and k.endswith("ms") else v) for k, v in r.items()})
+                  gated=gate, **fmt(r))
     del closest_calls, any_calls, rc, ra, rays
-    # kernel times of the JSON record: the strip's bounce-1 queries
+    # kernel times of the JSON record: the strip's bounce-1 queries (the
+    # kernels on all blocks; the plain walks on the blocks `walk_blocks`
+    # names)
+    b1, b1s = res["strip_bounce1"], res["strip_bounce1_shadow"]
     record["cluster_cull_exact"] = dict(
         max_abs_err=max(r["cull_err"] for r in res.values()),
-        ms=res["strip_bounce1"]["cull_ms"],
-        plain_ms=res["strip_bounce1"]["cull_plain_ms"])
+        ms=b1["cull_ms"], plain_ms=b1["cull_plain_ms"], **b1["cull_bound"],
+        plain_blocks="all")
     record["cluster_closest"] = dict(
         max_abs_err=max(r["closest_err"] for r in res.values()),
-        ms=res["strip_bounce1"]["closest_ms"],
-        plain_ms=res["strip_bounce1"]["closest_plain_ms"])
+        ms=b1["closest_ms"], plain_ms=b1["closest_plain_ms"],
+        **b1["closest_bound"], plain_blocks=b1["walk_blocks"])
     record["cluster_any"] = dict(
         max_abs_err=float(max(r["any_mismatches"] for r in res.values())),
-        ms=res["strip_bounce1_shadow"]["any_ms"],
-        plain_ms=res["strip_bounce1_shadow"]["any_plain_ms"])
+        ms=b1s["any_ms"], plain_ms=b1s["any_plain_ms"], **b1s["any_bound"],
+        plain_blocks=b1s["walk_blocks"])
 
     # --- (c) the streaming tier: a 500k-triangle knot ---
     t0 = time.perf_counter()
@@ -471,16 +706,15 @@ def knot_phases(dev, card, record):
         record["cluster_any"]["max_abs_err"] = max(
             record["cluster_any"]["max_abs_err"], float(r["any_mismatches"]))
         phase(f"c knot500k {name}", rays=W * H, exact_requested=exact,
-              **{k: (f"{v:.3f}" if isinstance(v, float) and k.endswith("ms")
-                     else v) for k, v in r.items()})
+              **fmt(r))
     del big, geom, bprim, bshadow
 
     # --- (d) the knot headline: sample-major vs the sequential oracle,
     # launches counted per path ---
-    film, rays_a, dt_a, peak_a, first_a, first_rays_a, n_a = timed_launches(
-        scene, cam, W, H, spl, depth, "auto", 2, dev)
-    _, rays_w, dt_w, peak_w, first_w, first_rays_w, n_w = timed_launches(
-        scene, cam, W, H, spl, depth, "wavefront", 1, dev)
+    film, rays_a, dt_a, peak_a, first_a, first_rays_a, n_a, _ = (
+        timed_launches(scene, cam, W, H, spl, depth, "auto", 2, dev))
+    _, rays_w, dt_w, peak_w, first_w, first_rays_w, n_w, _ = (
+        timed_launches(scene, cam, W, H, spl, depth, "wavefront", 1, dev))
     names = ("cluster_cull_exact", "cluster_closest", "cluster_any")
     for name in names:
         require(n_a[name] > 0, f"{name} never launched on the knot's "
@@ -512,6 +746,135 @@ def knot_phases(dev, card, record):
           auto_launches={k: n_a[k] for k in names},
           wavefront_launches={k: n_w[k] for k in names})
     return {k: n_a[k] for k in names}
+
+
+def sc_phases(dev, card, record):
+    """Phases (e)-(g): the 4.0M-triangle knot through the supercluster tier.
+    (e) the build, timed per step, and traversal_stats at supercluster
+    granularity; (f) kernels 5c/6c (and kernel 4 on the supercluster facade)
+    against their plain versions on tile-ordered primaries (interval cull),
+    NEE shadow rays (exact cull) and the six cluster queries of one
+    sample-major strip of the main path, plus the primaries' closest-hit
+    query rate (bench.py:346-384); (g) the 4M launch, sample-major against
+    the sequential oracle, launches counted per path. Returns the
+    sample-major path's counts of kernels 5c/6c."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    from optix_raytracer_tpu_torch.accel import native
+    from optix_raytracer_tpu_torch.scene.builtins import (knot_camera,
+                                                         knot_scene,
+                                                         trefoil_mesh)
+
+    def timed(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # --- (e) the 4M build: the scene, then its three steps again on their
+    # own (mesh, SAH order on the scene's geometry, table) ---
+    scene, build_s = timed(knot_scene, KNOT_SC["segments"], KNOT_SC["sides"],
+                           device=dev)
+    cl = scene.clusters
+    require(native.available(), "no SAH builder: the 4M knot took morton")
+    require(cl.num_clusters > C.MAX_STREAM_CLUSTERS,
+            "the 4M knot is not on the supercluster tier")
+    _, mesh_s = timed(trefoil_mesh, KNOT_SC["segments"], KNOT_SC["sides"])
+    order, sah_s = timed(native.sah_leaf_order, scene.geom)
+    again, table_s = timed(C.build_clusters, scene.geom, scene.tri_mat,
+                           order=order)
+    require(torch.equal(again.comp.view(torch.int32),
+                        cl.comp.view(torch.int32)),
+            "the 4M table differs between two builds")
+    del order, again
+    cull_aabb, member, n_sc = C._sc_tables(cl)
+    W, H, spl, depth = (KNOT_SC[k] for k in ("width", "height", "spl",
+                                              "depth"))
+    prim, shadow, _ = knot_ray_sets(scene, W, H, dev)
+    stats = C.traversal_stats(cl, prim)
+    phase("e knot4m build", triangles=scene.num_triangles,
+          clusters=cl.num_clusters, cluster_rows=cl.comp.shape[0],
+          superclusters=n_sc, c_pad=cull_aabb.shape[0] * C.LANES,
+          comp_mib=f"{cl.comp.numel() * 4 / 2**20:.1f}",
+          mesh_s=f"{mesh_s:.2f}", sah_s=f"{sah_s:.2f}",
+          table_s=f"{table_s:.2f}", build_s=f"{build_s:.2f}",
+          **{k: f"{v:.4g}" for k, v in stats.items()})
+    del cull_aabb, member
+
+    # --- (f) kernels 5c / 6c against their plain versions ---
+    res = {}
+    for name, rays, exact, timed in (("primary", prim, False, "closest"),
+                                     ("shadow", shadow, True, "any")):
+        res[name] = r = sc_parity(cl, rays, exact, f"knot4m {name}", timed)
+        phase(f"f knot4m {name}", rays=W * H, exact=exact, **fmt(r))
+    query_ms = cuda_ms(lambda: C.closest_hit(cl, prim), 10)
+    phase("f knot4m primaries closest_hit", rays=W * H,
+          query_ms=f"{query_ms:.3f}",
+          closest_mrays_per_s=f"{W * H / query_ms / 1e3:.1f}")
+    del prim, shadow
+    cam = knot_camera(W, H).params(dev)
+    closest_calls, any_calls = main_path_strip_sets(scene, cam, W, H, spl,
+                                                    depth)
+    for bounce, ((rc, ec, _), (ra, ea, _)) in enumerate(
+            zip(closest_calls, any_calls)):
+        require(ec == (bounce > 0) and ea,
+                f"4M strip bounce {bounce}: unexpected cull flags")
+        for name, rays, exact, timed in (
+                (f"strip_bounce{bounce}", rc, ec, "closest"),
+                (f"strip_bounce{bounce}_shadow", ra, ea, "any")):
+            res[name] = r = sc_parity(cl, rays, exact, f"knot4m {name}",
+                                      timed)
+            phase(f"f knot4m {name}", rays=rays.tmin.shape[0], exact=exact,
+                  **fmt(r))
+    del closest_calls, any_calls, rc, ra, rays
+    b1, b1s = res["strip_bounce1"], res["strip_bounce1_shadow"]
+    record["cluster_sc_closest"] = dict(
+        max_abs_err=max(r["closest_err"] for r in res.values()),
+        ms=b1["closest_ms"], plain_ms=b1["closest_plain_ms"],
+        **b1["closest_bound"], plain_blocks=b1["walk_blocks"])
+    record["cluster_sc_any"] = dict(
+        max_abs_err=float(max(r["any_mismatches"] for r in res.values())),
+        ms=b1s["any_ms"], plain_ms=b1s["any_plain_ms"], **b1s["any_bound"],
+        plain_blocks=b1s["walk_blocks"])
+
+    # --- (g) the 4M launch: sample-major against the sequential oracle ---
+    film, rays_a, dt_a, peak_a, first_a, first_rays_a, n_a, first_s = (
+        timed_launches(scene, cam, W, H, spl, depth, "auto", 2, dev))
+    img = to_np(film.accum)
+    require(img.shape == (H, W, 3) and np.isfinite(img).all()
+            and img.mean() > 0, "4M image not finite / empty")
+    _, rays_w, dt_w, peak_w, first_w, first_rays_w, n_w, first_w_s = (
+        timed_launches(scene, cam, W, H, spl, depth, "wavefront", 1, dev))
+    names = ("cluster_cull_exact", "cluster_sc_closest", "cluster_sc_any")
+    for name in names:
+        require(n_a[name] > 0, f"{name} never launched on the 4M knot's "
+                               f"sample-major (auto) path")
+        require(n_w[name] > 0, f"{name} never launched on the 4M knot's "
+                               f"sequential (wavefront) path")
+    a, b = to_np(first_a.accum), to_np(first_w.accum)
+    require(first_rays_a == first_rays_w,
+            f"4M ray counts differ: {first_rays_a} vs {first_rays_w}")
+    require(np.allclose(a, b, atol=ATOL, rtol=RTOL),
+            f"4M images differ by {np.abs(a - b).max()}")
+    phase("g knot4m headline", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, triangles=scene.num_triangles,
+          first_launch_s=f"{first_s:.2f}",
+          ms_per_launch=f"{1e3 * dt_a / 2:.2f}",
+          mrays_per_s=f"{rays_a / dt_a / 1e6:.2f}",
+          msamples_per_s=f"{2 * W * H * spl / dt_a / 1e6:.2f}",
+          rays_per_launch=rays_a // 2, peak_mem_mib=f"{peak_a / 2**20:.0f}",
+          wavefront_first_launch_s=f"{first_w_s:.2f}",
+          wavefront_ms_per_launch=f"{1e3 * dt_w:.2f}",
+          wavefront_mrays_per_s=f"{rays_w / dt_w / 1e6:.2f}",
+          wavefront_peak_mem_mib=f"{peak_w / 2**20:.0f}",
+          first_launch_rays=first_rays_a,
+          auto_vs_wavefront_max_abs_diff=float(np.abs(a - b).max()),
+          pixels_bit_equal=f"{np.mean(np.all(a == b, axis=-1)):.6f}",
+          image_mean=f"{img.mean():.5f}",
+          auto_launches={k: n_a[k] for k in names},
+          wavefront_launches={k: n_w[k] for k in names})
+    return {k: n_a[k] for k in ("cluster_sc_closest", "cluster_sc_any")}
 
 
 def main():
@@ -638,10 +1001,10 @@ def main():
     W, H, spl, depth = (HEADLINE[k] for k in ("width", "height", "spl",
                                               "depth"))
     cam = cornell_camera(W, H).params(dev)
-    film, rays_f, dt_f, peak_f, first_f, first_rays_f, n_f = timed_launches(
-        scene, cam, W, H, spl, depth, "auto", 2, dev)
-    _, rays_w, dt_w, peak_w, first_w, first_rays_w, n_w = timed_launches(
-        scene, cam, W, H, spl, depth, "wavefront", 1, dev)
+    film, rays_f, dt_f, peak_f, first_f, first_rays_f, n_f, _ = (
+        timed_launches(scene, cam, W, H, spl, depth, "auto", 2, dev))
+    _, rays_w, dt_w, peak_w, first_w, first_rays_w, n_w, _ = (
+        timed_launches(scene, cam, W, H, spl, depth, "wavefront", 1, dev))
     require(n_f["pt_fused_cornell"] > 0,
             "pt_fused_cornell never launched on the Cornell auto path")
     for name in ("bf_closest", "bf_any"):
@@ -678,7 +1041,15 @@ def main():
                                                   "pt_fused_cornell")},
           fused_vs_wavefront_max_abs_diff=head_err,
           pixels_bit_equal=f"{np.mean(np.all(a == b, axis=-1)):.6f}")
-    record["pt_fused_cornell"].update(ms=ms_f, plain_ms=ms_w)
+    # Bound of kernel 3 per launch: of the traced rays at least half are
+    # closest-hit rays (each NEE shadow ray follows a hit), each tested
+    # against every triangle; a shadow ray needs one test at the least.
+    # Bytes: the radiance and count planes written once.
+    m = scene.num_triangles
+    rays_launch = rays_f // 2
+    record["pt_fused_cornell"].update(
+        ms=ms_f, plain_ms=ms_w, plain_blocks="all",
+        **bound(PAIR_OPS * (rays_launch // 2) * (m + 1), W * H * 16))
 
     # kernels 1 and 2 vs their plain versions on one 2M-ray wavefront
     cam_rays, shadow = camera_and_shadow_rays(scene, W, H, dev)
@@ -698,13 +1069,29 @@ def main():
         bf_any=(cuda_ms(lambda: pallas_bf.any_hit(tc, shadow), 20),
                 cuda_ms(lambda: pallas_bf.any_hit_plain(tc, shadow), 3)))
     for name, (k_ms, p_ms) in times.items():
-        record[name].update(ms=k_ms, plain_ms=p_ms)
+        record[name].update(ms=k_ms, plain_ms=p_ms, plain_blocks="all")
+    # Bounds: every live camera ray tests all m triangles; a shadow ray that
+    # is occluded needs one test at the least, one that is not all m. Bytes:
+    # the rays and triangle table read once, the hits / occlusion written.
+    table = m * (16 + 1) * 4
+    live_s = to_np(shadow.tmax > shadow.tmin)
+    record["bf_closest"].update(bound(
+        PAIR_OPS * int(to_np(cam_rays.tmax > cam_rays.tmin).sum()) * m,
+        W * H * (RAY_BYTES + 32) + table))
+    record["bf_any"].update(bound(
+        PAIR_OPS * (int((live_s & ~occ_k).sum()) * m
+                    + int((live_s & occ_k).sum())),
+        W * H * (RAY_BYTES + 1) + table))
     phase("6 bf timing", rays=W * H,
           **{f"{n}_ms": f"{t[0]:.3f}" for n, t in times.items()},
           **{f"{n}_plain_ms": f"{t[1]:.3f}" for n, t in times.items()})
 
     # --- phases (a)-(d): the large-mesh path (kernels 4-6) ---
     launches.update(knot_phases(dev, card, record))
+    torch.cuda.empty_cache()
+
+    # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---
+    launches.update(sc_phases(dev, card, record))
 
     # --- phase 7: the record and the verdict ---
     meta = dict(
@@ -719,10 +1106,17 @@ def main():
         cluster_closest=("optix_raytracer_tpu_torch/csrc/clusters.cu",
                          "optix_raytracer_tpu/accel/clusters.py:1150"),
         cluster_any=("optix_raytracer_tpu_torch/csrc/clusters.cu",
-                     "optix_raytracer_tpu/accel/clusters.py:1372"))
+                     "optix_raytracer_tpu/accel/clusters.py:1372"),
+        cluster_sc_closest=("optix_raytracer_tpu_torch/csrc/clusters.cu",
+                            "optix_raytracer_tpu/accel/clusters.py:858"),
+        cluster_sc_any=("optix_raytracer_tpu_torch/csrc/clusters.cu",
+                        "optix_raytracer_tpu/accel/clusters.py:933"))
+    # No single PyTorch call computes a Woop closest hit or a slab cull:
+    # library_ms is null for every kernel.
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=meta[n][0], replaces=meta[n][1],
-             launches=launches[n], **record[n]) for n in meta]}))
+             launches=launches[n], library_ms=None, **record[n])
+        for n in meta]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

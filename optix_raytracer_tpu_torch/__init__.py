@@ -7,10 +7,12 @@ find:
   core/       RNG, vector math, rays, camera, film
   shade/      materials, sampling, the parallelogram area light
   accel/      triangle geometry, brute-force intersection (CUDA kernels 1-2),
-              the cluster-culled large-mesh traversal (kernels 4-6), morton
-              codes and the binding to the native SAH builder
+              the cluster-culled large-mesh traversal (kernels 4-6, and
+              5c/6c for its supercluster tier), morton codes and the
+              binding to the native SAH builder
   scene/      the torch DeviceScene, the built-in Cornell box and knot
   wavefront/  the lock-step engine and the fused path-trace kernel (kernel 3)
+  io/         image output
   apps/       the Cornell path tracer CLI
   csrc/       the hand-written CUDA C++ kernels, built on first use by
               `kernels.py`

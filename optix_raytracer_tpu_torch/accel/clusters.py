@@ -17,15 +17,27 @@ blocks of SUB = 256 and then:
    pair-testing the block's rays against the cluster's 128 triangles, with
    the walk gated per 32-ray group where the exact cull's bits allow it.
 
+Past MAX_STREAM_CLUSTERS clusters (1M triangles) the supercluster tier takes
+over (clusters.py:740-1007): SC_CLUSTERS consecutive clusters form a
+supercluster, steps 1-2 run unchanged on a view whose clusters are the
+superclusters (`_sc_facade`), and the walk (kernel 5c, `walk_sc_closest`;
+kernel 6c, `walk_sc_any`) slab-tests each listed supercluster's member
+AABBs against the block and pair-tests only the members some ray crosses, in
+ascending order. Up to MAX_SUPERCLUSTERS superclusters (4.19M triangles).
+
 Every function mirrors the JAX one of the same name and returns the same
 values for the same inputs: the cluster table bit for bit, culls and lists bit
 for bit, hit ids equal. The JAX package's grid of 16 blocks per step
 (GROUPS) is kept in the padding and in the shapes of the cull outputs
-([n_super, GROUPS, c_pad]) so the two can be compared directly.
+([n_super, GROUPS, c_pad]) so the two can be compared directly. One
+exception: the member mask is built with integer ops, where the reference's
+`_member_bits` packs it with f32 `exp2` weights that are not exact for every
+bit (see `_member_bits`).
 
 On CUDA tensors the kernel wrappers launch the kernels; on CPU tensors they
-run the plain versions. The supercluster tier (more than
-MAX_STREAM_CLUSTERS clusters) is not ported yet (ROADMAP.md).
+run the plain versions. The tier caps (MAX_CLUSTERS, MAX_STREAM_CLUSTERS,
+SC_CLUSTERS, MAX_SUPERCLUSTERS) are read at call time, so tests can lower
+them.
 """
 from __future__ import annotations
 
@@ -47,7 +59,9 @@ GROUPS = 16                 # blocks per JAX grid step (padding unit: SUPER)
 SUPER = SUB * GROUPS
 MAX_CLUSTERS = 1024         # exact-cull / gated-walk cap (10 id bits)
 MAX_STREAM_CLUSTERS = 8192  # per-cluster list cap (13 id bits)
-SC_CLUSTERS = 32            # supercluster size (its tier is not ported)
+SC_CLUSTERS = 32            # clusters per supercluster (4096 triangles)
+MAX_SUPERCLUSTERS = 1024    # supercluster-tier cap (10 id bits, 4.19M tris)
+MAX_MEMBERS = 32            # the sc kernels' member mask is one uint32
 COMP_ROWS = 32              # constants per cluster slot, see ClusterSet
 
 _DEGEN_EPS = 1e-12
@@ -92,8 +106,9 @@ def build_clusters(geom: TriangleGeometry, tri_mat=None,
     n = geom.num_triangles
     c = -(-n // LANES)
     c_rows = max(1, -(-c // LANES))
-    # The supercluster tier rounds the row count up (clusters.py:140-141);
-    # kept so the table keeps the reference's layout at every size.
+    # Past the per-cluster cap the supercluster tier walks the table in
+    # SC_CLUSTERS-row slabs, so the row count is rounded up with never-hit
+    # padding clusters (clusters.py:137-141).
     c_alloc = (-(-c // SC_CLUSTERS) * SC_CLUSTERS
                if c > MAX_STREAM_CLUSTERS else c)
     n_slots = c_alloc * LANES
@@ -216,15 +231,39 @@ def _block_cull(cl: ClusterSet, packed, n_blocks: int, c_pad: int):
     return mask, tnear
 
 
+def _slab_cross(a, lo, hi):
+    """The exact per-ray slab test of `_exact_cull_kernel`
+    (clusters.py:270-289) and `_member_cross` (:789-813): rays a [B, R, 8]
+    against boxes lo, hi [B or 1, 3, C] → (cross [B, R, C] bool, tn
+    [B, R, C] f32 entry distance). The +-1e12 pseudo-inverse for |d| <=
+    1e-12 (-0.0 gets +1e12), the rule max(tn, tmin) <= min(tf, tmax), and
+    live rays (tmax > tmin) only. One helper for the cull and the member
+    test, so they agree on which boxes a ray crosses."""
+    tmin, tmax = a[:, :, 6:7], a[:, :, 7:8]
+    live = tmax > tmin
+    shape = (a.shape[0], a.shape[1], lo.shape[2])
+    tn = torch.full(shape, -_BIG, device=a.device)
+    tf = torch.full(shape, _BIG, device=a.device)
+    for ax in range(3):
+        d = a[:, :, 3 + ax:4 + ax]
+        inv = torch.where(torch.abs(d) > _DEGEN_EPS, 1.0 / d,
+                          torch.where(d < 0, -1e12, 1e12))
+        o = a[:, :, ax:ax + 1]
+        t0 = (lo[:, None, ax, :] - o) * inv
+        t1 = (hi[:, None, ax, :] - o) * inv
+        tn = torch.maximum(tn, torch.minimum(t0, t1))
+        tf = torch.minimum(tf, torch.maximum(t0, t1))
+    return (torch.maximum(tn, tmin) <= torch.minimum(tf, tmax)) & live, tn
+
+
 def exact_cull_plain(aabb, packed, n_blocks: int, c_pad: int):
     """Plain version of kernel 4: for each 256-ray block and each cluster,
     (tn [n_blocks, c_pad] f32, gm [n_blocks, c_pad] int32). tn is the
     minimum of max(t_entry, 0) over the block's live rays whose window
     crosses the cluster's AABB, or _BIG; bit g of gm is set when a ray of the
-    block's g-th 32-ray group crosses. The slab test is
-    `_exact_cull_kernel`'s (clusters.py:270-289): the +-1e12 pseudo-inverse
-    below 1e-12 and its min/max order."""
-    ab = aabb.transpose(1, 2).reshape(c_pad, 6)
+    block's g-th 32-ray group crosses (slab test: `_slab_cross`)."""
+    ab = aabb.transpose(1, 2).reshape(c_pad, 6).T            # [6, c_pad]
+    lo, hi = ab[None, 0:3], ab[None, 3:6]
     blk = packed.reshape(n_blocks, SUB, 8)
     tn_out = torch.empty((n_blocks, c_pad), dtype=torch.float32,
                          device=packed.device)
@@ -233,22 +272,7 @@ def exact_cull_plain(aabb, packed, n_blocks: int, c_pad: int):
     shifts = torch.arange(SUB // GROUP_ROWS, device=packed.device,
                           dtype=torch.int32)
     for s, e in _block_chunks(n_blocks, SUB * c_pad):
-        a = blk[s:e]                                         # [B, 256, 8]
-        tmin, tmax = a[:, :, 6:7], a[:, :, 7:8]
-        live = tmax > tmin
-        tn = torch.full((e - s, SUB, c_pad), -_BIG, device=packed.device)
-        tf = torch.full((e - s, SUB, c_pad), _BIG, device=packed.device)
-        for ax in range(3):
-            d = a[:, :, 3 + ax:4 + ax]
-            inv = torch.where(torch.abs(d) > _DEGEN_EPS, 1.0 / d,
-                              torch.where(d < 0, -1e12, 1e12))
-            o = a[:, :, ax:ax + 1]
-            t0 = (ab[None, None, :, ax] - o) * inv
-            t1 = (ab[None, None, :, ax + 3] - o) * inv
-            tn = torch.maximum(tn, torch.minimum(t0, t1))
-            tf = torch.minimum(tf, torch.maximum(t0, t1))
-        cross = ((torch.maximum(tn, tmin) <= torch.minimum(tf, tmax))
-                 & live)
+        cross, tn = _slab_cross(blk[s:e], lo, hi)
         tn_out[s:e] = torch.where(cross, torch.clamp_min(tn, 0.0),
                                   _BIG).amin(dim=1)
         grp = cross.reshape(e - s, SUB // GROUP_ROWS, GROUP_ROWS,
@@ -394,6 +418,57 @@ def _walk_inputs(counts, lists, packed):
             packed.reshape(nb, SUB, 8))
 
 
+def _list_steps(counts, lists, block_chunk: int):
+    """The plain walks' schedule: for each list position k, front to back,
+    the blocks whose lists reach it, in chunks → (blocks [B], entries [B])."""
+    max_count = int(counts.max()) if counts.numel() else 0
+    for k in range(max_count):
+        walking = torch.nonzero(counts > k)[:, 0]
+        for s in range(0, walking.shape[0], block_chunk):
+            b = walking[s:s + block_chunk]
+            yield b, lists[b, k]
+
+
+class _ClosestState:
+    """The plain closest walk's running best per ray: t, lane, (u, v,
+    normal) and (prim, mat) of blocks [nb] of 256 rays."""
+
+    def __init__(self, rays):
+        nb, dev = rays.shape[0], rays.device
+        self.bt = rays[:, :, 7].clone()
+        self.blane = torch.full((nb, SUB), LANES, dtype=torch.int64,
+                                device=dev)
+        self.rec = torch.zeros((nb, SUB, 5), dtype=torch.float32, device=dev)
+        self.ids = torch.full((nb, SUB, 2), -1.0, dtype=torch.float32,
+                              device=dev)
+
+    def step(self, b, blk, a, gm, gate: bool):
+        """Pair-test the rays a [B, 256, 8] of blocks b against one cluster
+        each (blk [B, 32, 128]) and keep the better hit: smaller t, or equal
+        t at a lower lane; an equal hit of a later step never wins."""
+        ok, tt, uu, vv = _pair_ok(blk, a, gm, gate)
+        tk, lane = torch.where(ok, tt, torch.inf).min(dim=2)
+        bt, blane = self.bt[b], self.blane[b]
+        better = ok.any(dim=2) & ((tk < bt) | ((tk == bt) & (lane < blane)))
+        li = lane[:, :, None]
+        u = uu.gather(2, li)[:, :, 0]
+        v = vv.gather(2, li)[:, :, 0]
+        c = blk.gather(2, li[:, None, :, 0].expand(-1, COMP_ROWS, -1))
+        n0, d10, d20 = c[:, 18:21], c[:, 21:24], c[:, 24:27]  # [B, 3, 256]
+        nrm = n0 + u[:, None] * d10 + v[:, None] * d20
+        new_rec = torch.cat([u[..., None], v[..., None],
+                             nrm.transpose(1, 2)], dim=2)
+        new_ids = c[:, 16:18].transpose(1, 2)
+        self.bt[b] = torch.where(better, tk, bt)
+        self.blane[b] = torch.where(better, lane, blane)
+        self.rec[b] = torch.where(better[..., None], new_rec, self.rec[b])
+        self.ids[b] = torch.where(better[..., None], new_ids, self.ids[b])
+
+    def rows(self):
+        rows = torch.cat([self.bt[..., None], self.rec, self.ids], dim=2)
+        return rows.reshape(-1, 8)
+
+
 def walk_closest_plain(counts, lists, tnear, comp, packed, gate: bool,
                        block_chunk: int = 256):
     """Plain version of kernel 5 → rows [n_padded, 8] f32 (t u v nx ny nz
@@ -408,40 +483,11 @@ def walk_closest_plain(counts, lists, tnear, comp, packed, gate: bool,
     `tnear` is not read: the plain walk has no early exit."""
     del tnear
     counts, lists, rays = _walk_inputs(counts, lists, packed)
-    dev = packed.device
-    nb = counts.shape[0]
-    shape = (nb, SUB)
-    bt = rays[:, :, 7].clone()
-    blane = torch.full(shape, LANES, dtype=torch.int64, device=dev)
-    rec = torch.zeros((nb, SUB, 5), dtype=torch.float32, device=dev)
-    ids = torch.full((nb, SUB, 2), -1.0, dtype=torch.float32, device=dev)
-    max_count = int(counts.max()) if nb else 0
-    for k in range(max_count):
-        walking = torch.nonzero(counts > k)[:, 0]
-        for s in range(0, walking.shape[0], block_chunk):
-            b = walking[s:s + block_chunk]
-            entry = lists[b, k]
-            blk = comp[(entry & 0xFFFF).to(torch.int64)]     # [B, 32, 128]
-            ok, tt, uu, vv = _pair_ok(blk, rays[b], (entry >> 16) & 0xFF,
-                                      gate)
-            tk, lane = torch.where(ok, tt, torch.inf).min(dim=2)
-            found = ok.any(dim=2)
-            better = found & ((tk < bt[b]) | ((tk == bt[b]) & (lane < blane[b])))
-            li = lane[:, :, None]
-            u = uu.gather(2, li)[:, :, 0]
-            v = vv.gather(2, li)[:, :, 0]
-            c = blk.gather(2, li[:, None, :, 0].expand(-1, COMP_ROWS, -1))
-            n0, d10, d20 = c[:, 18:21], c[:, 21:24], c[:, 24:27]  # [B, 3, 256]
-            nrm = n0 + u[:, None] * d10 + v[:, None] * d20
-            new_rec = torch.cat([u[..., None], v[..., None],
-                                 nrm.transpose(1, 2)], dim=2)
-            new_ids = c[:, 16:18].transpose(1, 2)
-            bt[b] = torch.where(better, tk, bt[b])
-            blane[b] = torch.where(better, lane, blane[b])
-            rec[b] = torch.where(better[..., None], new_rec, rec[b])
-            ids[b] = torch.where(better[..., None], new_ids, ids[b])
-    rows = torch.cat([bt[..., None], rec, ids], dim=2)
-    return rows.reshape(nb * SUB, 8)
+    st = _ClosestState(rays)
+    for b, entry in _list_steps(counts, lists, block_chunk):
+        st.step(b, comp[(entry & 0xFFFF).to(torch.int64)], rays[b],
+                (entry >> 16) & 0xFF, gate)
+    return st.rows()
 
 
 def walk_any_plain(counts, lists, tnear, comp, packed, gate: bool,
@@ -451,18 +497,12 @@ def walk_any_plain(counts, lists, tnear, comp, packed, gate: bool,
     (dead rays never do). `tnear` is not read: no early exit."""
     del tnear
     counts, lists, rays = _walk_inputs(counts, lists, packed)
-    nb = counts.shape[0]
-    occ = torch.zeros((nb, SUB), dtype=torch.bool, device=packed.device)
-    max_count = int(counts.max()) if nb else 0
-    for k in range(max_count):
-        walking = torch.nonzero(counts > k)[:, 0]
-        for s in range(0, walking.shape[0], block_chunk):
-            b = walking[s:s + block_chunk]
-            entry = lists[b, k]
-            blk = comp[(entry & 0xFFFF).to(torch.int64)]
-            ok, _, _, _ = _pair_ok(blk, rays[b], (entry >> 16) & 0xFF, gate)
-            occ[b] = occ[b] | ok.any(dim=2)
-    return occ.reshape(nb * SUB).to(torch.int32)
+    occ = torch.zeros(rays.shape[:2], dtype=torch.bool, device=packed.device)
+    for b, entry in _list_steps(counts, lists, block_chunk):
+        blk = comp[(entry & 0xFFFF).to(torch.int64)]
+        ok, _, _, _ = _pair_ok(blk, rays[b], (entry >> 16) & 0xFF, gate)
+        occ[b] = occ[b] | ok.any(dim=2)
+    return occ.reshape(-1).to(torch.int32)
 
 
 def _walk_args(name, counts, lists, tnear, comp, packed):
@@ -525,28 +565,241 @@ def walk_any(counts, lists, tnear, comp, packed, gate: bool):
 
 
 # ---------------------------------------------------------------------------
+# The supercluster tier: kernels 5c and 6c and their plain versions
+# ---------------------------------------------------------------------------
+
+def _sc_tables(cl: ClusterSet):
+    """Supercluster tables of a cluster set built for this tier
+    (clusters.py:754-786) → (cull_aabb [SC_rows, 6, 128] f32, the
+    superclusters' AABBs 128 per row, padding inverted; member_aabb
+    [sc_pad, 6, SC_CLUSTERS] f32, each supercluster's member-cluster AABBs,
+    padding rows inverted; n_sc). The reference keeps member_aabb 128 lanes
+    wide; its first SC_CLUSTERS lanes are these."""
+    sc = SC_CLUSTERS
+    if not 1 <= sc <= MAX_MEMBERS:
+        raise ValueError(f"SC_CLUSTERS must lie in [1, {MAX_MEMBERS}], "
+                         f"got {sc}")
+    rows = cl.comp.shape[0]
+    if rows % sc:
+        raise ValueError(f"{rows} cluster rows are not whole superclusters "
+                         f"of {sc}: the table was built for another tier")
+    n_sc = rows // sc
+    if n_sc > MAX_SUPERCLUSTERS:
+        raise NotImplementedError(
+            f"{n_sc} superclusters: the cluster path stops at "
+            f"{MAX_SUPERCLUSTERS} ({MAX_SUPERCLUSTERS * sc * LANES} "
+            f"triangles); the LBVH fallback past it is not ported yet "
+            f"(ROADMAP.md Queue 1 item 6)")
+    dev = cl.aabb.device
+    mem = _aabb_rows(cl)[:n_sc * sc].reshape(n_sc, sc, 6)
+    sc_rows = -(-n_sc // LANES)
+    fill = sc_rows * LANES - n_sc
+    lo = torch.cat([mem[:, :, 0:3].amin(dim=1),
+                    torch.full((fill, 3), _BIG, device=dev)])
+    hi = torch.cat([mem[:, :, 3:6].amax(dim=1),
+                    torch.full((fill, 3), -_BIG, device=dev)])
+    cull_aabb = torch.cat([lo, hi], dim=1).reshape(sc_rows, LANES, 6)
+    inv_rows = torch.cat([torch.full((fill, 3, sc), _BIG, device=dev),
+                          torch.full((fill, 3, sc), -_BIG, device=dev)], dim=1)
+    member = torch.cat([mem.transpose(1, 2), inv_rows])
+    return (cull_aabb.transpose(1, 2).contiguous(), member.contiguous(),
+            n_sc)
+
+
+def _sc_facade(cl: ClusterSet, cull_aabb, n_sc: int) -> ClusterSet:
+    """A ClusterSet view whose clusters are the superclusters, so the cull
+    and compaction run unchanged at the coarse tier (clusters.py:1003)."""
+    return ClusterSet(comp=cl.comp[:0], aabb=cull_aabb,
+                      slot_prim=cl.slot_prim[:0], num_clusters=n_sc)
+
+
+def _member_cross(a, member):
+    """Exact slab test of each block's supercluster member AABBs member
+    [B, 6, M] against its rays a [B, 256, 8] → bool [B, 256, M]
+    (clusters.py:789-813): `_slab_cross`, the exact cull's own test."""
+    return _slab_cross(a, member[:, 0:3], member[:, 3:6])[0]
+
+
+def _member_bits(cross):
+    """Member crossings [B, R, M] (M <= 32) → int64 [B] holding a 32-bit
+    mask: bit c is set when some ray of the block crosses member c. Integer
+    shifts of distinct bits, so the sum is their OR, exactly.
+
+    The reference (`_member_bits`, clusters.py:816-831) sums f32 `exp2`
+    weights instead. `exp2` is not exact for every integer on XLA:CPU
+    (exp2(13) = 8192.0039, exp2(15) = 32767.984), so past 13 members its
+    masks name wrong members and its walk can drop hits; the port is held
+    to it only at SC_CLUSTERS <= 8."""
+    hv = cross.any(dim=1).to(torch.int64)
+    shifts = torch.arange(cross.shape[2], dtype=torch.int64,
+                          device=cross.device)
+    return (hv << shifts).sum(dim=1)
+
+
+def _lowest_bit(m):
+    """Index of the lowest set bit of each 32-bit mask in m (int64, > 0):
+    five integer mask tests, as `__ffs` - 1."""
+    low = m & -m
+    c = torch.zeros_like(m)
+    for mask, width in ((0xFFFF0000, 16), (0xFF00FF00, 8), (0xF0F0F0F0, 4),
+                        (0xCCCCCCCC, 2), (0xAAAAAAAA, 1)):
+        c += ((low & mask) != 0).to(m.dtype) * width
+    return c
+
+
+def _for_each_set_member(bits, fn):
+    """Pop each block's mask lowest bit first (clusters.py:834-855): call
+    fn(sel, c) with the blocks sel [K] that still have a bit set and their
+    lowest member c [K], then clear it. So every block visits its members
+    in ascending order, the reference's and the kernels' order."""
+    m = bits.clone()
+    while True:
+        sel = torch.nonzero(m)[:, 0]
+        if sel.numel() == 0:
+            return
+        ms = m[sel]
+        fn(sel, _lowest_bit(ms))
+        m[sel] = ms & (ms - 1)
+
+
+def _sc_visits(counts, lists, member_aabb, packed, block_chunk):
+    """The plain sc walks' schedule: for each list position, front to back,
+    and each member of the entry's block-union mask, ascending →
+    (blocks [K], member rows of comp [K], rays [K, 256, 8])."""
+    counts, lists, rays = _walk_inputs(counts, lists, packed)
+    sc = member_aabb.shape[2]
+    for b, entry in _list_steps(counts, lists, block_chunk):
+        s = (entry & 0xFFFF).to(torch.int64)     # group bits are ignored
+        a = rays[b]
+        bits = _member_bits(_member_cross(a, member_aabb[s]))
+        visits = []
+        _for_each_set_member(bits, lambda sel, c: visits.append((sel, c)))
+        for sel, c in visits:
+            yield b[sel], s[sel] * sc + c, a[sel]
+
+
+def walk_sc_closest_plain(counts, lists, tnear, comp, member_aabb, packed,
+                          block_chunk: int = 256):
+    """Plain version of kernel 5c (`_sc_closest_kernel`, clusters.py:858) →
+    rows [n_padded, 8] as walk_closest_plain. For each block, each list
+    entry s (a supercluster) and each member c of the entry's block-union
+    mask, ascending: the pair test against comp[s * SC + c], with
+    walk_closest_plain's tie rule (smallest t, then lowest lane, then the
+    earlier visit). No early exit; `tnear` is not read."""
+    del tnear
+    st = _ClosestState(packed.reshape(-1, SUB, 8))
+    for b, rows, a in _sc_visits(counts, lists, member_aabb, packed,
+                                 block_chunk):
+        st.step(b, comp[rows], a, None, False)
+    return st.rows()
+
+
+def walk_sc_any_plain(counts, lists, tnear, comp, member_aabb, packed,
+                      block_chunk: int = 256):
+    """Plain version of kernel 6c (`_sc_any_kernel`, clusters.py:933) → occ
+    [n_padded] int32, over the same visits as walk_sc_closest_plain."""
+    del tnear
+    occ = torch.zeros((counts.numel(), SUB), dtype=torch.bool,
+                      device=packed.device)
+    for b, rows, a in _sc_visits(counts, lists, member_aabb, packed,
+                                 block_chunk):
+        ok, _, _, _ = _pair_ok(comp[rows], a, None, False)
+        occ[b] = occ[b] | ok.any(dim=2)
+    return occ.reshape(-1).to(torch.int32)
+
+
+def _sc_walk_args(name, counts, lists, tnear, comp, member_aabb, packed):
+    nb, c_pad = _walk_args(name, counts, lists, tnear, comp, packed)
+    sc = member_aabb.shape[2] if member_aabb.ndim == 3 else 0
+    if not 1 <= sc <= MAX_MEMBERS:
+        raise ValueError(f"{name}: {sc} members per supercluster; the "
+                         f"kernel takes 1 to {MAX_MEMBERS}")
+    kernels.require(member_aabb, "member_aabb", torch.float32,
+                    (member_aabb.shape[0], 6, sc), packed.device)
+    return nb, c_pad, sc
+
+
+def walk_sc_closest(counts, lists, tnear, comp, member_aabb, packed):
+    """Kernel 5c (replaces `_sc_closest_kernel`, clusters.py:858; pallas_call
+    at :1150): see walk_sc_closest_plain."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return walk_sc_closest_plain(counts, lists, tnear, comp, member_aabb,
+                                     packed)
+    if dev.type != "cuda":
+        raise ValueError(f"walk_sc_closest: unsupported device {dev}")
+    nb, c_pad, sc = _sc_walk_args("walk_sc_closest", counts, lists, tnear,
+                                  comp, member_aabb, packed)
+    rows = torch.empty((nb * SUB, 8), dtype=torch.float32, device=dev)
+    if nb == 0:
+        return rows
+    with torch.cuda.device(dev):
+        err = kernels.lib().ort_cluster_sc_closest(
+            counts.data_ptr(), lists.data_ptr(), tnear.data_ptr(),
+            comp.data_ptr(), comp.shape[0], member_aabb.data_ptr(),
+            member_aabb.shape[0], sc, packed.data_ptr(), nb, c_pad,
+            rows.data_ptr(), kernels.stream_ptr(dev))
+        kernels.LAUNCHES["cluster_sc_closest"] += 1
+    kernels.check(err, "cluster_sc_closest")
+    return rows
+
+
+def walk_sc_any(counts, lists, tnear, comp, member_aabb, packed):
+    """Kernel 6c (replaces `_sc_any_kernel`, clusters.py:933; pallas_call at
+    :1372): see walk_sc_any_plain."""
+    dev = packed.device
+    if dev.type == "cpu":
+        return walk_sc_any_plain(counts, lists, tnear, comp, member_aabb,
+                                 packed)
+    if dev.type != "cuda":
+        raise ValueError(f"walk_sc_any: unsupported device {dev}")
+    nb, c_pad, sc = _sc_walk_args("walk_sc_any", counts, lists, tnear, comp,
+                                  member_aabb, packed)
+    occ = torch.empty((nb * SUB,), dtype=torch.int32, device=dev)
+    if nb == 0:
+        return occ
+    with torch.cuda.device(dev):
+        err = kernels.lib().ort_cluster_sc_any(
+            counts.data_ptr(), lists.data_ptr(), tnear.data_ptr(),
+            comp.data_ptr(), comp.shape[0], member_aabb.data_ptr(),
+            member_aabb.shape[0], sc, packed.data_ptr(), nb, c_pad,
+            occ.data_ptr(), kernels.stream_ptr(dev))
+        kernels.LAUNCHES["cluster_sc_any"] += 1
+    kernels.check(err, "cluster_sc_any")
+    return occ
+
+
+# ---------------------------------------------------------------------------
 # Queries
 # ---------------------------------------------------------------------------
 
-def _check_tier(cl: ClusterSet):
-    if cl.num_clusters > MAX_STREAM_CLUSTERS:
-        raise NotImplementedError(
-            f"{cl.num_clusters} clusters: the supercluster tier (past "
-            f"{MAX_STREAM_CLUSTERS} clusters) is not ported yet (ROADMAP.md "
-            f"Queue 2)")
-
-
 def _padded(n: int) -> int:
     return -(-n // SUPER) * SUPER
+
+
+def _tier_cull(cl: ClusterSet, packed, exact: bool):
+    """The cull of the table's tier (clusters.py:1104-1134) → (counts,
+    lists, tnear, member_aabb). Up to MAX_STREAM_CLUSTERS clusters the lists
+    hold clusters and member_aabb is None; past it they hold superclusters,
+    culled through `_sc_facade` (c_pad <= 1024, so `exact` takes the exact
+    cull there too)."""
+    n_super = packed.shape[0] // SUPER
+    if cl.num_clusters <= MAX_STREAM_CLUSTERS:
+        return (*_cull(cl, packed, n_super, cl.c_pad, exact=exact), None)
+    cull_aabb, member, n_sc = _sc_tables(cl)
+    facade = _sc_facade(cl, cull_aabb, n_sc)
+    return (*_cull(facade, packed, n_super, facade.c_pad, exact=exact),
+            member)
 
 
 def _closest_core(cl: ClusterSet, packed, exact=False, group_walk=False):
     """Cull + walk over packed [n_padded, 8] rays → (rows [n_padded, 8],
     counts [n_super, GROUPS, 1]). The walk is gated only on the exact cull
     of the resident tier, as `_closest_core` (clusters.py:1095-1164)."""
-    _check_tier(cl)
-    n_super = packed.shape[0] // SUPER
-    counts, lists, tnear = _cull(cl, packed, n_super, cl.c_pad, exact=exact)
+    counts, lists, tnear, member = _tier_cull(cl, packed, exact)
+    if member is not None:
+        return walk_sc_closest(counts, lists, tnear, cl.comp, member,
+                               packed), counts
     gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
     return walk_closest(counts, lists, tnear, cl.comp, packed, gate), counts
 
@@ -554,11 +807,12 @@ def _closest_core(cl: ClusterSet, packed, exact=False, group_walk=False):
 def _any_core(cl: ClusterSet, packed, exact=False, group_walk=False):
     """Cull + occlusion walk → int32 [n_padded], empty blocks cleared
     (clusters.py:1329-1388)."""
-    _check_tier(cl)
-    n_super = packed.shape[0] // SUPER
-    counts, lists, tnear = _cull(cl, packed, n_super, cl.c_pad, exact=exact)
-    gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
-    occ = walk_any(counts, lists, tnear, cl.comp, packed, gate)
+    counts, lists, tnear, member = _tier_cull(cl, packed, exact)
+    if member is not None:
+        occ = walk_sc_any(counts, lists, tnear, cl.comp, member, packed)
+    else:
+        gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
+        occ = walk_any(counts, lists, tnear, cl.comp, packed, gate)
     live = torch.repeat_interleave(counts.reshape(-1) > 0, SUB)
     return torch.where(live, occ, 0)
 
@@ -658,17 +912,17 @@ def any_hit_sorted(cl: ClusterSet, rays: Rays,
 
 
 def traversal_stats(cl: ClusterSet, rays: Rays) -> dict:
-    """How many clusters each 256-ray block walks under the interval cull
-    (clusters.py:1299-1326) → dict of Python floats."""
-    _check_tier(cl)
-    n_padded = _padded(rays.tmin.shape[0])
-    packed = _pack_rays(rays, n_padded)
-    counts, _, _ = _cull(cl, packed, n_padded // SUPER, cl.c_pad)
+    """How many clusters (superclusters, on that tier) each 256-ray block
+    walks under the interval cull (clusters.py:1299-1326) → dict of Python
+    floats; a supercluster counts SC_CLUSTERS * 128 triangles."""
+    packed = _pack_rays(rays, _padded(rays.tmin.shape[0]))
+    counts, _, _, member = _tier_cull(cl, packed, exact=False)
+    per_item = LANES if member is None else member.shape[2] * LANES
     c = counts.reshape(-1).to(torch.float64)
     return {
         "mean_clusters_per_block": float(c.mean()),
         "max_clusters_per_block": float(c.max()),
-        "mean_tris_tested_per_ray": float(c.mean() * LANES),
+        "mean_tris_tested_per_ray": float(c.mean() * per_item),
         "empty_block_fraction": float((c == 0).to(torch.float64).mean()),
     }
 

@@ -12,13 +12,12 @@ import argparse
 import time
 
 import torch
-# Both JAX-package helpers are host-only: argparse, and numpy for uint8.
-from optix_raytracer_tpu.apps._cli import parse_dim
-from optix_raytracer_tpu.io.image import save_image
 
 from ..core import film as film_mod
+from ..io.image import save_image
 from ..scene.builtins import cornell_box, cornell_camera
 from ..wavefront.engine import render_accumulate
+from ._cli import parse_dim
 
 
 def render(width=768, height=768, samples=16, max_depth=4, chunk_size=65536,

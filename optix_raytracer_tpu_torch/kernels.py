@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"bf_closest": 0, "bf_any": 0, "pt_fused_cornell": 0,
-            "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0}
+            "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0,
+            "cluster_sc_closest": 0, "cluster_sc_any": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +52,12 @@ _SIGNATURES = {
     # stream
     "ort_cluster_closest": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
     "ort_cluster_any": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
+    # counts, lists, tnear, comp, n_comp, member_aabb, n_member_rows,
+    # members, rays, n_blocks, c_pad, out, stream
+    "ort_cluster_sc_closest": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
+                               _P, _P),
+    "ort_cluster_sc_any": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P,
+                           _P),
 }
 
 

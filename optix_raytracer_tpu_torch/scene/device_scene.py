@@ -79,18 +79,19 @@ def _check_tri_mat(tri_mat, num_tris, num_mats):
 
 
 def _build_cluster_table(geom: TriangleGeometry, tri_mat: torch.Tensor):
-    """The cluster table of a mesh past MAX_SMEM_TRIS triangles, in SAH leaf
-    order, or morton order without the native builder
-    (scene/device_scene.py:533-542); None for a smaller mesh."""
+    """The cluster table of a mesh past MAX_SMEM_TRIS triangles, up to the
+    supercluster tier's MAX_SUPERCLUSTERS * SC_CLUSTERS clusters (4.19M
+    triangles), in SAH leaf order, or morton order without the native
+    builder (scene/device_scene.py:533-542); None for a smaller mesh."""
     n = geom.num_triangles
     if n <= MAX_SMEM_TRIS:
         return None
-    if -(-n // cluster_mod.LANES) > cluster_mod.MAX_STREAM_CLUSTERS:
+    cap = cluster_mod.MAX_SUPERCLUSTERS * cluster_mod.SC_CLUSTERS
+    if -(-n // cluster_mod.LANES) > cap:
         raise NotImplementedError(
-            f"{n} triangles: meshes past "
-            f"{cluster_mod.MAX_STREAM_CLUSTERS * cluster_mod.LANES} triangles "
-            f"need the supercluster tier, which is not ported yet "
-            f"(ROADMAP.md Queue 2)")
+            f"{n} triangles: the cluster path stops at "
+            f"{cap * cluster_mod.LANES} triangles, and the LBVH fallback "
+            f"past it is not ported yet (ROADMAP.md Queue 1 item 6)")
     return cluster_mod.build_clusters(geom, tri_mat,
                                       order=native.sah_leaf_order(geom))
 

@@ -166,11 +166,12 @@ def test_sah_leaf_order_matches_jax(knot):
 
 
 def test_scene_builds_clusters_like_jax():
-    """Clusters past 512 triangles only; past the per-cluster cap the port
-    raises (the supercluster tier is not ported)."""
+    """Clusters past 512 triangles only; past the supercluster tier's
+    1024 x 32 clusters the port raises, as the reference falls back to its
+    LBVH (not ported)."""
     small = tbuiltins.cornell_box("cpu")
     assert not small.has_clusters and small.clusters is None
-    big = types.SimpleNamespace(num_triangles=8192 * 128 + 1)
+    big = types.SimpleNamespace(num_triangles=1024 * 32 * 128 + 1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tds._build_cluster_table(big, None)
     verts, idx, normals = tbuiltins.trefoil_mesh(8, 6)    # 96 smooth tris

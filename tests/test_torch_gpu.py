@@ -191,6 +191,61 @@ def test_cluster_queries_match_cpu(cuda, monkeypatch, max_clusters):
                        C.any_hit_sorted(cpu, rays))
 
 
+def _sc_tier(monkeypatch, members, segments, sides, device):
+    """The knot's table at the supercluster tier (stream cap lowered to 2,
+    `members` clusters per supercluster)."""
+    monkeypatch.setattr(C, "MAX_STREAM_CLUSTERS", 2)
+    monkeypatch.setattr(C, "SC_CLUSTERS", members)
+    return knot_scene(segments, sides, device=device).clusters
+
+
+@pytest.mark.parametrize("exact,members,segments,sides",
+                         [(False, 32, 90, 50), (True, 32, 90, 50),
+                          (True, 2, 20, 14)])
+def test_sc_kernels_match_plain(cuda, monkeypatch, exact, members, segments,
+                                sides):
+    """Kernels 5c / 6c against their plain versions on the same lists: rows
+    bit-equal, occlusion equal. The 9,002-triangle knot is 3 superclusters
+    of the real 32 members; the small knot 3 of 2."""
+    cl = _sc_tier(monkeypatch, members, segments, sides, cuda)
+    rays = _knot_rays(20000, 5, cuda)
+    n = rays.tmin.shape[0]
+    packed = C._pack_rays(rays, C._padded(n))
+    counts, lists, tnear, member = C._tier_cull(cl, packed, exact)
+    assert member.shape[2] == members and int(counts.max()) > 0
+    args = (counts, lists, tnear, cl.comp, member, packed)
+    before = dict(kernels.LAUNCHES)
+    rows, rows_p = C.walk_sc_closest(*args), C.walk_sc_closest_plain(*args)
+    occ, occ_p = C.walk_sc_any(*args), C.walk_sc_any_plain(*args)
+    torch.cuda.synchronize()
+    for name in ("cluster_sc_closest", "cluster_sc_any"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
+    assert torch.equal(occ, occ_p) and 0 < int(occ.sum()) < n
+    live = torch.repeat_interleave(counts.reshape(-1) > 0, C.SUB)[:n]
+    hits = C._hits_from_rows(rows[:n], live, rays.tmax)
+    assert (hits.prim_id >= 0).any() and (hits.prim_id < 0).any()
+
+
+def test_sc_queries_match_cpu(cuda, monkeypatch):
+    """Whole queries at the supercluster tier on the card (kernels 4, 5c,
+    6c) against the same queries on CPU tensors (plain versions)."""
+    gpu = _sc_tier(monkeypatch, 32, 90, 50, cuda)
+    cpu = _sc_tier(monkeypatch, 32, 90, 50, "cpu")
+    rays = _knot_rays(9000, 6, "cpu")
+    rays_g = Rays(*(getattr(rays, f).to(cuda) for f in
+                    ("origin", "direction", "tmin", "tmax")))
+    for exact in (False, True):
+        _assert_hits_equal(C.closest_hit(gpu, rays_g, exact=exact),
+                           C.closest_hit(cpu, rays, exact=exact))
+        assert torch.equal(C.any_hit(gpu, rays_g, exact=exact).cpu(),
+                           C.any_hit(cpu, rays, exact=exact))
+    _assert_hits_equal(C.closest_hit_sorted(gpu, rays_g),
+                       C.closest_hit_sorted(cpu, rays))
+    assert torch.equal(C.any_hit_sorted(gpu, rays_g).cpu(),
+                       C.any_hit_sorted(cpu, rays))
+
+
 def test_knot_launch_on_card(cuda):
     """The knot's sample-major launch against its sequential oracle on the
     card, and against the same launch on the CPU."""

@@ -1,8 +1,11 @@
 """The port needs no JAX: in a process where `import jax` and `import flax`
 fail, the package imports, renders an 8x8 1-spp Cornell box on the CPU and
-saves it as a PNG, and builds the small knot scene (its cluster table through
+saves it as a PNG through its own writer, and builds the small knot scene (its cluster table through
 the port's own native binding, or morton order without a compiler) and
-renders it 8x8 at 8 samples per launch through the sample-major path."""
+renders it 8x8 at 8 samples per launch through the sample-major path, then
+again with the supercluster tier forced (the same image within the parity
+bars, the same ray count). Until then no module of the JAX package is
+loaded; the JAX package's reader then checks the PNG."""
 import os
 import subprocess
 import sys
@@ -15,13 +18,11 @@ import numpy as np
 import optix_raytracer_tpu_torch
 from optix_raytracer_tpu_torch.apps import pathtracer
 from optix_raytracer_tpu_torch.core.film import make_color
-from optix_raytracer_tpu.io.image import load_image, save_image
+from optix_raytracer_tpu_torch.io.image import save_image
 accum, film, rays = pathtracer.render(8, 8, samples=1, max_depth=2,
                                       device="cpu")
 img = make_color(accum).numpy()
 save_image(sys.argv[1], img)
-back = load_image(sys.argv[1])
-assert back.shape == (8, 8, 4) and (back == img).all()
 assert np.isfinite(accum.numpy()).all() and int(rays) > 64
 from optix_raytracer_tpu_torch.core.film import Film
 from optix_raytracer_tpu_torch.scene.builtins import knot_camera, knot_scene
@@ -33,8 +34,23 @@ film, rays = render_accumulate(knot, knot_camera(8, 8).params("cpu"),
                                samples_per_launch=8, max_depth=2)
 assert np.isfinite(film.accum.numpy()).all() and int(rays) > 8 * 8 * 8
 assert float(film.accum.mean()) > 0
+from optix_raytracer_tpu_torch.accel import clusters
+clusters.MAX_STREAM_CLUSTERS, clusters.SC_CLUSTERS = 2, 2
+tier = knot_scene(20, 14, device="cpu")
+assert tier.clusters.comp.shape[0] == 6
+sc_film, sc_rays = render_accumulate(tier, knot_camera(8, 8).params("cpu"),
+                                     Film.create(8, 8, "cpu"), 8, 8,
+                                     samples_per_launch=8, max_depth=2)
+assert int(sc_rays) == int(rays)
+assert np.allclose(sc_film.accum.numpy(), film.accum.numpy(), atol=2e-3,
+                   rtol=1e-3)
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
+assert not any(m == "optix_raytracer_tpu"
+               or m.startswith("optix_raytracer_tpu.") for m in sys.modules)
+from optix_raytracer_tpu.io.image import load_image
+back = load_image(sys.argv[1])
+assert back.shape == (8, 8, 4) and (back == img).all()
 print("OK")
 """
 

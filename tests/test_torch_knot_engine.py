@@ -25,12 +25,13 @@ from optix_raytracer_tpu.core import film as jfilm
 from optix_raytracer_tpu.scene import builtins as jbuiltins
 from optix_raytracer_tpu.wavefront import engine as jengine
 from optix_raytracer_tpu.wavefront import intersect as jintersect
+from optix_raytracer_tpu_torch.accel import clusters as tcl
 from optix_raytracer_tpu_torch.core import rng as trng
 from optix_raytracer_tpu_torch.core.film import Film
 from optix_raytracer_tpu_torch.scene.builtins import knot_camera, knot_scene
 from optix_raytracer_tpu_torch.wavefront import engine
 
-from torch_parity import torch_cam, torch_scene
+from torch_parity import one_torch_thread, torch_cam, torch_scene  # noqa: F401
 
 ATOL, RTOL = 2e-3, 1e-3
 W = H = 16
@@ -88,6 +89,43 @@ def test_render_accumulate_matches_jax(jax_cluster_path, scenes, impl, jimpl):
     np.testing.assert_allclose(tf.sq.numpy(), np.asarray(jf.sq),
                                atol=ATOL, rtol=RTOL)
     assert int(tf.subframe) == 16 and float(tf.accum.mean()) > 0
+
+
+@pytest.mark.parametrize("impl,jimpl", [("auto", "auto"),
+                                        ("wavefront", "xla")])
+def test_supercluster_tier_render_matches_jax(jax_cluster_path, monkeypatch,
+                                              impl, jimpl):
+    """The supercluster tier forced in both packages (MAX_STREAM_CLUSTERS
+    = 2, SC_CLUSTERS = 2: the knot's 5 clusters as 3 superclusters, its table
+    built there): one launch, 16², spl 8, depth 2, through the sc walks on
+    both sides."""
+    for mod in (jcl, tcl):
+        monkeypatch.setattr(mod, "MAX_STREAM_CLUSTERS", 2)
+        monkeypatch.setattr(mod, "SC_CLUSTERS", 2)
+    jax.clear_caches()
+    walks = []
+    for name in ("walk_sc_closest_plain", "walk_sc_any_plain"):
+        fn = getattr(tcl, name)
+        monkeypatch.setattr(tcl, name, lambda *a, _fn=fn, _n=name, **k: (
+            walks.append(_n), _fn(*a, **k))[1])
+    try:
+        js = jbuiltins.knot_scene(20, 14)
+        assert js.clusters.comp.shape[0] == 6
+        ts = torch_scene(js)
+        jcam = jbuiltins.knot_camera(W, H).params()
+        jf, jrays = jengine.render_accumulate(
+            js, jcam, jfilm.Film.create(H, W), W, H, samples_per_launch=8,
+            max_depth=2, chunk_size=None, impl=jimpl)
+        tf, trays = engine.render_accumulate(
+            ts, torch_cam(jcam), Film.create(H, W, "cpu"), W, H,
+            samples_per_launch=8, max_depth=2, impl=impl)
+    finally:
+        jax.clear_caches()
+    assert {"walk_sc_closest_plain", "walk_sc_any_plain"} <= set(walks)
+    assert int(trays) == int(float(jrays)) > W * H * 8
+    np.testing.assert_allclose(tf.accum.numpy(), np.asarray(jf.accum),
+                               atol=ATOL, rtol=RTOL)
+    assert float(tf.accum.mean()) > 0
 
 
 def test_trace_paths_sorted_path_matches_jax(jax_cluster_path, scenes):

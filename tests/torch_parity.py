@@ -2,6 +2,8 @@
 camera over to optix_raytracer_tpu_torch as numpy arrays, so both sides
 compute on the same bits."""
 import numpy as np
+import pytest
+import torch
 
 from optix_raytracer_tpu_torch.core.camera import camera_params_from_numpy
 from optix_raytracer_tpu_torch.scene.device_scene import device_scene_from_numpy
@@ -36,3 +38,15 @@ def torch_scene(jscene, device="cpu"):
 def torch_cam(jcam_params, device="cpu"):
     return camera_params_from_numpy(
         {k: np.array(v) for k, v in jcam_params.items()}, device)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread for a module (imported by the modules
+    that want it). The suite runs in several worker processes on shared
+    cores; each worker's torch threads oversubscribe them, and the plain
+    walks' many small ops then run tens of times slower."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -6,12 +6,13 @@
 --scene knot profiles one launch of the 25,202-triangle knot scene
 (knot_scene(200, 63); default depth 3) through the sample-major path
 (impl="spl") and the sequential, coherence-sorted path (impl="wavefront"),
-both over the cluster kernels. torch.profiler prints for each: the wall time
+both over the cluster kernels; --scene knot4m the same for the
+4,002,002-triangle knot (knot_scene(1450, 1380), the supercluster tier). torch.profiler prints for each: the wall time
 of the launch, the device time summed over kernels, the device's idle share
 of the window, and the kernels that take the most device time. Needs a CUDA
 device; with --out DIR it also writes the Chrome traces there.
 
-    python tools/profile_torch_port.py [--scene cornell|knot]
+    python tools/profile_torch_port.py [--scene cornell|knot|knot4m]
         [--dim 1920x1088] [--spl 16] [--depth N] [--out DIR]
 """
 from __future__ import annotations
@@ -82,11 +83,11 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--scene", choices=("cornell", "knot"), default="cornell")
+    p.add_argument("--scene", choices=("cornell", "knot", "knot4m"), default="cornell")
     p.add_argument("--dim", default="1920x1088")
     p.add_argument("--spl", type=int, default=16)
     p.add_argument("--depth", type=int, default=None,
-                   help="bounces (default 4 for cornell, 3 for knot)")
+                   help="bounces (default 4 for cornell, 3 for the knots)")
     p.add_argument("--out", default=None,
                    help="directory for the Chrome traces (none by default)")
     args = p.parse_args()
@@ -96,8 +97,9 @@ def main():
     from optix_raytracer_tpu_torch.scene import builtins
     w, h = (int(v) for v in args.dim.split("x"))
     dev = torch.device("cuda")
-    if args.scene == "knot":
-        scene = builtins.knot_scene(200, 63, device=dev)
+    if args.scene in ("knot", "knot4m"):
+        mesh = (200, 63) if args.scene == "knot" else (1450, 1380)
+        scene = builtins.knot_scene(*mesh, device=dev)
         cam = builtins.knot_camera(w, h).params(dev)
         impls, depth = ("spl", "wavefront"), args.depth or 3
     else:
