@@ -7,7 +7,10 @@ the two main paths: the Cornell headline launch (1920x1088, 16 samples per
 launch, depth 4; kernels 1-3) and the large-mesh launch (the 25,202-triangle
 trefoil-knot scene, 1920x1088, 16 samples per launch, depth 3; kernels 4-6,
 the cluster-culled traversal), whose kernels are also held against their
-plain versions on the 25k knot and on a 500k-triangle knot.
+plain versions on the 25k knot and on a 500k-triangle knot, and the same
+launch through the cluster-major queue (ORT_QWALK=1; kernels 7-8, held
+against their plain versions and A/B-timed against the walk on the same
+sets); then the 4M-triangle knot through the supercluster tier.
 
     python3 chip_smoke.py
 
@@ -47,6 +50,12 @@ PLAIN_WALK_ENTRIES = 200_000
 # The same for the plain supercluster walks, counted in member visits
 # (block x crossed member cluster).
 PLAIN_SC_VISITS = 60_000
+# The queue's capacity, work items per octet of the padded batch
+# (optix_raytracer_tpu/accel/qwalk.py:307, the default of both packages).
+QWALK_QF = 6
+# Queue steps (256 marshalled rays x one cluster) past which kernel 8's
+# plain version runs on every k-th step only.
+PLAIN_QUEUE_STEPS = 4096
 
 # The card's peaks for the bound of each kernel (H100 SXM data sheet, dense,
 # at 700 W): FP32 outside the tensor cores, and HBM3.
@@ -605,12 +614,251 @@ def sc_parity(cl, rays, exact, what, timed):
     return out
 
 
+def prim_clusters(cl):
+    """The cluster of each triangle id in cl's table → [max id + 1] int64
+    (-1 for an id that no slot holds)."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    sp = cl.slot_prim.to(torch.int64)
+    valid = sp >= 0
+    out = torch.full((int(sp.max()) + 1,), -1, dtype=torch.int64,
+                     device=sp.device)
+    out[sp[valid]] = torch.nonzero(valid)[:, 0] // C.LANES
+    return out
+
+
+def queue_vs_walk(q, w, p2c, what):
+    """The queue's closest hits q against the walk's w on one set: prim and
+    material ids equal, and t, uv and normals within compare_hits' bars,
+    except where both hit at the same t, bit for bit, in two clusters: an
+    exact cross-cluster tie, which the queue gives to the lower cluster id
+    and the walk to the cluster it enters first → the count of such ties."""
+    import torch
+    diff = (q.prim_id != w.prim_id) | (q.mat_id != w.mat_id)
+    qp, wp = q.prim_id[diff], w.prim_id[diff]
+    tie = ((qp >= 0) & (wp >= 0)
+           & (q.t[diff].view(torch.int32) == w.t[diff].view(torch.int32))
+           & (p2c[qp.clamp_min(0)] != p2c[wp.clamp_min(0)]))
+    require(bool(tie.all()),
+            f"{what}: {int((~tie).sum())} hits differ from the gated walk's "
+            f"other than by an exact cross-cluster tie")
+    hit = (w.prim_id >= 0) & ~diff
+    for k, tol in (("t", dict(rtol=1e-5, atol=0)),
+                   ("uv", dict(rtol=0, atol=1e-4)),
+                   ("normal", dict(rtol=0, atol=1e-5))):
+        require(np.allclose(to_np(getattr(q, k)[hit]),
+                            to_np(getattr(w, k)[hit]), **tol),
+                f"{what}: {k} of the queue's hits outside {tol}")
+    return int(diff.sum())
+
+
+def queue_parity(cl, rays, closest, gate, what, queue_bound, p2c):
+    """Kernels 7 and 8 of the queue (accel/qwalk.py) on one ray set, and the
+    queue's A/B against the walk the engine takes there (exact cull, gated
+    when `gate`).
+
+    Kernel 7's masks equal its plain version's. The queue is built at
+    QWALK_QF, as a query builds it (n_items, k_cap, overflow), and again at
+    the least qf that holds the whole list (qf_fit; the same list when it
+    does not overflow), on which kernel 8 runs: its candidate columns
+    bit-equal to the plain version's on every k-th step (PLAIN_QUEUE_STEPS)
+    and to its own run over all steps. The query's hits (at qf_fit and at
+    QWALK_QF, which overflows to the walk) equal the walk's, or differ by
+    exact ties (queue_vs_walk); occlusion equal.
+
+    Times (CUDA events, mean of 10; plain versions one call): kernel 7,
+    kernel 8 on all steps, the whole query at qf_fit and the walk's whole
+    query; build_marshal_reduce_ms is the query's rest (packing, work-list
+    build, marshalling, per-ray reduction). `queue_bound` is the walk's
+    bound on this set (walk_bound): kernel 8 answers the same query."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    from optix_raytracer_tpu_torch.accel import qwalk as Q
+    n, n_padded, packed, n_blocks, c_pad, k_cap = Q._prep(cl, rays, QWALK_QF)
+    om = Q._oct_cull(cl, packed, n_blocks, c_pad)
+    om_p = Q.oct_cull_plain(cl.aabb, packed, n_blocks, c_pad)
+    out = dict(oct_mismatches=int((om != om_p).sum()))
+    require(out["oct_mismatches"] == 0,
+            f"{what}: octet masks differ from the plain version")
+    _, _, overflow, n_items = Q._build_queue(om, cl.num_clusters, n_padded,
+                                             k_cap)
+    require(n_items > 0, f"{what}: empty work list")
+    n_oct = n_padded // Q.OCT
+    qf_fit = max(QWALK_QF, -(-n_items // n_oct))
+    k_fit = max(Q.ITEMS, (qf_fit * n_oct // Q.ITEMS) * Q.ITEMS)
+    steps, work, over_fit, _ = Q._build_queue(om, cl.num_clusters, n_padded,
+                                              k_fit)
+    require(not over_fit, f"{what}: qf {qf_fit} does not hold the list")
+    qrays, _ = Q._marshal(packed, work[:n_items], n_padded)
+    live = steps[:, :n_items // Q.ITEMS].contiguous()
+    n_steps = live.shape[1]
+    stride = max(1, -(-n_steps // PLAIN_QUEUE_STEPS))
+    idx = torch.arange(0, n_steps, stride, device=live.device)
+    sub = live[:, idx].clone()                 # own output columns 0..S-1
+    sub[1] = torch.arange(idx.numel(), dtype=torch.int32, device=idx.device)
+    plain = Q.queue_closest_plain if closest else Q.queue_any_plain
+    sub_k = Q._run_queue(closest, cl.comp, sub, qrays)
+    sub_p = plain(sub, qrays, cl.comp)
+    full_k = Q._run_queue(closest, cl.comp, live, qrays)
+    lane = torch.arange(Q.ROWS, device=idx.device)
+    cols = (idx[:, None] * Q.ROWS + lane[None]).reshape(-1)
+    out["queue_err"] = float(torch.where(sub_k == sub_p, 0.0,
+                                         (sub_k - sub_p).abs()).max())
+    require(torch.equal(sub_k.view(torch.int32), sub_p.view(torch.int32)),
+            f"{what}: kernel 8 differs from its plain version (max abs err "
+            f"{out['queue_err']})")
+    require(torch.equal(full_k[:, cols].view(torch.int32),
+                        sub_k.view(torch.int32)),
+            f"{what}: kernel 8 on all steps differs from its run on the "
+            f"compared steps")
+    del sub_k, sub_p, full_k
+
+    query = Q.closest_hit if closest else Q.any_hit
+    walk = C.closest_hit if closest else C.any_hit
+    w = walk(cl, rays, exact=True, group_walk=gate)
+    q_fit, q6 = query(cl, rays, qf=qf_fit), query(cl, rays, qf=QWALK_QF)
+    if closest:
+        out["ties"] = queue_vs_walk(q_fit, w, p2c, what)
+        out["ties_qf6"] = queue_vs_walk(q6, w, p2c, what)
+        out["hits"] = int((w.prim_id >= 0).sum())
+    else:
+        out["any_mismatches"] = int((q_fit != w).sum() + (q6 != w).sum())
+        require(out["any_mismatches"] == 0,
+                f"{what}: the queue's occlusion differs from the walk's")
+        out["occluded"] = int(w.sum())
+    del q_fit, q6, w
+    live_n = int((rays.tmax > rays.tmin).sum())
+    out.update(
+        n_items=n_items, k_cap=k_cap, overflow=bool(overflow), qf_fit=qf_fit,
+        items_per_live_octet=n_items / max(live_n / Q.OCT, 1.0),
+        live_rays=live_n, steps=n_steps,
+        plain_steps=(f"{idx.numel()} of {n_steps}" if stride > 1 else "all"),
+        oct_ms=cuda_ms(lambda: Q._oct_cull(cl, packed, n_blocks, c_pad), 10),
+        oct_plain_ms=cuda_ms(lambda: Q.oct_cull_plain(cl.aabb, packed,
+                                                      n_blocks, c_pad), 1),
+        queue_ms=cuda_ms(lambda: Q._run_queue(closest, cl.comp, live, qrays),
+                         10),
+        queue_plain_ms=cuda_ms(lambda: plain(sub, qrays, cl.comp), 1),
+        queue_subset_ms=cuda_ms(lambda: Q._run_queue(closest, cl.comp, sub,
+                                                     qrays), 10),
+        query_ms=cuda_ms(lambda: query(cl, rays, qf=qf_fit), 10),
+        walk_query_ms=cuda_ms(lambda: walk(cl, rays, exact=True,
+                                           group_walk=gate), 10),
+        oct_bound=bound(SLAB_OPS * live_n * cl.num_clusters,
+                        n_padded * RAY_BYTES + c_pad * 24
+                        + n_blocks * c_pad * 4),
+        queue_bound=queue_bound)
+    out["build_marshal_reduce_ms"] = (out["query_ms"] - out["oct_ms"]
+                                      - out["queue_ms"])
+    if overflow:      # the query as the engine runs it: cull, then the walk
+        out["query_qf6_ms"] = cuda_ms(lambda: query(cl, rays), 10)
+    return out
+
+
+def qwalk_parity_phases(cl, big, sets, big_shadow, res, record):
+    """Phases (h) and (i): queue_parity on the 25k knot's sets (`sets`:
+    name → (rays, closest, gated), res's walk bounds under the same name)
+    and on the 500k knot's NEE set (the streaming tier, past
+    MAX_CLUSTERS). Fills the JSON record of kernels 7-8 from the strip's
+    bounce-1 queries."""
+    p2c = prim_clusters(cl)
+    qres = {}
+    for name, (rays, closest, gate) in sets.items():
+        kind = "closest" if closest else "any"
+        qres[name] = r = queue_parity(cl, rays, closest, gate,
+                                      f"knot25k {name} queue",
+                                      res[name][f"{kind}_bound"], p2c)
+        phase(f"h knot25k {name}", rays=rays.tmin.shape[0], query=kind,
+              gated_walk=gate, **fmt(r))
+    r = queue_parity(big, big_shadow, False, False, "knot500k shadow queue",
+                     res["knot500k_shadow"]["any_bound"], prim_clusters(big))
+    phase("i knot500k shadow", rays=big_shadow.tmin.shape[0], query="any",
+          clusters=big.num_clusters, **fmt(r))
+    b1, b1s = qres["strip_bounce1"], qres["strip_bounce1_shadow"]
+    every = list(qres.values()) + [r]
+    record["qwalk_oct_cull"] = dict(
+        max_abs_err=float(max(x["oct_mismatches"] for x in every)),
+        ms=b1["oct_ms"], plain_ms=b1["oct_plain_ms"], **b1["oct_bound"],
+        plain_blocks="all")
+    for name, src in (("qwalk_closest", b1), ("qwalk_any", b1s)):
+        record[name] = dict(
+            max_abs_err=max(x["queue_err"] for x in every),
+            ms=src["queue_ms"], plain_ms=src["queue_plain_ms"],
+            **src["queue_bound"], plain_blocks=f"steps {src['plain_steps']}")
+
+
+def qwalk_headline(scene, cam, W, H, spl, depth, dev, card, ref_img,
+                   ref_rays):
+    """Phase (j): the knot headline under ORT_QWALK=1, sample-major (2
+    timed launches) and sequential (1), launches and queue queries counted
+    per path. The first launch's ray count equals phase (d)'s and its image
+    agrees within the bars; kernel 7 launches on both paths. Returns the
+    sample-major path's counts of kernels 7-8."""
+    from optix_raytracer_tpu_torch.accel import qwalk as Q
+    names = ("qwalk_oct_cull", "qwalk_closest", "qwalk_any",
+             "cluster_cull_exact", "cluster_closest", "cluster_any")
+    prev = os.environ.get("ORT_QWALK")
+    os.environ["ORT_QWALK"] = "1"
+    try:
+        counts = {}
+        for impl, launches in (("auto", 2), ("wavefront", 1)):
+            Q.reset_stats()
+            film, rays, dt, peak, first, first_rays, n, _ = timed_launches(
+                scene, cam, W, H, spl, depth, impl, launches, dev)
+            stats = dict(Q.STATS)
+            counts[impl] = n
+            a = to_np(first.accum)
+            require(first_rays == ref_rays,
+                    f"queue {impl}: first-launch rays {first_rays} against "
+                    f"{ref_rays} through the walk")
+            require(np.allclose(a, ref_img, atol=ATOL, rtol=RTOL),
+                    f"queue {impl}: image differs from the walk's by "
+                    f"{np.abs(a - ref_img).max()}")
+            img = to_np(film.accum)
+            require(np.isfinite(img).all() and img.mean() > 0,
+                    f"queue {impl}: image not finite / empty")
+            require(n["qwalk_oct_cull"] > 0,
+                    f"qwalk_oct_cull never launched on the queue's {impl} "
+                    f"path")
+            notes = {}
+            for kind in ("closest", "any"):
+                require((n[f"qwalk_{kind}"] > 0) == (stats[f"{kind}_queue"]
+                                                     > 0),
+                        f"queue {impl}: qwalk_{kind} launches do not follow "
+                        f"the queries the queue answered")
+                if stats[f"{kind}_queue"] == 0:
+                    notes[f"{kind}_note"] = (
+                        f"every {kind} query overflowed at qf {QWALK_QF}: "
+                        f"kernel 8's parity rests on phase h")
+            phase(f"j knot headline queue {impl}", card=repr(card),
+                  dim=f"{W}x{H}", spl=spl, depth=depth,
+                  ms_per_launch=f"{1e3 * dt / launches:.2f}",
+                  mrays_per_s=f"{rays / dt / 1e6:.1f}",
+                  msamples_per_s=f"{launches * W * H * spl / dt / 1e6:.1f}",
+                  rays_per_launch=rays // launches,
+                  peak_mem_mib=f"{peak / 2**20:.0f}",
+                  first_launch_rays=first_rays,
+                  vs_walk_max_abs_diff=float(np.abs(a - ref_img).max()),
+                  pixels_bit_equal=(
+                      f"{np.mean(np.all(a == ref_img, axis=-1)):.6f}"),
+                  queue_queries=stats, launches={k: n[k] for k in names},
+                  **notes)
+    finally:
+        if prev is None:
+            os.environ.pop("ORT_QWALK", None)
+        else:
+            os.environ["ORT_QWALK"] = prev
+    return {k: counts["auto"][k] for k in names[:3]}
+
+
 def knot_phases(dev, card, record):
-    """Phases (a)-(d): the knot build, kernels 4-6 against their plain
-    versions on the 25k knot (probe sets and the main path's own strip
-    queries) and the 500k knot, and the knot headline launch (sample-major
-    against the sequential oracle) with its launches counted per path.
-    Returns the launch counts of the sample-major (auto) path."""
+    """Phases (a)-(d) and (h)-(j): the knot build, kernels 4-6 against their
+    plain versions on the 25k knot (probe sets and the main path's own strip
+    queries) and the 500k knot, the queue (kernels 7-8) on the same sets
+    (h, i; run before d, while the sets are alive), the knot headline
+    launch (sample-major against the sequential oracle) with its launches
+    counted per path, and the same launch through the queue (j). Returns
+    the launch counts of the sample-major (auto) paths."""
     import torch
     from optix_raytracer_tpu_torch.accel import clusters as C
     from optix_raytracer_tpu_torch.accel import native
@@ -635,10 +883,10 @@ def knot_phases(dev, card, record):
 
     # --- (b) kernels 4-6 vs plain on the 25k knot at 1920x1088 ---
     W, H = KNOT["width"], KNOT["height"]
-    prim, shadow, bounce = knot_ray_sets(scene, W, H, dev)
+    prim, shadow, bounce1 = knot_ray_sets(scene, W, H, dev)
     sets = (("primary", prim, False, False), ("shadow", shadow, True, False),
-            ("bounce1", bounce, True, False),
-            ("bounce1_gated", bounce, True, True))
+            ("bounce1", bounce1, True, False),
+            ("bounce1_gated", bounce1, True, True))
     res = {}
     for name, rays, exact, gate in sets:
         res[name] = r = cluster_parity(cl, rays, exact, gate,
@@ -646,7 +894,7 @@ def knot_phases(dev, card, record):
         phase(f"b knot25k {name}", rays=W * H, exact=exact, gated=gate,
               **fmt(r))
     stats = C.traversal_stats(cl, prim)
-    del prim, shadow, bounce
+    del prim
 
     # the main path's own inputs: every cluster query of one sample-major
     # strip of the knot headline, with the cull and gating it asked for
@@ -666,7 +914,6 @@ def knot_phases(dev, card, record):
                                            f"knot25k {name}")
             phase(f"b knot25k {name}", rays=rays.tmin.shape[0], exact=exact,
                   gated=gate, **fmt(r))
-    del closest_calls, any_calls, rc, ra, rays
     # kernel times of the JSON record: the strip's bounce-1 queries (the
     # kernels on all blocks; the plain walks on the blocks `walk_blocks`
     # names)
@@ -700,14 +947,28 @@ def knot_phases(dev, card, record):
         dataclasses.replace(scene, clusters=big), W, H, dev)
     for name, rays, exact in (("primary", bprim, False),
                               ("shadow", bshadow, True)):
-        r = cluster_parity(big, rays, exact, False, f"knot500k {name}")
+        res[f"knot500k_{name}"] = r = cluster_parity(big, rays, exact, False,
+                                                     f"knot500k {name}")
         record["cluster_closest"]["max_abs_err"] = max(
             record["cluster_closest"]["max_abs_err"], r["closest_err"])
         record["cluster_any"]["max_abs_err"] = max(
             record["cluster_any"]["max_abs_err"], float(r["any_mismatches"]))
         phase(f"c knot500k {name}", rays=W * H, exact_requested=exact,
               **fmt(r))
-    del big, geom, bprim, bshadow
+
+    # --- (h), (i): the queue (kernels 7-8) on the probe sets, the strip's
+    # five queries it answers under ORT_QWALK=1 (recorded above with the
+    # walk: with equal hits the rays are the same) and a 500k NEE set ---
+    qsets = dict(bounce1=(bounce1, True, True), shadow=(shadow, False, True))
+    for b, ((rc, _, _), (ra, _, ga)) in enumerate(zip(closest_calls,
+                                                      any_calls)):
+        if b > 0:
+            qsets[f"strip_bounce{b}"] = (rc, True, True)
+        qsets[f"strip_bounce{b}_shadow"] = (ra, False, ga)
+    qwalk_parity_phases(cl, big, qsets, bshadow, res, record)
+    del big, geom, bprim, bshadow, bounce1, shadow, qsets
+    del closest_calls, any_calls, rc, ra, rays
+    torch.cuda.empty_cache()
 
     # --- (d) the knot headline: sample-major vs the sequential oracle,
     # launches counted per path ---
@@ -745,7 +1006,11 @@ def knot_phases(dev, card, record):
           mean_clusters_per_block=f"{stats['mean_clusters_per_block']:.2f}",
           auto_launches={k: n_a[k] for k in names},
           wavefront_launches={k: n_w[k] for k in names})
-    return {k: n_a[k] for k in names}
+
+    # --- (j) the knot headline through the queue ---
+    queue_launches = qwalk_headline(scene, cam, W, H, spl, depth, dev, card,
+                                    a, first_rays_a)
+    return {**{k: n_a[k] for k in names}, **queue_launches}
 
 
 def sc_phases(dev, card, record):
@@ -1086,7 +1351,8 @@ def main():
           **{f"{n}_ms": f"{t[0]:.3f}" for n, t in times.items()},
           **{f"{n}_plain_ms": f"{t[1]:.3f}" for n, t in times.items()})
 
-    # --- phases (a)-(d): the large-mesh path (kernels 4-6) ---
+    # --- phases (a)-(d), (h)-(j): the large-mesh path (kernels 4-6) and
+    # the queue (kernels 7-8) ---
     launches.update(knot_phases(dev, card, record))
     torch.cuda.empty_cache()
 
@@ -1110,7 +1376,13 @@ def main():
         cluster_sc_closest=("optix_raytracer_tpu_torch/csrc/clusters.cu",
                             "optix_raytracer_tpu/accel/clusters.py:858"),
         cluster_sc_any=("optix_raytracer_tpu_torch/csrc/clusters.cu",
-                        "optix_raytracer_tpu/accel/clusters.py:933"))
+                        "optix_raytracer_tpu/accel/clusters.py:933"),
+        qwalk_oct_cull=("optix_raytracer_tpu_torch/csrc/clusters.cu",
+                        "optix_raytracer_tpu/accel/qwalk.py:117"),
+        qwalk_closest=("optix_raytracer_tpu_torch/csrc/clusters.cu",
+                       "optix_raytracer_tpu/accel/qwalk.py:283"),
+        qwalk_any=("optix_raytracer_tpu_torch/csrc/clusters.cu",
+                   "optix_raytracer_tpu/accel/qwalk.py:283"))
     # No single PyTorch call computes a Woop closest hit or a slab cull:
     # library_ms is null for every kernel.
     print(json.dumps({"kernels": [

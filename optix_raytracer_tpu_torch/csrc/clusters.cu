@@ -1,9 +1,9 @@
 // Cluster-culled traversal for large meshes: the exact cull and the cluster
 // walks of the resident, streaming and supercluster tiers (kernels 4-6 and
-// 5c/6c of the port).
+// 5c/6c of the port), and the cluster-major queue traversal (kernels 7-8).
 //
 // Replaces, in optix_raytracer_tpu/accel/clusters.py:
-//   kernel 4  cluster_cull_exact_kernel  <- _exact_cull_kernel (:231), called
+//   kernel 4  cull_exact_kernel<5, true> <- _exact_cull_kernel (:231), called
 //             by _exact_block_cull (pallas_call at :312);
 //   kernel 5  cluster_closest_kernel     <- _closest_kernel (:453) and
 //             _closest_kernel_stream (:537), called by _closest_core (:1150);
@@ -12,7 +12,12 @@
 //   kernel 5c cluster_sc_closest_kernel  <- _sc_closest_kernel (:858), called
 //             by _closest_core (:1150);
 //   kernel 6c cluster_sc_any_kernel      <- _sc_any_kernel (:933), called by
-//             _any_core (:1372).
+//             _any_core (:1372);
+// and in optix_raytracer_tpu/accel/qwalk.py:
+//   kernel 7  cull_exact_kernel<3, false> <- _oct_cull_kernel (:69), called
+//             by _oct_cull (pallas_call at :117);
+//   kernel 8  qwalk_closest_kernel, qwalk_any_kernel <- _q_closest_kernel
+//             (:227), _q_any_kernel (:208), called by _run_queue (:283).
 //
 // Rays arrive packed as [N, 8] f32 (ox oy oz dx dy dz tmin tmax) in blocks of
 // kSub = 256; a cluster is 128 triangle slots whose constants are
@@ -51,6 +56,18 @@
 // member cluster at a time with kernels 5/6's staging and pair-test code.
 // Every live ray adds its crossings to the mask, also one whose walk is
 // done, so the members tested are those of the plain versions' block union.
+//
+// Kernel 7 is kernel 4's loop with 8-ray octet bits and no entry distance
+// (one template). Kernel 8: a work list (accel/qwalk.py) puts each crossing
+// (8-ray octet, cluster) pair in a step of 32 items, 256 marshalled rays of
+// one cluster. What bounds it: the pair tests of kernels 5/6, 256 x 128 per
+// step with no gate and no early exit, plus the marshalled rays (32 B in)
+// and candidates (32 B or 4 B out) per item ray through HBM. Design: one CTA
+// of 256 threads per live step, one thread per marshalled ray (planar
+// [8][cols] rows, coalesced); the step's cluster is staged with kernels
+// 5/6's staging and tested with their closest_step / any_step, whose tie
+// rule (smaller t, or equal t at a lower slot) is _q_closest_kernel's. The
+// per-ray reduction over steps is PyTorch scatter ops.
 //
 // Closest hit: a thread keeps one running best and replaces it when
 // t < best or (t == best and slot < best slot): over the list order this
@@ -126,11 +143,15 @@ __device__ __forceinline__ bool slab_cross(float lox, float loy, float loz,
   return fmaxf(tn, o.w) <= fminf(tf, iv.w);
 }
 
+// The exact cull of kernels 4 and 7: one CTA per 256-ray block, one thread
+// per cluster column. Bit (j >> kShift) of the mask is set when live ray j
+// crosses: 32-ray groups for kernel 4 (kShift 5), 8-ray octets for kernel 7
+// (kShift 3). Kernel 4 also writes the minimum entry distance (kEntry).
+template <int kShift, bool kEntry>
 __global__ void __launch_bounds__(kSub)
-cluster_cull_exact_kernel(const float* __restrict__ aabb, int c_pad,
-                          const float* __restrict__ rays,
-                          float* __restrict__ tn_out,
-                          int* __restrict__ gm_out) {
+cull_exact_kernel(const float* __restrict__ aabb, int c_pad,
+                  const float* __restrict__ rays, float* __restrict__ tn_out,
+                  int* __restrict__ mask_out) {
   __shared__ float4 s_org[kSub];   // ox oy oz tmin
   __shared__ float4 s_inv[kSub];   // 1/dx 1/dy 1/dz tmax
   const int tid = threadIdx.x;
@@ -139,11 +160,10 @@ cluster_cull_exact_kernel(const float* __restrict__ aabb, int c_pad,
   const bool live = r.tmax > r.tmin;
   slab_ray(r, s_org[tid], s_inv[tid]);
   const int any_live = __syncthreads_or(live);
-  float* tn_row = tn_out + b * c_pad;
-  int* gm_row = gm_out + b * c_pad;
+  int* mask_row = mask_out + b * c_pad;
   for (int c = tid; c < c_pad; c += kSub) {
     float tnb = kBig;
-    unsigned gm = 0u;
+    unsigned m = 0u;
     if (any_live) {
       const float* ab = aabb + (c / kLanes) * 6 * kLanes + (c % kLanes);
       const float lox = ab[0], loy = ab[kLanes], loz = ab[2 * kLanes];
@@ -155,13 +175,13 @@ cluster_cull_exact_kernel(const float* __restrict__ aabb, int c_pad,
         if (!(iv.w > o.w)) continue;            // dead ray: never crosses
         float tn;
         if (slab_cross(lox, loy, loz, hix, hiy, hiz, o, iv, tn)) {
-          tnb = fminf(tnb, fmaxf(tn, 0.f));
-          gm |= 1u << (j >> 5);
+          if constexpr (kEntry) tnb = fminf(tnb, fmaxf(tn, 0.f));
+          m |= 1u << (j >> kShift);
         }
       }
     }
-    tn_row[c] = tnb;
-    gm_row[c] = static_cast<int>(gm);
+    if constexpr (kEntry) tn_out[b * c_pad + c] = tnb;
+    mask_row[c] = static_cast<int>(m);
   }
 }
 
@@ -443,15 +463,120 @@ cluster_sc_any_kernel(const int* __restrict__ counts,
   occ_out[ray] = (occ && !dead) ? 1 : 0;
 }
 
+// Kernel 8's view of one step: its cluster, its output column block and its
+// marshalled rays' column block, from steps [3][n_steps]. False for a dead
+// step (output column past the last step) or an index out of range; the
+// step then writes nothing. The same for every thread of the CTA.
+__device__ __forceinline__ bool queue_step(const int* __restrict__ steps,
+                                           int n_steps, size_t q_cols,
+                                           int n_comp, int& c, int& o,
+                                           int& q) {
+  const int s = blockIdx.x;
+  c = steps[s];
+  o = steps[n_steps + s];
+  q = steps[2 * n_steps + s];
+  return c >= 0 && c < n_comp && o >= 0 && o < n_steps && q >= 0 &&
+         static_cast<size_t>(q + 1) * kSub <= q_cols;
+}
+
+// Marshalled ray i of the planar qrays [8][q_cols].
+__device__ __forceinline__ Ray load_planar(const float* __restrict__ q,
+                                           size_t q_cols, size_t i) {
+  return Ray{q[i], q[q_cols + i], q[2 * q_cols + i], q[3 * q_cols + i],
+             q[4 * q_cols + i], q[5 * q_cols + i], q[6 * q_cols + i],
+             q[7 * q_cols + i]};
+}
+
+__global__ void __launch_bounds__(kSub)
+qwalk_closest_kernel(const int* __restrict__ steps, int n_steps,
+                     const float* __restrict__ qrays, size_t q_cols,
+                     const float* __restrict__ comp, int n_comp,
+                     float* __restrict__ out) {
+  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
+  __shared__ float s_ext[kExtRows * kLanes];
+  int c, o, q;
+  if (!queue_step(steps, n_steps, q_cols, n_comp, c, o, q)) return;
+  const Ray r = load_planar(qrays, q_cols,
+                            static_cast<size_t>(q) * kSub + threadIdx.x);
+  stage_closest(s_tri, s_ext, comp + static_cast<size_t>(c) * kCompRows *
+                                         kLanes);
+  __syncthreads();
+  Closest h = closest_init(r);
+  closest_step(s_tri, s_ext, r, h);
+  const size_t cols = static_cast<size_t>(n_steps) * kSub;
+  float* col = out + static_cast<size_t>(o) * kSub + threadIdx.x;
+  col[0] = h.bt;
+  col[cols] = h.bu;
+  col[2 * cols] = h.bv;
+  col[3 * cols] = h.bnx;
+  col[4 * cols] = h.bny;
+  col[5 * cols] = h.bnz;
+  col[6 * cols] = h.bprim;
+  col[7 * cols] = h.bmat;
+}
+
+__global__ void __launch_bounds__(kSub)
+qwalk_any_kernel(const int* __restrict__ steps, int n_steps,
+                 const float* __restrict__ qrays, size_t q_cols,
+                 const float* __restrict__ comp, int n_comp,
+                 float* __restrict__ out) {
+  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
+  int c, o, q;
+  if (!queue_step(steps, n_steps, q_cols, n_comp, c, o, q)) return;
+  const Ray r = load_planar(qrays, q_cols,
+                            static_cast<size_t>(q) * kSub + threadIdx.x);
+  stage_test_rows(s_tri, comp + static_cast<size_t>(c) * kCompRows * kLanes);
+  __syncthreads();
+  out[static_cast<size_t>(o) * kSub + threadIdx.x] =
+      any_step(s_tri, r) ? 1.f : 0.f;
+}
+
 }  // namespace
 
 extern "C" int ort_cluster_cull_exact(const float* aabb, int c_pad,
                                       const float* rays, int n_blocks,
                                       float* tn, int* gm, void* stream) {
   if (n_blocks > 0) {
-    cluster_cull_exact_kernel<<<n_blocks, kSub, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+    cull_exact_kernel<5, true><<<n_blocks, kSub, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
         aabb, c_pad, rays, tn, gm);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ort_qwalk_oct_cull(const float* aabb, int c_pad,
+                                  const float* rays, int n_blocks, int* om,
+                                  void* stream) {
+  if (n_blocks > 0) {
+    cull_exact_kernel<3, false><<<n_blocks, kSub, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        aabb, c_pad, rays, nullptr, om);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ort_qwalk_closest(const int* steps, int n_steps,
+                                 const float* qrays, long long q_cols,
+                                 const float* comp, int n_comp, float* out,
+                                 void* stream) {
+  if (n_steps > 0) {
+    qwalk_closest_kernel<<<n_steps, kSub, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        steps, n_steps, qrays, static_cast<size_t>(q_cols), comp, n_comp,
+        out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ort_qwalk_any(const int* steps, int n_steps,
+                             const float* qrays, long long q_cols,
+                             const float* comp, int n_comp, float* out,
+                             void* stream) {
+  if (n_steps > 0) {
+    qwalk_any_kernel<<<n_steps, kSub, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        steps, n_steps, qrays, static_cast<size_t>(q_cols), comp, n_comp,
+        out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,10 +32,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"bf_closest": 0, "bf_any": 0, "pt_fused_cornell": 0,
             "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0,
-            "cluster_sc_closest": 0, "cluster_sc_any": 0}
+            "cluster_sc_closest": 0, "cluster_sc_any": 0,
+            "qwalk_oct_cull": 0, "qwalk_closest": 0, "qwalk_any": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # tri, tri_mat, m, org, dir, tmin, tmax, n, t, prim, mat, uv, normal, stream
     "ort_bf_closest": (_P, _P, _I, _P, _P, _P, _P, _I,
@@ -58,6 +60,11 @@ _SIGNATURES = {
                                _P, _P),
     "ort_cluster_sc_any": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P,
                            _P),
+    # aabb, c_pad, rays, n_blocks, om, stream
+    "ort_qwalk_oct_cull": (_P, _I, _P, _I, _P, _P),
+    # steps, n_steps, qrays, q_cols, comp, n_comp, out, stream
+    "ort_qwalk_closest": (_P, _I, _P, _L, _P, _I, _P, _P),
+    "ort_qwalk_any": (_P, _I, _P, _L, _P, _I, _P, _P),
 }
 
 

@@ -5,16 +5,26 @@ yet (ROADMAP.md Queue 1 items 7-9); the port's DeviceScene has none of them.
 
 In the JAX package the cluster branch runs only on a TPU; in the port a
 cluster table alone selects it, on any device (the CPU runs the kernels'
-plain versions).
+plain versions). With ORT_QWALK=1 the cluster branch sends exact-cull
+closest-hit queries and every any-hit query through the cluster-major queue
+(`accel/qwalk.py`), as the reference does.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 from ..accel import bruteforce as bf
 from ..accel import clusters as cluster_mod
+from ..accel import qwalk as qwalk_mod
 from ..core.rays import Hits, Rays
 from ..scene.device_scene import DeviceScene
+
+
+def _use_qwalk() -> bool:
+    """The opt-in queue traversal (intersect.py:30-36): ORT_QWALK=1, read at
+    call time."""
+    return os.environ.get("ORT_QWALK", "0") == "1"
 
 
 def _flat_call(fn, rays: Rays):
@@ -35,9 +45,13 @@ def scene_closest(scene: DeviceScene, rays: Rays,
                   chunk_size: Optional[int] = None, exact: bool = False,
                   group_walk: bool = False) -> Hits:
     """exact=True (already-sorted scattered wavefronts) takes the exact
-    cull; group_walk gates the walk per 32-ray group on the exact cull's
-    bits. Both are ignored by brute force."""
+    cull, or the queue under ORT_QWALK=1 (the reference's `exact or not
+    coherent`); group_walk gates the walk per 32-ray group on the exact
+    cull's bits. Both are ignored by brute force."""
     if scene.has_clusters:
+        if exact and _use_qwalk():
+            return _flat_call(lambda r: qwalk_mod.closest_hit(
+                scene.clusters, r), rays)
         return _flat_call(lambda r: cluster_mod.closest_hit(
             scene.clusters, r, exact=exact, group_walk=group_walk), rays)
     return bf.intersect_closest(scene.geom, rays, tri_mat=scene.tri_mat,
@@ -47,8 +61,12 @@ def scene_closest(scene: DeviceScene, rays: Rays,
 def scene_any(scene: DeviceScene, rays: Rays,
               chunk_size: Optional[int] = None, group_walk: bool = False):
     """Occlusion. NEE shadow wavefronts are mixed-liveness even when
-    tile-coherent, so the cluster path always takes the exact cull."""
+    tile-coherent, so the cluster path always takes the exact cull, or the
+    queue under ORT_QWALK=1."""
     if scene.has_clusters:
+        if _use_qwalk():
+            return _flat_call(lambda r: qwalk_mod.any_hit(scene.clusters, r),
+                              rays)
         return _flat_call(lambda r: cluster_mod.any_hit(
             scene.clusters, r, exact=True, group_walk=group_walk), rays)
     return bf.intersect_any(scene.geom, rays, chunk_size=chunk_size)

@@ -246,6 +246,59 @@ def test_sc_queries_match_cpu(cuda, monkeypatch):
                        C.any_hit_sorted(cpu, rays))
 
 
+@pytest.mark.parametrize("segments,sides", [(20, 14), (512, 125)])
+def test_qwalk_kernels_match_plain(cuda, segments, sides):
+    """Kernel 7's octet masks and kernel 8's candidate columns (closest and
+    any-hit) against their plain versions on the same work list, bit-equal;
+    the 128,002-triangle knot has 1,001 clusters (four per cull thread)."""
+    from optix_raytracer_tpu_torch.accel import qwalk as Q
+    cl = knot_scene(segments, sides, device=cuda).clusters
+    rays = _knot_rays(20000, 5, cuda)
+    n, n_padded, packed, nb, c_pad, _ = Q._prep(cl, rays, 6)
+    before = dict(kernels.LAUNCHES)
+    om = Q._oct_cull(cl, packed, nb, c_pad)
+    assert torch.equal(om, Q.oct_cull_plain(cl.aabb, packed, nb, c_pad))
+    # a capacity that holds the whole list
+    steps, work, overflow, n_items = Q._build_queue(
+        om, cl.num_clusters, n_padded, 1 << 22)
+    assert not overflow and n_items > 0
+    qrays, _ = Q._marshal(packed, work[:n_items], n_padded)
+    live = steps[:, :n_items // Q.ITEMS].contiguous()
+    for closest in (True, False):
+        out = Q._run_queue(closest, cl.comp, live, qrays)
+        plain = (Q.queue_closest_plain if closest else Q.queue_any_plain)(
+            live, qrays, cl.comp)
+        torch.cuda.synchronize()
+        assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+        hit = out[6] >= 0 if closest else out[0] > 0
+        assert 0 < int(hit.sum()) < out.shape[1]
+    for name in ("qwalk_oct_cull", "qwalk_closest", "qwalk_any"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("qf", [6, 1])
+def test_qwalk_queries_match_cpu(cuda, qf):
+    """Whole queue queries on the card (kernels 7-8) against the same
+    queries on CPU tensors (plain versions), and against the gated walk;
+    qf = 1 overflows to the walk on both."""
+    from optix_raytracer_tpu_torch.accel import qwalk as Q
+    gpu = knot_scene(20, 14, device=cuda).clusters
+    cpu = knot_scene(20, 14, device="cpu").clusters
+    rays = _knot_rays(9000, 6, "cpu")
+    rays_g = Rays(*(getattr(rays, f).to(cuda) for f in
+                    ("origin", "direction", "tmin", "tmax")))
+    Q.reset_stats()
+    hits = Q.closest_hit(gpu, rays_g, qf=qf)
+    _assert_hits_equal(hits, Q.closest_hit(cpu, rays, qf=qf))
+    _assert_hits_equal(hits, C.closest_hit(gpu, rays_g, exact=True,
+                                           group_walk=True))
+    occ = Q.any_hit(gpu, rays_g, qf=qf).cpu()
+    assert torch.equal(occ, Q.any_hit(cpu, rays, qf=qf))
+    assert torch.equal(occ, C.any_hit(cpu, rays, exact=True))
+    kind = "overflow" if qf == 1 else "queue"
+    assert Q.STATS[f"closest_{kind}"] == 2 and Q.STATS[f"any_{kind}"] == 2
+
+
 def test_knot_launch_on_card(cuda):
     """The knot's sample-major launch against its sequential oracle on the
     card, and against the same launch on the CPU."""

@@ -2,8 +2,9 @@
 fail, the package imports, renders an 8x8 1-spp Cornell box on the CPU and
 saves it as a PNG through its own writer, and builds the small knot scene (its cluster table through
 the port's own native binding, or morton order without a compiler) and
-renders it 8x8 at 8 samples per launch through the sample-major path, then
-again with the supercluster tier forced (the same image within the parity
+renders it 8x8 at 8 samples per launch through the sample-major path, again
+through the cluster-major queue (ORT_QWALK=1), then again with the
+supercluster tier forced (the same image within the parity
 bars, the same ray count). Until then no module of the JAX package is
 loaded; the JAX package's reader then checks the PNG."""
 import os
@@ -11,6 +12,7 @@ import subprocess
 import sys
 
 _SCRIPT = r"""
+import os
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
@@ -34,6 +36,16 @@ film, rays = render_accumulate(knot, knot_camera(8, 8).params("cpu"),
                                samples_per_launch=8, max_depth=2)
 assert np.isfinite(film.accum.numpy()).all() and int(rays) > 8 * 8 * 8
 assert float(film.accum.mean()) > 0
+from optix_raytracer_tpu_torch.accel import qwalk
+os.environ["ORT_QWALK"] = "1"
+q_film, q_rays = render_accumulate(knot, knot_camera(8, 8).params("cpu"),
+                                   Film.create(8, 8, "cpu"), 8, 8,
+                                   samples_per_launch=8, max_depth=2)
+del os.environ["ORT_QWALK"]
+assert qwalk.STATS["any_queue"] + qwalk.STATS["any_overflow"] == 2
+assert int(q_rays) == int(rays)
+assert np.allclose(q_film.accum.numpy(), film.accum.numpy(), atol=2e-3,
+                   rtol=1e-3)
 from optix_raytracer_tpu_torch.accel import clusters
 clusters.MAX_STREAM_CLUSTERS, clusters.SC_CLUSTERS = 2, 2
 tier = knot_scene(20, 14, device="cpu")

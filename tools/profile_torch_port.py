@@ -7,13 +7,21 @@
 (knot_scene(200, 63); default depth 3) through the sample-major path
 (impl="spl") and the sequential, coherence-sorted path (impl="wavefront"),
 both over the cluster kernels; --scene knot4m the same for the
-4,002,002-triangle knot (knot_scene(1450, 1380), the supercluster tier). torch.profiler prints for each: the wall time
-of the launch, the device time summed over kernels, the device's idle share
-of the window, and the kernels that take the most device time. Needs a CUDA
-device; with --out DIR it also writes the Chrome traces there.
+4,002,002-triangle knot (knot_scene(1450, 1380), the supercluster tier).
+torch.profiler prints for each: the wall time of the launch, the device
+time summed over kernels, the device's idle share of the window, and the
+kernels that take the most device time. Needs a CUDA device; with --out DIR
+it also writes the Chrome traces there.
+
+--qwalk (with a knot scene) runs the launches under ORT_QWALK=1, through
+the cluster-major queue (accel/qwalk.py), and adds the queue's split of the
+device time: kernel 7 and kernel 8 (by kernel name), the queue's torch ops
+(packing, work-list build, marshalling, per-ray reduction), the walks that
+answered overflowed queries, the walks outside the queue (bounce-0 closest
+hits), and how many queries the queue answered or handed to the walk.
 
     python tools/profile_torch_port.py [--scene cornell|knot|knot4m]
-        [--dim 1920x1088] [--spl 16] [--depth N] [--out DIR]
+        [--dim 1920x1088] [--spl 16] [--depth N] [--qwalk] [--out DIR]
 """
 from __future__ import annotations
 
@@ -43,9 +51,86 @@ def _busy_us(events):
     return busy
 
 
-def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir):
+# Kernel names of kernels 7 and 8 (csrc/clusters.cu).
+_QWALK_KERNELS = {"kernel7": "cull_exact_kernel<3", "kernel8_closest":
+                  "qwalk_closest_kernel", "kernel8_any": "qwalk_any_kernel"}
+# The profiler ranges of --qwalk. The profiler also records each range on
+# the device's timeline; those records are not kernels.
+_RANGES = ("qwalk.query", "clusters.query")
+
+
+def _label_queries():
+    """Wrap the queue's and the cluster walks' queries in profiler ranges
+    (module attributes, looked up at call time by their callers)."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters, qwalk
+    for mod, name, label in ((qwalk, "closest_hit", "qwalk.query"),
+                             (qwalk, "any_hit", "qwalk.query"),
+                             (clusters, "closest_hit", "clusters.query"),
+                             (clusters, "any_hit", "clusters.query")):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+        setattr(mod, name, wrapped)
+
+
+def _inside(e, label):
+    """True when a host-side range named `label` encloses event e."""
+    p = e.cpu_parent
+    while p is not None:
+        if p.name == label:
+            return True
+        p = p.cpu_parent
+    return False
+
+
+def _qwalk_split(prof, kernels, busy_ms):
+    """The queue's share of the device time, in ms (see the module doc).
+    Kernels 7-8 by name; the others by the ranges' records on the device's
+    timeline (the launches of a range run inside its record there, as the
+    launches of one stream run in order): the queue's torch ops, the walks
+    of overflowed queries and the walks outside the queue. A walk's record
+    is matched to its host-side range by order, and the host side says
+    whether a queue query called it. `rest` is the launch's other device
+    time (shading, RNG, sorts, raygen)."""
+    import torch
+    dev, host = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == dev and e.name in _RANGES)
+    walks = sorted((e for e in prof.events() if e.device_type == host
+                    and e.name == "clusters.query"),
+                   key=lambda e: e.time_range.start)
+    fallback = iter([_inside(e, "qwalk.query") for e in walks])
+    spans = [(a, b, "overflow.walk" if n == "clusters.query"
+              and next(fallback, False) else n) for a, b, n in spans]
+    out = dict.fromkeys((*_QWALK_KERNELS, "queue_torch_ops",
+                         "overflow_walks", "walks_outside_queue"), 0.0)
+    for k in kernels:
+        s, e = k.time_range.start, k.time_range.end
+        inside = {n for a, b, n in spans if a <= s and e <= b}
+        key = next((key for key, pat in _QWALK_KERNELS.items()
+                    if pat in k.name), None)
+        if key is None and "overflow.walk" in inside:
+            key = "overflow_walks"
+        elif key is None and "clusters.query" in inside:
+            key = "walks_outside_queue"
+        elif key is None and "qwalk.query" in inside:
+            key = "queue_torch_ops"
+        if key is not None:
+            out[key] += (e - s) / 1e3
+    out["rest"] = busy_ms - sum(out.values())
+    out["ranges"] = {n: sum(x[2] == n for x in spans)
+                     for n in (*_RANGES, "overflow.walk")}
+    return out
+
+
+def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
+    from optix_raytracer_tpu_torch.accel import qwalk as Q
     from optix_raytracer_tpu_torch.core.film import Film
     from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
 
@@ -53,6 +138,7 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir):
     render_accumulate(scene, cam, Film.create(h, w, dev), w, h, spl, depth,
                       impl=impl)                               # warm-up
     torch.cuda.synchronize()
+    Q.reset_stats()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -65,7 +151,8 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir):
         prof.export_chrome_trace(os.path.join(out_dir,
                                               f"trace_{tag}_{impl}.json"))
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in _RANGES]
     busy = _busy_us(kernels)
     by_name = {}
     for e in kernels:
@@ -73,12 +160,16 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir):
         d[0] += 1
         d[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    return dict(scene=tag, impl=impl, wall_ms=wall * 1e3, rays=int(rays),
-                device_busy_ms=busy / 1e3,
-                idle_share_of_wall=1.0 - busy / 1e3 / (wall * 1e3),
-                kernel_launches=len(kernels),
-                top=[dict(name=n[:80], calls=c, ms=t / 1e3)
-                     for n, (c, t) in top])
+    out = dict(scene=tag, impl=impl, wall_ms=wall * 1e3, rays=int(rays),
+               device_busy_ms=busy / 1e3,
+               idle_share_of_wall=1.0 - busy / 1e3 / (wall * 1e3),
+               kernel_launches=len(kernels),
+               top=[dict(name=n[:80], calls=c, ms=t / 1e3)
+                    for n, (c, t) in top])
+    if qwalk:
+        out.update(qwalk_ms=_qwalk_split(prof, kernels, busy / 1e3),
+                   qwalk_queries=dict(Q.STATS))
+    return out
 
 
 def main():
@@ -88,6 +179,9 @@ def main():
     p.add_argument("--spl", type=int, default=16)
     p.add_argument("--depth", type=int, default=None,
                    help="bounces (default 4 for cornell, 3 for the knots)")
+    p.add_argument("--qwalk", action="store_true",
+                   help="knot scenes: run through the cluster-major queue "
+                        "(ORT_QWALK=1) and split its device time")
     p.add_argument("--out", default=None,
                    help="directory for the Chrome traces (none by default)")
     args = p.parse_args()
@@ -95,6 +189,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_port: needs a CUDA device")
     from optix_raytracer_tpu_torch.scene import builtins
+    if args.qwalk:
+        if args.scene == "cornell":
+            raise SystemExit("profile_torch_port: --qwalk needs a knot scene")
+        os.environ["ORT_QWALK"] = "1"
+        _label_queries()
     w, h = (int(v) for v in args.dim.split("x"))
     dev = torch.device("cuda")
     if args.scene in ("knot", "knot4m"):
@@ -108,7 +207,8 @@ def main():
         impls, depth = ("fused", "wavefront"), args.depth or 4
     for impl in impls:
         print(json.dumps(profile(args.scene, impl, scene, cam, w, h,
-                                 args.spl, depth, args.out)), flush=True)
+                                 args.spl, depth, args.out, args.qwalk)),
+              flush=True)
 
 
 if __name__ == "__main__":
