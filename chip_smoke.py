@@ -10,7 +10,11 @@ the cluster-culled traversal), whose kernels are also held against their
 plain versions on the 25k knot and on a 500k-triangle knot, and the same
 launch through the cluster-major queue (ORT_QWALK=1; kernels 7-8, held
 against their plain versions and A/B-timed against the walk on the same
-sets); then the 4M-triangle knot through the supercluster tier.
+sets); then the 4M-triangle knot through the supercluster tier. Between
+the Cornell and the knot phases, phases 7-9 hold the fused kernel's
+specular, PBR and prim instantiations (3') against the wavefront on the
+bench's prims + glass scene, the PBR Cornell and the mirror Cornell, and
+time their headline launches (1920x1088, 16 samples per launch, depth 4).
 
     python3 chip_smoke.py
 
@@ -66,6 +70,11 @@ SLAB_OPS = 20      # FP32 operations of one ray-box slab test
 RAY_BYTES = 32     # ox oy oz dx dy dz tmin tmax
 SLOT_BYTES = 4 * 128               # one constant row of a 128-slot cluster
 CLOSEST_ROWS, ANY_ROWS = 23, 12    # rows a closest / any-hit walk reads
+# FP32 operations of one ray against one custom prim of each kind, counted
+# from accel/primitives.py's formulas (per-prim constants left out): sphere,
+# shell (two spheres), parallelogram, capsule (body + two cap spheres).
+PRIM_OPS = {0: 20, 1: 40, 2: 38, 3: 135}
+PRIMS_ATOL = 3e-3                 # tests/test_fused_kernel.py:238
 
 
 class SmokeFailure(RuntimeError):
@@ -1142,6 +1151,146 @@ def sc_phases(dev, card, record):
     return {k: n_a[k] for k in ("cluster_sc_closest", "cluster_sc_any")}
 
 
+def variant_phases(dev, card, record):
+    """Phases 7-9: the fused kernel's instantiations 3' against their plain
+    version, on (i) bench.py:153-202's whitted_prims (2 triangles, 4 prims,
+    a glass shell), (ii) bench.py:418-450's PBR Cornell (metallic 0.8,
+    roughness 0.35) and (iii) the Cornell box with mirror white surfaces
+    (metallic 1.0, roughness 0.02). (7) render_sum_fused against render_sum_plain at 64², spl 2,
+    depth 3 on the three scenes: ray counts equal, radiance within the bars,
+    two row tiles (by y0) equal to the full frame; (8) render_accumulate,
+    fused against wavefront, 256², spl 4, depth 4 on (i) and (ii); (9) the
+    headline launch of each scene (1920x1088, spl 16, depth 4): "auto" (must
+    be the fused kernel: its LAUNCHES key counts, bf_closest does not) for 2
+    timed launches against "wavefront" (kernels 1-2 + torch prims and
+    shading) for 1, launches counted per path. Fills the kernels' record
+    and returns the headlines' launch counts."""
+    import torch
+    from optix_raytracer_tpu_torch import kernels
+    from optix_raytracer_tpu_torch.core.film import Film
+    from optix_raytracer_tpu_torch.scene import builtins as B
+    from optix_raytracer_tpu_torch.wavefront import pallas_pt
+    from optix_raytracer_tpu_torch.wavefront.engine import (_use_fused,
+                                                            render_accumulate)
+    scenes = {}     # name → (scene, camera, instantiation, atol)
+    for name, scene, camera, atol in (
+            ("prims", B.prims_scene(dev), B.prims_camera, PRIMS_ATOL),
+            ("pbr", B.pbr_cornell(dev), B.cornell_camera, ATOL),
+            ("mirror", B.pbr_cornell(dev, 1.0, 0.02), B.cornell_camera,
+             ATOL)):
+        kname = kernels.pt_fused_name(*pallas_pt.fused_variant(scene))
+        scenes[name] = (scene, camera, kname, atol)
+    # --- phase 7: each instantiation vs its plain version, 64², spl 2 ---
+    w = h = 64
+    sub = torch.tensor(5, dtype=torch.int64, device=dev)
+    for name, (scene, camera, kname, atol) in scenes.items():
+        require(_use_fused(scene, "auto"), f"{name}: auto does not take the "
+                                           f"fused kernel")
+        cam = camera(w, h).params(dev)
+        out, c_k = pallas_pt.render_sum_fused(scene, cam, w, h, sub,
+                                              samples_per_launch=2,
+                                              max_depth=3)
+        ref, c_p = pallas_pt.render_sum_plain(scene, cam, w, h, sub,
+                                              samples_per_launch=2,
+                                              max_depth=3)
+        out, ref = to_np(out), to_np(ref)
+        require(int(c_k) == int(c_p),
+                f"{name}: ray counts {int(c_k)} != {int(c_p)}")
+        require(np.allclose(out, ref, atol=atol, rtol=RTOL),
+                f"{name}: radiance off by {np.abs(out - ref).max()}")
+        halves = [to_np(pallas_pt.render_sum_fused(
+            scene, cam, w, h // 2, sub, samples_per_launch=2, max_depth=3,
+            y0=y0, full_width=w, full_height=h)[0]) for y0 in (0, h // 2)]
+        require(np.array_equal(np.concatenate(halves), out),
+                f"{name}: row tiles differ from the full frame")
+        record[kname] = dict(max_abs_err=float(np.abs(out - ref).max()))
+        phase(f"7 {kname} vs plain", scene=name, rays=int(c_k),
+              max_abs_err=np.abs(out - ref).max(),
+              pixels_bit_equal=f"{np.mean(np.all(out == ref, axis=-1)):.6f}",
+              row_tiles="equal")
+
+    # --- phase 8: fused vs wavefront launch, 256², spl 4, depth 4 ---
+    w = h = 256
+    for name in ("prims", "pbr"):
+        scene, camera, kname, atol = scenes[name]
+        cam = camera(w, h).params(dev)
+        f_fused, r_fused = render_accumulate(scene, cam, Film.create(h, w, dev),
+                                             w, h, samples_per_launch=4,
+                                             max_depth=4, impl="fused")
+        f_wave, r_wave = render_accumulate(scene, cam, Film.create(h, w, dev),
+                                           w, h, samples_per_launch=4,
+                                           max_depth=4, impl="wavefront")
+        a, b = to_np(f_fused.accum), to_np(f_wave.accum)
+        phase(f"8 {name} fused vs wavefront", max_abs_diff=np.abs(a - b).max(),
+              mean_abs_diff=np.abs(a - b).mean(), rays_fused=int(r_fused),
+              rays_wavefront=int(r_wave),
+              pixels_bit_equal=f"{np.mean(np.all(a == b, axis=-1)):.6f}")
+        require(int(r_fused) == int(r_wave),
+                f"{name}: fused and wavefront ray counts differ")
+        require(np.allclose(a, b, atol=atol, rtol=RTOL),
+                f"{name}: fused and wavefront images differ")
+
+    # --- phase 9: the headlines ---
+    W, H, spl, depth = (HEADLINE[k] for k in ("width", "height", "spl",
+                                              "depth"))
+    launches = {}
+    for name, (scene, camera, kname, atol) in scenes.items():
+        cam = camera(W, H).params(dev)
+        film, rays_f, dt_f, peak_f, first_f, first_rays_f, n_f, _ = (
+            timed_launches(scene, cam, W, H, spl, depth, "auto", 2, dev))
+        _, rays_w, dt_w, peak_w, first_w, first_rays_w, n_w, _ = (
+            timed_launches(scene, cam, W, H, spl, depth, "wavefront", 1, dev))
+        require(n_f[kname] > 0 and n_f["bf_closest"] == 0,
+                f"{name}: the auto path did not run {kname} alone")
+        require(n_w["bf_closest"] > 0 and n_w["bf_any"] > 0
+                and n_w[kname] == 0,
+                f"{name}: the wavefront path did not run kernels 1-2")
+        a, b = to_np(first_f.accum), to_np(first_w.accum)
+        require(first_rays_f == first_rays_w,
+                f"{name} headline ray counts differ: {first_rays_f} vs "
+                f"{first_rays_w}")
+        require(np.allclose(a, b, atol=atol, rtol=RTOL),
+                f"{name} headline images differ by {np.abs(a - b).max()}")
+        img = to_np(film.accum)
+        require(img.shape == (H, W, 3) and np.isfinite(img).all()
+                and img.mean() > 0, f"{name} headline image not finite / "
+                                    f"empty")
+        ms_f, ms_w = 1e3 * dt_f / 2, 1e3 * dt_w
+        head_err = float(np.abs(a - b).max())
+        phase(f"9 {name} headline", card=repr(card), kernel=kname,
+              dim=f"{W}x{H}", spl=spl, depth=depth,
+              fused_ms_per_launch=f"{ms_f:.2f}",
+              mrays_per_s=f"{rays_f / dt_f / 1e6:.1f}",
+              msamples_per_s=f"{2 * W * H * spl / dt_f / 1e6:.1f}",
+              rays_per_launch=rays_f // 2, first_launch_rays=first_rays_f,
+              wavefront_ms_per_launch=f"{ms_w:.2f}",
+              wavefront_mrays_per_s=f"{rays_w / dt_w / 1e6:.1f}",
+              peak_mem_mib=f"{peak_f / 2**20:.0f}",
+              wavefront_peak_mem_mib=f"{peak_w / 2**20:.0f}",
+              image_mean=f"{img.mean():.5f}",
+              fused_vs_wavefront_max_abs_diff=head_err,
+              pixels_bit_equal=f"{np.mean(np.all(a == b, axis=-1)):.6f}",
+              auto_launches={k: n_f[k] for k in ("bf_closest", "bf_any",
+                                                 kname)},
+              wavefront_launches={k: n_w[k] for k in ("bf_closest", "bf_any",
+                                                      kname)})
+        launches[kname] = n_f[kname]
+        # Bound per launch: of the traced rays at least half are
+        # closest-hit rays (each NEE shadow ray follows a hit), each tested
+        # against every triangle and prim; a shadow ray needs one test at
+        # the least. Bytes: the radiance and count planes written once.
+        per_closest = PAIR_OPS * scene.num_triangles + sum(
+            PRIM_OPS[k] for k in scene.prims.kinds_static)
+        rays_launch = rays_f // 2
+        record[kname]["max_abs_err"] = max(record[kname]["max_abs_err"],
+                                           head_err)
+        record[kname].update(
+            ms=ms_f, plain_ms=ms_w, plain_blocks="all",
+            **bound((rays_launch // 2) * (per_closest + PAIR_OPS),
+                    W * H * 16))
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1351,6 +1500,11 @@ def main():
           **{f"{n}_ms": f"{t[0]:.3f}" for n, t in times.items()},
           **{f"{n}_plain_ms": f"{t[1]:.3f}" for n, t in times.items()})
 
+    # --- phases 7-9: the fused kernel's specular, PBR and prim variants ---
+    variant_launches = variant_phases(dev, card, record)
+    launches.update(variant_launches)
+    torch.cuda.empty_cache()
+
     # --- phases (a)-(d), (h)-(j): the large-mesh path (kernels 4-6) and
     # the queue (kernels 7-8) ---
     launches.update(knot_phases(dev, card, record))
@@ -1359,14 +1513,16 @@ def main():
     # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---
     launches.update(sc_phases(dev, card, record))
 
-    # --- phase 7: the record and the verdict ---
+    # --- the record and the verdict ---
+    fused_3 = ("optix_raytracer_tpu_torch/csrc/pt_fused.cu",
+               "optix_raytracer_tpu/wavefront/pallas_pt.py:1478")
     meta = dict(
         bf_closest=("optix_raytracer_tpu_torch/csrc/bf.cu",
                     "optix_raytracer_tpu/accel/pallas_bf.py:174"),
         bf_any=("optix_raytracer_tpu_torch/csrc/bf.cu",
                 "optix_raytracer_tpu/accel/pallas_bf.py:200"),
-        pt_fused_cornell=("optix_raytracer_tpu_torch/csrc/pt_fused.cu",
-                          "optix_raytracer_tpu/wavefront/pallas_pt.py:1478"),
+        pt_fused_cornell=fused_3,
+        **{name: fused_3 for name in variant_launches},
         cluster_cull_exact=("optix_raytracer_tpu_torch/csrc/clusters.cu",
                             "optix_raytracer_tpu/accel/clusters.py:312"),
         cluster_closest=("optix_raytracer_tpu_torch/csrc/clusters.cu",

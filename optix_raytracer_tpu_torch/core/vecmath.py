@@ -35,6 +35,19 @@ def reflect(i, n):
     return i - 2.0 * dot(i, n)[..., None] * n
 
 
+def refract(i, n, eta):
+    """Snell refraction (`core/vecmath.py:61-76`) → (direction, ok). `i`
+    points toward the surface, `n` away from it, eta = n_i / n_t. On total
+    internal reflection ok is False and the direction zero."""
+    eta = torch.as_tensor(eta, dtype=torch.float32, device=i.device)
+    cos_i = -dot(i, n)
+    sin2_t = (eta * eta) * torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    ok = sin2_t <= 1.0
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 0.0))
+    d = eta[..., None] * i + (eta * cos_i - cos_t)[..., None] * n
+    return torch.where(ok[..., None], d, 0.0), ok
+
+
 def orthonormal_basis(n):
     """Branchless Frisvad/Duff (tangent, bitangent) around unit normal n."""
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -30,7 +31,19 @@ _BUILD = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"bf_closest": 0, "bf_any": 0, "pt_fused_cornell": 0,
+
+def pt_fused_name(specular: bool, pbr: bool, prims: bool) -> str:
+    """LAUNCHES key of the fused kernel's instantiation <specular, pbr,
+    prims>: "pt_fused_cornell" for <false, false, false>, else the flags
+    that are on, e.g. "pt_fused_specular_prims"."""
+    on = [t for t, f in (("specular", specular), ("pbr", pbr),
+                         ("prims", prims)) if f]
+    return "pt_fused_" + ("_".join(on) if on else "cornell")
+
+
+LAUNCHES = {"bf_closest": 0, "bf_any": 0,
+            **{pt_fused_name(*v): 0
+               for v in itertools.product((False, True), repeat=3)},
             "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0,
             "cluster_sc_closest": 0, "cluster_sc_any": 0,
             "qwalk_oct_cull": 0, "qwalk_closest": 0, "qwalk_any": 0}
@@ -44,10 +57,10 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P),
     # tri, m, org, dir, tmin, tmax, n, occ, stream
     "ort_bf_any": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
-    # tri, m, mats, k, light, cam, subframe, width, height, full_w, full_h,
-    # y0, spl, max_depth, rad, count, stream
-    "ort_pt_fused_cornell": (_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _I, _P, _P, _P),
+    # tri, m, prims, p, mats, k, light, cam, subframe, width, height,
+    # full_w, full_h, y0, spl, max_depth, specular, pbr, rad, count, stream
+    "ort_pt_fused": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _P, _P, _P),
     # aabb, c_pad, rays, n_blocks, tn, gm, stream
     "ort_cluster_cull_exact": (_P, _I, _P, _I, _P, _P, _P),
     # counts, lists, tnear, comp, n_comp, rays, n_blocks, c_pad, gate, out,

@@ -1,5 +1,6 @@
-"""The Cornell box, the trefoil-knot scene and their cameras (counterpart of
-`scene/builtins.py:18-141, 196-274`).
+"""The Cornell box, the trefoil-knot scene, the bench's prims and PBR scenes
+and their cameras (counterpart of `scene/builtins.py:18-141, 196-274` and
+of the scenes `bench.py:153-202, 418-450` builds inline).
 
 The data tables are a copy of the JAX package's (a CPU test holds them
 equal): the JAX module cannot be imported without JAX.
@@ -8,6 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..accel import primitives as prim
 from ..core.camera import Camera
 from ..shade import materials as mat
 from ..shade.lights import ParallelogramLight
@@ -169,3 +171,84 @@ def knot_scene(segments: int = 140, sides: int = 45, *,
 def knot_camera(width, height) -> Camera:
     return Camera(eye=(0.0, 2.5, -9.0), lookat=(0.0, 0.0, 0.0),
                   up=(0.0, 1.0, 0.0), fov_y=45.0, aspect=width / height)
+
+
+# bench.py:167-188 (whitted_prims): a floor quad, one prim of each kind 0-3
+# and a glass material for the shell, under a parallelogram area light.
+PRIMS_FLOOR = 4.0
+PRIMS_LIST = [
+    {"kind": prim.SPHERE, "center": (-1.2, 0.7, 0.0), "radius": 0.7,
+     "mat_id": 1},
+    {"kind": prim.SPHERE_SHELL, "center": (0.6, 0.8, 0.5),
+     "radius_inner": 0.4, "radius_outer": 0.6, "mat_id": 3},
+    {"kind": prim.PARALLELOGRAM, "anchor": (-0.5, 1.8, -1.0),
+     "v1": (1.5, 0.0, 0.0), "v2": (0.0, 0.0, 1.2), "mat_id": 2},
+    {"kind": prim.CAPSULE, "p0": (1.2, 0.3, -1.2),
+     "p1": (2.0, 1.2, -0.8), "radius": 0.25, "mat_id": 2},
+]
+PRIMS_MATERIALS = [
+    {"kind": mat.DIFFUSE, "base_color": (0.75, 0.75, 0.75)},
+    {"kind": mat.DIFFUSE, "base_color": (0.8, 0.3, 0.2)},
+    {"kind": mat.DIFFUSE, "base_color": (0.2, 0.4, 0.8)},
+    {"kind": mat.GLASS, "base_color": (0.95, 0.95, 0.95), "ior": 1.5},
+]
+PRIMS_LIGHT = ((-1.0, 3.5, -1.0), (2.0, 0, 0), (0, 0, 2.0),
+               (10.0, 10.0, 10.0))
+# bench.py:434-435: the Cornell white material made rough metal.
+PBR_CORNELL_COLOR = (0.8, 0.6, 0.3)
+
+
+def prims_floor():
+    """The prims scene's floor → (vertices [4, 3], indices [2, 3])."""
+    s = PRIMS_FLOOR
+    verts = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s]],
+                     np.float32)
+    return verts, np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+
+
+def prims_list(with_glass=True):
+    """PRIMS_LIST; with_glass=False makes the shell diffuse (material 1),
+    the glass-free case of tests/test_fused_kernel.py:183-215."""
+    out = [dict(p) for p in PRIMS_LIST]
+    if not with_glass:
+        out[1]["mat_id"] = 1
+    return out
+
+
+def prims_scene(device, with_glass=True) -> DeviceScene:
+    """bench.py's whitted_prims scene: custom prims over a floor mesh, path
+    traced (the fused kernel's inline prim intersectors)."""
+    verts, idx = prims_floor()
+    mats = PRIMS_MATERIALS if with_glass else PRIMS_MATERIALS[:3]
+    light = ParallelogramLight.make(*PRIMS_LIGHT, device)
+    return make_device_scene(verts, idx, np.zeros(2, np.int32), mats, device,
+                             area_light=light,
+                             prims=prim.make_prims(prims_list(with_glass),
+                                                   device))
+
+
+def prims_camera(width, height) -> Camera:
+    return Camera(eye=(0, 1.6, -5.5), lookat=(0, 0.8, 0), up=(0, 1, 0),
+                  fov_y=40.0, aspect=width / height)
+
+
+def pbr_cornell_materials(metallic=0.8, roughness=0.35):
+    """CORNELL_MATERIALS with the white material made PBR (bench.py:433-435);
+    metallic > 0.99 with roughness <= 0.05 makes it a mirror."""
+    mats = [dict(m) for m in CORNELL_MATERIALS]
+    mats[WHITE] = {"kind": mat.PBR, "base_color": PBR_CORNELL_COLOR,
+                   "metallic": metallic, "roughness": roughness}
+    return mats
+
+
+def pbr_cornell(device, metallic=0.8, roughness=0.35) -> DeviceScene:
+    """bench.py's pbr_ggx scene: the Cornell box with rough-metal white
+    surfaces (the fused kernel's PBR lanes); pbr_cornell(device, 1.0, 0.02)
+    is the mirror Cornell (its mirror lanes)."""
+    verts, idx, tri_mat = quads_to_triangles(_CORNELL_QUADS)
+    light = ParallelogramLight.make(
+        CORNELL_LIGHT_CORNER, CORNELL_LIGHT_V1, CORNELL_LIGHT_V2,
+        CORNELL_LIGHT_EMISSION, device)
+    return make_device_scene(verts, idx, tri_mat,
+                             pbr_cornell_materials(metallic, roughness),
+                             device, area_light=light)

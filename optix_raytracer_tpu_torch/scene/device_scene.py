@@ -1,12 +1,14 @@
 """The torch DeviceScene (counterpart of `scene/device_scene.py:32-175,
-474-560`).
+474-575`).
 
 The port's scene holds triangle geometry (with per-corner shading normals),
-per-triangle material ids, the material table, the parallelogram area light,
-the miss color, the static feature tags and, for a mesh past the
-brute-force kernels' 512 triangles, the cluster table of the large-mesh
-traversal. Custom prims, instances, BVHs, textures, volumes and motion are
-not ported yet (ROADMAP.md Queue 1 items 7-9).
+per-triangle material ids, the material table, the custom-prim table
+(kinds 0-3), the parallelogram area light, the miss color, the static
+feature tags (glass, mirror, pbr, computed from the material dicts as the
+reference does) and, for a mesh past the brute-force kernels' 512
+triangles, the cluster table of the large-mesh traversal. Instances, BVHs,
+textures, cutouts, volumes and motion are not ported yet (ROADMAP.md Queue 1
+items 7-9).
 """
 from __future__ import annotations
 
@@ -18,13 +20,14 @@ import torch
 
 from ..accel import clusters as cluster_mod
 from ..accel import native
+from ..accel import primitives as prim_mod
 from ..accel.geometry import TriangleGeometry, build_triangle_geometry
 from ..shade.lights import ParallelogramLight
-from ..shade.materials import MaterialTable, make_material_table
+from ..shade.materials import GLASS, PBR, MaterialTable, make_material_table
 
-# Feature tags of the JAX DeviceScene that the slice does not render yet.
-UNPORTED_FEATURES = {"glass": 7, "mirror": 7, "pbr": 7, "cutouts": 8,
-                     "volume": 9}
+# Feature tags of the JAX DeviceScene that the port does not render yet,
+# with their ROADMAP.md Queue 1 item.
+UNPORTED_FEATURES = {"cutouts": 8, "volume": 9}
 
 # Meshes past the brute-force kernels' budget get a cluster table
 # (accel/pallas_bf.py MAX_SMEM_TRIS, scene/device_scene.py:533-542).
@@ -40,6 +43,11 @@ class DeviceScene:
     miss_color: torch.Tensor            # [3] constant background
     features: tuple = ()
     clusters: Optional[cluster_mod.ClusterSet] = None
+    prims: Optional[prim_mod.CustomPrims] = None
+
+    def __post_init__(self):
+        if self.prims is None:
+            self.prims = prim_mod.CustomPrims.empty(self.device)
 
     @property
     def num_triangles(self):
@@ -53,8 +61,19 @@ class DeviceScene:
     def device(self):
         return self.geom.tri_consts.device
 
-    def require_cornell_subset(self):
+    @property
+    def has_pbr(self) -> bool:
+        """Rough metallic-roughness lanes: the bounce draws two more RNG
+        pairs on every lane (engine.py:506-527)."""
+        return "pbr" in self.features
+
+    @property
+    def has_specular(self) -> bool:
+        return "glass" in self.features or "mirror" in self.features
+
+    def require_supported(self):
         """Raise for the features the port does not render yet."""
+        prim_mod.require_ported(self.prims)
         for f in self.features:
             if f in UNPORTED_FEATURES:
                 raise NotImplementedError(
@@ -96,11 +115,32 @@ def _build_cluster_table(geom: TriangleGeometry, tri_mat: torch.Tensor):
                                       order=native.sah_leaf_order(geom))
 
 
+def _is_mirror(m) -> bool:
+    return (m.get("kind", 0) == PBR and m.get("metallic", 0.0) > 0.99
+            and m.get("roughness", 0.5) <= 0.05)
+
+
+def material_features(materials) -> tuple:
+    """The feature tags a list of material dicts switches on, in the
+    reference's order (scene/device_scene.py:557-575)."""
+    features = []
+    if any(m.get("cutout", 0) or m.get("alpha_mode", 0) == 1
+           for m in materials):
+        features.append("cutouts")
+    if any(m.get("kind", 0) == GLASS for m in materials):
+        features.append("glass")
+    if any(_is_mirror(m) for m in materials):
+        features.append("mirror")
+    if any(m.get("kind", 0) == PBR and not _is_mirror(m) for m in materials):
+        features.append("pbr")
+    return tuple(features)
+
+
 def make_device_scene(vertices, indices, tri_mat, materials, device,
                       area_light=None, miss_color=(0.0, 0.0, 0.0),
-                      normals=None):
-    """Triangle mesh + material dicts → DeviceScene on `device`. normals:
-    optional per-vertex [V, 3] shading normals."""
+                      normals=None, prims=None):
+    """Triangle mesh + material dicts (+ a CustomPrims table) → DeviceScene
+    on `device`. normals: optional per-vertex [V, 3] shading normals."""
     if area_light is None:
         area_light = ParallelogramLight.make(
             (0, 0, 0), (1, 0, 0), (0, 0, 1), (0.0, 0.0, 0.0), device)
@@ -108,11 +148,16 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
     geom = build_triangle_geometry(vertices, indices, device, normals=normals)
     tri_mat = torch.as_tensor(
         _check_tri_mat(tri_mat, geom.num_triangles, table.num), device=device)
+    if prims is not None and prims.num and (
+            int(prims.mat_id.min()) < 0
+            or int(prims.mat_id.max()) >= table.num):
+        raise ValueError(f"prim material ids must lie in [0, {table.num})")
     return DeviceScene(
         geom=geom, tri_mat=tri_mat, materials=table, area_light=area_light,
         miss_color=torch.as_tensor(miss_color, dtype=torch.float32,
                                    device=device),
-        clusters=_build_cluster_table(geom, tri_mat))
+        features=material_features(materials),
+        clusters=_build_cluster_table(geom, tri_mat), prims=prims)
 
 
 def device_scene_from_numpy(fields, device) -> DeviceScene:
@@ -127,6 +172,8 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
       light_corner, light_v1, light_v2, light_normal, light_emission
       miss_color [3]
       features (tuple of str)
+      prim_kind [P], prim_params [P,18], prim_mat_id [P]  (scene.prims;
+                                                       optional, P may be 0)
       num_clusters, cluster_comp [C,32,128], cluster_aabb [C_rows,6,128],
       cluster_slot_prim [C*128]                       (scene.clusters)
 
@@ -163,9 +210,18 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
                 np.array(fields["cluster_slot_prim"], np.int32),
                 device=device),
             num_clusters=int(fields["num_clusters"]))
+    prims = None
+    if "prim_kind" in fields:
+        kinds = np.asarray(fields["prim_kind"], np.int32)
+        prims = prim_mod.CustomPrims(
+            kind=torch.as_tensor(kinds, device=device),
+            params=f32("prim_params").reshape(-1, prim_mod.PARAM_COLS),
+            mat_id=torch.as_tensor(np.asarray(fields["prim_mat_id"],
+                                              np.int32), device=device),
+            kinds_static=tuple(int(k) for k in kinds))
     return DeviceScene(geom=geom,
                        tri_mat=torch.as_tensor(tri_mat, device=device),
                        materials=table, area_light=light,
                        miss_color=f32("miss_color"),
                        features=tuple(fields.get("features", ())),
-                       clusters=clusters)
+                       clusters=clusters, prims=prims)

@@ -1,8 +1,9 @@
 """Material table as planes of tensors (counterpart of `shade/materials.py`).
 
-The slice carries the fields the Cornell path needs. Glass, PBR, textures
-and alpha cutouts are not ported yet (ROADMAP.md Queue 1 items 7-8), and a
-material that asks for one raises NotImplementedError.
+The table carries the fields of the diffuse, emissive, glass and PBR
+(metallic-roughness, mirror) lanes. Textures and alpha cutouts are not
+ported yet (ROADMAP.md Queue 1 item 8), and a material that asks for one
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ PHONG = 3
 CHECKER = 4
 EMISSIVE = 5
 
-_UNPORTED_KINDS = {PBR: "PBR", GLASS: "GLASS"}
 # Keys that switch on an unported feature, with their "off" value.
 _UNPORTED_KEYS = {"base_tex": -1, "normal_tex": -1, "mr_tex": -1,
                   "emissive_tex": -1, "cutout": 0, "alpha_mode": 0}
@@ -43,11 +43,6 @@ class MaterialTable:
 def make_material_table(materials, device) -> MaterialTable:
     """materials: list of dicts; unspecified fields get the JAX defaults."""
     for i, m in enumerate(materials):
-        kind = m.get("kind", DIFFUSE)
-        if kind in _UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"material {i}: kind {_UNPORTED_KINDS[kind]} is not ported "
-                "yet (ROADMAP.md Queue 1 item 7)")
         used = [k for k, off in _UNPORTED_KEYS.items() if m.get(k, off) != off]
         if used:
             raise NotImplementedError(

@@ -1,4 +1,4 @@
-"""Cosine-hemisphere sampling (counterpart of `shade/sampling.py:18-48`)."""
+"""Cosine-hemisphere and GGX sampling (counterpart of `shade/sampling.py:18-73`)."""
 from __future__ import annotations
 
 import math
@@ -6,6 +6,8 @@ import math
 import torch
 
 from ..core.vecmath import normalize, orthonormal_basis
+
+TWO_PI = 6.283185307179586
 
 
 def concentric_sample_disk(u1, u2):
@@ -31,3 +33,17 @@ def cosine_sample_hemisphere(u1, u2, normal):
     dz = torch.sqrt(torch.clamp_min(1.0 - dx * dx - dy * dy, 0.0))
     t, b = orthonormal_basis(normal)
     return normalize(dx[..., None] * t + dy[..., None] * b + dz[..., None] * normal)
+
+
+def ggx_sample_half_vector(u1, u2, normal, roughness):
+    """A GGX / Trowbridge-Reitz half-vector about `normal` (`shade/
+    sampling.py:58-73`); pdf_h = D(h) cos(theta_h)."""
+    a2 = roughness * roughness
+    cos2 = (1.0 - u1) / torch.clamp_min(u1 * (a2 * a2 - 1.0) + 1.0, 1e-12)
+    cos_t = torch.sqrt(torch.clamp(cos2, 0.0, 1.0))
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - cos2, 0.0))
+    phi = TWO_PI * u2
+    t, b = orthonormal_basis(normal)
+    return normalize((sin_t * torch.cos(phi))[..., None] * t
+                     + (sin_t * torch.sin(phi))[..., None] * b
+                     + cos_t[..., None] * normal)

@@ -1,15 +1,19 @@
-"""The lock-step wavefront engine (counterpart of `wavefront/engine.py:85-189,
-192-760, 772-921`) for diffuse and emissive materials: NEE toward the
-parallelogram light, cosine bounces, Russian roulette.
+"""The lock-step wavefront engine (counterpart of `wavefront/engine.py:44-189,
+192-760, 772-921`): diffuse, emissive, glass, mirror and PBR (metallic-
+roughness GGX) materials; NEE toward the parallelogram light (the full BRDF
+on PBR lanes), cosine, one-sample-MIS GGX and Fresnel glass bounces,
+Russian roulette.
 
 The whole wavefront moves one bounce at a time, dead lanes masked. Its
 intersections come from kernels 1 and 2 (brute force), or on a scene with a
 cluster table from kernels 4-6, on CUDA, and from their plain versions on
-the CPU. It is the fused kernel's oracle, as the XLA wavefront is the
-Pallas megakernel's. On a cluster scene, the sequential, coherence-sorted
-loop is the sample-major launch's oracle. It draws the RNG in the JAX
-engine's order, including the glass pair that diffuse-only scenes never
-read (engine.py:536).
+the CPU; custom prims are merged in by torch ops. It is the fused kernel's
+oracle, as the XLA wavefront is the Pallas megakernel's, and the fused
+kernel repeats its arithmetic operation for operation. On a cluster scene,
+the sequential, coherence-sorted loop is the sample-major launch's oracle.
+It draws the RNG in the JAX engine's order: per bounce the NEE pair, the
+cosine pair, two GGX pairs when the scene has PBR lanes, the glass pair
+(drawn even where no lane reads it, engine.py:536) and the roulette pair.
 """
 from __future__ import annotations
 
@@ -23,15 +27,19 @@ from ..core import rng as _rng
 from ..core.camera import generate_rays
 from ..core.film import Film
 from ..core.rays import Rays
-from ..core.vecmath import dot
+from ..core.vecmath import dot, normalize, reflect, refract
 from ..scene.device_scene import DeviceScene
 from ..shade import materials as mats
-from ..shade.sampling import cosine_sample_hemisphere
+from ..shade.sampling import cosine_sample_hemisphere, ggx_sample_half_vector
 from .intersect import scene_any, scene_closest
 
 # Shadow / secondary-ray epsilons at Cornell scale, as in the JAX engine.
 RAY_TMIN = 1e-2
 SHADOW_TMAX_SCALE = 1.0 - 1e-3
+# The BRDF and pdf scale by 1/pi, never divide by it: PyTorch's CUDA
+# division by a Python scalar multiplies by its f32 reciprocal, the CPU's
+# divides, so only a product rounds alike on both and in the fused kernel.
+INV_PI = 1.0 / math.pi
 
 IMPLS = ("auto", "fused", "wavefront", "spl")
 
@@ -40,11 +48,62 @@ IMPLS = ("auto", "fused", "wavefront", "spl")
 _SPL_TILE_RAYS = 4 * 1024 * 1024
 
 
+def _pow5(x):
+    """x**5 as XLA expands integer_pow: x * (x² · x²)."""
+    x2 = x * x
+    return x * (x2 * x2)
+
+
+def _ggx_d(n_dh, rc):
+    """The GGX normal distribution D(h) at n.h, roughness clamped."""
+    a = rc * rc
+    a2 = a * a
+    denom = n_dh * n_dh * (a2 - 1.0) + 1.0
+    return a2 / torch.clamp_min(math.pi * denom * denom, 1e-8)
+
+
+def _pbr_brdf(n, wo, wi, albedo, metallic, roughness):
+    """Metallic-roughness BRDF f(wo, wi) (engine.py:44-67): lambert *
+    (1 - metal) + Smith-Schlick GGX, Schlick Fresnel with f0 = lerp(0.04,
+    albedo, metal). Returns f [..., 3]."""
+    h = normalize(wo + wi)
+    n_dl = torch.clamp_min(dot(n, wi), 0.0)
+    n_dv = torch.clamp_min(dot(n, wo), 1e-4)
+    n_dh = torch.clamp_min(dot(n, h), 0.0)
+    h_dv = torch.clamp_min(dot(h, wo), 0.0)
+    rc = torch.clamp_min(roughness, 0.05)
+    d_term = _ggx_d(n_dh, rc)
+    k = (rc + 1.0) * (rc + 1.0) / 8.0
+    g = (n_dv / (n_dv * (1 - k) + k)) * (n_dl / torch.clamp_min(
+        n_dl * (1 - k) + k, 1e-8))
+    f0 = 0.04 * (1.0 - metallic)[..., None] + metallic[..., None] * albedo
+    fres = f0 + (1.0 - f0) * _pow5(1.0 - h_dv)[..., None]
+    spec = fres * (d_term * g / torch.clamp_min(4.0 * n_dv * n_dl,
+                                                1e-8))[..., None]
+    diff = albedo * (1.0 - metallic)[..., None] * INV_PI
+    return torch.where((n_dl > 0)[..., None], diff + spec, 0.0)
+
+
+def _pbr_pdf(n, wo, wi, roughness, p_spec):
+    """pdf of the cosine + GGX one-sample-MIS mixture that samples wi
+    (engine.py:70-82)."""
+    h = normalize(wo + wi)
+    n_dl = torch.clamp_min(dot(n, wi), 0.0)
+    n_dh = torch.clamp_min(dot(n, h), 0.0)
+    h_dv = torch.clamp_min(dot(h, wo), 1e-6)
+    pdf_ggx = (_ggx_d(n_dh, torch.clamp_min(roughness, 0.05)) * n_dh
+               / torch.clamp_min(4.0 * h_dv, 1e-8))
+    pdf_cos = n_dl * INV_PI
+    return p_spec * pdf_ggx + (1.0 - p_spec) * pdf_cos
+
+
 def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
-                      chunk_size, mask=None, group_walk=False):
+                      chunk_size, mask=None, group_walk=False, pbr=None):
     """Next-event estimation toward the parallelogram light: uniform point on
     the quad, weight nDl * LnDl * A / (pi d²) on the albedo-scaled throughput.
-    Returns (contribution [N, 3], rng)."""
+    With `pbr` (dict: albedo, metallic, roughness, wo, is_pbr, throughput)
+    the PBR lanes take the full BRDF instead, T * f * Le * nDl * LnDl * A / d²
+    (engine.py:135-142). Returns (contribution [N, 3], rng)."""
     light = scene.area_light
     u1, u2, rng = _rng.uniform2(rng)
     lp = light.corner + u1[..., None] * light.v1 + u2[..., None] * light.v2
@@ -67,14 +126,23 @@ def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
     weight = torch.where(facing & ~occluded,
                          n_dl * ln_dl * light.area / (math.pi * dist2), 0.0)
     contrib = throughput_albedo * light.emission * weight[..., None]
+    if pbr is not None:
+        f = _pbr_brdf(n, pbr["wo"], wi, pbr["albedo"], pbr["metallic"],
+                      pbr["roughness"])
+        w2 = torch.where(facing & ~occluded,
+                         n_dl * ln_dl * light.area / dist2, 0.0)
+        contrib_pbr = pbr["throughput"] * f * light.emission * w2[..., None]
+        contrib = torch.where(pbr["is_pbr"][..., None], contrib_pbr, contrib)
     return contrib, rng
 
 
 def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
             exact: bool = False, group_walk: bool = False) -> dict:
-    """One bounce of the whole wavefront (engine.py:241-611, the diffuse
-    lanes): closest hit, miss and emission terms, NEE, cosine sampling and
-    Russian roulette. Returns the next state."""
+    """One bounce of the whole wavefront (engine.py:241-611, without volume,
+    cutouts and textures): closest hit, miss and emission terms, the
+    material lanes (glass, mirror, PBR, diffuse), NEE on the diffuse and
+    PBR lanes, the next direction and throughput, Russian roulette.
+    Returns the next state."""
     rays = state["rays"]
     active = state["active"]
     throughput = state["throughput"]
@@ -98,23 +166,80 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
     n = geom_n * torch.sign(-dot(geom_n, d))[..., None]
     hit_p = rays.at(hits.t)
 
-    # Emission only on primary hits (or after a specular bounce, which
-    # the diffuse-only slice never takes): NEE covers the rest.
+    # Emission only on primary hits or after a specular bounce: NEE covers
+    # the rest.
     take_emission = hit_valid & state["prev_specular"]
     radiance = radiance + torch.where(take_emission[..., None],
                                       throughput * m["emission"], 0.0)
 
-    # Every supported material is diffuse: NEE on all valid hits.
-    t_albedo = throughput * m["base_color"]
-    contrib, rng = _nee_direct_light(scene, hit_p, n, t_albedo, rng,
-                                     chunk_size, mask=hit_valid,
-                                     group_walk=group_walk)
-    radiance = radiance + torch.where(hit_valid[..., None], contrib, 0.0)
+    kind = m["kind"]
+    albedo = m["base_color"]
+    is_glass = kind == mats.GLASS
+    # a perfect mirror is fully metallic AND polished; other PBR takes GGX
+    is_mirror = ((kind == mats.PBR) & (m["metallic"] > 0.99)
+                 & (m["roughness"] <= 0.05))
+    is_pbr = (kind == mats.PBR) & ~is_mirror
+    is_specular = is_glass | is_mirror
+    is_diffuse = ~is_specular
+
+    # NEE on the diffuse lanes (PBR lanes with the full BRDF)
+    t_albedo = throughput * albedo
+    nee_mask = hit_valid & is_diffuse
+    contrib, rng = _nee_direct_light(
+        scene, hit_p, n, t_albedo, rng, chunk_size, mask=nee_mask,
+        group_walk=group_walk,
+        pbr=(dict(albedo=albedo, metallic=m["metallic"],
+                  roughness=m["roughness"], wo=-d, is_pbr=is_pbr,
+                  throughput=throughput) if scene.has_pbr else None))
+    radiance = radiance + torch.where(nee_mask[..., None], contrib, 0.0)
 
     u1, u2, rng = _rng.uniform2(rng)
     new_dir = cosine_sample_hemisphere(u1, u2, n)
-    _, _, rng = _rng.uniform2(rng)   # glass pair (engine.py:536), unused
-    new_throughput = t_albedo        # f * cos / pdf = albedo
+    new_throughput = t_albedo        # diffuse: f * cos / pdf = albedo
+
+    if scene.has_pbr:
+        # one-sample MIS between the cosine and GGX lobes
+        rough = torch.clamp_min(m["roughness"], 0.05)
+        metal = m["metallic"]
+        u5p, u6p, rng = _rng.uniform2(rng)
+        h_vec = ggx_sample_half_vector(u5p, u6p, n, rough)
+        d_ggx = normalize(reflect(d, h_vec))
+        p_spec = torch.clamp(0.5 * metal + 0.1, 0.05, 0.95)
+        u7p, _, rng = _rng.uniform2(rng)
+        d_pbr = torch.where((u7p < p_spec)[..., None], d_ggx, new_dir)
+        f_pbr = _pbr_brdf(n, -d, d_pbr, albedo, metal, rough)
+        pdf_pbr = _pbr_pdf(n, -d, d_pbr, rough, p_spec)
+        n_dl_pbr = torch.clamp_min(dot(n, d_pbr), 0.0)
+        valid_dir = (n_dl_pbr > 1e-5) & (pdf_pbr > 1e-7)
+        w_pbr = torch.where(
+            valid_dir[..., None],
+            f_pbr * (n_dl_pbr / torch.clamp_min(pdf_pbr, 1e-7))[..., None],
+            0.0)
+        new_dir = torch.where(is_pbr[..., None], d_pbr, new_dir)
+        new_throughput = torch.where(is_pbr[..., None], throughput * w_pbr,
+                                     new_throughput)
+
+    u3, _, rng = _rng.uniform2(rng)     # the glass pair (engine.py:536)
+    if scene.has_specular:
+        # mirror reflection; glass picks reflect / refract by Schlick Fresnel
+        d_mirror = normalize(reflect(d, n))
+        ior = m["ior"]
+        eta = torch.where(dot(d, geom_n) < 0.0, 1.0 / ior, ior)
+        d_refr, refr_ok = refract(d, n, eta)
+        cos_i = torch.clamp(-dot(d, n), 0.0, 1.0)
+        r = (ior - 1.0) / (ior + 1.0)
+        r0 = r * r
+        fresnel = r0 + (1.0 - r0) * _pow5(1.0 - cos_i)
+        glass_reflect = (~refr_ok) | (u3 < fresnel)
+        d_glass = torch.where(glass_reflect[..., None], d_mirror,
+                              normalize(d_refr))
+        new_dir = torch.where(is_glass[..., None], d_glass,
+                              torch.where(is_mirror[..., None], d_mirror,
+                                          new_dir))
+        spec_tint = torch.where((m["kr"] > 0.0).any(dim=-1, keepdim=True),
+                                m["kr"], albedo)
+        new_throughput = torch.where(is_specular[..., None],
+                                     throughput * spec_tint, new_throughput)
 
     offset_n = torch.where(dot(new_dir, n)[..., None] >= 0.0, n, -n)
     new_origin = hit_p + offset_n * RAY_TMIN
@@ -128,7 +253,7 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
     else:
         survive = torch.ones_like(active)
 
-    rays_traced = state["rays_traced"] + active.sum() + hit_valid.sum()
+    rays_traced = state["rays_traced"] + active.sum() + nee_mask.sum()
     active = hit_valid & survive
     out = dict(state)
     out.update(
@@ -138,7 +263,7 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
                   tmin=torch.full_like(hits.t, RAY_TMIN),
                   tmax=torch.where(active, 1e16, 0.0)),
         throughput=new_throughput, radiance=radiance, rng=rng,
-        active=active, prev_specular=torch.zeros_like(active),
+        active=active, prev_specular=is_specular,
         rays_traced=rays_traced)
     return out
 
@@ -175,7 +300,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
     (it never changes a hit, only the work).
     active0 marks lanes that are live on arrival (strip padding is not).
     """
-    scene.require_cornell_subset()
+    scene.require_supported()
     n_rays = rays.tmin.shape[0]
     dev = rays.origin.device
     if active0 is None:
@@ -280,15 +405,23 @@ def render_sample_group(scene: DeviceScene, cam_params, width: int,
 
 
 def _use_fused(scene: DeviceScene, impl: str) -> bool:
-    """`engine.py:772-821` minus its TPU test: the fused kernel on a CUDA
-    device for a diffuse-only scene of at most MAX_FUSED_TRIS triangles."""
-    from .pallas_pt import MAX_FUSED_MATS, MAX_FUSED_TRIS
+    """`engine.py:772-821` minus its TPU test and the instance and texture
+    variants (not ported): the fused kernel on a CUDA device for a scene of
+    at most MAX_FUSED_TRIS triangles and MAX_FUSED_MATS materials, at most
+    MAX_FUSED_PRIMS custom prims of FUSED_PRIM_KINDS, and no feature but
+    glass, mirror and pbr. Decided by the scene alone."""
+    from .pallas_pt import (FUSED_FEATURES, FUSED_PRIM_KINDS, MAX_FUSED_MATS,
+                            MAX_FUSED_PRIMS, MAX_FUSED_TRIS)
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl != "auto":
         return impl == "fused"
+    prims_ok = (scene.prims.num <= MAX_FUSED_PRIMS
+                and all(k in FUSED_PRIM_KINDS
+                        for k in scene.prims.kinds_static))
     return (scene.device.type == "cuda"
-            and not scene.features
+            and prims_ok
+            and set(scene.features) <= FUSED_FEATURES
             and scene.num_triangles <= MAX_FUSED_TRIS
             and scene.materials.num <= MAX_FUSED_MATS)
 
@@ -317,7 +450,8 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
                       impl: str = "auto"):
     """Add `samples_per_launch` samples to the film → (film, rays_traced).
 
-    impl: "fused" runs the fused path-trace kernel (kernel 3; its plain
+    impl: "fused" runs the fused path-trace kernel (kernel 3 and its
+    specular / PBR / prim instantiations, 3'; its plain
     version on the CPU); "wavefront" the lock-step engine one sample after
     another (on CUDA its intersections come from kernels 1-2, or kernels
     4-6 on a cluster scene); "spl" the sample-major engine in strips of

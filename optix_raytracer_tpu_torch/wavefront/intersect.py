@@ -1,7 +1,9 @@
 """Scene-level intersection (counterpart of `wavefront/intersect.py:78-200`):
 the cluster-culled traversal for a scene with a cluster table, brute force
-otherwise. Prims, instances, BVHs, motion and cutout any-hit are not ported
-yet (ROADMAP.md Queue 1 items 7-9); the port's DeviceScene has none of them.
+otherwise, then the custom prims merged in (`accel/primitives.py`; a prim
+hit reports prim_id = num_triangles + its row). Instances, BVHs, motion and
+cutout any-hit are not ported yet (ROADMAP.md Queue 1 items 7-9); the port's
+DeviceScene has none of them.
 
 In the JAX package the cluster branch runs only on a TPU; in the port a
 cluster table alone selects it, on any device (the CPU runs the kernels'
@@ -16,6 +18,7 @@ from typing import Optional
 
 from ..accel import bruteforce as bf
 from ..accel import clusters as cluster_mod
+from ..accel import primitives as prim_mod
 from ..accel import qwalk as qwalk_mod
 from ..core.rays import Hits, Rays
 from ..scene.device_scene import DeviceScene
@@ -50,12 +53,19 @@ def scene_closest(scene: DeviceScene, rays: Rays,
     cull's bits. Both are ignored by brute force."""
     if scene.has_clusters:
         if exact and _use_qwalk():
-            return _flat_call(lambda r: qwalk_mod.closest_hit(
+            hits = _flat_call(lambda r: qwalk_mod.closest_hit(
                 scene.clusters, r), rays)
-        return _flat_call(lambda r: cluster_mod.closest_hit(
-            scene.clusters, r, exact=exact, group_walk=group_walk), rays)
-    return bf.intersect_closest(scene.geom, rays, tri_mat=scene.tri_mat,
-                                chunk_size=chunk_size)
+        else:
+            hits = _flat_call(lambda r: cluster_mod.closest_hit(
+                scene.clusters, r, exact=exact, group_walk=group_walk), rays)
+    else:
+        hits = bf.intersect_closest(scene.geom, rays, tri_mat=scene.tri_mat,
+                                    chunk_size=chunk_size)
+    if scene.prims.num:
+        ph = _flat_call(lambda r: prim_mod.intersect_prims_closest(
+            scene.prims, r), rays)
+        hits = prim_mod.merge_hits(hits, ph, prim_offset=scene.num_triangles)
+    return hits
 
 
 def scene_any(scene: DeviceScene, rays: Rays,
@@ -65,8 +75,14 @@ def scene_any(scene: DeviceScene, rays: Rays,
     queue under ORT_QWALK=1."""
     if scene.has_clusters:
         if _use_qwalk():
-            return _flat_call(lambda r: qwalk_mod.any_hit(scene.clusters, r),
-                              rays)
-        return _flat_call(lambda r: cluster_mod.any_hit(
-            scene.clusters, r, exact=True, group_walk=group_walk), rays)
-    return bf.intersect_any(scene.geom, rays, chunk_size=chunk_size)
+            occ = _flat_call(lambda r: qwalk_mod.any_hit(scene.clusters, r),
+                             rays)
+        else:
+            occ = _flat_call(lambda r: cluster_mod.any_hit(
+                scene.clusters, r, exact=True, group_walk=group_walk), rays)
+    else:
+        occ = bf.intersect_any(scene.geom, rays, chunk_size=chunk_size)
+    if scene.prims.num:
+        occ = occ | _flat_call(lambda r: prim_mod.intersect_prims_any(
+            scene.prims, r), rays)
+    return occ

@@ -1,6 +1,6 @@
-"""The fused path-trace kernel (kernel 3) and its plain version (counterpart
-of `wavefront/pallas_pt.py:206-286, 1392-1495`; the kernel is
-`csrc/pt_fused.cu`).
+"""The fused path-trace kernel (kernel 3 and its variants 3') and its plain
+version (counterpart of `wavefront/pallas_pt.py:206-286, 398-1378,
+1392-1495`; the kernel is `csrc/pt_fused.cu`).
 
 `render_sum_fused` renders `samples_per_launch` progressive samples of a row
 tile in one launch and returns their radiance SUM and the rays traced. On
@@ -9,10 +9,14 @@ version, the wavefront engine's `render_sample` loop over the same
 subframes, which is the relation the JAX package keeps between
 `engine.render_sample` and its megakernel.
 
-The kernel covers the Cornell configuration: diffuse and emissive
-materials, no custom prims, no instances, no textures. The specular, PBR,
-prim, instance, smooth-normal and texture variants of the TPU kernel are not
-ported yet (ROADMAP.md Queue 2 item 2).
+The kernel is a template over the TPU kernel's static flags <specular, pbr,
+prims>: `has_specular` (glass or mirror materials), `has_pbr` (rough
+metallic-roughness lanes) and the inline custom prims (at most
+MAX_FUSED_PRIMS of FUSED_PRIM_KINDS). <false, false, false> is the Cornell
+configuration. Each instantiation counts its launches under its own
+`kernels.LAUNCHES` key (`kernels.pt_fused_name`). The instance, smooth-
+normal and texture variants are not ported yet (ROADMAP.md Queue 2 items
+2-3).
 """
 from __future__ import annotations
 
@@ -25,10 +29,15 @@ from ..scene.device_scene import DeviceScene
 from .engine import render_sum_wavefront as render_sum_plain
 
 MAT_COLS = 16   # kind, base3, emission3, metallic, ior, kr3, roughness, pad3
-# Triangles + materials are staged in shared memory: (512 + 128) rows of 64
-# bytes stay under the 48 KB a block gets without opting in to more.
+# Triangles + materials + prims are staged in shared memory: (512 + 128 +
+# 16) rows of 64 bytes stay under the 48 KB a block gets without opting in
+# to more.
 MAX_FUSED_TRIS = 512
 MAX_FUSED_MATS = 128
+MAX_FUSED_PRIMS = 16
+FUSED_PRIM_KINDS = (0, 1, 2, 3)     # sphere, shell, parallelogram, capsule
+# Scene features the kernel renders (engine._use_fused).
+FUSED_FEATURES = frozenset({"glass", "mirror", "pbr"})
 
 
 def pack_materials(mt) -> torch.Tensor:
@@ -43,6 +52,26 @@ def pack_materials(mt) -> torch.Tensor:
     out[:, 9:12] = mt.kr
     out[:, 12] = mt.roughness
     return out
+
+
+def pack_prims(prims) -> torch.Tensor:
+    """CustomPrims → [max(P, 1), 16] f32 rows: params[0:12], mat_id (col
+    12), kind (col 13). The reference packs the first 13 columns alike
+    (pallas_pt.py:223-234); the kind column replaces its static
+    `prim_kinds`, and the kernel switches on it per prim (warp-uniform)."""
+    out = torch.zeros((max(prims.num, 1), 16), dtype=torch.float32,
+                      device=prims.params.device)
+    if prims.num:
+        out[:prims.num, 0:12] = prims.params[:, 0:12]
+        out[:prims.num, 12] = prims.mat_id.to(torch.float32)
+        out[:prims.num, 13] = prims.kind.to(torch.float32)
+    return out
+
+
+def fused_variant(scene: DeviceScene) -> tuple:
+    """The kernel instantiation a scene takes: (specular, pbr, prims)
+    (pallas_pt.py:1423-1424)."""
+    return scene.has_specular, scene.has_pbr, scene.prims.num > 0
 
 
 def pack_light(light) -> torch.Tensor:
@@ -72,10 +101,16 @@ def pack_camera(cam_params, miss_color) -> torch.Tensor:
 def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
                      subframe, samples_per_launch: int = 1,
                      max_depth: int = 4, y0=0, full_width=None,
-                     full_height=None):
+                     full_height=None, regen=None):
     """`samples_per_launch` samples of a [height, width] row tile from
-    subframe `subframe` → (radiance SUM [H, W, 3], rays_traced int64)."""
-    scene.require_cornell_subset()
+    subframe `subframe` → (radiance SUM [H, W, 3], rays_traced int64).
+
+    regen: the TPU kernel's choice between the lock-step and the
+    path-regeneration schedules (pallas_pt.py:1318-1372), which give the
+    same values. The CUDA kernel's per-thread loop ends each path where it
+    dies, which is both, so the argument selects nothing here."""
+    del regen
+    scene.require_supported()
     dev = scene.device
     if dev.type == "cpu":
         return render_sum_plain(scene, cam_params, width, height, subframe,
@@ -84,10 +119,14 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
                                 full_height=full_height)
     if dev.type != "cuda":
         raise ValueError(f"render_sum_fused: unsupported device {dev}")
-    m, k = scene.num_triangles, scene.materials.num
-    if m > MAX_FUSED_TRIS or k > MAX_FUSED_MATS:
-        raise ValueError(f"{m} triangles / {k} materials exceed the fused "
-                         f"kernel's {MAX_FUSED_TRIS} / {MAX_FUSED_MATS}")
+    m, k, p = scene.num_triangles, scene.materials.num, scene.prims.num
+    if m > MAX_FUSED_TRIS or k > MAX_FUSED_MATS or p > MAX_FUSED_PRIMS:
+        raise ValueError(f"{m} triangles / {k} materials / {p} prims exceed "
+                         f"the fused kernel's {MAX_FUSED_TRIS} / "
+                         f"{MAX_FUSED_MATS} / {MAX_FUSED_PRIMS}")
+    if not set(scene.features) <= FUSED_FEATURES:
+        raise ValueError(f"the fused kernel renders no scene with features "
+                         f"{scene.features}")
     full_w = width if full_width is None else full_width
     full_h = height if full_height is None else full_height
     n = width * height
@@ -97,11 +136,14 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
     # tri_consts column 15 carries the material id for the fused kernel.
     tri = scene.geom.tri_consts.clone()
     tri[:, 15] = scene.tri_mat.to(torch.float32)
+    prims = pack_prims(scene.prims)
     mats = pack_materials(scene.materials)
     light = pack_light(scene.area_light)
     cam = pack_camera(cam_params, scene.miss_color)
     sub = torch.as_tensor(subframe, device=dev).to(torch.int64).reshape(())
-    for name, t, shape in (("tri", tri, (m, 16)), ("mats", mats, (k, 16)),
+    for name, t, shape in (("tri", tri, (m, 16)),
+                           ("prims", prims, (max(p, 1), 16)),
+                           ("mats", mats, (k, 16)),
                            ("light", light, (1, 16)), ("cam", cam, (2, 16))):
         kernels.require(t, name, torch.float32, shape, dev)
     kernels.require(sub, "subframe", torch.int64, (), dev)
@@ -110,13 +152,16 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
     count = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return rad, torch.zeros((), dtype=torch.int64, device=dev)
+    specular, pbr, has_prims = fused_variant(scene)
+    name = kernels.pt_fused_name(specular, pbr, has_prims)
     with torch.cuda.device(dev):
-        err = kernels.lib().ort_pt_fused_cornell(
-            tri.data_ptr(), m, mats.data_ptr(), k, light.data_ptr(),
-            cam.data_ptr(), sub.data_ptr(), width, height, full_w, full_h,
-            y0, samples_per_launch, max_depth, rad.data_ptr(),
-            count.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["pt_fused_cornell"] += 1
-    kernels.check(err, "pt_fused_cornell")
+        err = kernels.lib().ort_pt_fused(
+            tri.data_ptr(), m, prims.data_ptr(), p, mats.data_ptr(), k,
+            light.data_ptr(), cam.data_ptr(), sub.data_ptr(), width, height,
+            full_w, full_h, y0, samples_per_launch, max_depth, int(specular),
+            int(pbr), rad.data_ptr(), count.data_ptr(),
+            kernels.stream_ptr(dev))
+        kernels.LAUNCHES[name] += 1
+    kernels.check(err, name)
     return rad, count.sum(dtype=torch.int64)
 

@@ -179,7 +179,7 @@ def test_scene_builds_clusters_like_jax():
                                   [{"kind": 0}], "cpu", normals=normals)
     assert not scene.has_clusters
     with pytest.raises(NotImplementedError, match="shading_frame"):
-        scene.require_cornell_subset()
+        scene.require_supported()
 
 
 # --- morton, keys, culls ---------------------------------------------------

@@ -180,18 +180,18 @@ def test_device_scene_from_numpy_is_bit_exact():
                                   np.asarray(js.area_light.normal))
     assert float(ts.area_light.area) == float(js.area_light.area)
     assert ts.features == js.features
-    ts.require_cornell_subset()
+    ts.require_supported()
 
 
 def test_unported_features_raise():
     fields = scene_fields(jbuiltins.cornell_box())
-    fields["features"] = ("glass",)
+    fields["features"] = ("cutouts",)
     from optix_raytracer_tpu_torch.scene.device_scene import (
         device_scene_from_numpy)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        device_scene_from_numpy(fields, "cpu").require_cornell_subset()
+        device_scene_from_numpy(fields, "cpu").require_supported()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmaterials.make_material_table([{"kind": tmaterials.GLASS}], "cpu")
+        tmaterials.make_material_table([{"cutout": 1}], "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmaterials.make_material_table([{"base_tex": 0}], "cpu")
     with pytest.raises(ValueError):

@@ -314,3 +314,85 @@ def test_knot_launch_on_card(cuda):
     for img, rays in runs.values():
         assert rays == ref_rays
         np.testing.assert_allclose(img, ref_img, atol=2e-3, rtol=1e-3)
+
+
+def _variant_scene(name, device):
+    """A scene per instantiation <specular, pbr, prims> of the fused kernel
+    (kernels.pt_fused_name) and its camera: the bench's prims scene with
+    and without glass, the PBR and mirror Cornell boxes, and mixes."""
+    from optix_raytracer_tpu_torch.accel import primitives as prim
+    from optix_raytracer_tpu_torch.scene import builtins as B
+    from optix_raytracer_tpu_torch.scene.device_scene import make_device_scene
+    from optix_raytracer_tpu_torch.shade import materials as M
+    from optix_raytracer_tpu_torch.shade.lights import ParallelogramLight
+    rough = {"kind": M.PBR, "base_color": (0.7, 0.7, 0.6), "metallic": 0.6,
+             "roughness": 0.4}
+    if name in ("pt_fused_prims", "pt_fused_specular_prims",
+                "pt_fused_pbr_prims", "pt_fused_specular_pbr_prims"):
+        glass = "specular" in name
+        mats = [dict(m) for m in B.PRIMS_MATERIALS]
+        if "pbr" in name:
+            mats[0] = rough
+        if not glass:
+            mats = mats[:3]
+        verts, idx = B.prims_floor()
+        scene = make_device_scene(
+            verts, idx, np.zeros(2, np.int32), mats, device,
+            area_light=ParallelogramLight.make(*B.PRIMS_LIGHT, device),
+            prims=prim.make_prims(B.prims_list(glass), device))
+        return scene, B.prims_camera
+    mats = B.pbr_cornell_materials(*((1.0, 0.02) if name == "pt_fused_specular"
+                                     else (0.8, 0.35)))
+    if name == "pt_fused_specular_pbr":
+        mats[B.GREEN] = {"kind": M.GLASS, "base_color": (0.9, 1.0, 0.9),
+                         "ior": 1.45}
+        mats[B.RED] = {"kind": M.PBR, "base_color": (0.9, 0.2, 0.2),
+                       "metallic": 1.0, "roughness": 0.0}
+    verts, idx, tri_mat = B.quads_to_triangles(B._CORNELL_QUADS)
+    light = ParallelogramLight.make(B.CORNELL_LIGHT_CORNER, B.CORNELL_LIGHT_V1,
+                                    B.CORNELL_LIGHT_V2,
+                                    B.CORNELL_LIGHT_EMISSION, device)
+    return (make_device_scene(verts, idx, tri_mat, mats, device,
+                              area_light=light), B.cornell_camera)
+
+
+_VARIANTS = ["pt_fused_prims", "pt_fused_specular_prims", "pt_fused_pbr",
+             "pt_fused_specular", "pt_fused_pbr_prims",
+             "pt_fused_specular_pbr", "pt_fused_specular_pbr_prims"]
+
+
+@pytest.mark.parametrize("name", _VARIANTS)
+def test_fused_variants_match_plain(cuda, name):
+    """Each instantiation of kernel 3' against the wavefront engine on the
+    card: its own LAUNCHES key, ray counts equal, radiance within atol 3e-3
+    / rtol 1e-3 (test_fused_kernel.py:238), regen a no-op, row tiles equal
+    to the full frame."""
+    scene, camera = _variant_scene(name, cuda)
+    assert kernels.pt_fused_name(*pallas_pt.fused_variant(scene)) == name
+    assert engine._use_fused(scene, "auto")
+    w, h = 40, 32
+    cam = camera(w, h).params(cuda)
+    before = dict(kernels.LAUNCHES)
+    out, count = pallas_pt.render_sum_fused(scene, cam, w, h, 5,
+                                            samples_per_launch=2, max_depth=3)
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert all(kernels.LAUNCHES[k] == v for k, v in before.items()
+               if k != name)
+    ref, ref_count = pallas_pt.render_sum_plain(scene, cam, w, h, 5,
+                                                samples_per_launch=2,
+                                                max_depth=3)
+    assert int(count) == int(ref_count)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=3e-3, rtol=1e-3)
+    assert float(ref.max()) > 0.05
+    again, c_again = pallas_pt.render_sum_fused(scene, cam, w, h, 5,
+                                                samples_per_launch=2,
+                                                max_depth=3, regen=True)
+    np.testing.assert_array_equal(again.cpu().numpy(), out.cpu().numpy())
+    assert int(c_again) == int(count)
+    parts = [pallas_pt.render_sum_fused(scene, cam, w, 16, 5,
+                                        samples_per_launch=2, max_depth=3,
+                                        y0=y0, full_width=w, full_height=h)
+             for y0 in (0, 16)]
+    np.testing.assert_array_equal(
+        torch.cat([p[0] for p in parts]).cpu().numpy(), out.cpu().numpy())

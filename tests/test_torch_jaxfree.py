@@ -5,8 +5,10 @@ the port's own native binding, or morton order without a compiler) and
 renders it 8x8 at 8 samples per launch through the sample-major path, again
 through the cluster-major queue (ORT_QWALK=1), then again with the
 supercluster tier forced (the same image within the parity
-bars, the same ray count). Until then no module of the JAX package is
-loaded; the JAX package's reader then checks the PNG."""
+bars, the same ray count), and renders the prims + glass scene 8x8 (custom
+prims, glass lanes) through the fused kernel's plain version. Until then no
+module of the JAX package is loaded; the JAX package's reader then checks
+the PNG."""
 import os
 import subprocess
 import sys
@@ -56,6 +58,15 @@ sc_film, sc_rays = render_accumulate(tier, knot_camera(8, 8).params("cpu"),
 assert int(sc_rays) == int(rays)
 assert np.allclose(sc_film.accum.numpy(), film.accum.numpy(), atol=2e-3,
                    rtol=1e-3)
+from optix_raytracer_tpu_torch.scene.builtins import prims_camera, prims_scene
+prims = prims_scene("cpu")
+assert prims.prims.num == 4 and prims.features == ("glass",)
+p_film, p_rays = render_accumulate(prims, prims_camera(8, 8).params("cpu"),
+                                   Film.create(8, 8, "cpu"), 8, 8,
+                                   samples_per_launch=2, max_depth=3,
+                                   impl="fused")
+assert np.isfinite(p_film.accum.numpy()).all() and int(p_rays) > 8 * 8 * 2
+assert float(p_film.accum.max()) > 0
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 assert not any(m == "optix_raytracer_tpu"
