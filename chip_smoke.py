@@ -12,9 +12,11 @@ launch through the cluster-major queue (ORT_QWALK=1; kernels 7-8, held
 against their plain versions and A/B-timed against the walk on the same
 sets); then the 4M-triangle knot through the supercluster tier. Between
 the Cornell and the knot phases, phases 7-9 hold the fused kernel's
-specular, PBR and prim instantiations (3') against the wavefront on the
-bench's prims + glass scene, the PBR Cornell and the mirror Cornell, and
-time their headline launches (1920x1088, 16 samples per launch, depth 4).
+specular, PBR, prim, instance and smooth-normal instantiations (3') against
+the wavefront on the bench's prims + glass scene, the PBR Cornell, the
+mirror Cornell, the instanced Cornell and a 482-triangle smooth knot, and
+time their headline launches (1920x1088, 16 samples per launch, depth 4;
+depth 3 on the knot).
 
     python3 chip_smoke.py
 
@@ -75,6 +77,17 @@ CLOSEST_ROWS, ANY_ROWS = 23, 12    # rows a closest / any-hit walk reads
 # shell (two spheres), parallelogram, capsule (body + two cap spheres).
 PRIM_OPS = {0: 20, 1: 40, 2: 38, 3: 135}
 PRIMS_ATOL = 3e-3                 # tests/test_fused_kernel.py:238
+INST_ATOL = 3e-3                  # tests/test_fused_kernel.py:271, 292
+# knot_scene(16, 15): 2 * 16 * 15 tube triangles + a 2-triangle floor = 482,
+# under the fused kernel's 512 and with no cluster table; at the knot
+# headline's depth (bench.py:299-304).
+SMOOTH_KNOT = dict(segments=16, sides=15, depth=3)
+# FP32 operations of one ray's move into an instance's object space (a 3x4
+# point and a 3x3 vector transform) and of a smooth hit's normal
+# interpolation (shading_frame: weights, 3 x 3 products and sums, length,
+# division).
+INST_XF_OPS = 36
+SMOOTH_OPS = 25
 
 
 class SmokeFailure(RuntimeError):
@@ -1155,16 +1168,19 @@ def variant_phases(dev, card, record):
     """Phases 7-9: the fused kernel's instantiations 3' against their plain
     version, on (i) bench.py:153-202's whitted_prims (2 triangles, 4 prims,
     a glass shell), (ii) bench.py:418-450's PBR Cornell (metallic 0.8,
-    roughness 0.35) and (iii) the Cornell box with mirror white surfaces
-    (metallic 1.0, roughness 0.02). (7) render_sum_fused against render_sum_plain at 64², spl 2,
-    depth 3 on the three scenes: ray counts equal, radiance within the bars,
-    two row tiles (by y0) equal to the full frame; (8) render_accumulate,
-    fused against wavefront, 256², spl 4, depth 4 on (i) and (ii); (9) the
-    headline launch of each scene (1920x1088, spl 16, depth 4): "auto" (must
-    be the fused kernel: its LAUNCHES key counts, bf_closest does not) for 2
-    timed launches against "wavefront" (kernels 1-2 + torch prims and
-    shading) for 1, launches counted per path. Fills the kernels' record
-    and returns the headlines' launch counts."""
+    roughness 0.35), (iii) the Cornell box with mirror white surfaces
+    (metallic 1.0, roughness 0.02), (iv) bench.py:387-415's instanced
+    Cornell (22 shared triangles in 3 instances, ranges summing to 32) and
+    (v) the smooth knot_scene(16, 15) (482 triangles, interpolated normals).
+    (7) render_sum_fused against render_sum_plain at 64², spl 2, depth 3:
+    ray counts equal, radiance within the bars, two row tiles (by y0) equal
+    to the full frame; (8) render_accumulate, fused against wavefront,
+    256², spl 4, depth 4 on (i), (ii), (iv) and (v); (9) the headline launch
+    of each scene (1920x1088, spl 16, depth 4; 3 on the knot): "auto" (must
+    be the fused kernel alone: its LAUNCHES key counts, bf_closest does not)
+    for 2 timed launches against "wavefront" (kernels 1-2, once per instance
+    per query, + torch prims and shading) for 1, launches counted per path.
+    Fills the kernels' record and returns the headlines' launch counts."""
     import torch
     from optix_raytracer_tpu_torch import kernels
     from optix_raytracer_tpu_torch.core.film import Film
@@ -1172,18 +1188,35 @@ def variant_phases(dev, card, record):
     from optix_raytracer_tpu_torch.wavefront import pallas_pt
     from optix_raytracer_tpu_torch.wavefront.engine import (_use_fused,
                                                             render_accumulate)
-    scenes = {}     # name → (scene, camera, instantiation, atol)
-    for name, scene, camera, atol in (
-            ("prims", B.prims_scene(dev), B.prims_camera, PRIMS_ATOL),
-            ("pbr", B.pbr_cornell(dev), B.cornell_camera, ATOL),
+    scenes = {}     # name → (scene, camera, instantiation, atol, depth)
+    for name, scene, camera, atol, depth in (
+            ("prims", B.prims_scene(dev), B.prims_camera, PRIMS_ATOL,
+             HEADLINE["depth"]),
+            ("pbr", B.pbr_cornell(dev), B.cornell_camera, ATOL,
+             HEADLINE["depth"]),
             ("mirror", B.pbr_cornell(dev, 1.0, 0.02), B.cornell_camera,
-             ATOL)):
+             ATOL, HEADLINE["depth"]),
+            ("instanced", B.cornell_box_instanced(dev), B.cornell_camera,
+             INST_ATOL, HEADLINE["depth"]),
+            ("smooth_knot", B.knot_scene(SMOOTH_KNOT["segments"],
+                                         SMOOTH_KNOT["sides"], device=dev),
+             B.knot_camera, ATOL, SMOOTH_KNOT["depth"])):
         kname = kernels.pt_fused_name(*pallas_pt.fused_variant(scene))
-        scenes[name] = (scene, camera, kname, atol)
+        scenes[name] = (scene, camera, kname, atol, depth)
+    inst, knot = scenes["instanced"][0], scenes["smooth_knot"][0]
+    require(scenes["instanced"][2] == "pt_fused_inst"
+            and inst.instances.num == 3 and sum(
+                hi - lo for lo, hi in inst.instances.prim_ranges) == 32,
+            "instanced Cornell: not 3 instances over 32 triangles")
+    require(scenes["smooth_knot"][2] == "pt_fused_smooth"
+            and knot.num_triangles == 482 and knot.geom.smooth
+            and not knot.has_clusters,
+            f"smooth knot: {knot.num_triangles} triangles, not 482 smooth "
+            f"without a cluster table")
     # --- phase 7: each instantiation vs its plain version, 64², spl 2 ---
     w = h = 64
     sub = torch.tensor(5, dtype=torch.int64, device=dev)
-    for name, (scene, camera, kname, atol) in scenes.items():
+    for name, (scene, camera, kname, atol, _) in scenes.items():
         require(_use_fused(scene, "auto"), f"{name}: auto does not take the "
                                            f"fused kernel")
         cam = camera(w, h).params(dev)
@@ -1211,8 +1244,8 @@ def variant_phases(dev, card, record):
 
     # --- phase 8: fused vs wavefront launch, 256², spl 4, depth 4 ---
     w = h = 256
-    for name in ("prims", "pbr"):
-        scene, camera, kname, atol = scenes[name]
+    for name in ("prims", "pbr", "instanced", "smooth_knot"):
+        scene, camera, kname, atol, _ = scenes[name]
         cam = camera(w, h).params(dev)
         f_fused, r_fused = render_accumulate(scene, cam, Film.create(h, w, dev),
                                              w, h, samples_per_launch=4,
@@ -1231,20 +1264,26 @@ def variant_phases(dev, card, record):
                 f"{name}: fused and wavefront images differ")
 
     # --- phase 9: the headlines ---
-    W, H, spl, depth = (HEADLINE[k] for k in ("width", "height", "spl",
-                                              "depth"))
+    W, H, spl = (HEADLINE[k] for k in ("width", "height", "spl"))
     launches = {}
-    for name, (scene, camera, kname, atol) in scenes.items():
+    for name, (scene, camera, kname, atol, depth) in scenes.items():
         cam = camera(W, H).params(dev)
         film, rays_f, dt_f, peak_f, first_f, first_rays_f, n_f, _ = (
             timed_launches(scene, cam, W, H, spl, depth, "auto", 2, dev))
         _, rays_w, dt_w, peak_w, first_w, first_rays_w, n_w, _ = (
             timed_launches(scene, cam, W, H, spl, depth, "wavefront", 1, dev))
-        require(n_f[kname] > 0 and n_f["bf_closest"] == 0,
+        fused_keys = [k for k in n_f if k.startswith("pt_fused_")]
+        require(n_f[kname] == 3 and n_f["bf_closest"] == 0
+                and n_f["bf_any"] == 0
+                and all(n_f[k] == 0 for k in fused_keys if k != kname),
                 f"{name}: the auto path did not run {kname} alone")
-        require(n_w["bf_closest"] > 0 and n_w["bf_any"] > 0
-                and n_w[kname] == 0,
-                f"{name}: the wavefront path did not run kernels 1-2")
+        # the wavefront's 2 launches x spl samples x depth bounces, each one
+        # closest and one any-hit query, one launch per instance per query
+        queries = 2 * spl * depth * max(scene.instances.num, 1)
+        require(n_w["bf_closest"] == queries and n_w["bf_any"] == queries
+                and all(n_w[k] == 0 for k in fused_keys),
+                f"{name}: the wavefront path did not run kernels 1-2 "
+                f"{queries} times each")
         a, b = to_np(first_f.accum), to_np(first_w.accum)
         require(first_rays_f == first_rays_w,
                 f"{name} headline ray counts differ: {first_rays_f} vs "
@@ -1277,10 +1316,18 @@ def variant_phases(dev, card, record):
         launches[kname] = n_f[kname]
         # Bound per launch: of the traced rays at least half are
         # closest-hit rays (each NEE shadow ray follows a hit), each tested
-        # against every triangle and prim; a shadow ray needs one test at
-        # the least. Bytes: the radiance and count planes written once.
-        per_closest = PAIR_OPS * scene.num_triangles + sum(
-            PRIM_OPS[k] for k in scene.prims.kinds_static)
+        # against every triangle and prim (on an instanced scene, the sum
+        # of the ranges, plus its move into each instance's object space;
+        # on a smooth mesh plus the normal's interpolation); a shadow ray
+        # needs one test at the least. Bytes: the radiance and count planes
+        # written once.
+        ranges = pallas_pt.fused_inst_ranges(scene)
+        tests = (sum(hi - lo for lo, hi in ranges) if ranges
+                 else scene.num_triangles)
+        per_closest = (PAIR_OPS * tests + INST_XF_OPS * len(ranges)
+                       + (SMOOTH_OPS if scene.geom.smooth and not ranges
+                          else 0)
+                       + sum(PRIM_OPS[k] for k in scene.prims.kinds_static))
         rays_launch = rays_f // 2
         record[kname]["max_abs_err"] = max(record[kname]["max_abs_err"],
                                            head_err)
@@ -1317,10 +1364,13 @@ def main():
                          text=True, timeout=60, check=True).stdout.strip()
     card = smi.splitlines()[0]
     print(card, flush=True)
+    nvcc = subprocess.run([kernels._nvcc(), "--version"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout
     lib_path, build_s = kernels.build()
     kernels.lib()
     phase("1 device", card=repr(card), torch=torch.__version__,
-          cuda=torch.version.cuda, kernel_build_s=f"{build_s:.1f}")
+          cuda=torch.version.cuda, kernel_build_s=f"{build_s:.1f}",
+          nvcc=repr(nvcc.strip().splitlines()[-1]))
     log = lib_path.parent / "nvcc.log"
     if log.exists():   # ptxas: registers, shared memory, spills per kernel
         for line in log.read_text().splitlines():
@@ -1516,13 +1566,20 @@ def main():
     # --- the record and the verdict ---
     fused_3 = ("optix_raytracer_tpu_torch/csrc/pt_fused.cu",
                "optix_raytracer_tpu/wavefront/pallas_pt.py:1478")
+
+    def fused_source(name):
+        for mode in ("inst", "smooth"):
+            if name.startswith(f"pt_fused_{mode}"):
+                return (f"optix_raytracer_tpu_torch/csrc/pt_fused_{mode}.cu",
+                        fused_3[1])
+        return fused_3
     meta = dict(
         bf_closest=("optix_raytracer_tpu_torch/csrc/bf.cu",
                     "optix_raytracer_tpu/accel/pallas_bf.py:174"),
         bf_any=("optix_raytracer_tpu_torch/csrc/bf.cu",
                 "optix_raytracer_tpu/accel/pallas_bf.py:200"),
         pt_fused_cornell=fused_3,
-        **{name: fused_3 for name in variant_launches},
+        **{name: fused_source(name) for name in variant_launches},
         cluster_cull_exact=("optix_raytracer_tpu_torch/csrc/clusters.cu",
                             "optix_raytracer_tpu/accel/clusters.py:312"),
         cluster_closest=("optix_raytracer_tpu_torch/csrc/clusters.cu",

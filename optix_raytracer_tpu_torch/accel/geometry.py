@@ -1,5 +1,5 @@
-"""Triangle geometry and the unit-triangle (Woop) constants (counterpart of
-`accel/geometry.py:68-150`).
+"""Triangle geometry, the unit-triangle (Woop) constants and the hit's
+shading frame (counterpart of `accel/geometry.py:68-210`).
 
 In triangle t's local frame a point is v0 + u*e1 + v*e2 + w*n, so the hit
 test is t = -O'w/D'w, u = O'u + t*D'u, v = O'v + t*D'v with O' = M^-1 (O - v0)
@@ -11,6 +11,8 @@ ray sees D'w = 0 and the strict |D'w| > eps test rejects them.
 `v0`, `e1`, `e2` stay on the geometry for the cluster AABBs and the SAH
 build; `corner_normal` holds per-corner shading normals (the face normal
 three times unless `normals` are given, and then `smooth` is True).
+`shading_frame` interpolates them at a hit; texture coordinates, tangents
+and `uv_density` come with textures (ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -74,3 +76,43 @@ def build_triangle_geometry(vertices, indices, device,
                             face_normal=face_normal, valid=valid, v0=v0,
                             e1=e1, e2=e2, corner_normal=corner_normal,
                             smooth=normals is not None)
+
+
+# Columns of the shade plane: v0, e1, e2, face normal, corner normals n0-n2.
+_PLANE = dict(v0=slice(0, 3), e1=slice(3, 6), e2=slice(6, 9),
+              normal=slice(9, 12), n0=slice(12, 15), n1=slice(15, 18),
+              n2=slice(18, 21))
+
+
+def shade_plane(geom: TriangleGeometry) -> torch.Tensor:
+    """Per-triangle shading attributes in one [M, 21] plane, so a hit's
+    frame is one row gather (accel/geometry.py:153-173, without the uv,
+    tangent and uv_density columns)."""
+    m = geom.num_triangles
+    return torch.cat([geom.v0, geom.e1, geom.e2, geom.face_normal,
+                      geom.corner_normal.reshape(m, 9)], dim=1)
+
+
+def shading_frame(geom: TriangleGeometry, prim_id, uv, plane=None):
+    """Hit-point attributes for shading (accel/geometry.py:176-210): the
+    position v0 + u e1 + v e2, the face normal and the shading normal
+    w n0 + u n1 + v n2 (w = 1 - u - v) divided by its length, or the face
+    normal where that length is 1e-6 or less (zero corner normals of a mesh
+    that shipped none, or normals that cancel). prim_id [...] (>= 0), uv
+    [..., 2] barycentrics → dict of [..., 3] tensors.
+
+    The fused kernel's smooth variant repeats this arithmetic in this order
+    (the XLA engine's form; the Pallas kernel's delta form n0 + u (n1 - n0)
+    + v (n2 - n0) with an rsqrt rounds apart, ROADMAP.md Queue 3)."""
+    if plane is None:
+        plane = shade_plane(geom)
+    row = plane[torch.clamp_min(prim_id, 0).long()]
+    col = {k: row[..., s] for k, s in _PLANE.items()}
+    u, v = uv[..., 0:1], uv[..., 1:2]
+    w = (1.0 - u) - v
+    pos = (col["v0"] + u * col["e1"]) + v * col["e2"]
+    sn = (w * col["n0"] + u * col["n1"]) + v * col["n2"]
+    sn_len = torch.sqrt(dot(sn, sn))[..., None]
+    sn = torch.where(sn_len > 1e-6, sn / torch.clamp_min(sn_len, 1e-12),
+                     col["normal"])
+    return {"position": pos, "normal": col["normal"], "shading_normal": sn}

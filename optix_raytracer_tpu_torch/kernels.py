@@ -32,17 +32,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 
-def pt_fused_name(specular: bool, pbr: bool, prims: bool) -> str:
-    """LAUNCHES key of the fused kernel's instantiation <specular, pbr,
-    prims>: "pt_fused_cornell" for <false, false, false>, else the flags
-    that are on, e.g. "pt_fused_specular_prims"."""
-    on = [t for t, f in (("specular", specular), ("pbr", pbr),
+# The fused kernel's geometry modes (wavefront/pallas_pt.py) and their codes
+# in csrc/pt_fused.cuh.
+GEOMETRY = {"flat": 0, "inst": 1, "smooth": 2}
+
+
+def pt_fused_name(specular: bool, pbr: bool, prims: bool,
+                  geometry: str = "flat") -> str:
+    """LAUNCHES key of the fused kernel's instantiation <geometry, specular,
+    pbr, prims>: "pt_fused_cornell" for <flat, false, false, false>, else
+    the geometry mode unless flat, then the flags that are on, e.g.
+    "pt_fused_specular_prims", "pt_fused_inst", "pt_fused_smooth_pbr"."""
+    if geometry not in GEOMETRY:
+        raise ValueError(f"geometry must be one of {tuple(GEOMETRY)}")
+    on = [t for t, f in ((geometry, geometry != "flat"),
+                         ("specular", specular), ("pbr", pbr),
                          ("prims", prims)) if f]
     return "pt_fused_" + ("_".join(on) if on else "cornell")
 
 
 LAUNCHES = {"bf_closest": 0, "bf_any": 0,
-            **{pt_fused_name(*v): 0
+            **{pt_fused_name(*v, g): 0 for g in GEOMETRY
                for v in itertools.product((False, True), repeat=3)},
             "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0,
             "cluster_sc_closest": 0, "cluster_sc_any": 0,
@@ -58,9 +68,10 @@ _SIGNATURES = {
     # tri, m, org, dir, tmin, tmax, n, occ, stream
     "ort_bf_any": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
     # tri, m, prims, p, mats, k, light, cam, subframe, width, height,
-    # full_w, full_h, y0, spl, max_depth, specular, pbr, rad, count, stream
+    # full_w, full_h, y0, spl, max_depth, specular, pbr, geometry, inst,
+    # inst_ranges, n_inst, corner, rad, count, stream
     "ort_pt_fused": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _P, _P, _P),
+                     _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P),
     # aabb, c_pad, rays, n_blocks, tn, gm, stream
     "ort_cluster_cull_exact": (_P, _I, _P, _I, _P, _P, _P),
     # counts, lists, tnear, comp, n_comp, rays, n_blocks, c_pad, gate, out,

@@ -1,6 +1,7 @@
-"""The Cornell box, the trefoil-knot scene, the bench's prims and PBR scenes
-and their cameras (counterpart of `scene/builtins.py:18-141, 196-274` and
-of the scenes `bench.py:153-202, 418-450` builds inline).
+"""The Cornell box (flat and instanced), the trefoil-knot scene, the bench's
+prims and PBR scenes and their cameras (counterpart of
+`scene/builtins.py:18-141, 196-274` and of the scenes `bench.py:153-202,
+418-450` builds inline).
 
 The data tables are a copy of the JAX package's (a CPU test holds them
 equal): the JAX module cannot be imported without JAX.
@@ -80,6 +81,47 @@ def cornell_box(device) -> DeviceScene:
         CORNELL_LIGHT_EMISSION, device)
     return make_device_scene(verts, idx, tri_mat, CORNELL_MATERIALS, device,
                              area_light=light, miss_color=(0.0, 0.0, 0.0))
+
+
+def cornell_box_instanced(device) -> DeviceScene:
+    """The Cornell box as a two-level scene (scene/builtins.py:87-133): the
+    walls and the light are one instance (12 triangles), the two blocks are
+    transformed instances of one shared 10-triangle unit box (no bottom
+    face); 22 shared triangles, 3 instances whose ranges sum to 32. The
+    block transforms are affine frames of the measured block tops, so the
+    image differs from cornell_box()'s by a sliver at the block edges."""
+    from .scene import Scene
+    sc = Scene()
+    sc.miss_color = (0.0, 0.0, 0.0)
+    for m in CORNELL_MATERIALS:
+        sc.add_material(dict(m))
+    verts, idx, tri_mat = quads_to_triangles(_CORNELL_QUADS[:5]
+                                             + [_CORNELL_QUADS[15]])
+    room = sc.add_mesh(verts, idx, material=tri_mat)
+    box_quads = [
+        ([(0, 1, 0), (0, 1, 1), (1, 1, 1), (1, 1, 0)], 0),   # top
+        ([(1, 0, 0), (1, 1, 0), (1, 1, 1), (1, 0, 1)], 0),
+        ([(0, 0, 0), (0, 1, 0), (1, 1, 0), (1, 0, 0)], 0),
+        ([(0, 0, 1), (0, 1, 1), (0, 1, 0), (0, 0, 0)], 0),
+        ([(1, 0, 1), (1, 1, 1), (0, 1, 1), (0, 0, 1)], 0),
+    ]
+    bverts, bidx, _ = quads_to_triangles(box_quads)
+    box = sc.add_mesh(bverts, bidx, material=WHITE)
+
+    def frame(origin, x, y, z):
+        t = np.eye(4, dtype=np.float32)
+        t[:3, 0], t[:3, 1], t[:3, 2], t[:3, 3] = x, y, z, origin
+        return t
+
+    sc.add_instance(room, np.eye(4, dtype=np.float32))
+    sc.add_instance(box, frame((130, 0, 65), (160, 0, 49),
+                               (0, 165, 0), (-48, 0, 160)))     # short block
+    sc.add_instance(box, frame((423, 0, 247), (49, 0, 159),
+                               (0, 330, 0), (-158, 0, 49)))     # tall block
+    light = ParallelogramLight.make(
+        CORNELL_LIGHT_CORNER, CORNELL_LIGHT_V1, CORNELL_LIGHT_V2,
+        CORNELL_LIGHT_EMISSION, device)
+    return sc.finalize(device, area_light=light)
 
 
 def cornell_camera(width, height) -> Camera:

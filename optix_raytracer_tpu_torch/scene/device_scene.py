@@ -5,10 +5,11 @@ The port's scene holds triangle geometry (with per-corner shading normals),
 per-triangle material ids, the material table, the custom-prim table
 (kinds 0-3), the parallelogram area light, the miss color, the static
 feature tags (glass, mirror, pbr, computed from the material dicts as the
-reference does) and, for a mesh past the brute-force kernels' 512
-triangles, the cluster table of the large-mesh traversal. Instances, BVHs,
+reference does), the instance table of a two-level scene and, for a flat
+mesh past the brute-force kernels' 512 triangles, the cluster table of the
+large-mesh traversal. BVHs, per-mesh cluster tables of instanced meshes,
 textures, cutouts, volumes and motion are not ported yet (ROADMAP.md Queue 1
-items 7-9).
+items 6-9).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from ..accel import clusters as cluster_mod
 from ..accel import native
 from ..accel import primitives as prim_mod
 from ..accel.geometry import TriangleGeometry, build_triangle_geometry
+from ..accel.tlas import InstanceTable, instance_ranges
 from ..shade.lights import ParallelogramLight
 from ..shade.materials import GLASS, PBR, MaterialTable, make_material_table
 
@@ -44,10 +46,13 @@ class DeviceScene:
     features: tuple = ()
     clusters: Optional[cluster_mod.ClusterSet] = None
     prims: Optional[prim_mod.CustomPrims] = None
+    instances: Optional[InstanceTable] = None
 
     def __post_init__(self):
         if self.prims is None:
             self.prims = prim_mod.CustomPrims.empty(self.device)
+        if self.instances is None:
+            self.instances = InstanceTable.empty(self.device)
 
     @property
     def num_triangles(self):
@@ -56,6 +61,10 @@ class DeviceScene:
     @property
     def has_clusters(self) -> bool:
         return self.clusters is not None and self.clusters.num_clusters > 0
+
+    @property
+    def has_instances(self) -> bool:
+        return self.instances.num > 0
 
     @property
     def device(self):
@@ -79,12 +88,6 @@ class DeviceScene:
                 raise NotImplementedError(
                     f"scene feature {f!r} is not ported yet (ROADMAP.md "
                     f"Queue 1 item {UNPORTED_FEATURES[f]})")
-        if self.geom.smooth and not self.has_clusters:
-            # The JAX engine interpolates these with shading_frame
-            # (engine.py:316-333); the cluster walk does it in the kernel.
-            raise NotImplementedError(
-                "smooth normals without a cluster table need shading_frame, "
-                "which is not ported yet (ROADMAP.md Queue 1 item 2)")
 
 
 def _check_tri_mat(tri_mat, num_tris, num_mats):
@@ -95,6 +98,27 @@ def _check_tri_mat(tri_mat, num_tris, num_mats):
     if tri_mat.size and (tri_mat.min() < 0 or tri_mat.max() >= num_mats):
         raise ValueError(f"material ids must lie in [0, {num_mats})")
     return tri_mat
+
+
+def _check_instances(instances: InstanceTable, tri_mat, num_tris, num_mats):
+    """Each range inside the geometry and within the brute-force budget
+    (the reference gives a larger instanced mesh its own cluster table,
+    scene/device_scene.py:543-556, which is not ported), and each hit's
+    material id, tri_mat + sbt_offset, inside the table."""
+    sbt = instances.sbt_offset.cpu().numpy()
+    for i, (lo, hi) in enumerate(instance_ranges(instances, num_tris)):
+        if not 0 <= lo <= hi <= num_tris:
+            raise ValueError(f"instance {i}: range ({lo}, {hi}) outside the "
+                             f"{num_tris} triangles")
+        if hi - lo > MAX_SMEM_TRIS:
+            raise NotImplementedError(
+                f"instance {i}: a mesh of {hi - lo} triangles needs a "
+                f"per-mesh cluster table, which is not ported yet "
+                f"(ROADMAP.md Queue 1 item 7)")
+        ids = tri_mat[lo:hi] + sbt[i]
+        if ids.size and (ids.min() < 0 or ids.max() >= num_mats):
+            raise ValueError(f"instance {i}: material ids with its sbt "
+                             f"offset must lie in [0, {num_mats})")
 
 
 def _build_cluster_table(geom: TriangleGeometry, tri_mat: torch.Tensor):
@@ -138,16 +162,20 @@ def material_features(materials) -> tuple:
 
 def make_device_scene(vertices, indices, tri_mat, materials, device,
                       area_light=None, miss_color=(0.0, 0.0, 0.0),
-                      normals=None, prims=None):
-    """Triangle mesh + material dicts (+ a CustomPrims table) → DeviceScene
-    on `device`. normals: optional per-vertex [V, 3] shading normals."""
+                      normals=None, prims=None, instances=None):
+    """Triangle mesh + material dicts (+ a CustomPrims table, + an
+    InstanceTable over the mesh) → DeviceScene on `device`. normals:
+    optional per-vertex [V, 3] shading normals. An instanced scene gets no
+    cluster table."""
     if area_light is None:
         area_light = ParallelogramLight.make(
             (0, 0, 0), (1, 0, 0), (0, 0, 1), (0.0, 0.0, 0.0), device)
     table = make_material_table(materials, device)
     geom = build_triangle_geometry(vertices, indices, device, normals=normals)
-    tri_mat = torch.as_tensor(
-        _check_tri_mat(tri_mat, geom.num_triangles, table.num), device=device)
+    tri_mat_np = _check_tri_mat(tri_mat, geom.num_triangles, table.num)
+    tri_mat = torch.as_tensor(tri_mat_np, device=device)
+    if instances is not None:
+        _check_instances(instances, tri_mat_np, geom.num_triangles, table.num)
     if prims is not None and prims.num and (
             int(prims.mat_id.min()) < 0
             or int(prims.mat_id.max()) >= table.num):
@@ -157,7 +185,9 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
         miss_color=torch.as_tensor(miss_color, dtype=torch.float32,
                                    device=device),
         features=material_features(materials),
-        clusters=_build_cluster_table(geom, tri_mat), prims=prims)
+        clusters=(None if instances is not None
+                  else _build_cluster_table(geom, tri_mat)),
+        prims=prims, instances=instances)
 
 
 def device_scene_from_numpy(fields, device) -> DeviceScene:
@@ -176,8 +206,12 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
                                                        optional, P may be 0)
       num_clusters, cluster_comp [C,32,128], cluster_aabb [C_rows,6,128],
       cluster_slot_prim [C*128]                       (scene.clusters)
+      inst_transform, inst_inv_transform [I,3,4], inst_sbt_offset,
+      inst_instance_id [I], inst_prim_ranges (tuple of (lo, hi)),
+      inst_row_ids (bool)                  (scene.instances; optional)
 
-    A scene without a cluster table has num_clusters 0.
+    A scene without a cluster table has num_clusters 0, one without
+    instances I = 0.
     """
     def f32(key):
         return torch.as_tensor(np.array(fields[key], np.float32),
@@ -219,9 +253,24 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
             mat_id=torch.as_tensor(np.asarray(fields["prim_mat_id"],
                                               np.int32), device=device),
             kinds_static=tuple(int(k) for k in kinds))
+    instances = None
+    if len(fields.get("inst_transform", ())):
+        instances = InstanceTable(
+            transform=f32("inst_transform"),
+            inv_transform=f32("inst_inv_transform"),
+            sbt_offset=torch.as_tensor(np.asarray(fields["inst_sbt_offset"],
+                                                  np.int32), device=device),
+            instance_id=torch.as_tensor(
+                np.asarray(fields["inst_instance_id"], np.int32),
+                device=device),
+            prim_ranges=tuple((int(lo), int(hi))
+                              for lo, hi in fields["inst_prim_ranges"]),
+            row_ids=bool(fields["inst_row_ids"]))
+        _check_instances(instances, tri_mat, geom.num_triangles,
+                         kind.shape[0])
     return DeviceScene(geom=geom,
                        tri_mat=torch.as_tensor(tri_mat, device=device),
                        materials=table, area_light=light,
                        miss_color=f32("miss_color"),
                        features=tuple(fields.get("features", ())),
-                       clusters=clusters, prims=prims)
+                       clusters=clusters, prims=prims, instances=instances)

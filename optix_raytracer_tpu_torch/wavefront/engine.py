@@ -5,15 +5,17 @@ on PBR lanes), cosine, one-sample-MIS GGX and Fresnel glass bounces,
 Russian roulette.
 
 The whole wavefront moves one bounce at a time, dead lanes masked. Its
-intersections come from kernels 1 and 2 (brute force), or on a scene with a
-cluster table from kernels 4-6, on CUDA, and from their plain versions on
-the CPU; custom prims are merged in by torch ops. It is the fused kernel's
-oracle, as the XLA wavefront is the Pallas megakernel's, and the fused
-kernel repeats its arithmetic operation for operation. On a cluster scene,
-the sequential, coherence-sorted loop is the sample-major launch's oracle.
-It draws the RNG in the JAX engine's order: per bounce the NEE pair, the
-cosine pair, two GGX pairs when the scene has PBR lanes, the glass pair
-(drawn even where no lane reads it, engine.py:536) and the roulette pair.
+intersections come from kernels 1 and 2 (brute force, once per instance on
+an instanced scene), or on a scene with a cluster table from kernels 4-6,
+on CUDA, and from their plain versions on the CPU; custom prims are merged
+in by torch ops; smooth meshes shade with the shading-frame epilogue. It is
+the fused kernel's oracle, as the XLA wavefront is the Pallas megakernel's,
+and the fused kernel repeats its arithmetic operation for operation. On a
+cluster scene, the sequential, coherence-sorted loop is the sample-major
+launch's oracle. It draws the RNG in the JAX engine's order: per bounce the
+NEE pair, the cosine pair, two GGX pairs when the scene has PBR lanes, the
+glass pair (drawn even where no lane reads it, engine.py:536) and the
+roulette pair.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Optional
 import torch
 
 from ..accel.clusters import coherence_key
+from ..accel.geometry import shading_frame
+from ..accel.tlas import unit_world_normal
 from ..core import rng as _rng
 from ..core.camera import generate_rays
 from ..core.film import Film
@@ -136,6 +140,33 @@ def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
     return contrib, rng
 
 
+def _shading_normal(scene: DeviceScene, hits):
+    """The normal the bounce shades with (engine.py:312-349): the hit's
+    geometric normal, or on a smooth mesh the shading_frame epilogue's
+    interpolated normal for triangle hits (custom prims keep their analytic
+    normal). The cluster walk interpolates smooth normals in its kernel, so
+    no epilogue follows it on a flat cluster scene. On an instanced scene
+    the interpolated normal is in object space: with row ids, the hit
+    instance's inverse goes back to world (tlas.unit_world_normal); without
+    them the geometric normal stays."""
+    if not scene.geom.smooth or (scene.has_clusters
+                                 and not scene.has_instances):
+        return hits.normal
+    m = scene.num_triangles
+    is_tri = hits.prim_id < m
+    frame = shading_frame(scene.geom, torch.clamp(hits.prim_id, 0, m - 1),
+                          hits.uv)
+    sn = frame["shading_normal"]
+    if not scene.has_instances:
+        return torch.where(is_tri[..., None], sn, hits.normal)
+    if not scene.instances.row_ids:
+        return hits.normal
+    inv = scene.instances.inv_transform[torch.clamp_min(hits.inst_id,
+                                                        0).long()]
+    return torch.where((is_tri & (hits.inst_id >= 0))[..., None],
+                       unit_world_normal(inv, sn), hits.normal)
+
+
 def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
             exact: bool = False, group_walk: bool = False) -> dict:
     """One bounce of the whole wavefront (engine.py:241-611, without volume,
@@ -159,9 +190,7 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
 
     m = mats.gather(scene.materials, hits.mat_id)
     d = rays.direction
-    # The cluster walk interpolates smooth normals in the kernel, so no
-    # shading-frame epilogue follows it (engine.py:312-319).
-    geom_n = hits.normal
+    geom_n = _shading_normal(scene, hits)
     # two-sided shading normal, faceforward(N, -D, N)
     n = geom_n * torch.sign(-dot(geom_n, d))[..., None]
     hit_p = rays.at(hits.t)
@@ -405,13 +434,17 @@ def render_sample_group(scene: DeviceScene, cam_params, width: int,
 
 
 def _use_fused(scene: DeviceScene, impl: str) -> bool:
-    """`engine.py:772-821` minus its TPU test and the instance and texture
-    variants (not ported): the fused kernel on a CUDA device for a scene of
-    at most MAX_FUSED_TRIS triangles and MAX_FUSED_MATS materials, at most
-    MAX_FUSED_PRIMS custom prims of FUSED_PRIM_KINDS, and no feature but
-    glass, mirror and pbr. Decided by the scene alone."""
-    from .pallas_pt import (FUSED_FEATURES, FUSED_PRIM_KINDS, MAX_FUSED_MATS,
-                            MAX_FUSED_PRIMS, MAX_FUSED_TRIS)
+    """`engine.py:772-821` minus its TPU test and the texture variant (not
+    ported): the fused kernel on a CUDA device for a scene of at most
+    MAX_FUSED_TRIS triangles and MAX_FUSED_MATS materials, at most
+    MAX_FUSED_PRIMS custom prims of FUSED_PRIM_KINDS, no feature but glass,
+    mirror and pbr, and, on an instanced scene, at most MAX_FUSED_INST
+    instances whose ranges sum to at most MAX_FUSED_TRIS triangles of
+    flat-shaded meshes (the kernel's instance variant has no shading-frame
+    epilogue). Decided by the scene alone."""
+    from .pallas_pt import (FUSED_FEATURES, FUSED_PRIM_KINDS, MAX_FUSED_INST,
+                            MAX_FUSED_MATS, MAX_FUSED_PRIMS, MAX_FUSED_TRIS,
+                            fused_inst_ranges)
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl != "auto":
@@ -419,8 +452,14 @@ def _use_fused(scene: DeviceScene, impl: str) -> bool:
     prims_ok = (scene.prims.num <= MAX_FUSED_PRIMS
                 and all(k in FUSED_PRIM_KINDS
                         for k in scene.prims.kinds_static))
+    ranges = fused_inst_ranges(scene)
+    inst_ok = not scene.has_instances or (
+        len(ranges) <= MAX_FUSED_INST
+        and sum(hi - lo for lo, hi in ranges) <= MAX_FUSED_TRIS
+        and not scene.geom.smooth)
     return (scene.device.type == "cuda"
             and prims_ok
+            and inst_ok
             and set(scene.features) <= FUSED_FEATURES
             and scene.num_triangles <= MAX_FUSED_TRIS
             and scene.materials.num <= MAX_FUSED_MATS)
@@ -451,10 +490,11 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
     """Add `samples_per_launch` samples to the film → (film, rays_traced).
 
     impl: "fused" runs the fused path-trace kernel (kernel 3 and its
-    specular / PBR / prim instantiations, 3'; its plain
-    version on the CPU); "wavefront" the lock-step engine one sample after
-    another (on CUDA its intersections come from kernels 1-2, or kernels
-    4-6 on a cluster scene); "spl" the sample-major engine in strips of
+    specular / PBR / prim / instance / smooth-normal instantiations, 3';
+    its plain version on the CPU); "wavefront" the lock-step engine one
+    sample after another (on CUDA its intersections come from kernels 1-2,
+    or kernels 4-6 on a cluster scene); "spl" the sample-major engine in
+    strips of
     about _SPL_TILE_RAYS rays (render_sample_group); "auto" the fused
     kernel where `_use_fused` allows it, else "spl" on a cluster scene with
     at least 8 samples per launch, else "wavefront". All consume identical

@@ -1,8 +1,9 @@
 """Scene-level intersection (counterpart of `wavefront/intersect.py:78-200`):
-the cluster-culled traversal for a scene with a cluster table, brute force
+the instance loop for a two-level scene (`accel/tlas.py`), the
+cluster-culled traversal for a scene with a cluster table, brute force
 otherwise, then the custom prims merged in (`accel/primitives.py`; a prim
-hit reports prim_id = num_triangles + its row). Instances, BVHs, motion and
-cutout any-hit are not ported yet (ROADMAP.md Queue 1 items 7-9); the port's
+hit reports prim_id = num_triangles + its row). BVHs, motion and cutout
+any-hit are not ported yet (ROADMAP.md Queue 1 items 6-9); the port's
 DeviceScene has none of them.
 
 In the JAX package the cluster branch runs only on a TPU; in the port a
@@ -20,6 +21,7 @@ from ..accel import bruteforce as bf
 from ..accel import clusters as cluster_mod
 from ..accel import primitives as prim_mod
 from ..accel import qwalk as qwalk_mod
+from ..accel import tlas
 from ..core.rays import Hits, Rays
 from ..scene.device_scene import DeviceScene
 
@@ -50,8 +52,12 @@ def scene_closest(scene: DeviceScene, rays: Rays,
     """exact=True (already-sorted scattered wavefronts) takes the exact
     cull, or the queue under ORT_QWALK=1 (the reference's `exact or not
     coherent`); group_walk gates the walk per 32-ray group on the exact
-    cull's bits. Both are ignored by brute force."""
-    if scene.has_clusters:
+    cull's bits. Both are ignored by brute force and by the instances."""
+    if scene.has_instances:
+        hits = _flat_call(lambda r: tlas.intersect_instances(
+            scene.geom, scene.instances, r, tri_mat=scene.tri_mat,
+            chunk_size=chunk_size), rays)
+    elif scene.has_clusters:
         if exact and _use_qwalk():
             hits = _flat_call(lambda r: qwalk_mod.closest_hit(
                 scene.clusters, r), rays)
@@ -73,7 +79,10 @@ def scene_any(scene: DeviceScene, rays: Rays,
     """Occlusion. NEE shadow wavefronts are mixed-liveness even when
     tile-coherent, so the cluster path always takes the exact cull, or the
     queue under ORT_QWALK=1."""
-    if scene.has_clusters:
+    if scene.has_instances:
+        occ = _flat_call(lambda r: tlas.intersect_instances_any(
+            scene.geom, scene.instances, r, chunk_size=chunk_size), rays)
+    elif scene.has_clusters:
         if _use_qwalk():
             occ = _flat_call(lambda r: qwalk_mod.any_hit(scene.clusters, r),
                              rays)

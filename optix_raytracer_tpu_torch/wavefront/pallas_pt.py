@@ -1,6 +1,7 @@
 """The fused path-trace kernel (kernel 3 and its variants 3') and its plain
-version (counterpart of `wavefront/pallas_pt.py:206-286, 398-1378,
-1392-1495`; the kernel is `csrc/pt_fused.cu`).
+version (counterpart of `wavefront/pallas_pt.py:206-286, 371-391, 398-1378,
+1392-1495`; the kernel is `csrc/pt_fused.cuh`, instantiated by
+`csrc/pt_fused.cu`, `pt_fused_inst.cu` and `pt_fused_smooth.cu`).
 
 `render_sum_fused` renders `samples_per_launch` progressive samples of a row
 tile in one launch and returns their radiance SUM and the rays traced. On
@@ -9,20 +10,25 @@ version, the wavefront engine's `render_sample` loop over the same
 subframes, which is the relation the JAX package keeps between
 `engine.render_sample` and its megakernel.
 
-The kernel is a template over the TPU kernel's static flags <specular, pbr,
-prims>: `has_specular` (glass or mirror materials), `has_pbr` (rough
-metallic-roughness lanes) and the inline custom prims (at most
-MAX_FUSED_PRIMS of FUSED_PRIM_KINDS). <false, false, false> is the Cornell
+The kernel is a template over a geometry mode and the TPU kernel's static
+flags <specular, pbr, prims>: `has_specular` (glass or mirror materials),
+`has_pbr` (rough metallic-roughness lanes) and the inline custom prims (at
+most MAX_FUSED_PRIMS of FUSED_PRIM_KINDS). The geometry mode is "flat", "inst"
+(`inst_ranges`: at most MAX_FUSED_INST instances over the shared triangles,
+each ray moved into each instance's object space) or "smooth" (the winner's
+corner normals interpolated, as the engine's shading-frame epilogue does);
+instances and smooth normals never meet (pallas_pt.py:1432), so 3 x 8
+instantiations exist. <flat, false, false, false> is the Cornell
 configuration. Each instantiation counts its launches under its own
-`kernels.LAUNCHES` key (`kernels.pt_fused_name`). The instance, smooth-
-normal and texture variants are not ported yet (ROADMAP.md Queue 2 items
-2-3).
+`kernels.LAUNCHES` key (`kernels.pt_fused_name`). The texture variant is not
+ported yet (ROADMAP.md Queue 2 item 3).
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
+from ..accel.tlas import instance_ranges
 from ..scene.device_scene import DeviceScene
 # The plain version of kernel 3 is the wavefront engine's sample loop (on
 # CUDA tensors its intersections come from kernels 1 and 2).
@@ -38,6 +44,11 @@ MAX_FUSED_PRIMS = 16
 FUSED_PRIM_KINDS = (0, 1, 2, 3)     # sphere, shell, parallelogram, capsule
 # Scene features the kernel renders (engine._use_fused).
 FUSED_FEATURES = frozenset({"glass", "mirror", "pbr"})
+# Instances in the instance variant: their [I, 16] rows and [I, 2] ranges
+# add 2.3 KB of shared memory at this cap.
+MAX_FUSED_INST = 32
+# kernels.GEOMETRY codes of the kernel's geometry modes.
+FLAT, INST, SMOOTH = "flat", "inst", "smooth"
 
 
 def pack_materials(mt) -> torch.Tensor:
@@ -68,10 +79,39 @@ def pack_prims(prims) -> torch.Tensor:
     return out
 
 
+def pack_instances(instances) -> torch.Tensor:
+    """InstanceTable → [max(I, 1), 16] f32 rows: the world → object 3x4
+    inverse, row-major, in cols 0:12 and sbt_offset in col 12
+    (pallas_pt.py:244-254)."""
+    out = torch.zeros((max(instances.num, 1), 16), dtype=torch.float32,
+                      device=instances.inv_transform.device)
+    if instances.num:
+        out[:instances.num, 0:12] = instances.inv_transform.reshape(-1, 12)
+        out[:instances.num, 12] = instances.sbt_offset.to(torch.float32)
+    return out
+
+
+def fused_inst_ranges(scene: DeviceScene) -> tuple:
+    """The static (lo, hi) triangle range of each instance; () without
+    instances (pallas_pt.py:257-263)."""
+    return instance_ranges(scene.instances, scene.num_triangles)
+
+
+def fused_geometry(scene: DeviceScene) -> str:
+    """The kernel's geometry mode: INST with instances (which then ignores
+    smooth normals, as pallas_pt.py:1432 does), else SMOOTH for a smooth
+    mesh, else FLAT."""
+    if scene.has_instances:
+        return INST
+    return SMOOTH if scene.geom.smooth else FLAT
+
+
 def fused_variant(scene: DeviceScene) -> tuple:
-    """The kernel instantiation a scene takes: (specular, pbr, prims)
-    (pallas_pt.py:1423-1424)."""
-    return scene.has_specular, scene.has_pbr, scene.prims.num > 0
+    """The kernel instantiation a scene takes: (specular, pbr, prims,
+    geometry) (pallas_pt.py:1423-1432), the arguments of
+    kernels.pt_fused_name."""
+    return (scene.has_specular, scene.has_pbr, scene.prims.num > 0,
+            fused_geometry(scene))
 
 
 def pack_light(light) -> torch.Tensor:
@@ -120,10 +160,14 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
     if dev.type != "cuda":
         raise ValueError(f"render_sum_fused: unsupported device {dev}")
     m, k, p = scene.num_triangles, scene.materials.num, scene.prims.num
-    if m > MAX_FUSED_TRIS or k > MAX_FUSED_MATS or p > MAX_FUSED_PRIMS:
-        raise ValueError(f"{m} triangles / {k} materials / {p} prims exceed "
-                         f"the fused kernel's {MAX_FUSED_TRIS} / "
-                         f"{MAX_FUSED_MATS} / {MAX_FUSED_PRIMS}")
+    ranges = fused_inst_ranges(scene)
+    ni = len(ranges)
+    if (m > MAX_FUSED_TRIS or k > MAX_FUSED_MATS or p > MAX_FUSED_PRIMS
+            or ni > MAX_FUSED_INST):
+        raise ValueError(f"{m} triangles / {k} materials / {p} prims / {ni} "
+                         f"instances exceed the fused kernel's "
+                         f"{MAX_FUSED_TRIS} / {MAX_FUSED_MATS} / "
+                         f"{MAX_FUSED_PRIMS} / {MAX_FUSED_INST}")
     if not set(scene.features) <= FUSED_FEATURES:
         raise ValueError(f"the fused kernel renders no scene with features "
                          f"{scene.features}")
@@ -140,27 +184,41 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
     mats = pack_materials(scene.materials)
     light = pack_light(scene.area_light)
     cam = pack_camera(cam_params, scene.miss_color)
+    inst = pack_instances(scene.instances)
+    specular, pbr, has_prims, geometry = fused_variant(scene)
+    # The instance ranges [max(I, 1), 2] int32, and the smooth variant's
+    # corner normals [M, 9] f32 (n0, n1, n2), read for the winner only
+    # (the other variants read no corner plane and get the triangles).
+    inst_rng = torch.tensor(ranges or ((0, 0),), dtype=torch.int32,
+                            device=dev)
+    corner = tri
+    if geometry == SMOOTH:
+        corner = scene.geom.corner_normal.reshape(m, 9).contiguous()
+        kernels.require(corner, "corner", torch.float32, (m, 9), dev)
     sub = torch.as_tensor(subframe, device=dev).to(torch.int64).reshape(())
     for name, t, shape in (("tri", tri, (m, 16)),
                            ("prims", prims, (max(p, 1), 16)),
                            ("mats", mats, (k, 16)),
-                           ("light", light, (1, 16)), ("cam", cam, (2, 16))):
+                           ("light", light, (1, 16)), ("cam", cam, (2, 16)),
+                           ("inst", inst, (max(ni, 1), 16))):
         kernels.require(t, name, torch.float32, shape, dev)
+    kernels.require(inst_rng, "inst_ranges", torch.int32, (max(ni, 1), 2),
+                    dev)
     kernels.require(sub, "subframe", torch.int64, (), dev)
 
     rad = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     count = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return rad, torch.zeros((), dtype=torch.int64, device=dev)
-    specular, pbr, has_prims = fused_variant(scene)
-    name = kernels.pt_fused_name(specular, pbr, has_prims)
+    name = kernels.pt_fused_name(specular, pbr, has_prims, geometry)
     with torch.cuda.device(dev):
         err = kernels.lib().ort_pt_fused(
             tri.data_ptr(), m, prims.data_ptr(), p, mats.data_ptr(), k,
             light.data_ptr(), cam.data_ptr(), sub.data_ptr(), width, height,
             full_w, full_h, y0, samples_per_launch, max_depth, int(specular),
-            int(pbr), rad.data_ptr(), count.data_ptr(),
-            kernels.stream_ptr(dev))
+            int(pbr), kernels.GEOMETRY[geometry], inst.data_ptr(),
+            inst_rng.data_ptr(), ni, corner.data_ptr(), rad.data_ptr(),
+            count.data_ptr(), kernels.stream_ptr(dev))
         kernels.LAUNCHES[name] += 1
     kernels.check(err, name)
     return rad, count.sum(dtype=torch.int64)

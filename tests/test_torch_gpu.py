@@ -316,17 +316,65 @@ def test_knot_launch_on_card(cuda):
         np.testing.assert_allclose(img, ref_img, atol=2e-3, rtol=1e-3)
 
 
+def _smooth_quad(mats, tri_mat, device):
+    """tests/test_fused_textures.py:115-134's smooth quad (a floor with up
+    normals, a tilted quad with leaning vertex normals) with the given
+    materials, and its camera."""
+    from optix_raytracer_tpu_torch.core.camera import Camera
+    from optix_raytracer_tpu_torch.scene.device_scene import make_device_scene
+    from optix_raytracer_tpu_torch.shade.lights import ParallelogramLight
+    s = 3.0
+    verts = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s],
+                      [-1, 0, -0.5], [1, 0, -0.5],
+                      [1, 1.6, -0.5], [-1, 1.6, -0.5]], np.float32)
+    idx = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7]], np.int32)
+    normals = np.zeros((8, 3), np.float32)
+    normals[:4] = (0, 1, 0)
+    nr = np.array([0.3, 0.2, -0.93], np.float32)
+    normals[4:] = nr / np.linalg.norm(nr)
+    light = ParallelogramLight.make((-1.0, 3.0, -1.0), (2, 0, 0), (0, 0, 2),
+                                    (8.0, 8.0, 8.0), device)
+    scene = make_device_scene(verts, idx, np.asarray(tri_mat, np.int32), mats,
+                              device, area_light=light, normals=normals)
+    return scene, lambda w, h: Camera(eye=(0, 1.5, -4.5), lookat=(0, 0.6, 0),
+                                      up=(0, 1, 0), fov_y=45.0, aspect=w / h)
+
+
 def _variant_scene(name, device):
-    """A scene per instantiation <specular, pbr, prims> of the fused kernel
-    (kernels.pt_fused_name) and its camera: the bench's prims scene with
-    and without glass, the PBR and mirror Cornell boxes, and mixes."""
+    """A scene per instantiation <geometry, specular, pbr, prims> of the
+    fused kernel (kernels.pt_fused_name) and its camera: the bench's prims
+    scene with and without glass, the PBR and mirror Cornell boxes, mixes,
+    the instanced Cornell, the instanced cube with prims, the small smooth
+    knot and the smooth quad with PBR or glass."""
+    import dataclasses
     from optix_raytracer_tpu_torch.accel import primitives as prim
+    from optix_raytracer_tpu_torch.core.camera import Camera
     from optix_raytracer_tpu_torch.scene import builtins as B
     from optix_raytracer_tpu_torch.scene.device_scene import make_device_scene
     from optix_raytracer_tpu_torch.shade import materials as M
     from optix_raytracer_tpu_torch.shade.lights import ParallelogramLight
+    from torch_parity import instanced_cube
     rough = {"kind": M.PBR, "base_color": (0.7, 0.7, 0.6), "metallic": 0.6,
              "roughness": 0.4}
+    if name == "pt_fused_inst":
+        return B.cornell_box_instanced(device), B.cornell_camera
+    if name == "pt_fused_inst_prims":
+        scene = dataclasses.replace(instanced_cube("torch", device),
+                                    prims=prim.make_prims(
+                                        B.prims_list(False), device))
+        return scene, lambda w, h: Camera(eye=(0, 2.5, -5.0),
+                                          lookat=(0, 0.3, 0), up=(0, 1, 0),
+                                          fov_y=45.0, aspect=w / h)
+    if name == "pt_fused_smooth":
+        return B.knot_scene(8, 6, device=device), B.knot_camera
+    if name == "pt_fused_smooth_pbr":
+        return _smooth_quad([rough], [0, 0, 0, 0], device)
+    if name == "pt_fused_smooth_specular":
+        return _smooth_quad([{"kind": M.DIFFUSE, "base_color": (0.7, 0.5,
+                                                                0.4)},
+                             {"kind": M.GLASS, "base_color": (0.95, 0.95,
+                                                              0.95),
+                              "ior": 1.5}], [0, 0, 1, 1], device)
     if name in ("pt_fused_prims", "pt_fused_specular_prims",
                 "pt_fused_pbr_prims", "pt_fused_specular_pbr_prims"):
         glass = "specular" in name
@@ -358,15 +406,18 @@ def _variant_scene(name, device):
 
 _VARIANTS = ["pt_fused_prims", "pt_fused_specular_prims", "pt_fused_pbr",
              "pt_fused_specular", "pt_fused_pbr_prims",
-             "pt_fused_specular_pbr", "pt_fused_specular_pbr_prims"]
+             "pt_fused_specular_pbr", "pt_fused_specular_pbr_prims",
+             "pt_fused_inst", "pt_fused_inst_prims", "pt_fused_smooth",
+             "pt_fused_smooth_pbr", "pt_fused_smooth_specular"]
 
 
 @pytest.mark.parametrize("name", _VARIANTS)
 def test_fused_variants_match_plain(cuda, name):
     """Each instantiation of kernel 3' against the wavefront engine on the
-    card: its own LAUNCHES key, ray counts equal, radiance within atol 3e-3
-    / rtol 1e-3 (test_fused_kernel.py:238), regen a no-op, row tiles equal
-    to the full frame."""
+    card (on an instanced scene kernels 1-2 per instance, on a smooth one
+    with the shading-frame epilogue): its own LAUNCHES key, ray counts
+    equal, radiance within atol 3e-3 / rtol 1e-3 (test_fused_kernel.py:238),
+    regen a no-op, row tiles equal to the full frame."""
     scene, camera = _variant_scene(name, cuda)
     assert kernels.pt_fused_name(*pallas_pt.fused_variant(scene)) == name
     assert engine._use_fused(scene, "auto")

@@ -5,10 +5,13 @@ the port's own native binding, or morton order without a compiler) and
 renders it 8x8 at 8 samples per launch through the sample-major path, again
 through the cluster-major queue (ORT_QWALK=1), then again with the
 supercluster tier forced (the same image within the parity
-bars, the same ray count), and renders the prims + glass scene 8x8 (custom
-prims, glass lanes) through the fused kernel's plain version. Until then no
-module of the JAX package is loaded; the JAX package's reader then checks
-the PNG."""
+bars, the same ray count), renders the prims + glass scene 8x8 (custom
+prims, glass lanes) through the fused kernel's plain version, and builds
+the instanced Cornell box through its own Scene class, instance table and
+transforms and the small smooth knot, rendering each 8x8 through the fused
+kernel's plain version (the instance loop, the shading-frame epilogue).
+Until then no module of the JAX package is loaded; the JAX package's reader
+then checks the PNG."""
 import os
 import subprocess
 import sys
@@ -67,6 +70,25 @@ p_film, p_rays = render_accumulate(prims, prims_camera(8, 8).params("cpu"),
                                    impl="fused")
 assert np.isfinite(p_film.accum.numpy()).all() and int(p_rays) > 8 * 8 * 2
 assert float(p_film.accum.max()) > 0
+from optix_raytracer_tpu_torch.accel import tlas
+from optix_raytracer_tpu_torch.core import transforms
+from optix_raytracer_tpu_torch.scene import scene as host_scene
+from optix_raytracer_tpu_torch.scene.builtins import (cornell_box_instanced,
+                                                     cornell_camera)
+inst = cornell_box_instanced("cpu")
+assert isinstance(inst.instances, tlas.InstanceTable)
+assert inst.instances.num == 3 and inst.num_triangles == 22
+assert transforms.to_4x4(inst.instances.transform).shape == (3, 4, 4)
+assert host_scene.Scene().miss_color == (0.05, 0.05, 0.12)
+small = knot_scene(8, 6, device="cpu")
+assert small.geom.smooth and not small.has_clusters
+for sc, cam in ((inst, cornell_camera(8, 8)), (small, knot_camera(8, 8))):
+    s_film, s_rays = render_accumulate(sc, cam.params("cpu"),
+                                       Film.create(8, 8, "cpu"), 8, 8,
+                                       samples_per_launch=2, max_depth=2,
+                                       impl="fused")
+    assert np.isfinite(s_film.accum.numpy()).all() and int(s_rays) > 8 * 8 * 2
+    assert float(s_film.accum.max()) > 0
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 assert not any(m == "optix_raytracer_tpu"

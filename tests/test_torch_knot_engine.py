@@ -31,7 +31,13 @@ from optix_raytracer_tpu_torch.core.film import Film
 from optix_raytracer_tpu_torch.scene.builtins import knot_camera, knot_scene
 from optix_raytracer_tpu_torch.wavefront import engine
 
-from torch_parity import one_torch_thread, torch_cam, torch_scene  # noqa: F401
+from torch_parity import (jax_native_sah, one_torch_thread,  # noqa: F401
+                          torch_cam, torch_scene)
+
+# test_own_knot_scene_renders_like_handed_over compares the port's own knot
+# build with the JAX package's, which takes the SAH order only with its
+# native SAH library loaded.
+pytestmark = pytest.mark.usefixtures("jax_native_sah")
 
 ATOL, RTOL = 2e-3, 1e-3
 W = H = 16

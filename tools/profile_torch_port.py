@@ -9,10 +9,13 @@
 both over the cluster kernels; --scene knot4m the same for the
 4,002,002-triangle knot (knot_scene(1450, 1380), the supercluster tier);
 --scene prims (bench.py's whitted_prims: 2 triangles, 4 custom prims, a
-glass shell) and --scene pbr (bench.py's pbr_ggx: the Cornell box with
-rough-metal white surfaces) profile one launch (default depth 4) through
-the fused kernel's instantiation for that scene (impl="fused") and through
-the wavefront (impl="wavefront"). torch.profiler prints for each: the wall time of the launch, the device
+glass shell), --scene pbr (bench.py's pbr_ggx: the Cornell box with
+rough-metal white surfaces), --scene instanced (bench.py's
+cornell_instanced_mrays scene: 22 shared triangles in 3 instances) and
+--scene smooth_knot (knot_scene(16, 15): 482 smooth triangles, no cluster
+table; default depth 3) profile one launch (default depth 4) through the
+fused kernel's instantiation for that scene (impl="fused") and through the
+wavefront (impl="wavefront"). torch.profiler prints for each: the wall time of the launch, the device
 time summed over kernels, the device's idle share of the window, and the
 kernels that take the most device time. Needs a CUDA device; with --out DIR
 it also writes the Chrome traces there.
@@ -24,8 +27,9 @@ device time: kernel 7 and kernel 8 (by kernel name), the queue's torch ops
 answered overflowed queries, the walks outside the queue (bounce-0 closest
 hits), and how many queries the queue answered or handed to the walk.
 
-    python tools/profile_torch_port.py [--scene cornell|knot|knot4m|prims|pbr]
-        [--dim 1920x1088] [--spl 16] [--depth N] [--qwalk] [--out DIR]
+    python tools/profile_torch_port.py [--scene cornell|knot|knot4m|prims|pbr|
+        instanced|smooth_knot] [--dim 1920x1088] [--spl 16] [--depth N]
+        [--qwalk] [--out DIR]
 """
 from __future__ import annotations
 
@@ -179,11 +183,12 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--scene", choices=("cornell", "knot", "knot4m", "prims",
-                                       "pbr"), default="cornell")
+                                       "pbr", "instanced", "smooth_knot"),
+                   default="cornell")
     p.add_argument("--dim", default="1920x1088")
     p.add_argument("--spl", type=int, default=16)
     p.add_argument("--depth", type=int, default=None,
-                   help="bounces (default 3 for the knots, else 4)")
+                   help="bounces (default 3 for the knot scenes, else 4)")
     p.add_argument("--qwalk", action="store_true",
                    help="knot scenes: run through the cluster-major queue "
                         "(ORT_QWALK=1) and split its device time")
@@ -206,9 +211,14 @@ def main():
         scene = builtins.knot_scene(*mesh, device=dev)
         cam = builtins.knot_camera(w, h).params(dev)
         impls, depth = ("spl", "wavefront"), args.depth or 3
+    elif args.scene == "smooth_knot":
+        scene = builtins.knot_scene(16, 15, device=dev)
+        cam = builtins.knot_camera(w, h).params(dev)
+        impls, depth = ("fused", "wavefront"), args.depth or 3
     else:
         scene = {"cornell": builtins.cornell_box, "pbr": builtins.pbr_cornell,
-                 "prims": builtins.prims_scene}[args.scene](dev)
+                 "prims": builtins.prims_scene,
+                 "instanced": builtins.cornell_box_instanced}[args.scene](dev)
         camera = (builtins.prims_camera if args.scene == "prims"
                   else builtins.cornell_camera)
         cam = camera(w, h).params(dev)
