@@ -16,7 +16,11 @@ specular, PBR, prim, instance and smooth-normal instantiations (3') against
 the wavefront on the bench's prims + glass scene, the PBR Cornell, the
 mirror Cornell, the instanced Cornell and a 482-triangle smooth knot, and
 time their headline launches (1920x1088, 16 samples per launch, depth 4;
-depth 3 on the knot).
+depth 3 on the knot); phases k1-k3 do the same for the texture
+instantiations on bench.py's textured scene (its own frame: 1920x1088, 4
+samples per launch, depth 3) and two smaller textured variants, and phase l
+holds kernel 9, the texture-fetch study's row fetch, to its plain version
+and repeats the study's A/B against torch's row gather.
 
     python3 chip_smoke.py
 
@@ -88,6 +92,15 @@ SMOOTH_KNOT = dict(segments=16, sides=15, depth=3)
 # division).
 INST_XF_OPS = 36
 SMOOTH_OPS = 25
+# bench.py:219-259: the textured scene at its own frame and depth.
+TEXTURED = dict(width=1920, height=1088, spl=4, depth=3)
+# tests/test_fused_textures.py:29-63's maps (base, normal, mr, emissive).
+TEXTURED_SMALL = (32, 16, 16, 8)
+# FP32 operations of one textured hit (pt_fused.cuh, kTex), counted from the
+# code: uv interpolation and the cone 15, the level 11, two bilinear levels
+# of 12 channels (4 taps, 9 operations a channel, and the texel's setup)
+# 244, the blend 37, the base, mr and emissive maps 8, the normal map 60.
+TEX_OPS = 375
 
 
 class SmokeFailure(RuntimeError):
@@ -1338,6 +1351,206 @@ def variant_phases(dev, card, record):
     return launches
 
 
+def texture_phases(dev, card, record):
+    """Phases k1-k3: the fused kernel's texture instantiations (3' tex)
+    against their plain version, the wavefront's texture lanes, on (i)
+    bench.py:219-246's textured scene (4 triangles; 256 / 128 / 128 / 64
+    maps in one 256x256, 9-level bundle; metallic 1, roughness 1 under an
+    mr map, so <tex, specular, pbr>), (ii) its smooth-normal and (iii) its
+    base-map-only variant at tests/test_fused_textures.py:29-63's sizes
+    (<tex, pbr>): (k1) render_sum_fused against render_sum_plain at 64²,
+    spl 2, depth 3: ray counts equal, radiance within atol 2e-3 / rtol
+    1e-3, two row tiles equal to the full frame; (k2) render_accumulate, fused
+    against wavefront, 256², spl 4, depth 3; (k3) the headline of (i)
+    (1920x1088, spl 4, depth 3): "auto" (the texture instantiation alone,
+    bf_* at 0; 2 timed launches) against "wavefront" (kernels 1-2 and the
+    texture lanes; 1), launches counted per path, and the kernel's device
+    time alone (CUDA events over 10 render_sum_fused calls at the headline's
+    shape). Fills the kernels' record and returns the headline's launch
+    count."""
+    import torch
+    from optix_raytracer_tpu_torch import kernels
+    from optix_raytracer_tpu_torch.core.film import Film
+    from optix_raytracer_tpu_torch.scene import builtins as B
+    from optix_raytracer_tpu_torch.wavefront import pallas_pt
+    from optix_raytracer_tpu_torch.wavefront.engine import (_use_fused,
+                                                            render_accumulate)
+    scenes = {       # name → (scene, fov, instantiation)
+        "bench": (B.textured_scene(dev), 40.0),
+        "smooth": (B.textured_scene(dev, TEXTURED_SMALL, 0.6, 0.8,
+                                    smooth=True), 45.0),
+        "base": (B.textured_scene(dev, TEXTURED_SMALL, 0.6, 0.8,
+                                  maps="base"), 45.0)}
+    scenes = {k: (s, fov, kernels.pt_fused_name(*pallas_pt.fused_variant(s)))
+              for k, (s, fov) in scenes.items()}
+    head = scenes["bench"][0]
+    require(scenes["bench"][2] == "pt_fused_tex_specular_pbr"
+            and tuple(head.bundles.shape) == (1, 263, 386, 16)
+            and len(head.bundle_meta[0]) == 9,
+            "textured scene: not one 256x256, 9-level bundle on "
+            "pt_fused_tex_specular_pbr")
+    # --- k1: each instantiation vs its plain version, 64², spl 2 ---
+    w = h = 64
+    sub = torch.tensor(5, dtype=torch.int64, device=dev)
+    errs = {}
+    for name, (scene, fov, kname) in scenes.items():
+        require(_use_fused(scene, "auto"),
+                f"textured {name}: auto does not take the fused kernel")
+        cam = B.textured_camera(w, h, fov).params(dev)
+        out, c_k = pallas_pt.render_sum_fused(scene, cam, w, h, sub,
+                                              samples_per_launch=2,
+                                              max_depth=3)
+        ref, c_p = pallas_pt.render_sum_plain(scene, cam, w, h, sub,
+                                              samples_per_launch=2,
+                                              max_depth=3)
+        out, ref = to_np(out), to_np(ref)
+        require(int(c_k) == int(c_p),
+                f"textured {name}: ray counts {int(c_k)} != {int(c_p)}")
+        require(np.allclose(out, ref, atol=ATOL, rtol=RTOL),
+                f"textured {name}: radiance off by "
+                f"{np.abs(out - ref).max()}")
+        halves = [to_np(pallas_pt.render_sum_fused(
+            scene, cam, w, h // 2, sub, samples_per_launch=2,
+            max_depth=3, y0=y0, full_width=w, full_height=h)[0])
+            for y0 in (0, h // 2)]
+        require(np.array_equal(np.concatenate(halves), out),
+                f"textured {name}: row tiles differ from the full frame")
+        errs[kname] = max(errs.get(kname, 0.0),
+                          float(np.abs(out - ref).max()))
+        phase(f"k1 {kname} vs plain", scene=name, rays=int(c_k),
+              max_abs_err=np.abs(out - ref).max(),
+              pixels_bit_equal=(
+                  f"{np.mean(np.all(out == ref, axis=-1)):.6f}"),
+              row_tiles="equal")
+
+    # --- k2: fused vs wavefront launch, 256², spl 4, depth 3 ---
+    w = h = 256
+    for name, (scene, fov, kname) in scenes.items():
+        cam = B.textured_camera(w, h, fov).params(dev)
+        f_fused, r_fused = render_accumulate(
+            scene, cam, Film.create(h, w, dev), w, h,
+            samples_per_launch=4, max_depth=3, impl="fused")
+        f_wave, r_wave = render_accumulate(
+            scene, cam, Film.create(h, w, dev), w, h,
+            samples_per_launch=4, max_depth=3, impl="wavefront")
+        a, b = to_np(f_fused.accum), to_np(f_wave.accum)
+        phase(f"k2 {name} fused vs wavefront",
+              max_abs_diff=np.abs(a - b).max(),
+              mean_abs_diff=np.abs(a - b).mean(),
+              rays_fused=int(r_fused), rays_wavefront=int(r_wave),
+              pixels_bit_equal=f"{np.mean(np.all(a == b, axis=-1)):.6f}")
+        require(int(r_fused) == int(r_wave),
+                f"textured {name}: fused and wavefront ray counts differ")
+        require(np.allclose(a, b, atol=ATOL, rtol=RTOL),
+                f"textured {name}: fused and wavefront images differ")
+
+    # --- k3: the textured headline ---
+    W, H, spl, depth = (TEXTURED[k] for k in ("width", "height", "spl",
+                                              "depth"))
+    kname = scenes["bench"][2]
+    cam = B.textured_camera(W, H).params(dev)
+    film, rays_f, dt_f, peak_f, first_f, first_rays_f, n_f, _ = (
+        timed_launches(head, cam, W, H, spl, depth, "auto", 2, dev))
+    _, rays_w, dt_w, peak_w, first_w, first_rays_w, n_w, _ = (
+        timed_launches(head, cam, W, H, spl, depth, "wavefront", 1, dev))
+    fused_keys = [k for k in n_f if k.startswith("pt_fused_")]
+    require(n_f[kname] == 3 and n_f["bf_closest"] == 0 and n_f["bf_any"] == 0
+            and all(n_f[k] == 0 for k in fused_keys if k != kname),
+            f"textured headline: the auto path did not run {kname} alone")
+    queries = 2 * spl * depth
+    require(n_w["bf_closest"] == queries and n_w["bf_any"] == queries
+            and all(n_w[k] == 0 for k in fused_keys),
+            f"textured headline: the wavefront path did not run kernels 1-2 "
+            f"{queries} times each")
+    a, b = to_np(first_f.accum), to_np(first_w.accum)
+    require(first_rays_f == first_rays_w,
+            f"textured headline ray counts differ: {first_rays_f} vs "
+            f"{first_rays_w}")
+    require(np.allclose(a, b, atol=ATOL, rtol=RTOL),
+            f"textured headline images differ by {np.abs(a - b).max()}")
+    img = to_np(film.accum)
+    require(img.shape == (H, W, 3) and np.isfinite(img).all()
+            and img.mean() > 0, "textured headline image not finite / empty")
+    ms_f, ms_w = 1e3 * dt_f / 2, 1e3 * dt_w
+    sub = torch.tensor(0, dtype=torch.int64, device=dev)
+    ms_k = cuda_ms(lambda: pallas_pt.render_sum_fused(
+        head, cam, W, H, sub, samples_per_launch=spl, max_depth=depth), 10)
+    head_err = float(np.abs(a - b).max())
+    # Bound per launch: half the traced rays at least are closest-hit rays,
+    # each tested against the 4 triangles, its normal interpolated and its
+    # hit textured; a shadow ray needs one test at the least. Bytes: the
+    # radiance and count planes written, the bundle atlas and the
+    # per-triangle plane read once.
+    rays_launch = rays_f // 2
+    b_head = bound((rays_launch // 2) * (PAIR_OPS * head.num_triangles
+                                         + SMOOTH_OPS + TEX_OPS + PAIR_OPS),
+                   W * H * 16 + head.bundles.numel() * 4
+                   + head.num_triangles * pallas_pt.TEX_ATTR_COLS * 4)
+    phase("k3 textured headline", card=repr(card), kernel=kname,
+          dim=f"{W}x{H}", spl=spl, depth=depth,
+          fused_ms_per_launch=f"{ms_f:.2f}", fused_kernel_ms=f"{ms_k:.3f}",
+          mrays_per_s=f"{rays_f / dt_f / 1e6:.1f}",
+          msamples_per_s=f"{2 * W * H * spl / dt_f / 1e6:.1f}",
+          rays_per_launch=rays_launch, first_launch_rays=first_rays_f,
+          wavefront_ms_per_launch=f"{ms_w:.2f}",
+          wavefront_mrays_per_s=f"{rays_w / dt_w / 1e6:.1f}",
+          wavefront_msamples_per_s=f"{W * H * spl / dt_w / 1e6:.1f}",
+          peak_mem_mib=f"{peak_f / 2**20:.0f}",
+          wavefront_peak_mem_mib=f"{peak_w / 2**20:.0f}",
+          bound_ms=f"{b_head['bound_ms']:.3f}({b_head['bound_by']})",
+          image_mean=f"{img.mean():.5f}",
+          fused_vs_wavefront_max_abs_diff=head_err,
+          pixels_bit_equal=f"{np.mean(np.all(a == b, axis=-1)):.6f}",
+          auto_launches={k: n_f[k] for k in ("bf_closest", "bf_any", kname)},
+          wavefront_launches={k: n_w[k] for k in ("bf_closest", "bf_any",
+                                                  kname)})
+    record[kname] = dict(max_abs_err=max(errs[kname], head_err), ms=ms_k,
+                         launch_ms=ms_f, plain_ms=ms_w, plain_blocks="all",
+                         **b_head)
+    return {kname: n_f[kname]}
+
+
+def texfetch_phase(dev, card, record):
+    """Phase l: kernel 9 against its plain version, bit for bit, on the
+    A/B's 2M-lane workloads at tile_w 128 / 256 / 512 of a 65,536-row bf16
+    atlas; then the A/B of tools/bench_texfetch.py:114-147 on the same
+    workloads (CUDA events, mean of 10): the kernel, its plain version and
+    torch's row gather from the f32 atlas (the library call), with the
+    bound (the distinct rows read, the indices and the f32 rows written,
+    over the HBM rate), launches counted over the A/B alone. The record
+    takes tile_w 256."""
+    from optix_raytracer_tpu_torch import kernels
+    from optix_raytracer_tpu_torch.tools import bench_texfetch as T
+    atlas, atlas_bf = T.make_atlas(dev)
+    errs = []
+    for tile_w in T.TILE_WS:
+        err, equal = T.parity(tile_w, atlas_bf)
+        require(equal, f"texfetch tile_w {tile_w}: kernel 9 differs from "
+                       f"its plain version by {err}")
+        errs.append(err)
+    kernels.reset_launches()
+    res = {tile_w: T.ab(tile_w, atlas, atlas_bf, rounds=10)
+           for tile_w in T.TILE_WS}
+    n = kernels.LAUNCHES["texfetch"]
+    require(n > 0, "texfetch never launched in the A/B")
+    for tile_w, r in res.items():
+        phase(f"l texfetch tile_w {tile_w}", card=repr(card),
+              lanes=r["lanes"], rows=r["rows"],
+              kernel_ms=f"{r['kernel_ms']:.4f}",
+              gather_ms=f"{r['library_ms']:.4f}",
+              plain_ms=f"{r['plain_ms']:.4f}",
+              bound_ms=f"{r['bound_ms']:.4f}(bytes)",
+              gather_over_kernel=f"{r['library_ms'] / r['kernel_ms']:.2f}",
+              bit_equal=True)
+    r = res[256]
+    record["texfetch"] = dict(max_abs_err=max(errs), ms=r["kernel_ms"],
+                              plain_ms=r["plain_ms"],
+                              library_ms=r["library_ms"],
+                              bound_ms=r["bound_ms"], bound_by="bytes",
+                              plain_blocks="all")
+    return {"texfetch": n}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1555,6 +1768,12 @@ def main():
     launches.update(variant_launches)
     torch.cuda.empty_cache()
 
+    # --- phases k1-k3 and l: the texture variant (3' tex) and kernel 9 ---
+    variant_launches.update(texture_phases(dev, card, record))
+    launches.update(variant_launches)
+    launches.update(texfetch_phase(dev, card, record))
+    torch.cuda.empty_cache()
+
     # --- phases (a)-(d), (h)-(j): the large-mesh path (kernels 4-6) and
     # the queue (kernels 7-8) ---
     launches.update(knot_phases(dev, card, record))
@@ -1568,7 +1787,7 @@ def main():
                "optix_raytracer_tpu/wavefront/pallas_pt.py:1478")
 
     def fused_source(name):
-        for mode in ("inst", "smooth"):
+        for mode in ("inst", "smooth", "tex"):
             if name.startswith(f"pt_fused_{mode}"):
                 return (f"optix_raytracer_tpu_torch/csrc/pt_fused_{mode}.cu",
                         fused_3[1])
@@ -1595,12 +1814,15 @@ def main():
         qwalk_closest=("optix_raytracer_tpu_torch/csrc/clusters.cu",
                        "optix_raytracer_tpu/accel/qwalk.py:283"),
         qwalk_any=("optix_raytracer_tpu_torch/csrc/clusters.cu",
-                   "optix_raytracer_tpu/accel/qwalk.py:283"))
-    # No single PyTorch call computes a Woop closest hit or a slab cull:
-    # library_ms is null for every kernel.
+                   "optix_raytracer_tpu/accel/qwalk.py:283"),
+        texfetch=("optix_raytracer_tpu_torch/csrc/texfetch.cu",
+                  "tools/bench_texfetch.py:97"))
+    # No single PyTorch call computes a Woop closest hit, a slab cull or a
+    # path: library_ms is null for every kernel but kernel 9 (torch's row
+    # gather).
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=meta[n][0], replaces=meta[n][1],
-             launches=launches[n], library_ms=None, **record[n])
+             launches=launches[n], **{"library_ms": None, **record[n]})
         for n in meta]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

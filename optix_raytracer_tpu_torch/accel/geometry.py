@@ -10,9 +10,12 @@ ray sees D'w = 0 and the strict |D'w| > eps test rejects them.
 
 `v0`, `e1`, `e2` stay on the geometry for the cluster AABBs and the SAH
 build; `corner_normal` holds per-corner shading normals (the face normal
-three times unless `normals` are given, and then `smooth` is True).
-`shading_frame` interpolates them at a hit; texture coordinates, tangents
-and `uv_density` come with textures (ROADMAP.md Queue 1 item 8).
+three times unless `normals` are given, and then `smooth` is True);
+`corner_uv` the per-corner texture coordinates (zero unless `uvs` are
+given), `tangent` the uv-aligned unit tangent of normal mapping and
+`uv_density` sqrt(uv area / world area), which turns the ray cone's
+world-space width into texels for mip selection. `shading_frame`
+interpolates them at a hit.
 """
 from __future__ import annotations
 
@@ -34,15 +37,19 @@ class TriangleGeometry:
     e2: Optional[torch.Tensor] = None            # [M, 3] v2 - v0
     corner_normal: Optional[torch.Tensor] = None  # [M, 3, 3]
     smooth: bool = False
+    corner_uv: Optional[torch.Tensor] = None      # [M, 3, 2]
+    tangent: Optional[torch.Tensor] = None        # [M, 3]
+    uv_density: Optional[torch.Tensor] = None     # [M]
 
     @property
     def num_triangles(self) -> int:
         return self.tri_consts.shape[0]
 
 
-def build_triangle_geometry(vertices, indices, device,
-                            normals=None) -> TriangleGeometry:
-    """normals: optional per-vertex [V, 3] shading normals."""
+def build_triangle_geometry(vertices, indices, device, normals=None,
+                            uvs=None) -> TriangleGeometry:
+    """normals / uvs: optional per-vertex [V, 3] shading normals and [V, 2]
+    texture coordinates."""
     vertices = torch.as_tensor(vertices, dtype=torch.float32, device=device)
     indices = torch.as_tensor(indices, dtype=torch.int64, device=device)
     v0 = vertices[indices[:, 0]]
@@ -72,25 +79,54 @@ def build_triangle_geometry(vertices, indices, device,
         corner_normal = normals[indices]                     # [M, 3, 3]
     else:
         corner_normal = face_normal[:, None, :].expand(M, 3, 3)
+    if uvs is not None:
+        uvs = torch.as_tensor(uvs, dtype=torch.float32, device=device)
+        corner_uv = uvs[indices]                             # [M, 3, 2]
+    else:
+        corner_uv = torch.zeros((M, 3, 2), dtype=torch.float32, device=device)
+    tangent, uv_density = uv_frame(corner_uv, e1, e2, dot(n, n))
     return TriangleGeometry(tri_consts=tri_consts.contiguous(),
                             face_normal=face_normal, valid=valid, v0=v0,
                             e1=e1, e2=e2, corner_normal=corner_normal,
-                            smooth=normals is not None)
+                            smooth=normals is not None, corner_uv=corner_uv,
+                            tangent=tangent, uv_density=uv_density)
 
 
-# Columns of the shade plane: v0, e1, e2, face normal, corner normals n0-n2.
+def uv_frame(corner_uv, e1, e2, n_len2):
+    """The uv-aligned unit tangent [M, 3] and the uv density [M] of each
+    triangle (accel/geometry.py:131-142): the tangent solves the uv
+    parametrisation for d(position)/du, e1 where the uv determinant is under
+    1e-12 in magnitude; the density is sqrt(|det| / (2 x world area)), the
+    doubled area clamped at 1e-12."""
+    duv1 = corner_uv[:, 1] - corner_uv[:, 0]
+    duv2 = corner_uv[:, 2] - corner_uv[:, 0]
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    flat = torch.abs(det) < 1e-12
+    safe_det = torch.where(flat, 1.0, det)
+    raw = (duv2[:, 1:2] * e1 - duv1[:, 1:2] * e2) / safe_det[:, None]
+    tangent = normalize(torch.where(flat[:, None], e1, raw))
+    world_area2 = torch.sqrt(torch.clamp_min(n_len2, 1e-24))
+    return tangent, torch.sqrt(torch.abs(det) / world_area2)
+
+
+# Columns of the shade plane: v0, e1, e2, face normal, corner normals n0-n2,
+# corner uvs uv0-uv2, tangent, uv density.
 _PLANE = dict(v0=slice(0, 3), e1=slice(3, 6), e2=slice(6, 9),
               normal=slice(9, 12), n0=slice(12, 15), n1=slice(15, 18),
-              n2=slice(18, 21))
+              n2=slice(18, 21), uv0=slice(21, 23), uv1=slice(23, 25),
+              uv2=slice(25, 27), tangent=slice(27, 30),
+              uv_density=slice(30, 31))
 
 
 def shade_plane(geom: TriangleGeometry) -> torch.Tensor:
-    """Per-triangle shading attributes in one [M, 21] plane, so a hit's
-    frame is one row gather (accel/geometry.py:153-173, without the uv,
-    tangent and uv_density columns)."""
+    """Per-triangle shading attributes in one [M, 31] plane, so a hit's
+    frame is one row gather (accel/geometry.py:153-173, without its padding
+    to 128 columns)."""
     m = geom.num_triangles
     return torch.cat([geom.v0, geom.e1, geom.e2, geom.face_normal,
-                      geom.corner_normal.reshape(m, 9)], dim=1)
+                      geom.corner_normal.reshape(m, 9),
+                      geom.corner_uv.reshape(m, 6), geom.tangent,
+                      geom.uv_density[:, None]], dim=1)
 
 
 def shading_frame(geom: TriangleGeometry, prim_id, uv, plane=None):
@@ -98,8 +134,10 @@ def shading_frame(geom: TriangleGeometry, prim_id, uv, plane=None):
     position v0 + u e1 + v e2, the face normal and the shading normal
     w n0 + u n1 + v n2 (w = 1 - u - v) divided by its length, or the face
     normal where that length is 1e-6 or less (zero corner normals of a mesh
-    that shipped none, or normals that cancel). prim_id [...] (>= 0), uv
-    [..., 2] barycentrics → dict of [..., 3] tensors.
+    that shipped none, or normals that cancel); the texture coordinate
+    w uv0 + u uv1 + v uv2, the tangent and the uv density. prim_id [...]
+    (>= 0), uv [..., 2] barycentrics → dict of [..., 3] tensors, "uv"
+    [..., 2] and "uv_density" [...].
 
     The fused kernel's smooth variant repeats this arithmetic in this order
     (the XLA engine's form; the Pallas kernel's delta form n0 + u (n1 - n0)
@@ -115,4 +153,7 @@ def shading_frame(geom: TriangleGeometry, prim_id, uv, plane=None):
     sn_len = torch.sqrt(dot(sn, sn))[..., None]
     sn = torch.where(sn_len > 1e-6, sn / torch.clamp_min(sn_len, 1e-12),
                      col["normal"])
-    return {"position": pos, "normal": col["normal"], "shading_normal": sn}
+    tex_uv = (w * col["uv0"] + u * col["uv1"]) + v * col["uv2"]
+    return {"position": pos, "normal": col["normal"], "shading_normal": sn,
+            "uv": tex_uv, "tangent": col["tangent"],
+            "uv_density": col["uv_density"][..., 0]}

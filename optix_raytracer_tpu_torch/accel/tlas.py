@@ -98,7 +98,8 @@ def slice_geometry(geom: TriangleGeometry, lo: int, hi: int):
         tri_consts=geom.tri_consts[lo:hi], face_normal=geom.face_normal[lo:hi],
         valid=geom.valid[lo:hi], v0=cut(geom.v0), e1=cut(geom.e1),
         e2=cut(geom.e2), corner_normal=cut(geom.corner_normal),
-        smooth=geom.smooth)
+        smooth=geom.smooth, corner_uv=cut(geom.corner_uv),
+        tangent=cut(geom.tangent), uv_density=cut(geom.uv_density))
 
 
 def unit_world_normal(inv, n):

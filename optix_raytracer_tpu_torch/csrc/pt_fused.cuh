@@ -4,14 +4,17 @@
 // (kernel 3) and its static variants (3'): a template over <kGeom,
 // kSpecular, kPbr, kPrims>. kGeom is the geometry mode: kFlat, kInst (the
 // TPU kernel's inst_ranges: the shared triangles seen through at most 32
-// instances) or kSmooth (its smooth=True: interpolated vertex normals); the
-// flags are its has_specular (glass and mirror lanes), has_pbr (rough
+// instances), kSmooth (its smooth=True: interpolated vertex normals) or kTex
+// (its tex_cfg: the in-kernel texture unit, fetch_bundle16 and the maps,
+// pallas_pt.py:701-813, 1017-1079, on kSmooth's interpolation); the flags
+// are its has_specular (glass and mirror lanes), has_pbr (rough
 // metallic-roughness GGX lanes) and prim_kinds (inline sphere, shell,
 // parallelogram and capsule intersectors). <kFlat, false, false, false> is
-// the Cornell configuration. No textures. Instances and smooth normals never
-// meet (pallas_pt.py:1432). Each geometry mode's eight instantiations are
-// compiled in a source of their own (pt_fused.cu, pt_fused_inst.cu,
-// pt_fused_smooth.cu), so the per-source parallel build keeps its time.
+// the Cornell configuration. Instances meet neither smooth normals nor
+// textures (pallas_pt.py:1430-1432). Each geometry mode's eight
+// instantiations are compiled in a source of their own (pt_fused.cu,
+// pt_fused_inst.cu, pt_fused_smooth.cu, pt_fused_tex.cu), so the per-source
+// parallel build keeps its time.
 // Per pixel, spl times: TEA seed, jittered raygen with the ortho and
 // thin-lens selects, then up to max_depth bounces of closest hit
 // (triangles, then prims), miss / emission, the material lanes, NEE toward
@@ -63,6 +66,28 @@
 // it out of shared memory keeps the block under the 48 KB it gets without
 // opting in (512 rows of 9 floats would add 18 KB to the 44 KB).
 //
+// Textures (kTex): the XLA engine shades every triangle hit of a textured
+// scene through its shading frame, flat meshes included (engine.py:
+// 320-333), so kTex interpolates the corner normals as kSmooth does (a flat
+// mesh hands in its replicated face normals, which round apart from the
+// face normal). The winner's 80-byte row of an [M, 20] plane (corner
+// normals, corner uvs, tangent, uv density) is read once. A triangle hit on
+// a material with a bundle (material row column 13; column 14 its map flags
+// and chain length, column 15 its level-0 size) fetches 12 of the bundle's
+// 16 channels trilinearly, in f32 (the engine's sample_bundle, the TPU
+// kernel's ORT_TEX_F32=1; the bf16 one-hot MXU contraction is a TPU device):
+// the mip level from the ray cone, log2(max(spread x (path length + t) x uv
+// density x size, 1)) clipped to the chain (the spread in camera row 1 col
+// 5), then per level the base texel wrapped into the level and four taps of
+// one 64-byte texel row each, read through the read-only path from the
+// [B, H', W', 16] atlas in device memory (6.5 MB for the bench's bundle:
+// it stays in L2; the levels' one wrapped border row and column hold the
+// far taps). The maps scale albedo, emission, roughness and metallic and
+// bend the normal in the tangent frame before the material lanes read them,
+// so a metallic-roughness map can make mirror lanes (kSpecular is on for
+// such a scene). The fetch adds no shared memory: the block stays at the
+// 44 KB of the caps.
+//
 // RNG: the draws follow the engine's order exactly: jitter, lens pair, then
 // per bounce NEE, bounce direction, with kPbr two GGX pairs (drawn on every
 // lane of a PBR scene, whatever its material), the glass pair (skipped with
@@ -84,7 +109,11 @@
 // smooth normal takes shading_frame's form and 1e-6 length test (the TPU
 // kernel's is n0 + u (n1 - n0) + v (n2 - n0) with len^2 > 1e-12 and an
 // rsqrt, pallas_pt.py:1006-1016). The instance transforms are the port's
-// core/transforms.py products and sums, in their order.
+// core/transforms.py products and sums, in their order. The texture unit
+// follows shade/texture.py and engine._texture_lanes in their order (log2f
+// and floorf, as PyTorch's CUDA log2 and floor call them; the normal map's
+// tangent divided by max(|t|, 1e-8), not the TPU kernel's
+// sqrt(max(., 1e-20)) form, pallas_pt.py:1064-1078).
 #pragma once
 
 #include "common.cuh"
@@ -106,6 +135,9 @@ struct FusedArgs {
   const int* inst_rng;
   int ni;
   const float* corner;
+  const float* bundles;
+  const int* bundle_mip;
+  int n_levels, atlas_h, atlas_w;
   cudaStream_t stream;
 };
 
@@ -114,11 +146,16 @@ struct FusedArgs {
 void launch_flat(const FusedArgs& a, bool specular, bool pbr, bool prims);
 void launch_inst(const FusedArgs& a, bool specular, bool pbr, bool prims);
 void launch_smooth(const FusedArgs& a, bool specular, bool pbr, bool prims);
+void launch_tex(const FusedArgs& a, bool specular, bool pbr, bool prims);
 
 namespace {
 
 // Geometry modes (kernels.GEOMETRY).
-constexpr int kFlat = 0, kInst = 1, kSmooth = 2;
+constexpr int kFlat = 0, kInst = 1, kSmooth = 2, kTex = 3;
+constexpr int kTexAttrCols = 20;            // pallas_pt.TEX_ATTR_COLS
+// pallas_pt.TEX_BASE / TEX_NORMAL / TEX_MR / TEX_EMISSIVE, TEX_CHAIN_SHIFT
+constexpr int kTexBase = 1, kTexNormal = 2, kTexMr = 4, kTexEmissive = 8;
+constexpr int kTexChainShift = 4;
 
 constexpr int kThreads = 128;
 constexpr float kRayTmin = 1e-2f;           // engine.RAY_TMIN
@@ -192,6 +229,69 @@ __device__ __forceinline__ V3 smooth_normal(const float* __restrict__ cn,
   if (!(len > 1e-6f)) return face;
   const float l = fmaxf(len, 1e-12f);
   return {sn.x / l, sn.y / l, sn.z / l};
+}
+
+// One mip level of texture.sample_bundle: channels 0-11 of the bilinear
+// fetch at wrapped uv (u, v) in [0, 1] from level `lv` of bundle `b`.
+__device__ __forceinline__ void bundle_level(
+    const float* __restrict__ bundles, const int* __restrict__ mip,
+    int n_levels, int rows, int cols, int b, int lv, float u, float v,
+    float out[12]) {
+  const int* e = mip + 4 * (b * n_levels + lv);
+  const float y_off = static_cast<float>(__ldg(e));
+  const float x_off = static_cast<float>(__ldg(e + 1));
+  const float h = fmaxf(static_cast<float>(__ldg(e + 2)), 1.0f);
+  const float w = fmaxf(static_cast<float>(__ldg(e + 3)), 1.0f);
+  const float x = u * w - 0.5f;
+  const float y = v * h - 0.5f;
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x - x0;
+  const float fy = y - y0;
+  const int wi = static_cast<int>(w), hi = static_cast<int>(h);
+  // the base corner wraps (x0 mod w, the sign of w); the border holds the
+  // far taps
+  const int xi = min(max(((static_cast<int>(x0) % wi) + wi) % wi +
+                             static_cast<int>(x_off), 0), cols - 2);
+  const int yi = min(max(((static_cast<int>(y0) % hi) + hi) % hi +
+                             static_cast<int>(y_off), 0), rows - 2);
+  const float4* r0 = reinterpret_cast<const float4*>(
+      bundles + ((static_cast<size_t>(b) * rows + yi) * cols + xi) * 16);
+  const float4* r1 = r0 + static_cast<size_t>(cols) * 4;
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float4 c00 = __ldg(r0 + q), c01 = __ldg(r0 + 4 + q);
+    const float4 c10 = __ldg(r1 + q), c11 = __ldg(r1 + 4 + q);
+    out[4 * q] = (c00.x * gx + c01.x * fx) * gy + (c10.x * gx + c11.x * fx) * fy;
+    out[4 * q + 1] = (c00.y * gx + c01.y * fx) * gy + (c10.y * gx + c11.y * fx) * fy;
+    out[4 * q + 2] = (c00.z * gx + c01.z * fx) * gy + (c10.z * gx + c11.z * fx) * fy;
+    out[4 * q + 3] = (c00.w * gx + c01.w * fx) * gy + (c10.w * gx + c11.w * fx) * fy;
+  }
+}
+
+// texture.sample_bundle's trilinear fetch of channels 0-11 for one hit on
+// bundle b: texel_scale the ray cone's footprint in uv units, dim0 / chain
+// the bundle's level-0 size and mip count.
+__device__ __forceinline__ void sample_bundle(
+    const float* __restrict__ bundles, const int* __restrict__ mip,
+    int n_levels, int rows, int cols, int b, float dim0, int chain,
+    float uvx, float uvy, float texel_scale, float out[12]) {
+  float lod = 0.0f;
+  if (n_levels != 1) lod = log2f(fmaxf(texel_scale * dim0, 1.0f));
+  lod = fminf(fmaxf(lod, 0.0f), static_cast<float>(chain) - 1.0f);
+  const float fl = floorf(lod);
+  const int l0 = static_cast<int>(fl);
+  const int l1 = min(l0 + 1, chain - 1);
+  const float f = lod - static_cast<float>(l0);
+  const float u = uvx - floorf(uvx);
+  const float v = uvy - floorf(uvy);
+  float c1[12];
+  bundle_level(bundles, mip, n_levels, rows, cols, b, l0, u, v, out);
+  bundle_level(bundles, mip, n_levels, rows, cols, b, l1, u, v, c1);
+  const float g = 1.0f - f;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) out[j] = g * out[j] + f * c1[j];
 }
 
 // i - (2 * dot(i, n)) * n, vecmath.reflect.
@@ -426,7 +526,10 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
                 int* __restrict__ count_out,
                 const float* __restrict__ inst,
                 const int* __restrict__ inst_rng, int ni,
-                const float* __restrict__ corner) {
+                const float* __restrict__ corner,
+                const float* __restrict__ bundles,
+                const int* __restrict__ bundle_mip, int n_levels, int atlas_h,
+                int atlas_w) {
   // Shared: triangles [m,16] (col 15 = material id), prims [np,16],
   // materials [k,16], light [16], camera [2,16]; with kInst the instances
   // [ni,16] and their ranges [ni,2].
@@ -468,6 +571,7 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
   const bool is_ortho = s_cam[14] > 0.0f;
   const float ohx = s_cam[16], ohy = s_cam[17];
   const V3 miss = {s_cam[18], s_cam[19], s_cam[20]};
+  const float spread = s_cam[21];   // kTex: the ray cone's pixel spread
   const V3 lc = {s_light[0], s_light[1], s_light[2]};
   const V3 lv1 = {s_light[3], s_light[4], s_light[5]};
   const V3 lv2 = {s_light[6], s_light[7], s_light[8]};
@@ -520,6 +624,7 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
     V3 rad = {0.f, 0.f, 0.f};
     bool prev_spec = true;
     float tmin = 1e-4f;           // camera rays: Rays.make's default tmin
+    float plen = 0.0f;            // kTex: the path length to the last hit
     for (int depth = 0; depth < max_depth; ++depth) {
       // --- closest hit: triangles, then prims (a triangle wins ties) ---
       float bt = 1e16f;
@@ -550,7 +655,7 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
           ort::tri_test(c, o.x, o.y, o.z, d.x, d.y, d.z, tt, uu, vv, dpz);
           if (ort::tri_accept(tt, uu, vv, dpz, tmin, bt)) {
             bt = tt; bid = t; bc = c;
-            if constexpr (kGeom == kSmooth) {
+            if constexpr (kGeom == kSmooth || kGeom == kTex) {
               bu = uu; bv = vv;
             }
           }
@@ -575,6 +680,7 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
       const V3 hp = {o.x + bt * d.x, o.y + bt * d.y, o.z + bt * d.z};
       V3 gn;
       const float* mt;
+      const float* attr = nullptr;  // kTex: the triangle winner's plane row
       if (kPrims && bp != nullptr) {
         gn = prim_normal(bp, hp);
         mt = s_mat + 16 * static_cast<int>(bp[12]);
@@ -588,10 +694,67 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
         if constexpr (kGeom == kSmooth) {
           gn = smooth_normal(corner + 9 * bid, bu, bv, gn);
         }
+        if constexpr (kGeom == kTex) {
+          attr = corner + kTexAttrCols * bid;
+          gn = smooth_normal(attr, bu, bv, gn);
+        }
         mt = s_mat + 16 * mid;
       }
-      const V3 alb = {mt[1], mt[2], mt[3]};
-      const V3 em = {mt[4], mt[5], mt[6]};
+      V3 alb = {mt[1], mt[2], mt[3]};
+      V3 em = {mt[4], mt[5], mt[6]};
+      float metal = 0.0f, rough = 0.0f;
+      if constexpr (kSpecular || kPbr) {
+        metal = mt[7];
+        rough = mt[12];
+      }
+      if constexpr (kGeom == kTex) {
+        // --- the texture lanes (engine._texture_lanes) ---
+        const int bundle = static_cast<int>(mt[13]);
+        if (attr != nullptr && bundle >= 0) {
+          float a[19];
+#pragma unroll
+          for (int j = 0; j < 19; ++j) a[j] = __ldg(attr + j);
+          const float w = (1.0f - bu) - bv;
+          const float uvx = (w * a[9] + bu * a[11]) + bv * a[13];
+          const float uvy = (w * a[10] + bu * a[12]) + bv * a[14];
+          const float cone = spread * (plen + bt);
+          const int flags = static_cast<int>(mt[14]);
+          float ch[12];
+          sample_bundle(bundles, bundle_mip, n_levels, atlas_h, atlas_w,
+                        bundle, mt[15], flags >> kTexChainShift, uvx, uvy,
+                        cone * a[18], ch);
+          if (flags & kTexBase) {
+            alb = {alb.x * ch[0], alb.y * ch[1], alb.z * ch[2]};
+          }
+          if (flags & kTexMr) {
+            rough = rough * ch[10];
+            metal = metal * ch[11];
+          }
+          if (flags & kTexEmissive) {
+            em = {em.x * ch[7], em.y * ch[8], em.z * ch[9]};
+          }
+          if (flags & kTexNormal) {
+            // tangent-space normal map: Gram-Schmidt the triangle's
+            // tangent against the shading normal
+            const float nmx = ch[4] * 2.0f - 1.0f;
+            const float nmy = ch[5] * 2.0f - 1.0f;
+            const float nmz = ch[6] * 2.0f - 1.0f;
+            const V3 tg = {a[15], a[16], a[17]};
+            const float tdn = dot3(tg, gn);
+            V3 tv = {tg.x - gn.x * tdn, tg.y - gn.y * tdn,
+                     tg.z - gn.z * tdn};
+            const float tl = fmaxf(sqrtf(dot3(tv, tv)), 1e-8f);
+            tv = {tv.x / tl, tv.y / tl, tv.z / tl};
+            const V3 bv3 = {gn.y * tv.z - gn.z * tv.y,
+                            gn.z * tv.x - gn.x * tv.z,
+                            gn.x * tv.y - gn.y * tv.x};
+            gn = normalize3({tv.x * nmx + bv3.x * nmy + gn.x * nmz,
+                             tv.y * nmx + bv3.y * nmy + gn.y * nmz,
+                             tv.z * nmx + bv3.z * nmy + gn.z * nmz});
+          }
+        }
+        plen = plen + bt;
+      }
       // two-sided normal: flip when it faces along the ray
       const float flip = (gn.x * d.x + gn.y * d.y + gn.z * d.z) > 0.0f
                              ? -1.0f : 1.0f;
@@ -603,10 +766,7 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
       }
       // --- material lanes (engine._bounce) ---
       bool is_glass = false, is_mirror = false, is_pbr = false;
-      float metal = 0.0f, rough = 0.0f;
       if constexpr (kSpecular || kPbr) {
-        metal = mt[7];
-        rough = mt[12];
         is_glass = mt[0] == kGlass;
         is_mirror = mt[0] == kPbrKind && metal > 0.99f && rough <= 0.05f;
         is_pbr = kPbr && mt[0] == kPbrKind && !is_mirror;
@@ -788,7 +948,8 @@ void launch_geometry(const FusedArgs& a, bool specular, bool pbr,
       <<<(n + kThreads - 1) / kThreads, kThreads, smem, a.stream>>>(
           a.tri, a.m, a.prims, a.np, a.mats, a.k, a.light, a.cam, a.subframe,
           a.width, a.height, a.full_w, a.full_h, a.y0, a.spl, a.max_depth,
-          a.rad, a.count, a.inst, a.inst_rng, ni, a.corner);
+          a.rad, a.count, a.inst, a.inst_rng, ni, a.corner, a.bundles,
+          a.bundle_mip, a.n_levels, a.atlas_h, a.atlas_w);
 }
 
 }  // namespace

@@ -33,8 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 
 # The fused kernel's geometry modes (wavefront/pallas_pt.py) and their codes
-# in csrc/pt_fused.cuh.
-GEOMETRY = {"flat": 0, "inst": 1, "smooth": 2}
+# in csrc/pt_fused.cuh; "tex" is the texture variant.
+GEOMETRY = {"flat": 0, "inst": 1, "smooth": 2, "tex": 3}
 
 
 def pt_fused_name(specular: bool, pbr: bool, prims: bool,
@@ -42,7 +42,8 @@ def pt_fused_name(specular: bool, pbr: bool, prims: bool,
     """LAUNCHES key of the fused kernel's instantiation <geometry, specular,
     pbr, prims>: "pt_fused_cornell" for <flat, false, false, false>, else
     the geometry mode unless flat, then the flags that are on, e.g.
-    "pt_fused_specular_prims", "pt_fused_inst", "pt_fused_smooth_pbr"."""
+    "pt_fused_specular_prims", "pt_fused_inst", "pt_fused_smooth_pbr",
+    "pt_fused_tex_specular_pbr" (bench.py's textured scene)."""
     if geometry not in GEOMETRY:
         raise ValueError(f"geometry must be one of {tuple(GEOMETRY)}")
     on = [t for t, f in ((geometry, geometry != "flat"),
@@ -56,7 +57,8 @@ LAUNCHES = {"bf_closest": 0, "bf_any": 0,
                for v in itertools.product((False, True), repeat=3)},
             "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0,
             "cluster_sc_closest": 0, "cluster_sc_any": 0,
-            "qwalk_oct_cull": 0, "qwalk_closest": 0, "qwalk_any": 0}
+            "qwalk_oct_cull": 0, "qwalk_closest": 0, "qwalk_any": 0,
+            "texfetch": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,9 +71,11 @@ _SIGNATURES = {
     "ort_bf_any": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
     # tri, m, prims, p, mats, k, light, cam, subframe, width, height,
     # full_w, full_h, y0, spl, max_depth, specular, pbr, geometry, inst,
-    # inst_ranges, n_inst, corner, rad, count, stream
+    # inst_ranges, n_inst, corner, bundles, bundle_mip, n_levels, atlas_h,
+    # atlas_w, rad, count, stream
     "ort_pt_fused": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P),
+                     _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
+                     _I, _P, _P, _P),
     # aabb, c_pad, rays, n_blocks, tn, gm, stream
     "ort_cluster_cull_exact": (_P, _I, _P, _I, _P, _P, _P),
     # counts, lists, tnear, comp, n_comp, rays, n_blocks, c_pad, gate, out,
@@ -89,6 +93,8 @@ _SIGNATURES = {
     # steps, n_steps, qrays, q_cols, comp, n_comp, out, stream
     "ort_qwalk_closest": (_P, _I, _P, _L, _P, _I, _P, _P),
     "ort_qwalk_any": (_P, _I, _P, _L, _P, _I, _P, _P),
+    # atlas, tile_idx, local, tile_w, n_blocks, out, stream
+    "ort_texfetch": (_P, _P, _P, _I, _I, _P, _P),
 }
 
 

@@ -1,7 +1,7 @@
 """The Cornell box (flat and instanced), the trefoil-knot scene, the bench's
-prims and PBR scenes and their cameras (counterpart of
+prims, PBR and textured scenes and their cameras (counterpart of
 `scene/builtins.py:18-141, 196-274` and of the scenes `bench.py:153-202,
-418-450` builds inline).
+205-246, 418-450` builds inline).
 
 The data tables are a copy of the JAX package's (a CPU test holds them
 equal): the JAX module cannot be imported without JAX.
@@ -294,3 +294,66 @@ def pbr_cornell(device, metallic=0.8, roughness=0.35) -> DeviceScene:
     return make_device_scene(verts, idx, tri_mat,
                              pbr_cornell_materials(metallic, roughness),
                              device, area_light=light)
+
+
+# bench.py:219-246 (bench_textured): the maps' sizes (base, normal,
+# metallic-roughness, emissive); tests/test_fused_textures.py:29-63 makes the
+# same scene with maps of (32, 16, 16, 8), metallic 0.6 and roughness 0.8.
+TEXTURED_SIZES = (256, 128, 128, 64)
+
+
+def textured_maps(sizes=TEXTURED_SIZES):
+    """The textured scene's four maps from seed 7, drawn in the bench's
+    order: base color U(0.1, 0.9), a tangent-space normal map (N(0, 0.2) x
+    and y, z = 1, normalised, stored as n / 2 + 1/2), a metallic-roughness
+    map U(0, 1) and an emissive map U(0, 0.2), each [s, s, 3] f32."""
+    rng = np.random.default_rng(7)
+    sb, sn, sm, se = sizes
+    base = rng.uniform(0.1, 0.9, (sb, sb, 3)).astype(np.float32)
+    nm = rng.normal(0, 0.2, (sn, sn, 3)).astype(np.float32)
+    nm[..., 2] = 1.0
+    nm /= np.linalg.norm(nm, axis=-1, keepdims=True)
+    normal = (nm * 0.5 + 0.5).astype(np.float32)
+    mr = rng.uniform(0, 1, (sm, sm, 3)).astype(np.float32)
+    emissive = rng.uniform(0, 0.2, (se, se, 3)).astype(np.float32)
+    return [base, normal, mr, emissive]
+
+
+def textured_scene(device, sizes=TEXTURED_SIZES, metallic=1.0, roughness=1.0,
+                   smooth=False, maps="all") -> DeviceScene:
+    """bench.py's textured scene: a 6x6 floor with its uvs tiled 4x and a
+    2 x 1.6 upright quad tiled 2x (4 triangles), one PBR material with
+    base-color, normal, metallic-roughness and emissive maps (white base,
+    emission 1), under a parallelogram light; the maps make one 16-channel
+    bundle of 256x256 texels and 9 mip levels. smooth=True gives the floor
+    up normals and the quad leaning vertex normals, maps="base" keeps the
+    base-color map alone (tests/test_fused_textures.py:29-63)."""
+    s = 3.0
+    verts = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s],
+                      [-1.0, 0.0, -0.5], [1.0, 0.0, -0.5],
+                      [1.0, 1.6, -0.5], [-1.0, 1.6, -0.5]], np.float32)
+    idx = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7]], np.int32)
+    uvs = np.array([[0, 0], [4, 0], [4, 4], [0, 4],
+                    [0, 0], [2, 0], [2, 2], [0, 2]], np.float32)
+    normals = None
+    if smooth:
+        normals = np.zeros((8, 3), np.float32)
+        normals[:4] = (0, 1, 0)
+        nr = np.array([0.3, 0.2, -0.93], np.float32)
+        normals[4:] = nr / np.linalg.norm(nr)
+    m = {"kind": mat.PBR, "base_color": (1, 1, 1), "base_tex": 0,
+         "emission": (1.0, 1.0, 1.0), "metallic": metallic,
+         "roughness": roughness}
+    if maps == "all":
+        m.update(normal_tex=1, mr_tex=2, emissive_tex=3)
+    light = ParallelogramLight.make((-1.0, 3.0, -1.0), (2, 0, 0), (0, 0, 2),
+                                    (8.0, 8.0, 8.0), device)
+    return make_device_scene(verts, idx, np.zeros(4, np.int32), [m], device,
+                             area_light=light, normals=normals, uvs=uvs,
+                             textures=textured_maps(sizes))
+
+
+def textured_camera(width, height, fov_y=40.0) -> Camera:
+    """The textured scene's camera (bench.py:245-246; the tests' 45°)."""
+    return Camera(eye=(0, 1.5, -4.5), lookat=(0, 0.6, 0), up=(0, 1, 0),
+                  fov_y=fov_y, aspect=width / height)

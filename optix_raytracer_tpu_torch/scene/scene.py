@@ -8,10 +8,12 @@ shared geometry is the concatenation of the meshes instances reference (a
 mesh no instance references gets an identity instance), and each instance
 points at its mesh's static triangle range (`accel/tlas.py`).
 
-Not ported here: textures and the loaders (`load`, ROADMAP.md Queue 1 items 8
-and 13) and point / directional lights (the Whitted integrator's, Queue 1
-item 7); each raises NotImplementedError. Texture coordinates are kept on
-the mesh but not used: nothing reads them before textures are ported.
+Texture images added with `add_texture` and the meshes' texture
+coordinates go to the DeviceScene (zero uvs for a mesh without them, once
+any mesh has some, or always on an instanced scene, as the reference does).
+Not ported here: the loaders (`load`, ROADMAP.md Queue 1 item 13) and point
+/ directional lights (the Whitted integrator's, Queue 1 item 7); each raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -58,10 +60,17 @@ def _object_normals(m: MeshEntry):
     return n
 
 
+def _uvs(positions, uvs) -> np.ndarray:
+    """A mesh's texture coordinates, or zeros for each of its vertices."""
+    return (np.zeros((len(positions), 2), np.float32) if uvs is None
+            else uvs)
+
+
 class Scene:
     def __init__(self):
         self.meshes: list[MeshEntry] = []
         self.materials: list[dict] = []
+        self.textures: list[np.ndarray] = []
         # (mesh index, 4x4 transform, sbt offset) per explicit instance
         self.instances: list[tuple] = []
         self.miss_color = (0.05, 0.05, 0.12)
@@ -71,8 +80,11 @@ class Scene:
         return len(self.materials) - 1
 
     def add_texture(self, image) -> int:
-        raise NotImplementedError("textures are not ported yet (ROADMAP.md "
-                                  "Queue 1 item 8)")
+        """Add an image ([H, W, 3 | 4] or [H, W], uint8 or float) → its
+        texture id, for a material's base_tex / normal_tex / mr_tex /
+        emissive_tex."""
+        self.textures.append(np.asarray(image))
+        return len(self.textures) - 1
 
     def add_light(self, light: dict):
         raise NotImplementedError("point and directional lights (the Whitted "
@@ -116,30 +128,34 @@ class Scene:
         exists."""
         if self.instances:
             return self._finalize_instanced(device, area_light)
-        all_pos, all_idx, all_n, tri_mat = [], [], [], []
+        all_pos, all_idx, all_n, all_uv, tri_mat = [], [], [], [], []
         base = 0
         for m in self.meshes:
             world = m.positions @ m.transform[:3, :3].T + m.transform[:3, 3]
             all_pos.append(world.astype(np.float32))
             all_idx.append(m.indices + base)
             all_n.append(_object_normals(m))
+            all_uv.append(m.uvs)
             tri_mat.append(_mesh_tri_mat(m))
             base += len(m.positions)
         if not all_pos:
             all_pos = [np.zeros((3, 3), np.float32)]
             all_idx = [np.zeros((1, 3), np.int32)]
             all_n = [None]
+            all_uv = [None]
             tri_mat = [np.zeros(1, np.int32)]
         # Meshes without normals get zero normals: shading_frame then falls
         # back to the face normal per hit.
         normals = (np.concatenate([n if n is not None else np.zeros_like(p)
                                    for p, n in zip(all_pos, all_n)])
                    if any(n is not None for n in all_n) else None)
+        uvs = (np.concatenate([_uvs(p, u) for p, u in zip(all_pos, all_uv)])
+               if any(u is not None for u in all_uv) else None)
         return make_device_scene(
             np.concatenate(all_pos), np.concatenate(all_idx),
             np.concatenate(tri_mat), self._materials(), device,
             area_light=area_light, miss_color=self.miss_color,
-            normals=normals)
+            normals=normals, uvs=uvs, textures=self.textures)
 
     def _finalize_instanced(self, device, area_light) -> DeviceScene:
         """Meshes in object space (their own transform baked in), the shared
@@ -152,7 +168,7 @@ class Scene:
             if mi not in used:
                 inst.append((mi, np.eye(4, dtype=np.float32), 0))
         ranges = {}
-        all_pos, all_idx, all_n, tri_mat = [], [], [], []
+        all_pos, all_idx, all_n, all_uv, tri_mat = [], [], [], [], []
         vbase = tbase = 0
         for mi in sorted({mi for mi, _, _ in inst}):
             m = self.meshes[mi]
@@ -160,6 +176,7 @@ class Scene:
             all_pos.append(obj.astype(np.float32))
             all_idx.append(m.indices + vbase)
             all_n.append(_object_normals(m))
+            all_uv.append(_uvs(obj, m.uvs))
             tri_mat.append(_mesh_tri_mat(m))
             ranges[mi] = (tbase, tbase + len(m.indices))
             vbase += len(m.positions)
@@ -176,4 +193,5 @@ class Scene:
             np.concatenate(all_pos), np.concatenate(all_idx),
             np.concatenate(tri_mat), self._materials(), device,
             area_light=area_light, miss_color=self.miss_color,
-            normals=normals, instances=table)
+            normals=normals, instances=table, uvs=np.concatenate(all_uv),
+            textures=self.textures)

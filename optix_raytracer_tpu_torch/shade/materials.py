@@ -1,13 +1,16 @@
 """Material table as planes of tensors (counterpart of `shade/materials.py`).
 
 The table carries the fields of the diffuse, emissive, glass and PBR
-(metallic-roughness, mirror) lanes. Textures and alpha cutouts are not
-ported yet (ROADMAP.md Queue 1 item 8), and a material that asks for one
-raises NotImplementedError.
+(metallic-roughness, mirror) lanes and the texture wiring: per material the
+ids of its base-color, normal, metallic-roughness and emissive maps (-1 =
+none) and its texture bundle (`scene/device_scene.py::pack_bundles`, -1 =
+untextured). Alpha cutouts are not ported yet (ROADMAP.md Queue 1 item 8),
+and a material that asks for one raises NotImplementedError.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -21,8 +24,9 @@ CHECKER = 4
 EMISSIVE = 5
 
 # Keys that switch on an unported feature, with their "off" value.
-_UNPORTED_KEYS = {"base_tex": -1, "normal_tex": -1, "mr_tex": -1,
-                  "emissive_tex": -1, "cutout": 0, "alpha_mode": 0}
+_UNPORTED_KEYS = {"cutout": 0, "alpha_mode": 0}
+# Texture-id keys of a material dict (shade/materials.py:53-57).
+TEX_KEYS = ("base_tex", "normal_tex", "mr_tex", "emissive_tex")
 
 
 @dataclasses.dataclass
@@ -34,6 +38,18 @@ class MaterialTable:
     roughness: torch.Tensor    # [K]
     ior: torch.Tensor          # [K]
     kr: torch.Tensor           # [K, 3]
+    # [K] int32 texture ids (-1 = none; the mr map is glTF-packed: G =
+    # roughness, B = metallic) and the bundle id; None means all -1.
+    base_tex: Optional[torch.Tensor] = None
+    normal_tex: Optional[torch.Tensor] = None
+    mr_tex: Optional[torch.Tensor] = None
+    emissive_tex: Optional[torch.Tensor] = None
+    bundle: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        for name in (*TEX_KEYS, "bundle"):
+            if getattr(self, name) is None:
+                setattr(self, name, torch.full_like(self.kind, -1))
 
     @property
     def num(self):
@@ -46,7 +62,7 @@ def make_material_table(materials, device) -> MaterialTable:
         used = [k for k, off in _UNPORTED_KEYS.items() if m.get(k, off) != off]
         if used:
             raise NotImplementedError(
-                f"material {i}: {used} (textures / cutouts) are not ported "
+                f"material {i}: {used} (alpha cutouts) are not ported "
                 "yet (ROADMAP.md Queue 1 item 8)")
     K = max(len(materials), 1)
 
@@ -60,6 +76,12 @@ def make_material_table(materials, device) -> MaterialTable:
                 out[i] = m[key]
         return torch.as_tensor(out, device=device)
 
+    def ids(key):
+        out = np.full(K, -1, np.int32)
+        for i, m in enumerate(materials):
+            out[i] = m.get(key, -1)
+        return torch.as_tensor(out, device=device)
+
     kind = np.zeros(K, np.int32)
     for i, m in enumerate(materials):
         kind[i] = m.get("kind", DIFFUSE)
@@ -71,6 +93,7 @@ def make_material_table(materials, device) -> MaterialTable:
         roughness=plane("roughness", 0.5),
         ior=plane("ior", 1.5),
         kr=plane("kr", (0.0, 0.0, 0.0), 3),
+        **{key: ids(key) for key in TEX_KEYS},
     )
 
 

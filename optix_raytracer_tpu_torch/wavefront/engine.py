@@ -2,7 +2,9 @@
 192-760, 772-921`): diffuse, emissive, glass, mirror and PBR (metallic-
 roughness GGX) materials; NEE toward the parallelogram light (the full BRDF
 on PBR lanes), cosine, one-sample-MIS GGX and Fresnel glass bounces,
-Russian roulette.
+Russian roulette; on a textured scene the texture lanes: the bundle fetch
+(`shade/texture.py`) at the ray cone's mip level, and the base-color,
+metallic-roughness, emissive and normal maps.
 
 The whole wavefront moves one bounce at a time, dead lanes masked. Its
 intersections come from kernels 1 and 2 (brute force, once per instance on
@@ -31,10 +33,11 @@ from ..core import rng as _rng
 from ..core.camera import generate_rays
 from ..core.film import Film
 from ..core.rays import Rays
-from ..core.vecmath import dot, normalize, reflect, refract
+from ..core.vecmath import cross, dot, normalize, reflect, refract
 from ..scene.device_scene import DeviceScene
 from ..shade import materials as mats
 from ..shade.sampling import cosine_sample_hemisphere, ggx_sample_half_vector
+from ..shade.texture import sample_bundle
 from .intersect import scene_any, scene_closest
 
 # Shadow / secondary-ray epsilons at Cornell scale, as in the JAX engine.
@@ -140,40 +143,92 @@ def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
     return contrib, rng
 
 
+def pixel_spread(cam_params, full_height: int):
+    """The ray cone's spread angle per pixel for mip selection
+    (engine.py:692-697, pallas_pt.py:1414-1416): 2|V| / (full_height x
+    max(|W|, 1e-8)), a scalar tensor; the wavefront and the fused kernel
+    take this one value."""
+    v, w = cam_params["V"], cam_params["W"]
+    return (2.0 * torch.sqrt(dot(v, v))
+            / (full_height * torch.clamp_min(torch.sqrt(dot(w, w)), 1e-8)))
+
+
 def _shading_normal(scene: DeviceScene, hits):
-    """The normal the bounce shades with (engine.py:312-349): the hit's
-    geometric normal, or on a smooth mesh the shading_frame epilogue's
+    """The normal the bounce shades with (engine.py:312-349) and the hit's
+    shading frame (None where none is taken): the hit's geometric normal,
+    or on a smooth or textured mesh the shading_frame epilogue's
     interpolated normal for triangle hits (custom prims keep their analytic
-    normal). The cluster walk interpolates smooth normals in its kernel, so
-    no epilogue follows it on a flat cluster scene. On an instanced scene
+    normal; a flat textured mesh interpolates its replicated face normals,
+    which rounds apart from the face normal, as the XLA engine does). The
+    cluster walk interpolates smooth normals in its kernel, so no epilogue
+    follows it on an untextured flat cluster scene. On an instanced scene
     the interpolated normal is in object space: with row ids, the hit
     instance's inverse goes back to world (tlas.unit_world_normal); without
     them the geometric normal stays."""
-    if not scene.geom.smooth or (scene.has_clusters
-                                 and not scene.has_instances):
-        return hits.normal
+    if not scene.has_textures and (not scene.geom.smooth or (
+            scene.has_clusters and not scene.has_instances)):
+        return hits.normal, None
     m = scene.num_triangles
     is_tri = hits.prim_id < m
     frame = shading_frame(scene.geom, torch.clamp(hits.prim_id, 0, m - 1),
                           hits.uv)
     sn = frame["shading_normal"]
     if not scene.has_instances:
-        return torch.where(is_tri[..., None], sn, hits.normal)
+        return torch.where(is_tri[..., None], sn, hits.normal), frame
     if not scene.instances.row_ids:
-        return hits.normal
+        return hits.normal, frame
     inv = scene.instances.inv_transform[torch.clamp_min(hits.inst_id,
                                                         0).long()]
     return torch.where((is_tri & (hits.inst_id >= 0))[..., None],
-                       unit_world_normal(inv, sn), hits.normal)
+                       unit_world_normal(inv, sn), hits.normal), frame
+
+
+def _texture_lanes(scene: DeviceScene, hits, hit_valid, frame, m, geom_n,
+                   path_len, spread):
+    """The texture block of the bounce (engine.py:350-402) on triangle hits:
+    the bundle fetch at the uv of the shading frame, its mip level from the
+    ray cone (spread x the path length to this hit, x the triangle's uv
+    density); the base map's albedo factor, the metallic-roughness map
+    scaling roughness (G) and metallic (B) in `m`, the emissive map scaling
+    the emission in `m`, and the normal map in the tangent frame: t = tan -
+    n (tan.n), divided by max(|t|, 1e-8), b = n x t, normalize(t nx + b ny
+    + n nz). Returns (albedo factor [N, 3], the shading normal)."""
+    is_tri = hits.prim_id < scene.num_triangles
+    cone = spread * (path_len + torch.where(hit_valid, hits.t, 0.0))
+    texel_scale = torch.where(is_tri, cone * frame["uv_density"], 0.0)
+    b16 = sample_bundle(scene.bundles, scene.bundle_mip,
+                        torch.where(is_tri, m["bundle"], -1),
+                        torch.where(is_tri[..., None], frame["uv"], hits.uv),
+                        texel_scale=texel_scale)
+    albedo_tex = torch.where((is_tri & (m["base_tex"] >= 0))[..., None],
+                             b16[..., 0:3], 1.0)
+    has_mr = is_tri & (m["mr_tex"] >= 0)
+    m["roughness"] = torch.where(has_mr, m["roughness"] * b16[..., 10],
+                                 m["roughness"])
+    m["metallic"] = torch.where(has_mr, m["metallic"] * b16[..., 11],
+                                m["metallic"])
+    has_em = is_tri & (m["emissive_tex"] >= 0)
+    m["emission"] = torch.where(has_em[..., None],
+                                m["emission"] * b16[..., 7:10], m["emission"])
+    has_nm = is_tri & (m["normal_tex"] >= 0)
+    nm = b16[..., 4:7] * 2.0 - 1.0
+    tan = frame["tangent"]
+    t_ = tan - geom_n * dot(tan, geom_n)[..., None]
+    t_ = t_ / torch.clamp_min(torch.sqrt(dot(t_, t_)), 1e-8)[..., None]
+    b_ = cross(geom_n, t_)
+    n_mapped = normalize(t_ * nm[..., 0:1] + b_ * nm[..., 1:2]
+                         + geom_n * nm[..., 2:3])
+    return albedo_tex, torch.where(has_nm[..., None], n_mapped, geom_n)
 
 
 def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
-            exact: bool = False, group_walk: bool = False) -> dict:
-    """One bounce of the whole wavefront (engine.py:241-611, without volume,
-    cutouts and textures): closest hit, miss and emission terms, the
-    material lanes (glass, mirror, PBR, diffuse), NEE on the diffuse and
-    PBR lanes, the next direction and throughput, Russian roulette.
-    Returns the next state."""
+            exact: bool = False, group_walk: bool = False,
+            spread=0.0) -> dict:
+    """One bounce of the whole wavefront (engine.py:241-611, without volume
+    and cutouts): closest hit, miss and emission terms, the texture lanes
+    (`spread`: pixel_spread), the material lanes (glass, mirror, PBR,
+    diffuse), NEE on the diffuse and PBR lanes, the next direction and
+    throughput, Russian roulette. Returns the next state."""
     rays = state["rays"]
     active = state["active"]
     throughput = state["throughput"]
@@ -190,7 +245,12 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
 
     m = mats.gather(scene.materials, hits.mat_id)
     d = rays.direction
-    geom_n = _shading_normal(scene, hits)
+    geom_n, frame = _shading_normal(scene, hits)
+    albedo = m["base_color"]
+    if scene.has_textures:
+        albedo_tex, geom_n = _texture_lanes(scene, hits, hit_valid, frame, m,
+                                            geom_n, state["path_len"], spread)
+        albedo = albedo * albedo_tex
     # two-sided shading normal, faceforward(N, -D, N)
     n = geom_n * torch.sign(-dot(geom_n, d))[..., None]
     hit_p = rays.at(hits.t)
@@ -202,7 +262,6 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
                                       throughput * m["emission"], 0.0)
 
     kind = m["kind"]
-    albedo = m["base_color"]
     is_glass = kind == mats.GLASS
     # a perfect mirror is fully metallic AND polished; other PBR takes GGX
     is_mirror = ((kind == mats.PBR) & (m["metallic"] > 0.99)
@@ -249,7 +308,7 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
                                      new_throughput)
 
     u3, _, rng = _rng.uniform2(rng)     # the glass pair (engine.py:536)
-    if scene.has_specular:
+    if scene.specular_lanes:
         # mirror reflection; glass picks reflect / refract by Schlick Fresnel
         d_mirror = normalize(reflect(d, n))
         ior = m["ior"]
@@ -293,6 +352,7 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
                   tmax=torch.where(active, 1e16, 0.0)),
         throughput=new_throughput, radiance=radiance, rng=rng,
         active=active, prev_specular=is_specular,
+        path_len=state["path_len"] + torch.where(hit_valid, hits.t, 0.0),
         rays_traced=rays_traced)
     return out
 
@@ -312,7 +372,8 @@ def _sort_wavefront(scene: DeviceScene, state: dict) -> dict:
 
 def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
                 chunk_size: Optional[int] = 65536, sample_major: bool = False,
-                active0=None, group_walk: Optional[bool] = None):
+                active0=None, group_walk: Optional[bool] = None,
+                spread=0.0):
     """Integrate radiance along a flat wavefront of camera rays.
 
     Returns (radiance [N, 3], rng [N], rays_traced int64 scalar tensor),
@@ -328,6 +389,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
     pixel order at the end (the rng too). group_walk overrides the gating
     (it never changes a hit, only the work).
     active0 marks lanes that are live on arrival (strip padding is not).
+    spread (pixel_spread's value) sets the textured mip level.
     """
     scene.require_supported()
     n_rays = rays.tmin.shape[0]
@@ -344,21 +406,27 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         rng=rng,
         active=active0,
         prev_specular=torch.ones_like(active0),   # depth-0 emission counts
+        # the path length to the last hit: the ray cone's width is the
+        # spread times it (engine.py:233-235)
+        path_len=torch.zeros((n_rays,), dtype=torch.float32, device=dev),
         rays_traced=torch.zeros((), dtype=torch.int64, device=dev))
 
     if scene.has_clusters and sample_major:
         gw = True if group_walk is None else group_walk
-        state = _bounce(scene, state, 0, chunk_size, group_walk=gw)
+        state = _bounce(scene, state, 0, chunk_size, group_walk=gw,
+                        spread=spread)
         for depth in range(1, max_depth):
             state = _bounce(scene, state, depth, chunk_size, exact=True,
-                            group_walk=gw)
+                            group_walk=gw, spread=spread)
     elif scene.has_clusters:
         gw = bool(group_walk)
         state["pix"] = torch.arange(n_rays, device=dev)
-        state = _bounce(scene, state, 0, chunk_size, group_walk=gw)
+        state = _bounce(scene, state, 0, chunk_size, group_walk=gw,
+                        spread=spread)
         for depth in range(1, max_depth):
             state = _bounce(scene, _sort_wavefront(scene, state), depth,
-                            chunk_size, exact=True, group_walk=gw)
+                            chunk_size, exact=True, group_walk=gw,
+                            spread=spread)
         pix = state["pix"]
         for key in ("radiance", "rng"):
             back = torch.empty_like(state[key])
@@ -366,7 +434,7 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
             state[key] = back
     else:
         for depth in range(max_depth):
-            state = _bounce(scene, state, depth, chunk_size)
+            state = _bounce(scene, state, depth, chunk_size, spread=spread)
     return state["radiance"], state["rng"], state["rays_traced"]
 
 
@@ -389,10 +457,10 @@ def render_sample(scene: DeviceScene, cam_params, width: int, height: int,
     rays, rng = generate_rays(cam_params, width, height,
                               rng_state=rng.reshape(height, width), y0=y0,
                               full_width=full_width, full_height=full_height)
-    radiance, _, rays_traced = trace_paths(scene, rays.reshape(n),
-                                           rng.reshape(n),
-                                           max_depth=max_depth,
-                                           chunk_size=chunk_size)
+    full_h = height if full_height is None else full_height
+    radiance, _, rays_traced = trace_paths(
+        scene, rays.reshape(n), rng.reshape(n), max_depth=max_depth,
+        chunk_size=chunk_size, spread=pixel_spread(cam_params, full_h))
     return radiance.reshape(height, width, 3), rays_traced
 
 
@@ -429,19 +497,25 @@ def render_sample_group(scene: DeviceScene, cam_params, width: int,
     in_frame = to_flat((gy < full_h)[None].expand(spl, height, width))
     radiance, _, rays_traced = trace_paths(
         scene, rays, to_flat(rng), max_depth=max_depth,
-        chunk_size=chunk_size, sample_major=True, active0=in_frame)
+        chunk_size=chunk_size, sample_major=True, active0=in_frame,
+        spread=pixel_spread(cam_params, full_h))
     return radiance.reshape(height, width, spl, 3).sum(dim=2), rays_traced
 
 
 def _use_fused(scene: DeviceScene, impl: str) -> bool:
-    """`engine.py:772-821` minus its TPU test and the texture variant (not
-    ported): the fused kernel on a CUDA device for a scene of at most
-    MAX_FUSED_TRIS triangles and MAX_FUSED_MATS materials, at most
-    MAX_FUSED_PRIMS custom prims of FUSED_PRIM_KINDS, no feature but glass,
-    mirror and pbr, and, on an instanced scene, at most MAX_FUSED_INST
-    instances whose ranges sum to at most MAX_FUSED_TRIS triangles of
-    flat-shaded meshes (the kernel's instance variant has no shading-frame
-    epilogue). Decided by the scene alone."""
+    """`engine.py:772-821` minus its TPU test: the fused kernel on a CUDA
+    device for a scene of at most MAX_FUSED_TRIS triangles and
+    MAX_FUSED_MATS materials, at most MAX_FUSED_PRIMS custom prims of
+    FUSED_PRIM_KINDS, no feature but glass, mirror and pbr, and, on an
+    instanced scene, at most MAX_FUSED_INST instances whose ranges sum to
+    at most MAX_FUSED_TRIS triangles of flat-shaded meshes (the kernel's
+    instance variant has no shading-frame epilogue). A textured scene takes
+    it with a texture bundle and without instances. The reference keeps
+    its texture unit opt-in (ORT_FUSED_TEX, engine.py:785-802) because it
+    was slower than XLA on the TPU; on the H100 the texture instantiation
+    is bit-equal to the wavefront's texture lanes and far faster, so no
+    option is needed, and its table-size cap is a TPU VMEM budget (the
+    port's atlas stays in device memory). Decided by the scene alone."""
     from .pallas_pt import (FUSED_FEATURES, FUSED_PRIM_KINDS, MAX_FUSED_INST,
                             MAX_FUSED_MATS, MAX_FUSED_PRIMS, MAX_FUSED_TRIS,
                             fused_inst_ranges)
@@ -452,6 +526,9 @@ def _use_fused(scene: DeviceScene, impl: str) -> bool:
     prims_ok = (scene.prims.num <= MAX_FUSED_PRIMS
                 and all(k in FUSED_PRIM_KINDS
                         for k in scene.prims.kinds_static))
+    if scene.has_textures and (scene.bundles.shape[0] == 0
+                               or scene.has_instances):
+        return False
     ranges = fused_inst_ranges(scene)
     inst_ok = not scene.has_instances or (
         len(ranges) <= MAX_FUSED_INST

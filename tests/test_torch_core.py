@@ -193,7 +193,10 @@ def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmaterials.make_material_table([{"cutout": 1}], "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmaterials.make_material_table([{"base_tex": 0}], "cpu")
+        tmaterials.make_material_table([{"alpha_mode": 1}], "cpu")
+    # texture ids are ported (the bundle id comes with the scene's textures)
+    table = tmaterials.make_material_table([{"base_tex": 0}], "cpu")
+    assert int(table.base_tex[0]) == 0 and int(table.bundle[0]) == -1
     with pytest.raises(ValueError):
         fields = scene_fields(jbuiltins.cornell_box())
         fields["tri_mat"] = fields["tri_mat"] + 10

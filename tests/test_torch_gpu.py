@@ -447,3 +447,97 @@ def test_fused_variants_match_plain(cuda, name):
              for y0 in (0, 16)]
     np.testing.assert_array_equal(
         torch.cat([p[0] for p in parts]).cpu().numpy(), out.cpu().numpy())
+
+
+def _textured_scene(name, device):
+    """The k1 scenes of chip_smoke.py: bench.py's textured scene (256 /
+    128 / 128 / 64 maps, metallic and roughness 1), tests/test_fused_
+    textures.py:29-63's smooth and base-map-only variants (32 / 16 / 16 / 8
+    maps, metallic 0.6, roughness 0.8), and the all-maps one with a glass
+    and a diffuse sphere (prims)."""
+    import dataclasses
+    from optix_raytracer_tpu_torch.accel import primitives as prim
+    from optix_raytracer_tpu_torch.scene import builtins as B
+    small = (32, 16, 16, 8)
+    if name == "bench":
+        return B.textured_scene(device)
+    if name == "smooth":
+        return B.textured_scene(device, small, 0.6, 0.8, smooth=True)
+    if name == "base":
+        return B.textured_scene(device, small, 0.6, 0.8, maps="base")
+    scene = B.textured_scene(device, small, 0.6, 0.8)
+    mats = dataclasses.replace(scene.materials)
+    glass = {"kind": 2, "base_color": (0.95, 0.95, 0.95), "ior": 1.5}
+    extra = {"kind": 0, "base_color": (0.2, 0.4, 0.8)}
+    from optix_raytracer_tpu_torch.shade.materials import make_material_table
+    more = make_material_table([glass, extra], device)
+    for f in dataclasses.fields(mats):
+        setattr(mats, f.name, torch.cat([getattr(scene.materials, f.name),
+                                         getattr(more, f.name)]))
+    plist = [{"kind": prim.SPHERE, "center": (0.9, 0.5, -1.2),
+              "radius": 0.4, "mat_id": 1},
+             {"kind": prim.SPHERE, "center": (-1.0, 0.4, -1.4),
+              "radius": 0.35, "mat_id": 2}]
+    return dataclasses.replace(
+        scene, materials=mats, prims=prim.make_prims(plist, device),
+        features=("glass", "pbr"),
+        mat_tex_flags=scene.mat_tex_flags + ((-1, False, False, False,
+                                              False),) * 2)
+
+
+# A PBR material with a metallic-roughness map takes the specular
+# instantiation (DeviceScene.specular_lanes); the base-map-only one does not.
+_TEXTURED = {"bench": "pt_fused_tex_specular_pbr",
+             "smooth": "pt_fused_tex_specular_pbr", "base": "pt_fused_tex_pbr",
+             "prims": "pt_fused_tex_specular_pbr_prims"}
+
+
+@pytest.mark.parametrize("name", list(_TEXTURED))
+def test_fused_textured_match_plain(cuda, name):
+    """Each texture instantiation the k1 scenes reach against the wavefront's
+    texture lanes on the card: its own LAUNCHES key, ray counts equal,
+    radiance within atol 2e-3 / rtol 1e-3, row tiles equal to the full
+    frame; "auto" takes it."""
+    from optix_raytracer_tpu_torch.scene.builtins import textured_camera
+    scene = _textured_scene(name, cuda)
+    kname = _TEXTURED[name]
+    assert kernels.pt_fused_name(*pallas_pt.fused_variant(scene)) == kname
+    assert engine._use_fused(scene, "auto")
+    w, h = 40, 32
+    cam = textured_camera(w, h).params(cuda)
+    before = dict(kernels.LAUNCHES)
+    out, count = pallas_pt.render_sum_fused(scene, cam, w, h, 5,
+                                            samples_per_launch=2, max_depth=3)
+    assert kernels.LAUNCHES[kname] == before[kname] + 1
+    assert all(kernels.LAUNCHES[k] == v for k, v in before.items()
+               if k != kname)
+    ref, ref_count = pallas_pt.render_sum_plain(scene, cam, w, h, 5,
+                                                samples_per_launch=2,
+                                                max_depth=3)
+    assert int(count) == int(ref_count)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                               atol=2e-3, rtol=1e-3)
+    assert float(ref.max()) > 0.05
+    parts = [pallas_pt.render_sum_fused(scene, cam, w, 16, 5,
+                                        samples_per_launch=2, max_depth=3,
+                                        y0=y0, full_width=w, full_height=h)
+             for y0 in (0, 16)]
+    np.testing.assert_array_equal(
+        torch.cat([p[0] for p in parts]).cpu().numpy(), out.cpu().numpy())
+
+
+@pytest.mark.parametrize("tile_w", [128, 256, 512])
+def test_texfetch_matches_plain(cuda, tile_w):
+    """Kernel 9 against its plain version at each tile width of the A/B,
+    exactly, and against the atlas's own rows."""
+    from optix_raytracer_tpu_torch.tools import bench_texfetch as T
+    _, atlas_bf = T.make_atlas(cuda)
+    idx, base, local = T.make_workload(T.BLOCK * 512, atlas_bf.shape[0],
+                                       tile_w, seed=4, device=cuda)
+    tile_idx, local2 = T.tile_window(base, local, tile_w)
+    before = kernels.LAUNCHES["texfetch"]
+    out = T.onehot_fetch(atlas_bf, tile_idx, local2, tile_w)
+    assert kernels.LAUNCHES["texfetch"] == before + 1
+    assert torch.equal(out, T.onehot_fetch_plain(atlas_bf, tile_idx, local2,
+                                                 tile_w))
+    assert torch.equal(out, atlas_bf[idx.long()].float())

@@ -9,9 +9,11 @@ bars, the same ray count), renders the prims + glass scene 8x8 (custom
 prims, glass lanes) through the fused kernel's plain version, and builds
 the instanced Cornell box through its own Scene class, instance table and
 transforms and the small smooth knot, rendering each 8x8 through the fused
-kernel's plain version (the instance loop, the shading-frame epilogue).
-Until then no module of the JAX package is loaded; the JAX package's reader
-then checks the PNG."""
+kernel's plain version (the instance loop, the shading-frame epilogue),
+renders bench.py's textured scene 8x8 through the fused kernel's plain
+version (the texture lanes) and runs kernel 9's plain version from the
+port's tools/bench_texfetch. Until then no module of the JAX package is
+loaded; the JAX package's reader then checks the PNG."""
 import os
 import subprocess
 import sys
@@ -89,6 +91,22 @@ for sc, cam in ((inst, cornell_camera(8, 8)), (small, knot_camera(8, 8))):
                                        impl="fused")
     assert np.isfinite(s_film.accum.numpy()).all() and int(s_rays) > 8 * 8 * 2
     assert float(s_film.accum.max()) > 0
+from optix_raytracer_tpu_torch.scene.builtins import (textured_camera,
+                                                     textured_scene)
+tex = textured_scene("cpu")
+assert tex.has_textures and tex.bundles.shape[0] == 1
+t_film, t_rays = render_accumulate(tex, textured_camera(8, 8).params("cpu"),
+                                   Film.create(8, 8, "cpu"), 8, 8,
+                                   samples_per_launch=1, max_depth=2,
+                                   impl="fused")
+assert np.isfinite(t_film.accum.numpy()).all() and int(t_rays) > 8 * 8
+assert float(t_film.accum.max()) > 0
+from optix_raytracer_tpu_torch.tools import bench_texfetch
+idx, base, local = bench_texfetch.make_workload(1024, 1024, 128)
+_, atlas_bf = bench_texfetch.make_atlas("cpu", 1024)
+rows = bench_texfetch.onehot_fetch(atlas_bf, *bench_texfetch.tile_window(
+    base, local, 128), 128)
+assert (rows == atlas_bf[idx.long()].float()).all()
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 assert not any(m == "optix_raytracer_tpu"

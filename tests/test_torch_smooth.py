@@ -111,10 +111,11 @@ def test_shading_frame_matches_jax():
                                   own["normal"].numpy()[fallback])
     np.testing.assert_array_equal(own["shading_normal"].numpy()[:3],
                                   own["normal"].numpy()[:3])
-    # the plane's columns: one gather of 21 floats per hit
+    # the plane's columns: one gather of 31 floats per hit, the corner
+    # normals in columns 12-20 (the uv, tangent and density columns follow)
     plane = shade_plane(g)
-    assert plane.shape == (m, 21)
-    np.testing.assert_array_equal(plane[:, 12:].numpy(),
+    assert plane.shape == (m, 31)
+    np.testing.assert_array_equal(plane[:, 12:21].numpy(),
                                   normals[idx].reshape(m, 9))
 
 

@@ -19,7 +19,8 @@ from optix_raytracer_tpu_torch.scene.device_scene import device_scene_from_numpy
 def scene_fields(jscene):
     """JAX DeviceScene → the numpy field dict of device_scene_from_numpy
     (the instance table too, so both packages trace with the same inverse
-    transforms: jnp.linalg.inv and torch.linalg.inv may round apart)."""
+    transforms: jnp.linalg.inv and torch.linalg.inv may round apart; and the
+    texture bundles, uvs, tangents and uv densities)."""
     g, m, light = jscene.geom, jscene.materials, jscene.area_light
     cl, inst = jscene.clusters, jscene.instances
     arrays = dict(
@@ -36,8 +37,16 @@ def scene_fields(jscene):
         prim_params=jscene.prims.params, prim_mat_id=jscene.prims.mat_id,
         inst_transform=inst.transform,
         inst_inv_transform=inst.inv_transform,
-        inst_sbt_offset=inst.sbt_offset, inst_instance_id=inst.instance_id)
+        inst_sbt_offset=inst.sbt_offset, inst_instance_id=inst.instance_id,
+        corner_uv=g.corner_uv, tangent=g.tangent, uv_density=g.uv_density,
+        mat_base_tex=m.base_tex, mat_normal_tex=m.normal_tex,
+        mat_mr_tex=m.mr_tex, mat_emissive_tex=m.emissive_tex,
+        mat_bundle=m.bundle, bundles=jscene.bundles,
+        bundle_mip=jscene.bundle_mip)
     fields = {k: np.array(v) for k, v in arrays.items()}
+    fields["bundle_meta"] = jscene.bundle_meta
+    fields["mat_tex_flags"] = jscene.mat_tex_flags
+    fields["num_textures"] = int(jscene.textures.shape[0])
     fields["features"] = tuple(jscene.features)
     fields["smooth"] = bool(g.smooth)
     fields["num_clusters"] = int(cl.num_clusters)

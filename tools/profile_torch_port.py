@@ -13,9 +13,11 @@ glass shell), --scene pbr (bench.py's pbr_ggx: the Cornell box with
 rough-metal white surfaces), --scene instanced (bench.py's
 cornell_instanced_mrays scene: 22 shared triangles in 3 instances) and
 --scene smooth_knot (knot_scene(16, 15): 482 smooth triangles, no cluster
-table; default depth 3) profile one launch (default depth 4) through the
-fused kernel's instantiation for that scene (impl="fused") and through the
-wavefront (impl="wavefront"). torch.profiler prints for each: the wall time of the launch, the device
+table; default depth 3) and --scene textured (bench.py's textured scene: 4
+triangles, base, normal, metallic-roughness and emissive maps; default 4
+samples per launch, depth 3) profile one launch (default depth 4) through
+the fused kernel's instantiation for that scene (impl="fused") and through
+the wavefront (impl="wavefront"). torch.profiler prints for each: the wall time of the launch, the device
 time summed over kernels, the device's idle share of the window, and the
 kernels that take the most device time. Needs a CUDA device; with --out DIR
 it also writes the Chrome traces there.
@@ -28,8 +30,8 @@ answered overflowed queries, the walks outside the queue (bounce-0 closest
 hits), and how many queries the queue answered or handed to the walk.
 
     python tools/profile_torch_port.py [--scene cornell|knot|knot4m|prims|pbr|
-        instanced|smooth_knot] [--dim 1920x1088] [--spl 16] [--depth N]
-        [--qwalk] [--out DIR]
+        instanced|smooth_knot|textured] [--dim 1920x1088] [--spl N]
+        [--depth N] [--qwalk] [--out DIR]
 """
 from __future__ import annotations
 
@@ -183,12 +185,16 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--scene", choices=("cornell", "knot", "knot4m", "prims",
-                                       "pbr", "instanced", "smooth_knot"),
+                                       "pbr", "instanced", "smooth_knot",
+                                       "textured"),
                    default="cornell")
     p.add_argument("--dim", default="1920x1088")
-    p.add_argument("--spl", type=int, default=16)
+    p.add_argument("--spl", type=int, default=None,
+                   help="samples per launch (default 4 for the textured "
+                        "scene, else 16)")
     p.add_argument("--depth", type=int, default=None,
-                   help="bounces (default 3 for the knot scenes, else 4)")
+                   help="bounces (default 3 for the knot and textured "
+                        "scenes, else 4)")
     p.add_argument("--qwalk", action="store_true",
                    help="knot scenes: run through the cluster-major queue "
                         "(ORT_QWALK=1) and split its device time")
@@ -215,6 +221,10 @@ def main():
         scene = builtins.knot_scene(16, 15, device=dev)
         cam = builtins.knot_camera(w, h).params(dev)
         impls, depth = ("fused", "wavefront"), args.depth or 3
+    elif args.scene == "textured":
+        scene = builtins.textured_scene(dev)
+        cam = builtins.textured_camera(w, h).params(dev)
+        impls, depth = ("fused", "wavefront"), args.depth or 3
     else:
         scene = {"cornell": builtins.cornell_box, "pbr": builtins.pbr_cornell,
                  "prims": builtins.prims_scene,
@@ -224,8 +234,9 @@ def main():
         cam = camera(w, h).params(dev)
         impls, depth = ("fused", "wavefront"), args.depth or 4
     for impl in impls:
+        spl = args.spl or (4 if args.scene == "textured" else 16)
         print(json.dumps(profile(args.scene, impl, scene, cam, w, h,
-                                 args.spl, depth, args.out, args.qwalk)),
+                                 spl, depth, args.out, args.qwalk)),
               flush=True)
 
 
