@@ -60,6 +60,11 @@ PLAIN_WALK_ENTRIES = 200_000
 # The same for the plain supercluster walks, counted in member visits
 # (block x crossed member cluster).
 PLAIN_SC_VISITS = 60_000
+# The dropped-pair audit of kernels 5c / 6c: its block sample is this many
+# times wider than the plain walks' subset, and it stops after this many
+# seconds per ray set.
+SC_AUDIT_WIDER = 8
+SC_AUDIT_S = 8.0
 # The queue's capacity, work items per octet of the padded batch
 # (optix_raytracer_tpu/accel/qwalk.py:307, the default of both packages).
 QWALK_QF = 6
@@ -201,6 +206,38 @@ def needed_work(counts, lists, boxes, n_real, packed, end, occluded=0):
     return dict(entries=int(be.numel()), pairs=pairs + int(occluded),
                 slabs=slabs, members=int((used > 0).sum()),
                 listed=int(se.unique().numel()))
+
+
+def sc_pair_counts(counts, lists, member, packed, out, closest,
+                   chunk=4096):
+    """The pair tests (ray x triangle slot) of kernels 5c / 6c on these
+    lists at three granularities and under the admission rule, over all
+    blocks → dict: block (each listed supercluster's block-union members,
+    every ray of the block: the parent design's kernel and the plain
+    walks), warp (the members some ray of the 32-ray warp crosses, the
+    warp's rays), ray (the members each ray's own slab test crosses) and
+    admitted (the rule, `sc_admitted_pairs_plain`, at the walk's final
+    state: for 5c at the ray's row t, a lower bound on the kernel's, whose
+    running t is never below it; for 6c on every live ray, occlusion not
+    applied, an upper bound). The needed count is walk_bound's."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    nb, m = counts.numel(), member.shape[2]
+    rays = packed.reshape(nb, C.SUB, 8)
+    best = out[:, 0].reshape(nb, C.SUB) if closest else None
+    be, se = listed_entries(counts, lists)
+    tot = dict(block=0, warp=0, ray=0, admitted=0)
+    for i in range(0, be.numel(), chunk):
+        b, s = be[i:i + chunk], se[i:i + chunk]
+        a, boxes = rays[b], member[s]
+        cross = C._member_cross(a, boxes)                    # [E, 256, M]
+        adm = C.sc_admitted_pairs_plain(
+            a, boxes, None if best is None else best[b])
+        tot["block"] += int(cross.any(dim=1).sum()) * C.SUB
+        tot["warp"] += int(cross.reshape(-1, 8, 32, m).any(dim=2).sum()) * 32
+        tot["ray"] += int(cross.sum())
+        tot["admitted"] += int(adm.sum())
+    return {k: v * C.LANES for k, v in tot.items()}
 
 
 def walk_bound(counts, lists, boxes, n_real, packed, out, closest, sc=0):
@@ -591,11 +628,14 @@ def sc_parity(cl, rays, exact, what, timed):
     """Kernels 5c and 6c (and kernel 4 on the supercluster facade, where the
     cull is exact) against their plain versions on one ray set: cull tables
     and lists bit-equal, 5c's rows bit-equal, 6c's occlusion equal. Both
-    walks are compared; the `timed` one ("closest" or "any") is timed on all
-    blocks (mean of 10) and, plain, on the compared blocks, and its bound
-    counted on all blocks (walk_bound). Past PLAIN_SC_VISITS member visits
-    the comparison runs on every k-th block. closest_err is the max abs
-    difference of the rows, any_mismatches the differing occlusion flags."""
+    walks are compared and timed on all blocks (mean of 10); the `timed`
+    one ("closest" or "any", the set's own query) also plain on the
+    compared blocks, its bound counted on all blocks (walk_bound), its pair
+    tests counted (sc_pair_counts) and its dropped pairs audited
+    (sc_audit, on a block sample SC_AUDIT_WIDER times wider). Past
+    PLAIN_SC_VISITS member visits the comparison runs on every k-th block.
+    closest_err is the max abs difference of the rows, any_mismatches the
+    differing occlusion flags."""
     import torch
     from optix_raytracer_tpu_torch.accel import clusters as C
     n = rays.tmin.shape[0]
@@ -632,6 +672,10 @@ def sc_parity(cl, rays, exact, what, timed):
     walk = C.walk_sc_closest if closest else C.walk_sc_any
     plain = C.walk_sc_closest_plain if closest else C.walk_sc_any_plain
     entries = int(counts.sum())
+    result = walk(*full)
+    pairs = sc_pair_counts(counts, lists, member, packed, result, closest)
+    stride = max(1, -(-int(visits.sum()) // (SC_AUDIT_WIDER
+                                              * PLAIN_SC_VISITS)))
     out.update(
         rows_bit_equal=True,
         compared_hits=int((hits.prim_id >= 0).sum()),
@@ -641,12 +685,70 @@ def sc_parity(cl, rays, exact, what, timed):
         member_visits=int(visits.sum()),
         walk_blocks=(f"{pc.shape[0]} of {n_blocks}" if blocks is not None
                      else "all"),
-        **{f"{timed}_ms": cuda_ms(lambda: walk(*full), 10),
-           f"{timed}_plain_ms": cuda_ms(lambda: plain(*part), 1),
+        closest_ms=cuda_ms(lambda: C.walk_sc_closest(*full), 10),
+        any_ms=cuda_ms(lambda: C.walk_sc_any(*full), 10),
+        **{f"{timed}_plain_ms": cuda_ms(lambda: plain(*part), 1),
            f"{timed}_bound": walk_bound(counts, lists, member,
-                                        cl.num_clusters, packed, walk(*full),
-                                        closest, sc=member.shape[2])})
+                                        cl.num_clusters, packed, result,
+                                        closest, sc=member.shape[2])},
+        **{f"pairs_{k}": v for k, v in pairs.items()},
+        **sc_audit(counts, lists, cl.comp, member, packed, result, closest,
+                   stride))
     return out
+
+
+def sc_audit(counts, lists, comp, member, packed, out, closest, stride):
+    """The dropped-pair audit of kernels 5c / 6c: on every `stride`-th block
+    (a wider sample than the plain walks' PLAIN_SC_VISITS), front to back
+    until SC_AUDIT_S seconds have passed, every pair of the plain walks
+    (each ray of the block against each block-union member of each listed
+    supercluster) that the admission rule drops (taken at the walk's final
+    state, a superset of what the kernel drops) is Woop-tested in
+    PyTorch over the member's 128 slots. A dropped pair may hold no
+    accepted hit at a t at or below the ray's row t (5c), and no accepted
+    hit at all for a ray the walk left unoccluded (6c). Fails on any →
+    dict(audit_blocks, audit_entries, audit_pairs (slot tests))."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    nb, m = counts.numel(), member.shape[2]
+    rays = packed.reshape(nb, C.SUB, 8)
+    sample = torch.zeros(nb, dtype=torch.bool, device=packed.device)
+    sample[::stride] = True
+    be, se = listed_entries(counts, lists)
+    keep = sample[be]
+    be, se = be[keep], se[keep]
+    if closest:
+        best = out[:, 0].reshape(nb, C.SUB)
+    else:
+        open_ray = (out == 0).reshape(nb, C.SUB)
+    t0 = time.perf_counter()
+    done = pairs = bad = 0
+    chunk = 128
+    while done < be.numel() and time.perf_counter() - t0 < SC_AUDIT_S:
+        b, s = be[done:done + chunk], se[done:done + chunk]
+        a = rays[b]
+        # the plain walks' pairs: every ray against the block-union members
+        union = C._member_cross(a, member[s]).any(dim=1)        # [E, M]
+        if closest:
+            dropped = ~C.sc_admitted_pairs_plain(a, member[s], best[b])
+        else:
+            dropped = ~C.sc_admitted_pairs_plain(a, member[s]) & \
+                open_ray[b][:, :, None]
+        e, c = torch.nonzero(union, as_tuple=True)
+        drop = dropped[e, :, c]                                  # [P, 256]
+        ok, tt, _, _ = C._pair_ok(comp[s[e] * m + c], a[e], None, False)
+        hit = ok & drop[:, :, None]
+        if closest:
+            hit = hit & (tt <= best[b[e]][:, :, None])
+        bad += int(hit.sum())
+        pairs += int(drop.sum()) * C.LANES
+        done += b.numel()
+    torch.cuda.synchronize()
+    n_blocks = int(torch.unique(be[:done]).numel()) if done else 0
+    require(bad == 0, f"{bad} dropped pairs hold a hit that could change a "
+                       f"result")
+    return dict(audit_blocks=f"{n_blocks} of {nb}", audit_entries=done,
+                audit_pairs=pairs)
 
 
 def prim_clusters(cl):
@@ -1054,10 +1156,13 @@ def sc_phases(dev, card, record):
     granularity; (f) kernels 5c/6c (and kernel 4 on the supercluster facade)
     against their plain versions on tile-ordered primaries (interval cull),
     NEE shadow rays (exact cull) and the six cluster queries of one
-    sample-major strip of the main path, plus the primaries' closest-hit
-    query rate (bench.py:346-384); (g) the 4M launch, sample-major against
-    the sequential oracle, launches counted per path. Returns the
-    sample-major path's counts of kernels 5c/6c."""
+    sample-major strip of the main path (rows and occlusion bit-equal on
+    the plain walks' block subset; both kernels timed on all blocks; the
+    set's pair tests at the block, warp and ray granularity, under the
+    admission rule and needed; the dropped-pair audit, sc_audit), plus the
+    primaries' closest-hit query rate (bench.py:346-384); (g) the 4M
+    launch, sample-major against the sequential oracle, launches counted
+    per path. Returns the sample-major path's counts of kernels 5c/6c."""
     import torch
     from optix_raytracer_tpu_torch.accel import clusters as C
     from optix_raytracer_tpu_torch.accel import native
@@ -1132,11 +1237,13 @@ def sc_phases(dev, card, record):
     record["cluster_sc_closest"] = dict(
         max_abs_err=max(r["closest_err"] for r in res.values()),
         ms=b1["closest_ms"], plain_ms=b1["closest_plain_ms"],
-        **b1["closest_bound"], plain_blocks=b1["walk_blocks"])
+        **b1["closest_bound"], plain_blocks=b1["walk_blocks"],
+        sets_ms={k: r["closest_ms"] for k, r in res.items()})
     record["cluster_sc_any"] = dict(
         max_abs_err=float(max(r["any_mismatches"] for r in res.values())),
         ms=b1s["any_ms"], plain_ms=b1s["any_plain_ms"], **b1s["any_bound"],
-        plain_blocks=b1s["walk_blocks"])
+        plain_blocks=b1s["walk_blocks"],
+        sets_ms={k: r["any_ms"] for k, r in res.items()})
 
     # --- (g) the 4M launch: sample-major against the sequential oracle ---
     film, rays_a, dt_a, peak_a, first_a, first_rays_a, n_a, first_s = (

@@ -23,7 +23,10 @@ supercluster, steps 1-2 run unchanged on a view whose clusters are the
 superclusters (`_sc_facade`), and the walk (kernel 5c, `walk_sc_closest`;
 kernel 6c, `walk_sc_any`) slab-tests each listed supercluster's member
 AABBs against the block and pair-tests only the members some ray crosses, in
-ascending order. Up to MAX_SUPERCLUSTERS superclusters (4.19M triangles).
+ascending order. The kernels test only the pairs of the admission rule
+(`sc_admitted_pairs_plain`: the ray's own slab test against the member's
+widened box) and return the plain walks' rows and occlusion bit for bit. Up
+to MAX_SUPERCLUSTERS superclusters (4.19M triangles).
 
 Every function mirrors the JAX one of the same name and returns the same
 values for the same inputs: the cluster table bit for bit, culls and lists bit
@@ -442,11 +445,14 @@ class _ClosestState:
         self.ids = torch.full((nb, SUB, 2), -1.0, dtype=torch.float32,
                               device=dev)
 
-    def step(self, b, blk, a, gm, gate: bool):
+    def step(self, b, blk, a, gm, gate: bool, allow=None):
         """Pair-test the rays a [B, 256, 8] of blocks b against one cluster
         each (blk [B, 32, 128]) and keep the better hit: smaller t, or equal
-        t at a lower lane; an equal hit of a later step never wins."""
+        t at a lower lane; an equal hit of a later step never wins. allow
+        [B, 256] bool, if given, leaves the other rays untested."""
         ok, tt, uu, vv = _pair_ok(blk, a, gm, gate)
+        if allow is not None:
+            ok = ok & allow[:, :, None]
         tk, lane = torch.where(ok, tt, torch.inf).min(dim=2)
         bt, blane = self.bt[b], self.blane[b]
         better = ok.any(dim=2) & ((tk < bt) | ((tk == bt) & (lane < blane)))
@@ -620,6 +626,53 @@ def _member_cross(a, member):
     return _slab_cross(a, member[:, 0:3], member[:, 3:6])[0]
 
 
+# The pair admission rule of kernels 5c / 6c (csrc/clusters.cu kMarginRel,
+# kMarginFloor): the member box is widened on every side by
+#   margin = extent * SC_MARGIN_REL + magnitude * SC_MARGIN_FLOOR,
+# extent the box's largest side, magnitude its largest |coordinate|. A pair
+# whose Woop test accepts a hit has that hit within a few ulps of the
+# triangle, which lies in the unwidened box; the f32 slab test's own error
+# is a few ulps of the distance along the ray. The floor (2^9 ulps of the
+# box's largest coordinate) covers both for rays that start in the scene,
+# and the relative term (1/64 of the box) the Woop test's growth on thin
+# triangles. Powers of two, so the kernel and this form round alike.
+SC_MARGIN_REL = 2.0 ** -6
+SC_MARGIN_FLOOR = 2.0 ** -14
+
+
+def sc_widened_boxes(member):
+    """Member boxes member [B, 6, M] → (lo, hi [B, 3, M] widened by the
+    admission margin, real [B, M] bool: the box holds a triangle, i.e. is
+    not inverted). The kernels' order of operations."""
+    lo, hi = member[:, 0:3], member[:, 3:6]
+    ext = (hi - lo).amax(dim=1)
+    mag = torch.maximum(lo.abs(), hi.abs()).amax(dim=1)
+    margin = (ext * SC_MARGIN_REL + mag * SC_MARGIN_FLOOR)[:, None]
+    return lo - margin, hi + margin, (lo <= hi).all(dim=1)
+
+
+def sc_admitted_pairs_plain(a, member, best_t=None):
+    """The pair admission rule of kernels 5c / 6c in plain PyTorch: rays a
+    [B, 256, 8] against their blocks' member boxes member [B, 6, M] → bool
+    [B, 256, M]. A (ray, member) pair is tested only when the member is in
+    the block union (some live ray of the block crosses its box: the plain
+    walks test no other member), its box is real, the ray is live and its
+    own slab test (`_slab_cross`) crosses the box widened by the margin;
+    for the closest walk (best_t [B, 256], the ray's running best t) also
+    when that box's entry distance is not above best_t. The any-hit walk
+    also drops the pairs of a ray already occluded (the caller's part). No
+    pair of the plain walks that could change a row or an occlusion flag is
+    dropped: tests/test_torch_supercluster.py and chip_smoke.py's
+    dropped-pair audit hold the rule to that."""
+    lo, hi, real = sc_widened_boxes(member)
+    cross, tn = _slab_cross(a, lo, hi)
+    union = _member_cross(a, member).any(dim=1)              # [B, M]
+    adm = cross & (real & union)[:, None, :]
+    if best_t is not None:
+        adm = adm & (tn <= best_t[:, :, None])
+    return adm
+
+
 def _member_bits(cross):
     """Member crossings [B, R, M] (M <= 32) → int64 [B] holding a 32-bit
     mask: bit c is set when some ray of the block crosses member c. Integer
@@ -662,48 +715,74 @@ def _for_each_set_member(bits, fn):
         m[sel] = ms & (ms - 1)
 
 
-def _sc_visits(counts, lists, member_aabb, packed, block_chunk):
+def _sc_visits(counts, lists, member_aabb, packed, block_chunk,
+               admit=None):
     """The plain sc walks' schedule: for each list position, front to back,
     and each member of the entry's block-union mask, ascending →
-    (blocks [K], member rows of comp [K], rays [K, 256, 8])."""
+    (blocks [K], member rows of comp [K], rays [K, 256, 8], allow). With
+    `admit` (fn(blocks, rays, boxes) → admitted pairs [K, 256, M], called
+    when the walk reaches the entry) the members are those of the admitted
+    pairs' union and allow [K, 256] is each visit's admitted rays; else
+    allow is None (every ray of the block is tested)."""
     counts, lists, rays = _walk_inputs(counts, lists, packed)
     sc = member_aabb.shape[2]
     for b, entry in _list_steps(counts, lists, block_chunk):
         s = (entry & 0xFFFF).to(torch.int64)     # group bits are ignored
         a = rays[b]
-        bits = _member_bits(_member_cross(a, member_aabb[s]))
+        cross = (_member_cross(a, member_aabb[s]) if admit is None
+                 else admit(b, a, member_aabb[s]))
         visits = []
-        _for_each_set_member(bits, lambda sel, c: visits.append((sel, c)))
+        _for_each_set_member(_member_bits(cross),
+                             lambda sel, c: visits.append((sel, c)))
         for sel, c in visits:
-            yield b[sel], s[sel] * sc + c, a[sel]
+            allow = None if admit is None else cross[sel, :, c]
+            yield b[sel], s[sel] * sc + c, a[sel], allow
 
 
 def walk_sc_closest_plain(counts, lists, tnear, comp, member_aabb, packed,
-                          block_chunk: int = 256):
+                          block_chunk: int = 256, admitted: bool = False):
     """Plain version of kernel 5c (`_sc_closest_kernel`, clusters.py:858) →
     rows [n_padded, 8] as walk_closest_plain. For each block, each list
     entry s (a supercluster) and each member c of the entry's block-union
     mask, ascending: the pair test against comp[s * SC + c], with
     walk_closest_plain's tie rule (smallest t, then lowest lane, then the
-    earlier visit). No early exit; `tnear` is not read."""
+    earlier visit). No early exit; `tnear` is not read.
+
+    admitted=True (for tests) tests only the pairs of the kernel's admission
+    rule (`sc_admitted_pairs_plain`, at each ray's best t when the walk
+    reaches the entry) and must give the same rows."""
     del tnear
     st = _ClosestState(packed.reshape(-1, SUB, 8))
-    for b, rows, a in _sc_visits(counts, lists, member_aabb, packed,
-                                 block_chunk):
-        st.step(b, comp[rows], a, None, False)
+
+    def admit(b, a, boxes):
+        return sc_admitted_pairs_plain(a, boxes, st.bt[b])
+
+    for b, rows, a, allow in _sc_visits(counts, lists, member_aabb, packed,
+                                        block_chunk,
+                                        admit if admitted else None):
+        st.step(b, comp[rows], a, None, False, allow)
     return st.rows()
 
 
 def walk_sc_any_plain(counts, lists, tnear, comp, member_aabb, packed,
-                      block_chunk: int = 256):
+                      block_chunk: int = 256, admitted: bool = False):
     """Plain version of kernel 6c (`_sc_any_kernel`, clusters.py:933) → occ
-    [n_padded] int32, over the same visits as walk_sc_closest_plain."""
+    [n_padded] int32, over the same visits as walk_sc_closest_plain;
+    admitted=True (for tests) the admitted pairs only, rays occluded before
+    the entry dropped."""
     del tnear
     occ = torch.zeros((counts.numel(), SUB), dtype=torch.bool,
                       device=packed.device)
-    for b, rows, a in _sc_visits(counts, lists, member_aabb, packed,
-                                 block_chunk):
+
+    def admit(b, a, boxes):
+        return sc_admitted_pairs_plain(a, boxes) & ~occ[b][:, :, None]
+
+    for b, rows, a, allow in _sc_visits(counts, lists, member_aabb, packed,
+                                        block_chunk,
+                                        admit if admitted else None):
         ok, _, _, _ = _pair_ok(comp[rows], a, None, False)
+        if allow is not None:
+            ok = ok & allow[:, :, None]
         occ[b] = occ[b] | ok.any(dim=2)
     return occ.reshape(-1).to(torch.int32)
 
@@ -716,12 +795,17 @@ def _sc_walk_args(name, counts, lists, tnear, comp, member_aabb, packed):
                          f"kernel takes 1 to {MAX_MEMBERS}")
     kernels.require(member_aabb, "member_aabb", torch.float32,
                     (member_aabb.shape[0], 6, sc), packed.device)
+    if comp.data_ptr() % 16:
+        raise ValueError(f"{name}: comp must be 16-byte aligned (the member "
+                         f"slabs are bulk-copied)")
     return nb, c_pad, sc
 
 
 def walk_sc_closest(counts, lists, tnear, comp, member_aabb, packed):
     """Kernel 5c (replaces `_sc_closest_kernel`, clusters.py:858; pallas_call
-    at :1150): see walk_sc_closest_plain."""
+    at :1150): see walk_sc_closest_plain, whose rows it returns bit for bit.
+    It tests only the pairs of the admission rule (`sc_admitted_pairs_plain`)
+    and keeps each ray's best as one (t, slot, visit) key."""
     dev = packed.device
     if dev.type == "cpu":
         return walk_sc_closest_plain(counts, lists, tnear, comp, member_aabb,
@@ -746,7 +830,7 @@ def walk_sc_closest(counts, lists, tnear, comp, member_aabb, packed):
 
 def walk_sc_any(counts, lists, tnear, comp, member_aabb, packed):
     """Kernel 6c (replaces `_sc_any_kernel`, clusters.py:933; pallas_call at
-    :1372): see walk_sc_any_plain."""
+    :1372): see walk_sc_any_plain; the admitted pairs only, as kernel 5c."""
     dev = packed.device
     if dev.type == "cpu":
         return walk_sc_any_plain(counts, lists, tnear, comp, member_aabb,

@@ -46,16 +46,50 @@
 //
 // Kernels 5c and 6c. A list entry is a supercluster of up to 32 member
 // clusters (the 4M-triangle table is 489 MiB, so member slabs come from
-// HBM). What bounds them: the same pair tests, on the members that some ray
-// of the block crosses (~2 of 32 on coherent primaries), plus 32 slab tests
-// per ray and entry. Design: the layout of kernels 5/6; per entry the CTA
-// stages the 32 member AABBs (768 B), each live thread slab-tests its ray
-// against them into a uint32 (the exact cull's own test), the warps OR their
-// masks (__reduce_or_sync) into one shared word (atomicOr), and the CTA pops
-// the block-union mask lowest bit first (__ffs), staging and testing one
-// member cluster at a time with kernels 5/6's staging and pair-test code.
-// Every live ray adds its crossings to the mask, also one whose walk is
-// done, so the members tested are those of the plain versions' block union.
+// HBM). The reference tests every ray of the block against every member
+// that some ray crosses (a (256, 128) tile is one vector op on the TPU); at
+// 4M strip bounce 1 that is 140x the needed pair tests. What bounds the
+// port's kernels now: the fixed cost of each list entry (58 a block at
+// strip bounce 1: the block's barriers, the admission and the first member
+// slab's load latency), then the admitted pair tests (~1.2x the needed).
+// Design (one template, cluster_sc_kernel):
+// - admission: a (ray, member) pair is tested only when the member is in
+//   the block union (some live ray's own slab test crosses its box: the
+//   plain walks test no other member), the ray is live (6c: and not yet
+//   occluded), its own slab test (the exact cull's) crosses the member's
+//   box widened by kMarginRel * extent + kMarginFloor * magnitude (why that
+//   is enough: at the constants), and (5c) that box's entry distance is not
+//   above the ray's running best t. The rule drops no pair of the plain
+//   walks that could change a row: accel/clusters.py
+//   sc_admitted_pairs_plain is its plain form, held by the CPU tests and
+//   chip_smoke.py's audit;
+// - work list: each ray first tests the widened union of the member boxes
+//   (it holds every widened member box, so this drops no admitted pair);
+//   the rays that cross it are listed, and their (ray, member) slab tests
+//   are spread over the block, each admitted pair appended to its member's
+//   list in shared memory (shared atomics; the order is free, the merge
+//   below is order-free). Work items (member, quarter of 32 slots, 16
+//   rays) go to the warps in turn, lane l testing slot 32 * quarter + l
+//   against each listed ray;
+// - closest hit: each ray's best is one 64-bit key in shared memory, t's
+//   order-preserving bits over the slot (7 bits) over the visit (list
+//   position * 32 + member), merged with the 64-bit atomicMin, so the
+//   minimum is the plain walk's winner: the smaller t, then the lower slot,
+//   then the earlier visit. After the walk each ray re-runs its winning
+//   pair test (the same operations, so the same t, u, v bits) and reads
+//   that one slot's ids and normal rows;
+// - any hit: one flag per ray in shared memory; an item skips flagged rays;
+// - staging: only walked members are staged, their 12 test rows (6 KB,
+//   contiguous) by one 1-D bulk copy each (cp.async.bulk on an mbarrier)
+//   into a ring of 2 x 2 slots in dynamic shared memory (about 50 KB a
+//   block, so four blocks an SM: with latency the limit, a ring of 2 x 4 at
+//   three blocks an SM measured 14-17% slower, one of 2 x 8 at two 2.5x):
+//   the next 2 members load while the current 2 are tested. The id and
+//   normal rows are never staged. The list words are read two entries
+//   ahead and the member boxes fetched one entry ahead (cp.async).
+// The entry-level exits are kernels 5/6's: the CTA stops when every ray's
+// best is below the entry's truncated bound (5c) or every ray is resolved
+// (6c).
 //
 // Kernel 7 is kernel 4's loop with 8-ray octet bits and no entry distance
 // (one template). Kernel 8: a work list (accel/qwalk.py) puts each crossing
@@ -273,34 +307,6 @@ __device__ __forceinline__ bool any_step(const float* s_tri, const Ray& r) {
   return false;
 }
 
-// The block-union member mask of supercluster s: bit c set when some live ray
-// of the block crosses member c's AABB (member[s] = [6][members] floats).
-// Called by every thread of the CTA; ends with a barrier, after which the
-// shared word holds the mask. The word is rewritten only after the next
-// entry's opening barrier, when every thread has read it.
-__device__ __forceinline__ unsigned member_mask(
-    const float* __restrict__ member, int s, int members, bool live,
-    const float4& org, const float4& inv, float* s_mem, unsigned* s_mask) {
-  const float* src = member + static_cast<size_t>(s) * 6 * members;
-  for (int i = threadIdx.x; i < 6 * members; i += kSub) s_mem[i] = src[i];
-  if (threadIdx.x == 0) *s_mask = 0u;
-  __syncthreads();
-  unsigned m = 0u;
-  if (live) {
-    for (int c = 0; c < members; ++c) {
-      float tn;
-      if (slab_cross(s_mem[c], s_mem[members + c], s_mem[2 * members + c],
-                     s_mem[3 * members + c], s_mem[4 * members + c],
-                     s_mem[5 * members + c], org, inv, tn))
-        m |= 1u << c;
-    }
-  }
-  m = __reduce_or_sync(kFull, m);
-  if ((threadIdx.x & 31) == 0 && m != 0u) atomicOr(s_mask, m);
-  __syncthreads();
-  return *s_mask;
-}
-
 __global__ void __launch_bounds__(kSub)
 cluster_closest_kernel(const int* __restrict__ counts,
                        const int* __restrict__ lists,
@@ -376,91 +382,433 @@ cluster_any_kernel(const int* __restrict__ counts,
   occ_out[ray] = (occ && !dead) ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kSub)
-cluster_sc_closest_kernel(const int* __restrict__ counts,
-                          const int* __restrict__ lists,
-                          const float* __restrict__ tnear,
-                          const float* __restrict__ comp, int n_comp,
-                          const float* __restrict__ member, int n_member_rows,
-                          int members, const float* __restrict__ rays,
-                          int c_pad, float* __restrict__ out) {
-  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
-  __shared__ float s_ext[kExtRows * kLanes];
-  __shared__ float s_mem[6 * kMaxMembers];
-  __shared__ unsigned s_mask;
-  const size_t b = blockIdx.x;
-  const size_t ray = b * kSub + threadIdx.x;
-  const Ray r = load_ray(rays, ray);
-  const bool dead = !(r.tmax > r.tmin);
-  float4 org, inv;
-  slab_ray(r, org, inv);
-  const int count = counts[b];
-  const int* lst = lists + b * c_pad;
-  const float* tnl = tnear + b * c_pad;
+// ---------------------------------------------------------------------------
+// Kernels 5c and 6c: the supercluster walks (see the note at the head).
+// ---------------------------------------------------------------------------
 
-  Closest h = closest_init(r);
-  for (int k = 0; k < count; ++k) {
-    const int s = lst[k] & 0xFFFF;     // the group bits are not read
-    const bool done = dead || h.bt < tnl[k];
-    if (__syncthreads_and(done)) break;
-    if (s >= n_member_rows) continue;
-    unsigned m = member_mask(member, s, members, !dead, org, inv, s_mem,
-                             &s_mask);
-    const bool warp_done = __all_sync(kFull, done);
-    while (m != 0u) {
-      const size_t row = static_cast<size_t>(s) * members + (__ffs(m) - 1);
-      m &= m - 1u;
-      if (row >= static_cast<size_t>(n_comp)) break;
-      __syncthreads();   // the last member's tests read s_tri / s_ext
-      stage_closest(s_tri, s_ext, comp + row * kCompRows * kLanes);
-      __syncthreads();
-      if (!warp_done) closest_step(s_tri, s_ext, r, h);
-    }
-  }
-  emit_closest(out, ray, h);
+// The pair admission margin (accel/clusters.py SC_MARGIN_REL,
+// SC_MARGIN_FLOOR): a member box is widened on every side by
+// extent * kMarginRel + magnitude * kMarginFloor (extent its largest side,
+// magnitude its largest |coordinate|). Why it is enough: a Woop test that
+// accepts a hit puts it within a few ulps of the triangle, which lies in
+// the unwidened box, and the f32 slab test errs by a few ulps of the
+// distance along the ray; the floor, 2^9 ulps of the box's largest
+// coordinate, covers both for rays that start in the scene, and the
+// relative term, 1/64 of the box, the Woop test's error growth on thin
+// triangles. Powers of two, so the scaling is exact and the plain form
+// (`sc_admitted_pairs_plain`) rounds as the kernel does.
+constexpr float kMarginRel = 0.015625f;         // 2^-6
+constexpr float kMarginFloor = 6.103515625e-05f; // 2^-14
+constexpr int kWin = 2;                  // member slabs per window
+constexpr int kRing = 2 * kWin;          // one window tested, one loading
+constexpr int kChunk = 16;               // rays per work item
+constexpr unsigned kSlabBytes = kTestRows * kLanes * sizeof(float);  // 6 KB
+constexpr int kWarps = kSub / 32;
+
+struct ScShared {
+  float slab[kRing][kTestRows * kLanes];  // member test rows, [12][128] each
+  float4 ray[kSub][2];                    // ox oy oz dx, dy dz tmin tmax
+  float4 inv[kSub];                       // 1/dx 1/dy 1/dz (pseudo), tmax
+  unsigned long long key[kSub];           // 5c: each ray's best key
+  int occ[kSub];                          // 6c: each ray's occlusion flag
+  float raw[2][6][kMaxMembers];           // member boxes, fetched ahead
+  float box[6][kMaxMembers];              // the entry's member boxes
+  float wbox[6][kMaxMembers];             // the same, widened
+  float sc_box[6];                        // their union's, widened
+  int cnt[kMaxMembers];                   // admitted rays per member
+  unsigned char list[kMaxMembers][kSub];  // their ids, member-major
+  unsigned char open[kSub];               // rays that cross sc_box
+  int n_open;
+  unsigned long long bar[kRing];          // one mbarrier per ring slot
+  unsigned real;                          // members that hold a triangle
+  unsigned in_union[2];                   // members some live ray crosses
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(kSub)
-cluster_sc_any_kernel(const int* __restrict__ counts,
-                      const int* __restrict__ lists,
-                      const float* __restrict__ tnear,
-                      const float* __restrict__ comp, int n_comp,
-                      const float* __restrict__ member, int n_member_rows,
-                      int members, const float* __restrict__ rays, int c_pad,
-                      int* __restrict__ occ_out) {
-  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
-  __shared__ float s_mem[6 * kMaxMembers];
-  __shared__ unsigned s_mask;
+// Ring slot i's next member slab: comp[row] rows 0-11 (6 KB, contiguous) in
+// one bulk copy that completes on the slot's mbarrier.
+__device__ __forceinline__ void bulk_load_slab(float* dst,
+                                               const float* __restrict__ src,
+                                               unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(kSlabBytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(kSlabBytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  }
+}
+
+// t's order-preserving bits (after -0 -> +0), and back.
+__device__ __forceinline__ unsigned t_bits(float t) {
+  const unsigned u = __float_as_uint(__fadd_rn(t, 0.0f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float bits_t(unsigned u) {
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// A box (lo, hi) widened by the admission margin into dst[0..5 * stride]
+// (rows lo xyz, hi xyz), in the order of sc_widened_boxes.
+__device__ __forceinline__ void widen_box(const float* lo, const float* hi,
+                                          float* dst, int stride) {
+  const float ext = fmaxf(fmaxf(__fsub_rn(hi[0], lo[0]),
+                                __fsub_rn(hi[1], lo[1])),
+                          __fsub_rn(hi[2], lo[2]));
+  const float mag = fmaxf(fmaxf(fmaxf(fabsf(lo[0]), fabsf(hi[0])),
+                                fmaxf(fabsf(lo[1]), fabsf(hi[1]))),
+                          fmaxf(fabsf(lo[2]), fabsf(hi[2])));
+  const float m = __fadd_rn(__fmul_rn(ext, kMarginRel),
+                            __fmul_rn(mag, kMarginFloor));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    dst[a * stride] = __fsub_rn(lo[a], m);
+    dst[(3 + a) * stride] = __fadd_rn(hi[a], m);
+  }
+}
+
+// Warp 0's asynchronous fetch of supercluster s's member boxes
+// (member[s] = [6][members] floats) into dst, one commit group a call
+// (empty when s is past the table), so the next entry's boxes arrive while
+// this one is walked.
+__device__ __forceinline__ void fetch_member_boxes(
+    float (*dst)[kMaxMembers], const float* __restrict__ member, int s,
+    int members, int n_member_rows, int lane) {
+  if (lane < members && s < n_member_rows) {
+    const float* src = member + static_cast<size_t>(s) * 6 * members + lane;
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                   :: "r"(smem_u32(&dst[a][lane])), "l"(src + a * members)
+                   : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The index of the n-th set bit of m (n < popc(m)).
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  for (int i = 0; i < n; ++i) m &= m - 1u;
+  return __ffs(m) - 1;
+}
+
+// One CTA per 256-ray block, for both walks (kClosest: 5c, else 6c).
+template <bool kClosest>
+__global__ void __launch_bounds__(kSub, 4)
+cluster_sc_kernel(const int* __restrict__ counts,
+                  const int* __restrict__ lists,
+                  const float* __restrict__ tnear,
+                  const float* __restrict__ comp, int n_comp,
+                  const float* __restrict__ member, int n_member_rows,
+                  int members, const float* __restrict__ rays, int c_pad,
+                  float* __restrict__ out, int* __restrict__ occ_out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  ScShared& sh = *reinterpret_cast<ScShared*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t b = blockIdx.x;
-  const size_t ray = b * kSub + threadIdx.x;
+  const size_t ray = b * kSub + tid;
   const Ray r = load_ray(rays, ray);
   const bool dead = !(r.tmax > r.tmin);
   float4 org, inv;
   slab_ray(r, org, inv);
+  sh.ray[tid][0] = make_float4(r.ox, r.oy, r.oz, r.dx);
+  sh.ray[tid][1] = make_float4(r.dy, r.dz, r.tmin, r.tmax);
+  sh.inv[tid] = inv;
+  if constexpr (kClosest)
+    sh.key[tid] = (static_cast<unsigned long long>(t_bits(r.tmax)) << 32) |
+                  0xffffffffull;
+  else
+    sh.occ[tid] = 0;
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_u32(&sh.bar[i])), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  unsigned parity = 0u;     // bit i: the phase ring slot i completes next
   const int count = counts[b];
   const int* lst = lists + b * c_pad;
   const float* tnl = tnear + b * c_pad;
 
-  bool occ = false;
+  // The list is read two entries ahead and the member boxes one ahead
+  // (cp.async), so neither is a round trip on an entry's critical path.
+  // The group bits of a list word are not read.
+  int s_a = count > 0 ? lst[0] & 0xFFFF : 0;
+  int s_b = count > 1 ? lst[1] & 0xFFFF : 0;
+  float t_a = count > 0 ? tnl[0] : 0.f;
+  float t_b = count > 1 ? tnl[1] : 0.f;
+  if (warp == 0 && count > 0)
+    fetch_member_boxes(sh.raw[0], member, s_a, members, n_member_rows, lane);
+
   for (int k = 0; k < count; ++k) {
-    const int s = lst[k] & 0xFFFF;
-    const bool resolved = dead || occ || r.tmax < tnl[k];
-    if (__syncthreads_and(resolved)) break;
+    const int s = s_a;
+    const float t_k = t_a;
+    s_a = s_b;
+    t_a = t_b;
+    if (k + 2 < count) {
+      s_b = lst[k + 2] & 0xFFFF;
+      t_b = tnl[k + 2];
+    }
+    // The previous entry's work items ended at a barrier, so the shared
+    // best and flag are final here.
+    float best = 0.f;
+    bool done;
+    if constexpr (kClosest) {
+      best = bits_t(static_cast<unsigned>(sh.key[tid] >> 32));
+      done = dead || best < t_k;
+    } else {
+      done = dead || sh.occ[tid] != 0 || r.tmax < t_k;
+    }
+    if (__syncthreads_and(done)) break;
+    if (warp == 0)   // entry k + 1's boxes (an empty group past the list)
+      fetch_member_boxes(sh.raw[(k + 1) & 1], member,
+                         k + 1 < count ? s_a : n_member_rows, members,
+                         n_member_rows, lane);
     if (s >= n_member_rows) continue;
-    unsigned m = member_mask(member, s, members, !dead, org, inv, s_mem,
-                             &s_mask);
-    const bool warp_done = __all_sync(kFull, resolved);
-    while (m != 0u) {
-      const size_t row = static_cast<size_t>(s) * members + (__ffs(m) - 1);
-      m &= m - 1u;
-      if (row >= static_cast<size_t>(n_comp)) break;
+
+    // The entry's member boxes and their union's, each widened by the
+    // admission margin (warp 0, one lane per member).
+    if (warp == 0) {
+      asm volatile("cp.async.wait_group 1;" ::: "memory");   // entry k's
+      bool real = false;
+      float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
+      if (lane < members) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          lo[a] = sh.raw[k & 1][a][lane];
+          hi[a] = sh.raw[k & 1][3 + a][lane];
+        }
+        real = lo[0] <= hi[0] && lo[1] <= hi[1] && lo[2] <= hi[2] &&
+               static_cast<size_t>(s) * members + lane <
+                   static_cast<size_t>(n_comp);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          sh.box[a][lane] = lo[a];
+          sh.box[3 + a][lane] = hi[a];
+        }
+        widen_box(lo, hi, &sh.wbox[0][lane], kMaxMembers);
+      }
+      const unsigned rm = __ballot_sync(kFull, real);
+      // The union of the real members' boxes: it holds every widened member
+      // box (the margin grows with the extent and the magnitude, and every
+      // rounding is monotone), so a ray whose slab test misses it misses
+      // them all; the pre-test drops no admitted pair.
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float l = real ? lo[a] : kBig, h = real ? hi[a] : -kBig;
+        for (int d = 16; d > 0; d >>= 1) {
+          l = fminf(l, __shfl_xor_sync(kFull, l, d));
+          h = fmaxf(h, __shfl_xor_sync(kFull, h, d));
+        }
+        lo[a] = l;
+        hi[a] = h;
+      }
+      if (lane == 0) {
+        widen_box(lo, hi, sh.sc_box, 1);
+        sh.real = rm;
+        sh.n_open = 0;
+        sh.in_union[0] = sh.in_union[1] = 0u;
+      }
+      if (lane < kMaxMembers) sh.cnt[lane] = 0;
+    }
+    __syncthreads();
+
+    // The pair admission rule, first against the union (one slab test per
+    // ray; the rays that cross it are listed), then per (listed ray,
+    // member) pair spread over the block, each admitted pair appended to
+    // its member's list (their order is free: the merge is). A member is
+    // walked only when some live ray's own slab test crosses its box, as
+    // in the plain walks: an admitted ray that crosses it says so; for a
+    // member none of them does, every ray of the block is asked.
+    const unsigned rm = sh.real;
+    {
+      bool open = !dead && rm != 0u;
+      if constexpr (!kClosest) open = open && sh.occ[tid] == 0;
+      float tn;
+      if (open && slab_cross(sh.sc_box[0], sh.sc_box[1], sh.sc_box[2],
+                             sh.sc_box[3], sh.sc_box[4], sh.sc_box[5], org,
+                             inv, tn) &&
+          (!kClosest || tn <= best))
+        sh.open[atomicAdd(&sh.n_open, 1)] = static_cast<unsigned char>(tid);
+    }
+    __syncthreads();
+    const int n_pairs = sh.n_open * members;
+    for (int i = tid; i < n_pairs; i += kSub) {
+      const int oi = i / members, c = i - oi * members;
+      if (!((rm >> c) & 1u)) continue;
+      const int rid = sh.open[oi];
+      const float4 ra = sh.ray[rid][0], rb = sh.ray[rid][1];
+      float tn;
+      const float4 o4 = make_float4(ra.x, ra.y, ra.z, rb.z);
+      if (slab_cross(sh.wbox[0][c], sh.wbox[1][c], sh.wbox[2][c],
+                     sh.wbox[3][c], sh.wbox[4][c], sh.wbox[5][c], o4,
+                     sh.inv[rid], tn) &&
+          (!kClosest ||
+           tn <= bits_t(static_cast<unsigned>(sh.key[rid] >> 32)))) {
+        sh.list[c][atomicAdd(&sh.cnt[c], 1)] = static_cast<unsigned char>(rid);
+        if (slab_cross(sh.box[0][c], sh.box[1][c], sh.box[2][c],
+                       sh.box[3][c], sh.box[4][c], sh.box[5][c], o4,
+                       sh.inv[rid], tn))
+          atomicOr(&sh.in_union[0], 1u << c);
+      }
+    }
+    __syncthreads();
+    // The walked members: admitted and in the block union, every thread
+    // alike.
+    unsigned um = __ballot_sync(kFull, lane < members && sh.cnt[lane] > 0);
+    const unsigned ask = um & ~sh.in_union[0];
+    if (ask != 0u) {
+      if (!dead) {
+        for (unsigned m = ask; m != 0u; m &= m - 1u) {
+          const int c = __ffs(m) - 1;
+          float tn;
+          if (slab_cross(sh.box[0][c], sh.box[1][c], sh.box[2][c],
+                         sh.box[3][c], sh.box[4][c], sh.box[5][c], org, inv,
+                         tn))
+            atomicOr(&sh.in_union[1], 1u << c);
+        }
+      }
       __syncthreads();
-      stage_test_rows(s_tri, comp + row * kCompRows * kLanes);
+    }
+    um &= sh.in_union[0] | sh.in_union[1];
+    const int nu = __popc(um);
+    const float* slab_src = comp + static_cast<size_t>(s) * members *
+                                       kCompRows * kLanes;
+
+    // Windows of kWin members: window w is tested from ring half w & 1
+    // while window w + 1 loads into the other.
+    if (tid == 0) {
+      for (int j = 0; j < kWin && j < nu; ++j)
+        bulk_load_slab(sh.slab[j],
+                       slab_src + static_cast<size_t>(nth_bit(um, j)) *
+                                      kCompRows * kLanes,
+                       &sh.bar[j]);
+    }
+    for (int w = 0; w * kWin < nu; ++w) {
+      const int half = (w & 1) * kWin;
+      if (tid == 0) {
+        const int nxt = (w + 1) * kWin, other = kWin - half;
+        for (int j = 0; j < kWin && nxt + j < nu; ++j)
+          bulk_load_slab(sh.slab[other + j],
+                         slab_src + static_cast<size_t>(nth_bit(um, nxt + j)) *
+                                        kCompRows * kLanes,
+                         &sh.bar[other + j]);
+      }
+      // The window's members: id, first list position, rays, work items.
+      int mc[kWin], mbeg[kWin], mn[kWin], mitems[kWin];
+      int total = 0;
+#pragma unroll
+      for (int j = 0; j < kWin; ++j) {
+        const int i = w * kWin + j;
+        mc[j] = i < nu ? nth_bit(um, i) : 0;
+        mbeg[j] = mc[j] * kSub;
+        mn[j] = i < nu ? sh.cnt[mc[j]] : 0;
+        mitems[j] = 4 * ((mn[j] + kChunk - 1) / kChunk);
+        total += mitems[j];
+        if (i < nu) {
+          mbar_wait(&sh.bar[half + j], (parity >> (half + j)) & 1u);
+          parity ^= 1u << (half + j);
+        }
+      }
+      // Work items: (member, quarter of 32 slots, chunk of kChunk rays),
+      // one per warp at a time; lane l tests slot 32 * quarter + l.
+      for (int it = warp; it < total; it += kWarps) {
+        // Item it → the window's j-th member (constant indices only, so
+        // the window's arrays stay in registers).
+        int j = 0, local = it, beg = mbeg[0], n = mn[0], c = mc[0];
+#pragma unroll
+        for (int q = 0; q + 1 < kWin; ++q) {
+          if (j == q && local >= mitems[q]) {
+            local -= mitems[q];
+            j = q + 1;
+            beg = mbeg[q + 1];
+            n = mn[q + 1];
+            c = mc[q + 1];
+          }
+        }
+        const int slot = 32 * (local & 3) + lane;
+        const float* sl = sh.slab[half + j];
+        float cst[kTestRows];
+#pragma unroll
+        for (int q = 0; q < kTestRows; ++q) cst[q] = sl[q * kLanes + slot];
+        const int p0 = beg + (local >> 2) * kChunk;
+        const int p1 = min(p0 + kChunk, beg + n);
+        const unsigned lo_key = (static_cast<unsigned>(slot) << 25) |
+                                static_cast<unsigned>(k * 32 + c);
+        for (int p = p0; p < p1; ++p) {
+          const int rid = (&sh.list[0][0])[p];
+          if constexpr (!kClosest) {
+            if (sh.occ[rid]) continue;
+          }
+          const float4 ra = sh.ray[rid][0], rb = sh.ray[rid][1];
+          float tt, uu, vv, dpz;
+          ort::tri_test(cst, ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, tt, uu, vv,
+                        dpz);
+          if (ort::tri_accept(tt, uu, vv, dpz, rb.z, rb.w)) {
+            if constexpr (kClosest)
+              atomicMin(&sh.key[rid],
+                        (static_cast<unsigned long long>(t_bits(tt)) << 32) |
+                            lo_key);
+            else
+              sh.occ[rid] = 1;
+          }
+        }
+      }
       __syncthreads();
-      if (!warp_done && !resolved && !occ) occ = any_step(s_tri, r);
     }
   }
-  occ_out[ray] = (occ && !dead) ? 1 : 0;
+
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  if constexpr (kClosest) {
+    // The winner's row: its pair test again (the same operations, so the
+    // same t, u, v bits), its ids and normal rows read from the table.
+    const unsigned long long key = sh.key[tid];
+    const unsigned lo_key = static_cast<unsigned>(key);
+    if (lo_key == 0xffffffffu) {
+      emit_closest(out, ray, closest_init(r));
+    } else {
+      const int visit = lo_key & 0x1ffffff;
+      const int slot = lo_key >> 25;
+      const size_t row = static_cast<size_t>(lst[visit >> 5] & 0xFFFF) *
+                             members + (visit & 31);
+      const float* e = comp + row * kCompRows * kLanes + slot;
+      float cst[kTestRows];
+#pragma unroll
+      for (int q = 0; q < kTestRows; ++q) cst[q] = e[q * kLanes];
+      Closest h = closest_init(r);
+      float dpz;
+      ort::tri_test(cst, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, h.bt, h.bu, h.bv,
+                    dpz);
+      e += kExtRow0 * kLanes;
+      h.bprim = e[0];
+      h.bmat = e[kLanes];
+      const float u = h.bu, v = h.bv;   // closest_step's normal, its order
+      h.bnx = __fadd_rn(__fadd_rn(e[2 * kLanes], __fmul_rn(u, e[5 * kLanes])),
+                        __fmul_rn(v, e[8 * kLanes]));
+      h.bny = __fadd_rn(__fadd_rn(e[3 * kLanes], __fmul_rn(u, e[6 * kLanes])),
+                        __fmul_rn(v, e[9 * kLanes]));
+      h.bnz = __fadd_rn(__fadd_rn(e[4 * kLanes], __fmul_rn(u, e[7 * kLanes])),
+                        __fmul_rn(v, e[10 * kLanes]));
+      emit_closest(out, ray, h);
+    }
+  } else {
+    occ_out[ray] = (sh.occ[tid] != 0 && !dead) ? 1 : 0;
+  }
 }
 
 // Kernel 8's view of one step: its cluster, its output column block and its
@@ -606,21 +954,36 @@ extern "C" int ort_cluster_any(const int* counts, const int* lists,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernels 5c / 6c: above 48 KB of shared memory the kernel needs its limit
+// raised first; a refusal is returned, and the wrapper raises.
+template <bool kClosest>
+int launch_sc(const int* counts, const int* lists, const float* tnear,
+              const float* comp, int n_comp, const float* member,
+              int n_member_rows, int members, const float* rays,
+              int n_blocks, int c_pad, float* out, int* occ, void* stream) {
+  if (members < 1 || members > kMaxMembers)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_blocks <= 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      cluster_sc_kernel<kClosest>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(ScShared)));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cluster_sc_kernel<kClosest><<<n_blocks, kSub, sizeof(ScShared),
+                                static_cast<cudaStream_t>(stream)>>>(
+      counts, lists, tnear, comp, n_comp, member, n_member_rows, members,
+      rays, c_pad, out, occ);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int ort_cluster_sc_closest(const int* counts, const int* lists,
                                       const float* tnear, const float* comp,
                                       int n_comp, const float* member,
                                       int n_member_rows, int members,
                                       const float* rays, int n_blocks,
                                       int c_pad, float* out, void* stream) {
-  if (members < 1 || members > kMaxMembers)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks > 0) {
-    cluster_sc_closest_kernel<<<n_blocks, kSub, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        counts, lists, tnear, comp, n_comp, member, n_member_rows, members,
-        rays, c_pad, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_sc<true>(counts, lists, tnear, comp, n_comp, member,
+                         n_member_rows, members, rays, n_blocks, c_pad, out,
+                         nullptr, stream);
 }
 
 extern "C" int ort_cluster_sc_any(const int* counts, const int* lists,
@@ -629,13 +992,7 @@ extern "C" int ort_cluster_sc_any(const int* counts, const int* lists,
                                   int n_member_rows, int members,
                                   const float* rays, int n_blocks, int c_pad,
                                   int* occ, void* stream) {
-  if (members < 1 || members > kMaxMembers)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks > 0) {
-    cluster_sc_any_kernel<<<n_blocks, kSub, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        counts, lists, tnear, comp, n_comp, member, n_member_rows, members,
-        rays, c_pad, occ);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_sc<false>(counts, lists, tnear, comp, n_comp, member,
+                          n_member_rows, members, rays, n_blocks, c_pad,
+                          nullptr, occ, stream);
 }

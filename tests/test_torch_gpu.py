@@ -21,6 +21,8 @@ from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
                                                      knot_camera, knot_scene)
 from optix_raytracer_tpu_torch.wavefront import engine, pallas_pt
 
+import torch_parity
+
 pytestmark = pytest.mark.gpu
 
 
@@ -199,16 +201,50 @@ def _sc_tier(monkeypatch, members, segments, sides, device):
     return knot_scene(segments, sides, device=device).clusters
 
 
-@pytest.mark.parametrize("exact,members,segments,sides",
-                         [(False, 32, 90, 50), (True, 32, 90, 50),
-                          (True, 2, 20, 14)])
+@pytest.mark.parametrize("exact,members,segments,sides,case", [
+    pytest.param(False, 32, 90, 50, "random", id="False-32-90-50"),
+    pytest.param(True, 32, 90, 50, "random", id="True-32-90-50"),
+    pytest.param(True, 2, 20, 14, "random", id="True-2-20-14"),
+    pytest.param(False, 32, 90, 50, "grazing", id="grazing-False-32-90-50"),
+    pytest.param(True, 32, 90, 50, "grazing", id="grazing-True-32-90-50"),
+    pytest.param(True, 2, 20, 14, "grazing", id="grazing-True-2-20-14"),
+    pytest.param(False, 32, 90, 50, "lone", id="lone-False-32-90-50"),
+    pytest.param(True, 32, 90, 50, "lone", id="lone-True-32-90-50"),
+    pytest.param(False, 2, 0, 0, "ties", id="ties-False-2"),
+    pytest.param(True, 2, 0, 0, "ties", id="ties-True-2")])
 def test_sc_kernels_match_plain(cuda, monkeypatch, exact, members, segments,
-                                sides):
+                                sides, case):
     """Kernels 5c / 6c against their plain versions on the same lists: rows
     bit-equal, occlusion equal. The 9,002-triangle knot is 3 superclusters
-    of the real 32 members; the small knot 3 of 2."""
-    cl = _sc_tier(monkeypatch, members, segments, sides, cuda)
-    rays = _knot_rays(20000, 5, cuda)
+    of the real 32 members; the small knot 3 of 2. "random": rays toward
+    the knot; "grazing": torch_parity.sc_grazing_rays (faces, edges, the
+    vertices that set a face, +-0 directions, windows ending on a face);
+    "lone": torch_parity.sc_lone_grazing_rays, one live ray a block whose
+    accepted hit lies outside the block union; "ties":
+    torch_parity.sc_tie_case's exact ties at t = 1, whose winners (earlier
+    visit at an equal slot, then the lower slot) are checked."""
+    expect = None
+    if case == "ties":
+        monkeypatch.setattr(C, "MAX_STREAM_CLUSTERS", 2)
+        monkeypatch.setattr(C, "SC_CLUSTERS", 2)
+        geom, tri_mat, order, rays8, expect = torch_parity.sc_tie_case(cuda)
+        cl = C.build_clusters(geom, tri_mat, order=order)
+    else:
+        monkeypatch.setattr(C, "MAX_STREAM_CLUSTERS", 2)
+        monkeypatch.setattr(C, "SC_CLUSTERS", members)
+        scene = knot_scene(segments, sides, device=cuda)
+        cl = scene.clusters
+        if case == "grazing":
+            rays8 = torch_parity.sc_grazing_rays(
+                scene.geom, cl, C._sc_tables(cl)[1], seed=members)
+        elif case == "lone":
+            rays8 = torch_parity.sc_lone_grazing_rays(
+                scene.geom, cl, C._sc_tables(cl)[1])
+    if case == "random":
+        rays = _knot_rays(20000, 5, cuda)
+    else:
+        rays = Rays(*(torch.as_tensor(rays8[:, i], device=cuda)
+                      for i in (slice(0, 3), slice(3, 6), 6, 7)))
     n = rays.tmin.shape[0]
     packed = C._pack_rays(rays, C._padded(n))
     counts, lists, tnear, member = C._tier_cull(cl, packed, exact)
@@ -221,10 +257,19 @@ def test_sc_kernels_match_plain(cuda, monkeypatch, exact, members, segments,
     for name in ("cluster_sc_closest", "cluster_sc_any"):
         assert kernels.LAUNCHES[name] == before[name] + 1
     assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
-    assert torch.equal(occ, occ_p) and 0 < int(occ.sum()) < n
+    assert torch.equal(occ, occ_p)
     live = torch.repeat_interleave(counts.reshape(-1) > 0, C.SUB)[:n]
     hits = C._hits_from_rows(rows[:n], live, rays.tmax)
-    assert (hits.prim_id >= 0).any() and (hits.prim_id < 0).any()
+    if case == "lone":
+        return
+    assert 0 < int(occ.sum())
+    if expect is None:
+        assert int(occ.sum()) < n
+        assert (hits.prim_id >= 0).any() and (hits.prim_id < 0).any()
+    else:
+        check = torch.as_tensor(expect >= 0, device=cuda)
+        assert torch.equal(hits.prim_id[check].long().cpu(),
+                           torch.as_tensor(expect[expect >= 0]))
 
 
 def test_sc_queries_match_cpu(cuda, monkeypatch):

@@ -31,6 +31,7 @@ from optix_raytracer_tpu_torch.scene import builtins as tbuiltins
 from optix_raytracer_tpu_torch.scene import device_scene as tds
 
 from test_torch_clusters import assert_hits_match, jrays, ray_set, trays
+import torch_parity
 from torch_parity import one_torch_thread, torch_scene  # noqa: F401
 
 # (SC_CLUSTERS, knot segments, sides): 5 clusters → 3 superclusters of 2;
@@ -268,3 +269,166 @@ def test_sc_wrappers_need_cuda_or_cpu():
     for fn in (tcl.walk_sc_closest, tcl.walk_sc_any):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(counts, lists, lists.float(), comp, member, packed)
+
+
+# ---------------------------------------------------------------------------
+# The pair admission rule of kernels 5c / 6c (sc_admitted_pairs_plain): the
+# plain walks restricted to the admitted pairs (admitted=True, the kernels'
+# work) must give the block-union walks' rows and occlusion bit for bit.
+# ---------------------------------------------------------------------------
+
+def _admitted_vs_block_union(cl, arrs, exact):
+    """Both walks of one ray set at cl's supercluster tier → (rows, occ) of
+    the block-union walks, after holding the admitted walks to them."""
+    packed = tcl._pack_rays(trays(arrs), tcl._padded(arrs[0].shape[0]))
+    counts, lists, tnear, member = tcl._tier_cull(cl, packed, exact)
+    assert member is not None and int(counts.max()) > 0
+    args = (counts, lists, tnear, cl.comp, member, packed)
+    rows = tcl.walk_sc_closest_plain(*args)
+    rows_a = tcl.walk_sc_closest_plain(*args, admitted=True)
+    np.testing.assert_array_equal(rows_a.view(torch.int32).numpy(),
+                                  rows.view(torch.int32).numpy())
+    occ = tcl.walk_sc_any_plain(*args)
+    np.testing.assert_array_equal(
+        tcl.walk_sc_any_plain(*args, admitted=True).numpy(), occ.numpy())
+    return rows, occ
+
+
+def _arrs(rays8):
+    """[N, 8] rays → ray_set's (o, d, tmin, tmax)."""
+    return (rays8[:, 0:3].copy(), rays8[:, 3:6].copy(), rays8[:, 6].copy(),
+            rays8[:, 7].copy())
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_admitted_walks_match_block_union(tier, exact):
+    for arrs in (ray_set(n=1024, seed=41), _arrs(_member_rays(3))):
+        rows, occ = _admitted_vs_block_union(tier.tcl, arrs, exact)
+        assert (rows[:, 6] >= 0).any() and occ.any()
+
+
+def test_admitted_walks_match_on_grazing_rays(tier):
+    _, member, _ = tcl._sc_tables(tier.tcl)
+    rays8 = torch_parity.sc_grazing_rays(tier.ts.geom, tier.tcl, member,
+                                         seed=tier.sc)
+    assert (rays8[:, 3:6] == 0).any() and len(rays8) >= 380
+    for exact in (False, True):
+        rows, occ = _admitted_vs_block_union(tier.tcl, _arrs(rays8), exact)
+        assert (rows[:, 6] >= 0).any() and occ.any()
+
+
+def test_admission_keeps_every_accepted_pair(tier):
+    """Every (ray, member) pair of the block union whose Woop test accepts a
+    hit on the grazing and random sets (one block each) is admitted (at the
+    ray's tmax as its best t), no pair outside it is, and the widening adds
+    few pairs to the unwidened crossings."""
+    _, member, n_sc = tcl._sc_tables(tier.tcl)
+    rays8 = np.concatenate([
+        torch_parity.sc_grazing_rays(tier.ts.geom, tier.tcl, member, seed=5),
+        _member_rays(4)])
+    a = torch.as_tensor(rays8)[None].expand(n_sc, -1, -1)
+    boxes = member[:n_sc]
+    adm = tcl.sc_admitted_pairs_plain(a, boxes, a[:, :, 7])
+    cross = tcl._member_cross(a, boxes)
+    accepted = torch.zeros_like(adm)
+    for c in range(tier.sc):
+        rows = torch.arange(n_sc) * tier.sc + c
+        ok, _, _, _ = tcl._pair_ok(tier.tcl.comp[rows], a, None, False)
+        accepted[:, :, c] = ok.any(dim=2)
+    union = cross.any(dim=1, keepdim=True)     # the plain walks' members
+    assert (accepted & union).any()
+    assert not (accepted & union & ~adm).any()
+    assert not (adm & ~union).any()
+    real = (member[:n_sc, 0:3] <= member[:n_sc, 3:6]).all(dim=1)
+    widened_only = int((adm & ~cross).sum())
+    assert widened_only <= 0.25 * int((cross & real[:, None]).sum())
+
+
+def test_admitted_walks_keep_the_tie_rule(monkeypatch):
+    """Exact ties at t = 1 (torch_parity.sc_tie_case): the earlier visit
+    wins at an equal slot, the lower slot over the earlier visit, in one
+    member and across members; the admitted walks agree bit for bit."""
+    monkeypatch.setattr(tcl, "MAX_STREAM_CLUSTERS", 2)
+    monkeypatch.setattr(tcl, "SC_CLUSTERS", 2)
+    geom, tri_mat, order, rays8, expect = torch_parity.sc_tie_case()
+    cl = tcl.build_clusters(geom, tri_mat, order=order)
+    assert cl.comp.shape[0] == 6 and cl.num_clusters == 6
+    for exact in (False, True):
+        rows, _ = _admitted_vs_block_union(cl, _arrs(rays8), exact)
+        n = len(rays8)
+        prim = rows[:n, 6].numpy().astype(np.int64)
+        assert (prim >= 0).all() and (rows[:n, 0].numpy() == 1.0).all()
+        check = expect >= 0
+        np.testing.assert_array_equal(prim[check], expect[check])
+
+
+def test_admitted_walks_at_full_width(knot9k, monkeypatch):
+    """The real 32 members (knot9k): the admitted walks equal the
+    block-union walks on random and grazing rays."""
+    monkeypatch.setattr(tcl, "MAX_STREAM_CLUSTERS", 2)
+    cl = knot9k.clusters
+    _, member, _ = tcl._sc_tables(cl)
+    grazing = torch_parity.sc_grazing_rays(knot9k.geom, cl, member, seed=9,
+                                           boxes=24)
+    for arrs, exact in ((ray_set(n=768, seed=43), False),
+                        (_arrs(grazing), True)):
+        rows, occ = _admitted_vs_block_union(cl, arrs, exact)
+        assert (rows[:, 6] >= 0).any() and occ.any()
+
+
+def test_grazing_rays_reach_the_margin(knot9k, monkeypatch):
+    """At the real 32 members the grazing set (one block) holds accepted
+    pairs of the block union that the unwidened slab test misses: with the
+    margin at 0 the rule would drop some, with the stated margin none."""
+    monkeypatch.setattr(tcl, "MAX_STREAM_CLUSTERS", 2)
+    cl = knot9k.clusters
+    _, member, n_sc = tcl._sc_tables(cl)
+    a = torch.as_tensor(np.concatenate([
+        torch_parity.sc_grazing_rays(knot9k.geom, cl, member, seed=s,
+                                     boxes=71) for s in range(4)]))
+    a = a[None].expand(n_sc, -1, -1)
+    accepted = torch.stack([
+        tcl._pair_ok(cl.comp[torch.arange(n_sc) * 32 + c], a, None,
+                     False)[0].any(dim=2) for c in range(32)], dim=2)
+    dropped = {}
+    for margin in ("stated", "zero"):
+        if margin == "zero":
+            monkeypatch.setattr(tcl, "SC_MARGIN_REL", 0.0)
+            monkeypatch.setattr(tcl, "SC_MARGIN_FLOOR", 0.0)
+        adm = tcl.sc_admitted_pairs_plain(a, member[:n_sc], a[:, :, 7])
+        union = tcl._member_cross(a, member[:n_sc]).any(dim=1, keepdim=True)
+        dropped[margin] = int((accepted & union & ~adm).sum())
+    assert dropped == {"stated": 0, "zero": dropped["zero"]}
+    assert dropped["zero"] > 0
+
+
+def test_admitted_walks_keep_to_the_block_union(knot9k, monkeypatch):
+    """A ray alone in its block whose accepted hit lies in a member its own
+    slab test misses (torch_parity.sc_lone_grazing_rays): the plain walks
+    never test that member, so neither may the rule. The admitted walks
+    equal the block-union walks; the rule without its block-union term
+    would not."""
+    monkeypatch.setattr(tcl, "MAX_STREAM_CLUSTERS", 2)
+    cl = knot9k.clusters
+    _, member, _ = tcl._sc_tables(cl)
+    rays8 = torch_parity.sc_lone_grazing_rays(knot9k.geom, cl, member)
+    assert len(rays8) >= 10 * 256
+    rule = tcl.sc_admitted_pairs_plain
+
+    def widened_only(a, boxes, best_t=None):
+        lo, hi, real = tcl.sc_widened_boxes(boxes)
+        cross, tn = tcl._slab_cross(a, lo, hi)
+        adm = cross & real[:, None, :]
+        return adm if best_t is None else adm & (tn <= best_t[:, :, None])
+
+    for exact in (False, True):
+        rows, occ = _admitted_vs_block_union(cl, _arrs(rays8), exact)
+        packed = tcl._pack_rays(trays(_arrs(rays8)),
+                                tcl._padded(len(rays8)))
+        args = (*tcl._tier_cull(cl, packed, exact)[:3], cl.comp,
+                tcl._sc_tables(cl)[1], packed)
+        monkeypatch.setattr(tcl, "sc_admitted_pairs_plain", widened_only)
+        wide = tcl.walk_sc_closest_plain(*args, admitted=True)
+        wide_occ = tcl.walk_sc_any_plain(*args, admitted=True)
+        monkeypatch.setattr(tcl, "sc_admitted_pairs_plain", rule)
+        assert not torch.equal(wide, rows) and not torch.equal(wide_occ, occ)

@@ -222,3 +222,157 @@ def instanced_cube(package, device="cpu", smooth=False):
     if package == "jax":
         return sc.finalize(area_light=lt)
     return sc.finalize(device, area_light=lt)
+
+
+def sc_tie_case(device="cpu"):
+    """A supercluster-tier table of exact ties (build it with the tier's
+    caps lowered: MAX_STREAM_CLUSTERS = 2, SC_CLUSTERS = 2): 6 clusters, 3
+    superclusters of 2 members, far filler triangles in every other slot,
+    and four unit triangles in the plane z = 0, each placed twice:
+    A at member 0 and member 1 of supercluster 0, both slot 5 (the earlier
+    visit must win); B at member 1 slot 3 and member 0 slot 9 (the lower
+    slot must win over the earlier visit); C twice in one member (cluster
+    2, slots 7 and 2: the lower slot); D in superclusters 1 and 2, slot 20
+    of each (the earlier list entry). Rays straight down from z = 1 at each
+    triangle's interior, at its corners and along its edges, so every pair
+    ties at t = 1 → (geom, tri_mat, order, rays [N, 8] f32 numpy,
+    expected winning triangle [N] int64 for the interior rays, -1 for
+    the others)."""
+    from optix_raytracer_tpu_torch.accel.geometry import (
+        build_triangle_geometry)
+    unit = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
+    tris = []
+    for x in (0.0, 2.0, 4.0, 6.0):            # A, B, C, D: two copies each
+        tris += [unit + [x, 0, 0]] * 2
+    n_fill = 6 * 128 - len(tris)
+    fill = [unit * 0.01 + [0.03 * (i % 40), 0.03 * (i // 40), 100.0]
+            for i in range(n_fill)]
+    verts = np.concatenate(tris + fill).astype(np.float32)
+    idx = np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+    rng = np.random.default_rng(17)
+    tri_mat = rng.integers(0, 5, len(idx)).astype(np.int32)
+    # slot (cluster * 128 + lane) of each duplicated triangle
+    place = {0: 0 * 128 + 5, 1: 1 * 128 + 5,       # A: earlier visit
+             3: 1 * 128 + 3, 2: 0 * 128 + 9,       # B: lower slot wins
+             5: 2 * 128 + 7, 4: 2 * 128 + 2,       # C: one member
+             6: 2 * 128 + 20, 7: 4 * 128 + 20}     # D: two entries
+    order = np.full(6 * 128, -1, np.int64)
+    for tri, slot in place.items():
+        order[slot] = tri
+    order[order < 0] = np.arange(8, len(idx))
+    geom = build_triangle_geometry(verts, idx, device)
+    winner = {0: 0, 2: 3, 4: 4}                # D's winner: list order
+    o, expect = [], []
+    for k, x in enumerate((0.0, 2.0, 4.0, 6.0)):
+        for p in ([0.25, 0.25], [0.1, 0.6], [0.6, 0.1]):
+            o.append([x + p[0], p[1], 1.0])
+            expect.append(winner.get(2 * k, -2))
+        for p in ([0, 0], [1, 0], [0, 1], [0.5, 0], [0, 0.5], [0.5, 0.5]):
+            o.append([x + p[0], p[1], 1.0])
+            expect.append(-1)
+    o = np.asarray(o, np.float32)
+    n = len(o)
+    rays = np.concatenate([o, np.tile([[0, 0, -1.0]], (n, 1)),
+                           np.full((n, 1), 1e-3), np.full((n, 1), 1e16)],
+                          axis=1).astype(np.float32)
+    return (geom, torch.as_tensor(tri_mat, device=device),
+            torch.as_tensor(order, device=device), rays,
+            np.asarray(expect, np.int64))
+
+
+def sc_grazing_rays(geom, cl, member, seed=0, boxes=64):
+    """Rays that graze the real member boxes of a supercluster-tier table
+    (member [S, 6, M] from `_sc_tables`), on up to `boxes` of them: rays in
+    a face's plane (that axis's direction +0.0 or -0.0, the pseudo-inverse's
+    +-1e12), rays through corners and edges, rays aimed at the triangle
+    vertex that sets a face (it lies on it), axis-parallel rays along a
+    face, and windows that end on a face → [N, 8] f32 numpy."""
+    rng = np.random.default_rng(seed)
+    mem = member.detach().cpu().numpy()
+    lo = mem[:, 0:3].transpose(0, 2, 1).reshape(-1, 3)
+    hi = mem[:, 3:6].transpose(0, 2, 1).reshape(-1, 3)
+    real = np.nonzero((lo <= hi).all(axis=1)
+                      & (np.arange(len(lo)) < cl.num_clusters))[0]
+    pick = rng.choice(real, min(boxes, len(real)), replace=False)
+    sp = cl.slot_prim.detach().cpu().numpy().reshape(-1, 128)
+    v0 = geom.v0.detach().cpu().numpy()
+    corners = np.stack([v0, v0 + geom.e1.detach().cpu().numpy(),
+                        v0 + geom.e2.detach().cpu().numpy()], axis=1)
+    out = []
+
+    def unit(d):
+        return (d / np.linalg.norm(d)).astype(np.float32)
+
+    def add(o, d, tmax=1e16, tmin=1e-3):
+        out.append(np.concatenate([o, d, [tmin, tmax]]).astype(np.float32))
+
+    reps = max(4, -(-400 // (5 * len(pick))))     # at least ~400 rays
+    for i in pick:
+        l, h = lo[i], hi[i]
+        ext = float((h - l).max())
+        for _ in range(reps):
+            a = rng.integers(3)
+            face = (l if rng.integers(2) else h)[a]
+            p = rng.uniform(l, h).astype(np.float32)
+            p[a] = face
+            # in the face's plane, both signs of zero
+            d = unit(rng.normal(size=3))
+            d[a] = -0.0 if rng.integers(2) else 0.0
+            d = unit(d)
+            d[a] = -0.0 if rng.integers(2) else 0.0
+            dist = np.float32(rng.uniform(0.5, 3.0) * ext)
+            o = (p - d * dist).astype(np.float32)
+            o[a] = face
+            add(o, d, rng.choice([1e16, dist]))
+            # through a corner / along an edge
+            q = np.where(rng.integers(2, size=3) > 0, l, h).astype(np.float32)
+            if rng.integers(2):
+                b = rng.integers(3)
+                q[b] = rng.uniform(l[b], h[b])
+            d = unit(rng.normal(size=3))
+            add((q - d * dist).astype(np.float32), d, rng.choice([1e16, dist]))
+            # at the vertex that sets the face
+            slots = sp[i][sp[i] >= 0]
+            vs = corners[slots].reshape(-1, 3)
+            v = vs[np.argmin(vs[:, a]) if face == l[a]
+                   else np.argmax(vs[:, a])]
+            d = unit(rng.normal(size=3))
+            add((v - d * dist).astype(np.float32), d, rng.choice([1e16, dist]))
+            # axis-parallel along a face, the other components +-0
+            d = np.array([-0.0 if rng.integers(2) else 0.0 for _ in range(3)],
+                         np.float32)
+            b = (a + 1 + rng.integers(2)) % 3
+            d[b] = 1.0 if rng.integers(2) else -1.0
+            o = rng.uniform(l, h).astype(np.float32)
+            o[a] = face
+            o[b] = (l[b] - dist) if d[b] > 0 else (h[b] + dist)
+            add(o, d)
+            # a window that ends on the face
+            o = (p + unit(rng.normal(size=3)) * dist).astype(np.float32)
+            d = unit(p - o)
+            if d[a] != 0:
+                add(o, d, np.float32((face - o[a]) / d[a]))
+    return np.stack(out)
+
+
+def sc_lone_grazing_rays(geom, cl, member, seeds=range(4)):
+    """Blocks of one live ray each: the grazing rays (sc_grazing_rays) that
+    hold an accepted Woop hit in a member box their own slab test misses,
+    each alone in its 256-ray block, so that member is outside the block
+    union the plain walks test. → [n * 256, 8] f32 numpy (the other rays
+    dead: all zero)."""
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    m = member.shape[2]
+    n_sc = cl.comp.shape[0] // m
+    r8 = np.concatenate([sc_grazing_rays(geom, cl, member, seed=s, boxes=96)
+                         for s in seeds])
+    a = torch.as_tensor(r8, device=member.device)[None].expand(n_sc, -1, -1)
+    rows = torch.arange(n_sc, device=member.device) * m
+    accepted = torch.stack([
+        C._pair_ok(cl.comp[rows + c], a, None, False)[0].any(dim=2)
+        for c in range(m)], dim=2)
+    cross = C._member_cross(a, member[:n_sc])
+    lone = torch.nonzero((accepted & ~cross).any(dim=2).any(dim=0))[:, 0]
+    out = np.zeros((len(lone) * 256, 8), np.float32)
+    out[::256] = r8[lone.cpu().numpy()]
+    return out
