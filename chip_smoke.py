@@ -60,11 +60,13 @@ PLAIN_WALK_ENTRIES = 200_000
 # The same for the plain supercluster walks, counted in member visits
 # (block x crossed member cluster).
 PLAIN_SC_VISITS = 60_000
-# The dropped-pair audit of kernels 5c / 6c: its block sample is this many
-# times wider than the plain walks' subset, and it stops after this many
-# seconds per ray set.
+# The dropped-pair audits of kernels 5 / 6 and 5c / 6c: the block sample is
+# this many times wider than the plain walks' subset, and an audit stops
+# after this many seconds per ray set.
 SC_AUDIT_WIDER = 8
 SC_AUDIT_S = 8.0
+# Kernels 5 / 6 audit both walks of each set, each for half that.
+WALK_AUDIT_S = SC_AUDIT_S / 2
 # The queue's capacity, work items per octet of the padded batch
 # (optix_raytracer_tpu/accel/qwalk.py:307, the default of both packages).
 QWALK_QF = 6
@@ -141,16 +143,23 @@ def live_rays(packed):
     return (packed[:, 7] > packed[:, 6]).reshape(-1, 8, 32).sum(2)
 
 
-def listed_entries(counts, lists):
-    """The valid entries of per-block lists → (blocks [E], box ids [E]),
-    each int64; the group bits of an entry are dropped."""
+def listed_words(counts, lists):
+    """The valid entries of per-block lists → (blocks [E] int64, list words
+    [E] int32: box id in bits 0-15, gate bits 16-23)."""
     import torch
     nb = counts.numel()
     lst = lists.reshape(nb, -1)
     valid = (torch.arange(lst.shape[1], device=lst.device)[None]
              < counts.reshape(nb, 1))
     be, ke = torch.nonzero(valid, as_tuple=True)
-    return be, (lst[be, ke] & 0xFFFF).to(torch.int64)
+    return be, lst[be, ke]
+
+
+def listed_entries(counts, lists):
+    """The valid entries of per-block lists → (blocks [E], box ids [E]),
+    each int64; the group bits of an entry are dropped."""
+    be, we = listed_words(counts, lists)
+    return be, (we & 0xFFFF).long()
 
 
 def member_visits(counts, lists, member, packed, chunk=4096):
@@ -235,6 +244,41 @@ def sc_pair_counts(counts, lists, member, packed, out, closest,
             a, boxes, None if best is None else best[b])
         tot["block"] += int(cross.any(dim=1).sum()) * C.SUB
         tot["warp"] += int(cross.reshape(-1, 8, 32, m).any(dim=2).sum()) * 32
+        tot["ray"] += int(cross.sum())
+        tot["admitted"] += int(adm.sum())
+    return {k: v * C.LANES for k, v in tot.items()}
+
+
+def walk_pair_counts(counts, lists, aabb, packed, out, closest, gate,
+                     chunk=4096):
+    """The pair tests (ray x triangle slot) of kernels 5 / 6 on these lists
+    at three granularities and under the admission rule, over all blocks →
+    dict: block (every ray of the block against every listed cluster: the
+    ungated walk of the parent design and of the plain version), warp (the
+    32-ray groups of which some ray crosses the cluster, every ray of such
+    a group: the gated walk's, as the exact cull's gate bits give them),
+    ray (the clusters each ray's own slab test crosses) and admitted (the
+    rule, `admitted_pairs_plain`, gated when `gate`, at the walk's final
+    state: for 5 at the ray's row t, a lower bound on the kernel's, whose
+    best t is never below it; for 6 on every live ray, occlusion not
+    applied, an upper bound). The needed count is walk_bound's."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    nb = counts.numel()
+    rays = packed.reshape(nb, C.SUB, 8)
+    best = out[:, 0].reshape(nb, C.SUB) if closest else None
+    boxes = C._entry_boxes(aabb)
+    be, we = listed_words(counts, lists)
+    tot = dict(block=0, warp=0, ray=0, admitted=0)
+    for i in range(0, be.numel(), chunk):
+        b, w = be[i:i + chunk], we[i:i + chunk]
+        c, gm = (w & 0xFFFF).long(), (w >> 16) & 0xFF
+        a = rays[b]
+        cross = C._member_cross(a, boxes[c])[:, :, 0]            # [E, 256]
+        adm = C.admitted_pairs_plain(a, boxes[c], gm, gate,
+                                     None if best is None else best[b])
+        tot["block"] += int(b.numel()) * C.SUB
+        tot["warp"] += int(cross.reshape(-1, 8, 32).any(dim=2).sum()) * 32
         tot["ray"] += int(cross.sum())
         tot["admitted"] += int(adm.sum())
     return {k: v * C.LANES for k, v in tot.items()}
@@ -564,9 +608,12 @@ def block_subset(weights, budget, *tensors):
 def cluster_parity(cl, rays, exact, gate, what):
     """Kernels 4-6 against their plain versions on one ray set: the exact
     cull's tn / gm and the compacted counts / lists / bounds bit-equal, the
-    walks' hits within compare_hits and their occlusion equal. Returns the
-    errors, the kernels' CUDA-event times and bounds on all blocks, and the
-    plain versions' times.
+    walks' rows bit-equal and their occlusion equal. Returns the errors,
+    both kernels' CUDA-event times and bounds on all blocks, their pair
+    tests at the block, warp and ray granularity and under the admission
+    rule (walk_pair_counts; needed: the bound's), the dropped-pair audit of
+    both walks (walk_audit, on a block sample SC_AUDIT_WIDER times wider
+    than the plain walks'), and the plain versions' times.
 
     The plain walks test every listed (ray block, cluster) pair with torch
     ops; past PLAIN_WALK_ENTRIES list entries both walks are compared, and
@@ -584,12 +631,12 @@ def cluster_parity(cl, rays, exact, gate, what):
     else:
         culled = C._cull(cl, packed, n_super, c_pad, exact=exact)
     counts, lists, tnear = (t.reshape(n_blocks, -1) for t in culled)
-    full = (counts, lists, tnear, cl.comp, packed)
+    full = (counts, lists, tnear, cl.comp, cl.aabb, packed)
     blocks, (pc, pl, pt, pp) = block_subset(
         counts, PLAIN_WALK_ENTRIES, counts, lists, tnear,
         packed.reshape(n_blocks, C.SUB, 8))
-    part = (pc, pl, pt, cl.comp, pp.reshape(-1, 8))
-    tmax = part[4][:, 7]
+    part = (pc, pl, pt, cl.comp, cl.aabb, pp.reshape(-1, 8))
+    tmax = part[5][:, 7]
     live = torch.repeat_interleave(part[0].reshape(-1) > 0, C.SUB)
 
     def hits(rows):
@@ -598,15 +645,29 @@ def cluster_parity(cl, rays, exact, gate, what):
     rows_k = C.walk_closest(*part, gate)
     rows_p = C.walk_closest_plain(*part, gate)
     out["closest_err"] = compare_hits(hits(rows_k), hits(rows_p), what)
-    out["rows_bit_equal"] = bool(torch.equal(rows_k, rows_p))
+    require(torch.equal(rows_k.view(torch.int32), rows_p.view(torch.int32)),
+            f"{what}: closest rows differ from the plain version (max abs "
+            f"err {out['closest_err']})")
+    out["rows_bit_equal"] = True
     occ_k, occ_p = C.walk_any(*part, gate), C.walk_any_plain(*part, gate)
     out["any_mismatches"] = int((occ_k != occ_p).sum())
     require(out["any_mismatches"] == 0, f"{what}: occlusion differs")
     out["occluded"] = int(occ_k.sum())
-    out["mean_clusters_per_block"] = int(counts.sum()) / n_blocks
+    entries = int(counts.sum())
+    out["mean_clusters_per_block"] = entries / n_blocks
     out["walk_blocks"] = (f"{part[0].shape[0]} of {n_blocks}"
                           if blocks is not None else "all")
     boxes = C._aabb_rows(cl)[:, :, None]                     # [c_pad, 6, 1]
+    rows_full, occ_full = C.walk_closest(*full, gate), C.walk_any(*full, gate)
+    stride = max(1, -(-entries // (SC_AUDIT_WIDER * PLAIN_WALK_ENTRIES)))
+    audits = {f"{w}_{k}": v for w, res, closest in (
+        ("closest", rows_full, True), ("any", occ_full, False))
+        for k, v in walk_audit(counts, lists, cl.comp, cl.aabb, packed, res,
+                               closest, gate, stride).items()}
+    pairs = {f"{w}_pairs_{k}": v for w, res, closest in (
+        ("closest", rows_full, True), ("any", occ_full, False))
+        for k, v in walk_pair_counts(counts, lists, cl.aabb, packed, res,
+                                     closest, gate).items()}
     out.update(
         closest_ms=cuda_ms(lambda: C.walk_closest(*full, gate), 10),
         closest_plain_ms=cuda_ms(lambda: C.walk_closest_plain(*part, gate),
@@ -614,9 +675,10 @@ def cluster_parity(cl, rays, exact, gate, what):
         any_ms=cuda_ms(lambda: C.walk_any(*full, gate), 10),
         any_plain_ms=cuda_ms(lambda: C.walk_any_plain(*part, gate), 1),
         closest_bound=walk_bound(counts, lists, boxes, cl.num_clusters,
-                                 packed, C.walk_closest(*full, gate), True),
+                                 packed, rows_full, True),
         any_bound=walk_bound(counts, lists, boxes, cl.num_clusters, packed,
-                             C.walk_any(*full, gate), False))
+                             occ_full, False),
+        **pairs, **audits)
     if blocks is not None:
         out.update(
             closest_subset_ms=cuda_ms(lambda: C.walk_closest(*part, gate), 10),
@@ -697,26 +759,28 @@ def sc_parity(cl, rays, exact, what, timed):
     return out
 
 
-def sc_audit(counts, lists, comp, member, packed, out, closest, stride):
-    """The dropped-pair audit of kernels 5c / 6c: on every `stride`-th block
-    (a wider sample than the plain walks' PLAIN_SC_VISITS), front to back
-    until SC_AUDIT_S seconds have passed, every pair of the plain walks
-    (each ray of the block against each block-union member of each listed
-    supercluster) that the admission rule drops (taken at the walk's final
-    state, a superset of what the kernel drops) is Woop-tested in
-    PyTorch over the member's 128 slots. A dropped pair may hold no
-    accepted hit at a t at or below the ray's row t (5c), and no accepted
-    hit at all for a ray the walk left unoccluded (6c). Fails on any →
-    dict(audit_blocks, audit_entries, audit_pairs (slot tests))."""
+def _audit(counts, lists, comp, packed, out, closest, stride, dropped,
+           cap_s):
+    """The dropped-pair audit: on every `stride`-th block (a wider sample
+    than the plain walks'), front to back until `cap_s` seconds have
+    passed, every pair of the plain walks that the admission rule drops
+    (taken at the walk's final state, a superset of what the kernel drops)
+    is Woop-tested in PyTorch over the cluster's 128 slots. `dropped`(b,
+    words, a, best) → (comp rows [P], entry index [P], dropped rays [P,
+    256]) gives them for a chunk of listed entries (blocks b, list words,
+    rays a [E, 256, 8], best t [E, 256] or None). A dropped pair may hold
+    no accepted hit at a t at or below the ray's row t (closest), and no
+    accepted hit at all for a ray the walk left unoccluded (any-hit). Fails
+    on any → dict(audit_blocks, audit_entries, audit_pairs (slot tests))."""
     import torch
     from optix_raytracer_tpu_torch.accel import clusters as C
-    nb, m = counts.numel(), member.shape[2]
+    nb = counts.numel()
     rays = packed.reshape(nb, C.SUB, 8)
     sample = torch.zeros(nb, dtype=torch.bool, device=packed.device)
     sample[::stride] = True
-    be, se = listed_entries(counts, lists)
+    be, we = listed_words(counts, lists)
     keep = sample[be]
-    be, se = be[keep], se[keep]
+    be, we = be[keep], we[keep]
     if closest:
         best = out[:, 0].reshape(nb, C.SUB)
     else:
@@ -724,19 +788,12 @@ def sc_audit(counts, lists, comp, member, packed, out, closest, stride):
     t0 = time.perf_counter()
     done = pairs = bad = 0
     chunk = 128
-    while done < be.numel() and time.perf_counter() - t0 < SC_AUDIT_S:
-        b, s = be[done:done + chunk], se[done:done + chunk]
-        a = rays[b]
-        # the plain walks' pairs: every ray against the block-union members
-        union = C._member_cross(a, member[s]).any(dim=1)        # [E, M]
-        if closest:
-            dropped = ~C.sc_admitted_pairs_plain(a, member[s], best[b])
-        else:
-            dropped = ~C.sc_admitted_pairs_plain(a, member[s]) & \
-                open_ray[b][:, :, None]
-        e, c = torch.nonzero(union, as_tuple=True)
-        drop = dropped[e, :, c]                                  # [P, 256]
-        ok, tt, _, _ = C._pair_ok(comp[s[e] * m + c], a[e], None, False)
+    while done < be.numel() and time.perf_counter() - t0 < cap_s:
+        b, w = be[done:done + chunk], we[done:done + chunk]
+        rows, e, drop = dropped(b, w, rays[b], best[b] if closest else None)
+        if not closest:
+            drop = drop & open_ray[b[e]]
+        ok, tt, _, _ = C._pair_ok(comp[rows], rays[b[e]], None, False)
         hit = ok & drop[:, :, None]
         if closest:
             hit = hit & (tt <= best[b[e]][:, :, None])
@@ -749,6 +806,45 @@ def sc_audit(counts, lists, comp, member, packed, out, closest, stride):
                        f"result")
     return dict(audit_blocks=f"{n_blocks} of {nb}", audit_entries=done,
                 audit_pairs=pairs)
+
+
+def walk_audit(counts, lists, comp, aabb, packed, out, closest, gate,
+               stride):
+    """The dropped-pair audit of kernels 5 / 6 (`_audit`, WALK_AUDIT_S a
+    walk): the plain walks' pairs are every ray of the block (of a 32-ray
+    group whose gate bit is set, when `gate`) against each listed cluster;
+    the rule is `admitted_pairs_plain`."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    boxes = C._entry_boxes(aabb)
+
+    def dropped(b, w, a, best):
+        c, gm = (w & 0xFFFF).long(), (w >> 16) & 0xFF
+        tested = (C._group_bits(gm) if gate
+                  else torch.ones(a.shape[:2], dtype=torch.bool,
+                                  device=a.device))
+        adm = C.admitted_pairs_plain(a, boxes[c], gm, gate, best)
+        return c, torch.arange(b.numel(), device=b.device), tested & ~adm
+    return _audit(counts, lists, comp, packed, out, closest, stride, dropped,
+                  WALK_AUDIT_S)
+
+
+def sc_audit(counts, lists, comp, member, packed, out, closest, stride):
+    """The dropped-pair audit of kernels 5c / 6c (`_audit`): the plain
+    walks' pairs are every ray of the block against each block-union member
+    of each listed supercluster; the rule is `sc_admitted_pairs_plain`."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    m = member.shape[2]
+
+    def dropped(b, w, a, best):
+        s = (w & 0xFFFF).long()
+        union = C._member_cross(a, member[s]).any(dim=1)        # [E, M]
+        drop = ~C.sc_admitted_pairs_plain(a, member[s], best)
+        e, c = torch.nonzero(union, as_tuple=True)
+        return s[e] * m + c, e, drop[e, :, c]
+    return _audit(counts, lists, comp, packed, out, closest, stride, dropped,
+                  SC_AUDIT_S)
 
 
 def prim_clusters(cl):
@@ -1092,6 +1188,10 @@ def knot_phases(dev, card, record):
             record["cluster_any"]["max_abs_err"], float(r["any_mismatches"]))
         phase(f"c knot500k {name}", rays=W * H, exact_requested=exact,
               **fmt(r))
+    # both walks on every set of phases b and c, all blocks
+    for name, key in (("cluster_closest", "closest_ms"),
+                      ("cluster_any", "any_ms")):
+        record[name]["sets_ms"] = {k: r[key] for k, r in res.items()}
 
     # --- (h), (i): the queue (kernels 7-8) on the probe sets, the strip's
     # five queries it answers under ORT_QWALK=1 (recorded above with the
@@ -1292,9 +1392,11 @@ def variant_phases(dev, card, record):
     (metallic 1.0, roughness 0.02), (iv) bench.py:387-415's instanced
     Cornell (22 shared triangles in 3 instances, ranges summing to 32) and
     (v) the smooth knot_scene(16, 15) (482 triangles, interpolated normals).
-    (7) render_sum_fused against render_sum_plain at 64², spl 2, depth 3:
-    ray counts equal, radiance within the bars, two row tiles (by y0) equal
-    to the full frame; (8) render_accumulate, fused against wavefront,
+    (7) render_sum_fused against render_sum_plain at 64², spl 2, depth 3,
+    on these scenes and on builtins.fused_mix_scene's six mixes: ray
+    counts equal, radiance within the bars, two row tiles (by y0) equal to
+    the full frame, the kernel (CUDA events, 10 calls) and the plain
+    version timed beside the run's bound (fused_ops); (8) render_accumulate, fused against wavefront,
     256², spl 4, depth 4 on (i), (ii), (iv) and (v); (9) the headline launch
     of each scene (1920x1088, spl 16, depth 4; 3 on the knot): "auto" (must
     be the fused kernel alone: its LAUNCHES key counts, bf_closest does not)
@@ -1333,10 +1435,19 @@ def variant_phases(dev, card, record):
             and not knot.has_clusters,
             f"smooth knot: {knot.num_triangles} triangles, not 482 smooth "
             f"without a cluster table")
-    # --- phase 7: each instantiation vs its plain version, 64², spl 2 ---
+    # --- phase 7: each instantiation vs its plain version, 64², spl 2, and
+    # the mixes no bench scene takes (builtins.fused_mix_scene), each timed
+    # (CUDA events, mean of 10) beside its bound ---
     w = h = 64
     sub = torch.tensor(5, dtype=torch.int64, device=dev)
-    for name, (scene, camera, kname, atol, _) in scenes.items():
+    runs = [(name, scene, camera, kname, atol)
+            for name, (scene, camera, kname, atol, _) in scenes.items()]
+    for kname in B.FUSED_MIXES:
+        scene, camera = B.fused_mix_scene(kname, dev)
+        require(kernels.pt_fused_name(*pallas_pt.fused_variant(scene))
+                == kname, f"the {kname} mix takes another instantiation")
+        runs.append((kname, scene, camera, kname, PRIMS_ATOL))
+    for name, scene, camera, kname, atol in runs:
         require(_use_fused(scene, "auto"), f"{name}: auto does not take the "
                                            f"fused kernel")
         cam = camera(w, h).params(dev)
@@ -1357,10 +1468,18 @@ def variant_phases(dev, card, record):
         require(np.array_equal(np.concatenate(halves), out),
                 f"{name}: row tiles differ from the full frame")
         record[kname] = dict(max_abs_err=float(np.abs(out - ref).max()))
+        ms = cuda_ms(lambda: pallas_pt.render_sum_fused(
+            scene, cam, w, h, sub, samples_per_launch=2, max_depth=3), 10)
+        plain_ms = cuda_ms(lambda: pallas_pt.render_sum_plain(
+            scene, cam, w, h, sub, samples_per_launch=2, max_depth=3), 1)
         phase(f"7 {kname} vs plain", scene=name, rays=int(c_k),
               max_abs_err=np.abs(out - ref).max(),
               pixels_bit_equal=f"{np.mean(np.all(out == ref, axis=-1)):.6f}",
-              row_tiles="equal")
+              row_tiles="equal", kernel_ms=f"{ms:.3f}",
+              plain_ms=f"{plain_ms:.1f}",
+              kernel_bound_ms="{bound_ms:.3g}({bound_by})".format(**bound(
+                  (int(c_k) // 2) * (fused_ops(scene) + PAIR_OPS),
+                  w * h * 16)))
 
     # --- phase 8: fused vs wavefront launch, 256², spl 4, depth 4 ---
     w = h = 256
@@ -1434,28 +1553,32 @@ def variant_phases(dev, card, record):
               wavefront_launches={k: n_w[k] for k in ("bf_closest", "bf_any",
                                                       kname)})
         launches[kname] = n_f[kname]
-        # Bound per launch: of the traced rays at least half are
-        # closest-hit rays (each NEE shadow ray follows a hit), each tested
-        # against every triangle and prim (on an instanced scene, the sum
-        # of the ranges, plus its move into each instance's object space;
-        # on a smooth mesh plus the normal's interpolation); a shadow ray
-        # needs one test at the least. Bytes: the radiance and count planes
-        # written once.
-        ranges = pallas_pt.fused_inst_ranges(scene)
-        tests = (sum(hi - lo for lo, hi in ranges) if ranges
-                 else scene.num_triangles)
-        per_closest = (PAIR_OPS * tests + INST_XF_OPS * len(ranges)
-                       + (SMOOTH_OPS if scene.geom.smooth and not ranges
-                          else 0)
-                       + sum(PRIM_OPS[k] for k in scene.prims.kinds_static))
         rays_launch = rays_f // 2
         record[kname]["max_abs_err"] = max(record[kname]["max_abs_err"],
                                            head_err)
         record[kname].update(
             ms=ms_f, plain_ms=ms_w, plain_blocks="all",
-            **bound((rays_launch // 2) * (per_closest + PAIR_OPS),
+            **bound((rays_launch // 2) * (fused_ops(scene) + PAIR_OPS),
                     W * H * 16))
     return launches
+
+
+def fused_ops(scene):
+    """FP32 operations of one closest-hit ray of the fused kernel (3') on
+    `scene`, for the bound of a launch: of the traced rays at least half
+    are closest-hit rays (each NEE shadow ray follows a hit), each tested
+    against every triangle and prim (on an instanced scene, the sum of the
+    ranges, plus its move into each instance's object space; on a smooth
+    mesh plus the normal's interpolation); a shadow ray needs one test
+    (PAIR_OPS) at the least. Bytes: the radiance and count planes written
+    once."""
+    from optix_raytracer_tpu_torch.wavefront import pallas_pt
+    ranges = pallas_pt.fused_inst_ranges(scene)
+    tests = (sum(hi - lo for lo, hi in ranges) if ranges
+             else scene.num_triangles)
+    return (PAIR_OPS * tests + INST_XF_OPS * len(ranges)
+            + (SMOOTH_OPS if scene.geom.smooth and not ranges else 0)
+            + sum(PRIM_OPS[k] for k in scene.prims.kinds_static))
 
 
 def texture_phases(dev, card, record):

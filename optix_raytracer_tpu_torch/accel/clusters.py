@@ -16,6 +16,10 @@ blocks of SUB = 256 and then:
 3. walks each block's list (kernel 5, `walk_closest`; kernel 6, `walk_any`),
    pair-testing the block's rays against the cluster's 128 triangles, with
    the walk gated per 32-ray group where the exact cull's bits allow it.
+   The kernels test only the pairs of the admission rule
+   (`admitted_pairs_plain`: the ray's own slab test against the cluster's
+   widened box, within the gate) and return the plain walks' rows and
+   occlusion bit for bit.
 
 Past MAX_STREAM_CLUSTERS clusters (1M triangles) the supercluster tier takes
 over (clusters.py:740-1007): SC_CLUSTERS consecutive clusters form a
@@ -66,6 +70,7 @@ SC_CLUSTERS = 32            # clusters per supercluster (4096 triangles)
 MAX_SUPERCLUSTERS = 1024    # supercluster-tier cap (10 id bits, 4.19M tris)
 MAX_MEMBERS = 32            # the sc kernels' member mask is one uint32
 COMP_ROWS = 32              # constants per cluster slot, see ClusterSet
+WALK_WINDOW = 4             # list entries a round of kernels 5 / 6 admits
 
 _DEGEN_EPS = 1e-12
 _BIG = 3.0e38
@@ -346,8 +351,9 @@ def _compact(cl: ClusterSet, mask, tnear, gmask, n_super: int):
     """Each block's crossed clusters, front to back: one int32 sort whose key
     carries the id (and the group bits) in the low mantissa bits of the
     non-negative entry distance, whose bit pattern sorts like its value;
-    truncating those bits lowers the exit threshold, which stays
-    conservative."""
+    truncating those bits lowers the bound, which stays a lower bound on
+    the entry of every ray whose slab test crosses the box (the kernels
+    read only the order: a grazing ray can hit a cluster before it)."""
     c_pad = mask.shape[1]
     ids = torch.arange(c_pad, dtype=torch.int32, device=mask.device)[None, :]
     hit = mask & (ids < cl.num_clusters)
@@ -399,6 +405,13 @@ def _pair_test(blk, ox, oy, oz, dx, dy, dz):
     return tt, uu, vv, dpz
 
 
+def _group_bits(gm):
+    """Each ray's bit of its block's gate bits gm [B] (bit g for the g-th
+    32-ray group) → bool [B, 256]."""
+    group = torch.arange(SUB, device=gm.device) // GROUP_ROWS
+    return ((gm[:, None] >> group[None, :].to(gm.dtype)) & 1) > 0
+
+
 def _pair_ok(blk, a, gm, gate):
     """Pair tests of the rays a [B, 256, 8] against their blocks' current
     clusters blk [B, 32, 128], with the group gate gm [B] applied →
@@ -409,9 +422,7 @@ def _pair_ok(blk, a, gm, gate):
           & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
           & (tt > cols[6]) & (tt < cols[7]))
     if gate:
-        group = torch.arange(SUB, device=a.device) // GROUP_ROWS
-        bit = (gm[:, None] >> group[None, :].to(gm.dtype)) & 1
-        ok = ok & (bit > 0)[:, :, None]
+        ok = ok & _group_bits(gm)[:, :, None]
     return ok, tt, uu, vv
 
 
@@ -475,8 +486,14 @@ class _ClosestState:
         return rows.reshape(-1, 8)
 
 
-def walk_closest_plain(counts, lists, tnear, comp, packed, gate: bool,
-                       block_chunk: int = 256):
+def _entry_boxes(aabb):
+    """The cluster boxes aabb [c_pad / 128, 6, 128] as [c_pad, 6, 1]: one box
+    per cluster, in the layout the admission rule takes."""
+    return aabb.transpose(1, 2).reshape(-1, 6)[:, :, None]
+
+
+def walk_closest_plain(counts, lists, tnear, comp, aabb, packed, gate: bool,
+                       block_chunk: int = 256, admitted: bool = False):
     """Plain version of kernel 5 → rows [n_padded, 8] f32 (t u v nx ny nz
     prim mat; a miss is t = tmax, zeros, prim = mat = -1).
 
@@ -486,27 +503,41 @@ def walk_closest_plain(counts, lists, tnear, comp, packed, gate: bool,
     cluster: exactly the running per-lane minimum with a strict `<` and the
     lowest-winning-lane pick of `_step_closest` / `_emit_closest`
     (clusters.py:393-450). The normal is n0 + u*d10 + v*d20, unnormalised.
-    `tnear` is not read: the plain walk has no early exit."""
+    `tnear` is not read: the plain walk has no early exit.
+
+    admitted=True (for tests) tests only the pairs of the kernel's admission
+    rule (`admitted_pairs_plain` on the cluster boxes `aabb`, at each ray's
+    best t when the walk reaches the entry; the rule carries the gate) and
+    must give the same rows."""
     del tnear
     counts, lists, rays = _walk_inputs(counts, lists, packed)
+    boxes = _entry_boxes(aabb)
     st = _ClosestState(rays)
     for b, entry in _list_steps(counts, lists, block_chunk):
-        st.step(b, comp[(entry & 0xFFFF).to(torch.int64)], rays[b],
-                (entry >> 16) & 0xFF, gate)
+        c, gm = (entry & 0xFFFF).to(torch.int64), (entry >> 16) & 0xFF
+        allow = (admitted_pairs_plain(rays[b], boxes[c], gm, gate, st.bt[b])
+                 if admitted else None)
+        st.step(b, comp[c], rays[b], gm, gate and not admitted, allow)
     return st.rows()
 
 
-def walk_any_plain(counts, lists, tnear, comp, packed, gate: bool,
-                   block_chunk: int = 256):
+def walk_any_plain(counts, lists, tnear, comp, aabb, packed, gate: bool,
+                   block_chunk: int = 256, admitted: bool = False):
     """Plain version of kernel 6 → occ [n_padded] int32: 1 where some pair of
     the ray's block's whole list passes the Woop test with tmin < t < tmax
-    (dead rays never do). `tnear` is not read: no early exit."""
+    (dead rays never do). `tnear` is not read: no early exit.
+    admitted=True (for tests) the admitted pairs only, rays occluded before
+    the entry dropped, as walk_closest_plain."""
     del tnear
     counts, lists, rays = _walk_inputs(counts, lists, packed)
+    boxes = _entry_boxes(aabb)
     occ = torch.zeros(rays.shape[:2], dtype=torch.bool, device=packed.device)
     for b, entry in _list_steps(counts, lists, block_chunk):
-        blk = comp[(entry & 0xFFFF).to(torch.int64)]
-        ok, _, _, _ = _pair_ok(blk, rays[b], (entry >> 16) & 0xFF, gate)
+        c, gm = (entry & 0xFFFF).to(torch.int64), (entry >> 16) & 0xFF
+        ok, _, _, _ = _pair_ok(comp[c], rays[b], gm, gate and not admitted)
+        if admitted:
+            allow = admitted_pairs_plain(rays[b], boxes[c], gm, gate) & ~occ[b]
+            ok = ok & allow[:, :, None]
         occ[b] = occ[b] | ok.any(dim=2)
     return occ.reshape(-1).to(torch.int32)
 
@@ -523,51 +554,70 @@ def _walk_args(name, counts, lists, tnear, comp, packed):
     kernels.require(comp, "comp", torch.float32,
                     (comp.shape[0], COMP_ROWS, LANES), dev)
     kernels.require(packed, "packed rays", torch.float32, (nb * SUB, 8), dev)
+    if comp.data_ptr() % 16:
+        raise ValueError(f"{name}: comp must be 16-byte aligned (the cluster "
+                         f"slabs are bulk-copied)")
     return nb, c_pad
 
 
-def walk_closest(counts, lists, tnear, comp, packed, gate: bool):
+def _resident_walk(name, counts, lists, tnear, comp, aabb, packed, gate,
+                   out):
+    """Launch kernel 5 (out: rows) or 6 (out: occlusion) on the card."""
+    dev = packed.device
+    nb, c_pad = _walk_args(name, counts, lists, tnear, comp, packed)
+    kernels.require(aabb, "aabb", torch.float32, (aabb.shape[0], 6, LANES),
+                    dev)
+    if aabb.shape[0] * LANES < comp.shape[0]:
+        raise ValueError(f"{name}: aabb holds {aabb.shape[0] * LANES} boxes "
+                         f"for {comp.shape[0]} clusters")
+    win = WALK_WINDOW
+    if not 1 <= win <= MAX_MEMBERS:
+        raise ValueError(f"{name}: WALK_WINDOW {win} must lie in [1, "
+                         f"{MAX_MEMBERS}]")
+    if nb == 0:
+        return out
+    entry = getattr(kernels.lib(), f"ort_{name}")
+    with torch.cuda.device(dev):
+        err = entry(counts.data_ptr(), lists.data_ptr(), comp.data_ptr(),
+                    comp.shape[0], aabb.data_ptr(), packed.data_ptr(), nb,
+                    c_pad, int(gate), win, out.data_ptr(),
+                    kernels.stream_ptr(dev))
+        kernels.LAUNCHES[name] += 1
+    kernels.check(err, name)
+    return out
+
+
+def walk_closest(counts, lists, tnear, comp, aabb, packed, gate: bool):
     """Kernel 5 (replaces `_closest_kernel` and `_closest_kernel_stream`,
-    clusters.py:453, 537; pallas_call at :1150): see walk_closest_plain."""
+    clusters.py:453, 537; pallas_call at :1150): see walk_closest_plain,
+    whose rows it returns bit for bit. It tests only the pairs of the
+    admission rule (`admitted_pairs_plain`, on the cluster boxes `aabb`),
+    WALK_WINDOW list entries a round, and keeps each ray's best as one (t,
+    slot, list position) key."""
     dev = packed.device
     if dev.type == "cpu":
-        return walk_closest_plain(counts, lists, tnear, comp, packed, gate)
+        return walk_closest_plain(counts, lists, tnear, comp, aabb, packed,
+                                  gate)
     if dev.type != "cuda":
         raise ValueError(f"walk_closest: unsupported device {dev}")
-    nb, c_pad = _walk_args("walk_closest", counts, lists, tnear, comp, packed)
-    rows = torch.empty((nb * SUB, 8), dtype=torch.float32, device=dev)
-    if nb == 0:
-        return rows
-    with torch.cuda.device(dev):
-        err = kernels.lib().ort_cluster_closest(
-            counts.data_ptr(), lists.data_ptr(), tnear.data_ptr(),
-            comp.data_ptr(), comp.shape[0], packed.data_ptr(), nb, c_pad,
-            int(gate), rows.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["cluster_closest"] += 1
-    kernels.check(err, "cluster_closest")
-    return rows
+    rows = torch.empty((counts.numel() * SUB, 8), dtype=torch.float32,
+                       device=dev)
+    return _resident_walk("cluster_closest", counts, lists, tnear, comp, aabb,
+                          packed, gate, rows)
 
 
-def walk_any(counts, lists, tnear, comp, packed, gate: bool):
+def walk_any(counts, lists, tnear, comp, aabb, packed, gate: bool):
     """Kernel 6 (replaces `_any_kernel` and `_any_kernel_stream`,
-    clusters.py:669, 603; pallas_call at :1372): see walk_any_plain."""
+    clusters.py:669, 603; pallas_call at :1372): see walk_any_plain; the
+    admitted pairs only, as kernel 5."""
     dev = packed.device
     if dev.type == "cpu":
-        return walk_any_plain(counts, lists, tnear, comp, packed, gate)
+        return walk_any_plain(counts, lists, tnear, comp, aabb, packed, gate)
     if dev.type != "cuda":
         raise ValueError(f"walk_any: unsupported device {dev}")
-    nb, c_pad = _walk_args("walk_any", counts, lists, tnear, comp, packed)
-    occ = torch.empty((nb * SUB,), dtype=torch.int32, device=dev)
-    if nb == 0:
-        return occ
-    with torch.cuda.device(dev):
-        err = kernels.lib().ort_cluster_any(
-            counts.data_ptr(), lists.data_ptr(), tnear.data_ptr(),
-            comp.data_ptr(), comp.shape[0], packed.data_ptr(), nb, c_pad,
-            int(gate), occ.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["cluster_any"] += 1
-    kernels.check(err, "cluster_any")
-    return occ
+    occ = torch.empty((counts.numel() * SUB,), dtype=torch.int32, device=dev)
+    return _resident_walk("cluster_any", counts, lists, tnear, comp, aabb,
+                          packed, gate, occ)
 
 
 # ---------------------------------------------------------------------------
@@ -626,8 +676,8 @@ def _member_cross(a, member):
     return _slab_cross(a, member[:, 0:3], member[:, 3:6])[0]
 
 
-# The pair admission rule of kernels 5c / 6c (csrc/clusters.cu kMarginRel,
-# kMarginFloor): the member box is widened on every side by
+# The pair admission rule of kernels 5 / 6 and 5c / 6c (csrc/clusters.cu
+# kMarginRel, kMarginFloor): the cluster box is widened on every side by
 #   margin = extent * SC_MARGIN_REL + magnitude * SC_MARGIN_FLOOR,
 # extent the box's largest side, magnitude its largest |coordinate|. A pair
 # whose Woop test accepts a hit has that hit within a few ulps of the
@@ -641,14 +691,29 @@ SC_MARGIN_FLOOR = 2.0 ** -14
 
 
 def sc_widened_boxes(member):
-    """Member boxes member [B, 6, M] → (lo, hi [B, 3, M] widened by the
-    admission margin, real [B, M] bool: the box holds a triangle, i.e. is
-    not inverted). The kernels' order of operations."""
+    """Cluster boxes member [B, 6, M] (supercluster members, or the list
+    entries of kernels 5 / 6) → (lo, hi [B, 3, M] widened by the admission
+    margin, real [B, M] bool: the box holds a triangle, i.e. is not
+    inverted). The kernels' order of operations."""
     lo, hi = member[:, 0:3], member[:, 3:6]
     ext = (hi - lo).amax(dim=1)
     mag = torch.maximum(lo.abs(), hi.abs()).amax(dim=1)
     margin = (ext * SC_MARGIN_REL + mag * SC_MARGIN_FLOOR)[:, None]
     return lo - margin, hi + margin, (lo <= hi).all(dim=1)
+
+
+def _widened_cross(a, boxes, best_t):
+    """The admission rule's own term: rays a [B, 256, 8] against boxes
+    [B, 6, M] → bool [B, 256, M], set where the box is real, the ray is
+    live and its slab test (`_slab_cross`) crosses the box widened by the
+    margin, and, with best_t [B, 256], where that box's entry distance is
+    not above best_t."""
+    lo, hi, real = sc_widened_boxes(boxes)
+    cross, tn = _slab_cross(a, lo, hi)
+    adm = cross & real[:, None, :]
+    if best_t is not None:
+        adm = adm & (tn <= best_t[:, :, None])
+    return adm
 
 
 def sc_admitted_pairs_plain(a, member, best_t=None):
@@ -664,12 +729,28 @@ def sc_admitted_pairs_plain(a, member, best_t=None):
     pair of the plain walks that could change a row or an occlusion flag is
     dropped: tests/test_torch_supercluster.py and chip_smoke.py's
     dropped-pair audit hold the rule to that."""
-    lo, hi, real = sc_widened_boxes(member)
-    cross, tn = _slab_cross(a, lo, hi)
     union = _member_cross(a, member).any(dim=1)              # [B, M]
-    adm = cross & (real & union)[:, None, :]
-    if best_t is not None:
-        adm = adm & (tn <= best_t[:, :, None])
+    return _widened_cross(a, member, best_t) & union[:, None, :]
+
+
+def admitted_pairs_plain(a, boxes, gm, gate: bool, best_t=None):
+    """The pair admission rule of kernels 5 / 6 in plain PyTorch: rays a
+    [B, 256, 8] against their blocks' list entries, cluster boxes boxes
+    [B, 6, 1] with gate bits gm [B] → bool [B, 256]. A (ray, cluster) pair
+    is tested only when the ray is live and its own slab test crosses the
+    box widened by the margin of the supercluster tier
+    (`sc_widened_boxes`), for the closest walk (best_t [B, 256]) only when
+    that box's entry distance is not above the ray's running best t, and on
+    a gated walk only when the ray's 32-ray group bit is set in gm: the
+    gated plain walk never tests a ray whose bit is clear, even one that
+    grazes the widened box. The any-hit walk also drops the pairs of a ray
+    already occluded (the caller's part). No pair of the plain walks that
+    could change a row or an occlusion flag is dropped:
+    tests/test_torch_walks.py and chip_smoke.py's dropped-pair audit hold
+    the rule to that."""
+    adm = _widened_cross(a, boxes, best_t)[:, :, 0]
+    if gate:
+        adm = adm & _group_bits(gm)
     return adm
 
 
@@ -795,9 +876,6 @@ def _sc_walk_args(name, counts, lists, tnear, comp, member_aabb, packed):
                          f"kernel takes 1 to {MAX_MEMBERS}")
     kernels.require(member_aabb, "member_aabb", torch.float32,
                     (member_aabb.shape[0], 6, sc), packed.device)
-    if comp.data_ptr() % 16:
-        raise ValueError(f"{name}: comp must be 16-byte aligned (the member "
-                         f"slabs are bulk-copied)")
     return nb, c_pad, sc
 
 
@@ -819,7 +897,7 @@ def walk_sc_closest(counts, lists, tnear, comp, member_aabb, packed):
         return rows
     with torch.cuda.device(dev):
         err = kernels.lib().ort_cluster_sc_closest(
-            counts.data_ptr(), lists.data_ptr(), tnear.data_ptr(),
+            counts.data_ptr(), lists.data_ptr(),
             comp.data_ptr(), comp.shape[0], member_aabb.data_ptr(),
             member_aabb.shape[0], sc, packed.data_ptr(), nb, c_pad,
             rows.data_ptr(), kernels.stream_ptr(dev))
@@ -844,7 +922,7 @@ def walk_sc_any(counts, lists, tnear, comp, member_aabb, packed):
         return occ
     with torch.cuda.device(dev):
         err = kernels.lib().ort_cluster_sc_any(
-            counts.data_ptr(), lists.data_ptr(), tnear.data_ptr(),
+            counts.data_ptr(), lists.data_ptr(),
             comp.data_ptr(), comp.shape[0], member_aabb.data_ptr(),
             member_aabb.shape[0], sc, packed.data_ptr(), nb, c_pad,
             occ.data_ptr(), kernels.stream_ptr(dev))
@@ -885,7 +963,8 @@ def _closest_core(cl: ClusterSet, packed, exact=False, group_walk=False):
         return walk_sc_closest(counts, lists, tnear, cl.comp, member,
                                packed), counts
     gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
-    return walk_closest(counts, lists, tnear, cl.comp, packed, gate), counts
+    return walk_closest(counts, lists, tnear, cl.comp, cl.aabb, packed,
+                        gate), counts
 
 
 def _any_core(cl: ClusterSet, packed, exact=False, group_walk=False):
@@ -896,7 +975,7 @@ def _any_core(cl: ClusterSet, packed, exact=False, group_walk=False):
         occ = walk_sc_any(counts, lists, tnear, cl.comp, member, packed)
     else:
         gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
-        occ = walk_any(counts, lists, tnear, cl.comp, packed, gate)
+        occ = walk_any(counts, lists, tnear, cl.comp, cl.aabb, packed, gate)
     live = torch.repeat_interleave(counts.reshape(-1) > 0, SUB)
     return torch.where(live, occ, 0)
 

@@ -5,14 +5,14 @@
 // Replaces, in optix_raytracer_tpu/accel/clusters.py:
 //   kernel 4  cull_exact_kernel<5, true> <- _exact_cull_kernel (:231), called
 //             by _exact_block_cull (pallas_call at :312);
-//   kernel 5  cluster_closest_kernel     <- _closest_kernel (:453) and
+//   kernel 5  cluster_walk_kernel<true, false> <- _closest_kernel (:453) and
 //             _closest_kernel_stream (:537), called by _closest_core (:1150);
-//   kernel 6  cluster_any_kernel         <- _any_kernel (:669) and
+//   kernel 6  cluster_walk_kernel<false, false> <- _any_kernel (:669) and
 //             _any_kernel_stream (:603), called by _any_core (:1372);
-//   kernel 5c cluster_sc_closest_kernel  <- _sc_closest_kernel (:858), called
-//             by _closest_core (:1150);
-//   kernel 6c cluster_sc_any_kernel      <- _sc_any_kernel (:933), called by
-//             _any_core (:1372);
+//   kernel 5c cluster_walk_kernel<true, true> <- _sc_closest_kernel (:858),
+//             called by _closest_core (:1150);
+//   kernel 6c cluster_walk_kernel<false, true> <- _sc_any_kernel (:933),
+//             called by _any_core (:1372);
 // and in optix_raytracer_tpu/accel/qwalk.py:
 //   kernel 7  cull_exact_kernel<3, false> <- _oct_cull_kernel (:69), called
 //             by _oct_cull (pallas_call at :117);
@@ -31,88 +31,88 @@
 // minimum entry and the 8 group bits need no cross-thread reduction, so the
 // result is deterministic.
 //
-// Kernels 5 and 6. What bounds them: FP32 issue in the Woop pair tests
-// (~30 operations per ray and triangle slot); a list entry moves 6 KB (any)
-// or 11.5 KB (closest) of constants from L2 (25k-triangle table: 3.2 MB) or
-// HBM (500k: 64 MB) into shared memory for 256 rays. Design: one CTA of 256
-// threads per block, one thread per ray. Each warp is one 32-ray gate group,
-// so a clear gate bit skips the cluster for the whole warp without
-// divergence. For each list entry the CTA stages the cluster's test
-// constants slot-major ([128][12], three 16-byte broadcast loads per slot)
-// and the closest kernel also its ids and normal rows; each thread then
-// tests its ray against the 128 slots in _pair_test's order of operations.
-// One kernel serves the resident (<= 1024 clusters) and the streaming tier:
-// the table is read through L2 either way.
-//
-// Kernels 5c and 6c. A list entry is a supercluster of up to 32 member
-// clusters (the 4M-triangle table is 489 MiB, so member slabs come from
-// HBM). The reference tests every ray of the block against every member
-// that some ray crosses (a (256, 128) tile is one vector op on the TPU); at
-// 4M strip bounce 1 that is 140x the needed pair tests. What bounds the
-// port's kernels now: the fixed cost of each list entry (58 a block at
-// strip bounce 1: the block's barriers, the admission and the first member
-// slab's load latency), then the admitted pair tests (~1.2x the needed).
-// Design (one template, cluster_sc_kernel):
-// - admission: a (ray, member) pair is tested only when the member is in
-//   the block union (some live ray's own slab test crosses its box: the
-//   plain walks test no other member), the ray is live (6c: and not yet
-//   occluded), its own slab test (the exact cull's) crosses the member's
-//   box widened by kMarginRel * extent + kMarginFloor * magnitude (why that
-//   is enough: at the constants), and (5c) that box's entry distance is not
-//   above the ray's running best t. The rule drops no pair of the plain
-//   walks that could change a row: accel/clusters.py
-//   sc_admitted_pairs_plain is its plain form, held by the CPU tests and
-//   chip_smoke.py's audit;
-// - work list: each ray first tests the widened union of the member boxes
-//   (it holds every widened member box, so this drops no admitted pair);
-//   the rays that cross it are listed, and their (ray, member) slab tests
-//   are spread over the block, each admitted pair appended to its member's
+// Kernels 5 / 6 and 5c / 6c, the cluster walks: one template,
+// cluster_walk_kernel<kClosest, kSc>. At the resident (<= 1024 clusters)
+// and streaming (<= 8192) tiers a list entry is one 128-slot cluster, with
+// 8 gate bits (one per 32-ray group) on a gated walk; at the supercluster
+// tier it is a supercluster of up to 32 member clusters. The plain walks,
+// like the reference, test every ray of the block (of a group whose gate
+// bit is set) against every slot of each listed cluster (of each member
+// some ray crosses): on the TPU a (256, 128) tile is one vector op. On this
+// card that is 16x the pair tests the rays need at 25k strip bounce 1
+// (gated) and 140x at 4M. Once only the pairs a ray can use are tested,
+// what bounds the walks is the fixed cost of each round of list entries
+// (the block's barriers, the admission slab tests, the first slab's load
+// latency), then the admitted pair tests. The tables come from L2 (25k
+// table: 3.2 MB) or HBM (500k: 64 MB; 4M: 489 MiB). Design:
+// - rounds: the unit of admission, staging and barriers is a round: at the
+//   supercluster tier one list entry (its members), at the other tiers
+//   `width` consecutive list entries (accel/clusters.py WALK_WINDOW = 4),
+//   so that a block whose rays need ~1.4 clusters each still fills its
+//   warps. A round admits at the rays' best t as it stood at its start,
+//   so wide rounds prune less: on the H100 4 entries beat 1, 2 and 8-32
+//   on the main path's strip queries and the primaries (8-16 only on the
+//   500k knot's shadow rays, 124 entries a block), and neither a small
+//   first round nor doubling rounds did better;
+// - admission: a (ray, cluster) pair is tested only when the ray is live
+//   (6 / 6c: and not yet occluded), its own slab test (the exact cull's)
+//   crosses the cluster's box widened by kMarginRel * extent +
+//   kMarginFloor * magnitude (why that is enough: at the constants), (5 /
+//   5c) that box's entry distance is not above the ray's best t at the
+//   round's start, and the plain walk itself would test the pair: on a
+//   gated walk the ray's group bit is set in the entry (a grazing ray whose
+//   bit is clear is never tested, even where it crosses the widened box);
+//   at the supercluster tier the member is in the block union (some live
+//   ray's own slab test crosses it unwidened). A Woop hit lies inside the
+//   widened box and its t is not below the box's entry distance, and best
+//   t only falls, so the rule drops no pair of the plain walks that could
+//   change a row or a flag: accel/clusters.py admitted_pairs_plain and
+//   sc_admitted_pairs_plain are its plain forms, held by the CPU tests and
+//   by chip_smoke.py's dropped-pair audits on the card;
+// - work list: each ray first tests the widened union of the round's boxes
+//   (it holds every widened box, so this drops no admitted pair); the rays
+//   that cross it are listed, and their (ray, cluster) slab tests are
+//   spread over the block, each admitted pair appended to its cluster's
 //   list in shared memory (shared atomics; the order is free, the merge
-//   below is order-free). Work items (member, quarter of 32 slots, 16
+//   below is order-free). Work items (cluster, quarter of 32 slots, 16
 //   rays) go to the warps in turn, lane l testing slot 32 * quarter + l
 //   against each listed ray;
 // - closest hit: each ray's best is one 64-bit key in shared memory, t's
-//   order-preserving bits over the slot (7 bits) over the visit (list
-//   position * 32 + member), merged with the 64-bit atomicMin, so the
-//   minimum is the plain walk's winner: the smaller t, then the lower slot,
-//   then the earlier visit. After the walk each ray re-runs its winning
-//   pair test (the same operations, so the same t, u, v bits) and reads
-//   that one slot's ids and normal rows;
+//   order-preserving bits over the slot (7 bits) over the visit (round *
+//   32 + the cluster's index in the round, so list order), merged with the
+//   64-bit atomicMin, so the minimum is the plain walk's winner: the
+//   smaller t, then the lower slot, then the earlier visit. After the walk
+//   each ray re-runs its winning pair test (the same operations, so the
+//   same t, u, v bits) and reads that one slot's ids and normal rows;
 // - any hit: one flag per ray in shared memory; an item skips flagged rays;
-// - staging: only walked members are staged, their 12 test rows (6 KB,
-//   contiguous) by one 1-D bulk copy each (cp.async.bulk on an mbarrier)
-//   into a ring of 2 x 2 slots in dynamic shared memory (about 50 KB a
-//   block, so four blocks an SM: with latency the limit, a ring of 2 x 4 at
-//   three blocks an SM measured 14-17% slower, one of 2 x 8 at two 2.5x):
-//   the next 2 members load while the current 2 are tested. The id and
-//   normal rows are never staged. The list words are read two entries
-//   ahead and the member boxes fetched one entry ahead (cp.async).
-// The entry-level exits are kernels 5/6's: the CTA stops when every ray's
-// best is below the entry's truncated bound (5c) or every ray is resolved
-// (6c).
+// - staging: only clusters with an admitted pair are staged, their 12 test
+//   rows (6 KB, contiguous) by one 1-D bulk copy each (cp.async.bulk on an
+//   mbarrier) into a ring of 2 x 2 slots in dynamic shared memory (about
+//   51 KB a block, so four blocks an SM: with latency the limit, a ring of
+//   2 x 4 at three blocks an SM measured 14-17% slower at 4M, one of 2 x 8
+//   at two 2.5x): the next 2 clusters load while the current 2 are tested.
+//   The id and normal rows are never staged. The list words are read two
+//   rounds ahead and the boxes fetched one round ahead (cp.async).
+// Exit: the CTA stops early only when every ray is dead (5 / 5c), or dead
+// or occluded (6 / 6c); a ray's own window and best t already keep it out
+// of every pair they rule out (admission). The cull's entry bound (tnear)
+// must not end a walk: it covers only the rays whose own slab test crosses
+// the box unwidened, so a grazing ray's hit can lie in front of it
+// (tests/torch_parity.py lone_gated_rays).
 //
 // Kernel 7 is kernel 4's loop with 8-ray octet bits and no entry distance
 // (one template). Kernel 8: a work list (accel/qwalk.py) puts each crossing
 // (8-ray octet, cluster) pair in a step of 32 items, 256 marshalled rays of
-// one cluster. What bounds it: the pair tests of kernels 5/6, 256 x 128 per
-// step with no gate and no early exit, plus the marshalled rays (32 B in)
-// and candidates (32 B or 4 B out) per item ray through HBM. Design: one CTA
-// of 256 threads per live step, one thread per marshalled ray (planar
-// [8][cols] rows, coalesced); the step's cluster is staged with kernels
-// 5/6's staging and tested with their closest_step / any_step, whose tie
-// rule (smaller t, or equal t at a lower slot) is _q_closest_kernel's. The
-// per-ray reduction over steps is PyTorch scatter ops.
-//
-// Closest hit: a thread keeps one running best and replaces it when
-// t < best or (t == best and slot < best slot): over the list order this
-// equals the reference's per-lane running minimum with a strict `<` and its
-// lowest-winning-lane pick. The walk stops early only when every ray of the
-// block already holds a hit nearer than the next cluster's (truncated,
-// hence lower) front-to-back bound, strictly; a warp whose rays all do skips
-// its tests. Any hit: dead rays start resolved and report 0; a ray resolves
-// when occluded or when the next bound passes its tmax; the CTA stops when
-// every ray is resolved. Both exits leave the results of the whole-list walk
-// of the plain versions unchanged.
+// one cluster. What bounds it: the pair tests, 256 x 128 per step with no
+// gate and no early exit, plus the marshalled rays (32 B in) and candidates
+// (32 B or 4 B out) per item ray through HBM. Design: one CTA of 256
+// threads per live step, one thread per marshalled ray (planar [8][cols]
+// rows, coalesced); the step's cluster is staged slot-major ([128][12],
+// three 16-byte broadcast loads per slot; the closest kernel also its ids
+// and normal rows) and tested with closest_step / any_step. closest_step
+// keeps one running best and replaces it when t < best or (t == best and
+// slot < best slot), _q_closest_kernel's tie rule. The per-ray reduction
+// over steps is PyTorch scatter ops.
 #include "common.cuh"
 
 namespace {
@@ -307,87 +307,12 @@ __device__ __forceinline__ bool any_step(const float* s_tri, const Ray& r) {
   return false;
 }
 
-__global__ void __launch_bounds__(kSub)
-cluster_closest_kernel(const int* __restrict__ counts,
-                       const int* __restrict__ lists,
-                       const float* __restrict__ tnear,
-                       const float* __restrict__ comp, int n_comp,
-                       const float* __restrict__ rays, int c_pad, int gate,
-                       float* __restrict__ out) {
-  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
-  __shared__ float s_ext[kExtRows * kLanes];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const size_t ray = b * kSub + tid;
-  const Ray r = load_ray(rays, ray);
-  const bool dead = !(r.tmax > r.tmin);
-  const int count = counts[b];
-  const int* lst = lists + b * c_pad;
-  const float* tnl = tnear + b * c_pad;
-
-  Closest h = closest_init(r);
-  for (int k = 0; k < count; ++k) {
-    const int entry = lst[k];
-    const int c = entry & 0xFFFF;
-    const unsigned gm = gate ? (static_cast<unsigned>(entry) >> 16) & 0xFFu
-                             : 0xFFu;
-    const bool done = dead || h.bt < tnl[k];
-    // Barrier before restaging; ends the walk once every ray is done.
-    if (__syncthreads_and(done)) break;
-    if (c >= n_comp) continue;
-    stage_closest(s_tri, s_ext,
-                  comp + static_cast<size_t>(c) * kCompRows * kLanes);
-    __syncthreads();
-    const bool warp_done = __all_sync(kFull, done);
-    if (!((gm >> warp) & 1u) || warp_done) continue;
-    closest_step(s_tri, s_ext, r, h);
-  }
-  emit_closest(out, ray, h);
-}
-
-__global__ void __launch_bounds__(kSub)
-cluster_any_kernel(const int* __restrict__ counts,
-                   const int* __restrict__ lists,
-                   const float* __restrict__ tnear,
-                   const float* __restrict__ comp, int n_comp,
-                   const float* __restrict__ rays, int c_pad, int gate,
-                   int* __restrict__ occ_out) {
-  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const size_t ray = b * kSub + tid;
-  const Ray r = load_ray(rays, ray);
-  const bool dead = !(r.tmax > r.tmin);
-  const int count = counts[b];
-  const int* lst = lists + b * c_pad;
-  const float* tnl = tnear + b * c_pad;
-
-  bool occ = false;
-  for (int k = 0; k < count; ++k) {
-    const int entry = lst[k];
-    const int c = entry & 0xFFFF;
-    const unsigned gm = gate ? (static_cast<unsigned>(entry) >> 16) & 0xFFu
-                             : 0xFFu;
-    const bool resolved = dead || occ || r.tmax < tnl[k];
-    if (__syncthreads_and(resolved)) break;
-    if (c >= n_comp) continue;
-    stage_test_rows(s_tri, comp + static_cast<size_t>(c) * kCompRows * kLanes);
-    __syncthreads();
-    const bool warp_done = __all_sync(kFull, resolved);
-    if (!((gm >> warp) & 1u) || warp_done || resolved) continue;
-    occ = any_step(s_tri, r);
-  }
-  occ_out[ray] = (occ && !dead) ? 1 : 0;
-}
-
 // ---------------------------------------------------------------------------
-// Kernels 5c and 6c: the supercluster walks (see the note at the head).
+// Kernels 5 / 6 and 5c / 6c: the cluster walks (see the note at the head).
 // ---------------------------------------------------------------------------
 
 // The pair admission margin (accel/clusters.py SC_MARGIN_REL,
-// SC_MARGIN_FLOOR): a member box is widened on every side by
+// SC_MARGIN_FLOOR): a cluster box is widened on every side by
 // extent * kMarginRel + magnitude * kMarginFloor (extent its largest side,
 // magnitude its largest |coordinate|). Why it is enough: a Woop test that
 // accepts a hit puts it within a few ulps of the triangle, which lies in
@@ -395,40 +320,44 @@ cluster_any_kernel(const int* __restrict__ counts,
 // distance along the ray; the floor, 2^9 ulps of the box's largest
 // coordinate, covers both for rays that start in the scene, and the
 // relative term, 1/64 of the box, the Woop test's error growth on thin
-// triangles. Powers of two, so the scaling is exact and the plain form
-// (`sc_admitted_pairs_plain`) rounds as the kernel does.
+// triangles. Powers of two, so the scaling is exact and the plain forms
+// (`admitted_pairs_plain`, `sc_admitted_pairs_plain`) round as the kernel
+// does.
 constexpr float kMarginRel = 0.015625f;         // 2^-6
 constexpr float kMarginFloor = 6.103515625e-05f; // 2^-14
-constexpr int kWin = 2;                  // member slabs per window
+constexpr int kWin = 2;                  // cluster slabs per window
 constexpr int kRing = 2 * kWin;          // one window tested, one loading
 constexpr int kChunk = 16;               // rays per work item
 constexpr unsigned kSlabBytes = kTestRows * kLanes * sizeof(float);  // 6 KB
 constexpr int kWarps = kSub / 32;
 
-struct ScShared {
-  float slab[kRing][kTestRows * kLanes];  // member test rows, [12][128] each
+struct WalkShared {
+  float slab[kRing][kTestRows * kLanes];  // cluster test rows, [12][128] each
   float4 ray[kSub][2];                    // ox oy oz dx, dy dz tmin tmax
   float4 inv[kSub];                       // 1/dx 1/dy 1/dz (pseudo), tmax
-  unsigned long long key[kSub];           // 5c: each ray's best key
-  int occ[kSub];                          // 6c: each ray's occlusion flag
-  float raw[2][6][kMaxMembers];           // member boxes, fetched ahead
-  float box[6][kMaxMembers];              // the entry's member boxes
+  unsigned long long key[kSub];           // 5 / 5c: each ray's best key
+  int occ[kSub];                          // 6 / 6c: each ray's occlusion flag
+  float raw[2][6][kMaxMembers];           // the round's boxes, fetched ahead
+  float box[6][kMaxMembers];              // the round's boxes
   float wbox[6][kMaxMembers];             // the same, widened
   float sc_box[6];                        // their union's, widened
-  int cnt[kMaxMembers];                   // admitted rays per member
-  unsigned char list[kMaxMembers][kSub];  // their ids, member-major
+  int cnt[kMaxMembers];                   // admitted rays per cluster
+  unsigned char list[kMaxMembers][kSub];  // their ids, cluster-major
   unsigned char open[kSub];               // rays that cross sc_box
   int n_open;
   unsigned long long bar[kRing];          // one mbarrier per ring slot
-  unsigned real;                          // members that hold a triangle
-  unsigned in_union[2];                   // members some live ray crosses
+  unsigned real;                          // clusters that hold a triangle
+  unsigned in_union[2];                   // 5c / 6c: members a live ray crosses
+  int cid[kMaxMembers];                   // 5 / 6: each entry's cluster
+  unsigned gm[kMaxMembers];               // 5 / 6: each entry's gate bits
+  unsigned gor;                           // 5 / 6: their union
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Ring slot i's next member slab: comp[row] rows 0-11 (6 KB, contiguous) in
+// Ring slot i's next cluster slab: comp[row] rows 0-11 (6 KB, contiguous) in
 // one bulk copy that completes on the slot's mbarrier.
 __device__ __forceinline__ void bulk_load_slab(float* dst,
                                                const float* __restrict__ src,
@@ -483,19 +412,20 @@ __device__ __forceinline__ void widen_box(const float* lo, const float* hi,
   }
 }
 
-// Warp 0's asynchronous fetch of supercluster s's member boxes
-// (member[s] = [6][members] floats) into dst, one commit group a call
-// (empty when s is past the table), so the next entry's boxes arrive while
-// this one is walked.
-__device__ __forceinline__ void fetch_member_boxes(
-    float (*dst)[kMaxMembers], const float* __restrict__ member, int s,
-    int members, int n_member_rows, int lane) {
-  if (lane < members && s < n_member_rows) {
-    const float* src = member + static_cast<size_t>(s) * 6 * members + lane;
+// Warp 0's asynchronous fetch of a round's boxes into dst, one commit group
+// a call (empty where `valid` is false), so the next round's boxes arrive
+// while this one is walked: lane l copies the box whose six rows start at
+// src and lie `stride` floats apart (a supercluster's member boxes
+// member[s] = [6][members], or a cluster's column of aabb [rows][6][128]).
+__device__ __forceinline__ void fetch_boxes(float (*dst)[kMaxMembers],
+                                            const float* __restrict__ src,
+                                            int stride, bool valid,
+                                            int lane) {
+  if (valid) {
 #pragma unroll
     for (int a = 0; a < 6; ++a)
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                   :: "r"(smem_u32(&dst[a][lane])), "l"(src + a * members)
+                   :: "r"(smem_u32(&dst[a][lane])), "l"(src + a * stride)
                    : "memory");
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -507,18 +437,23 @@ __device__ __forceinline__ int nth_bit(unsigned m, int n) {
   return __ffs(m) - 1;
 }
 
-// One CTA per 256-ray block, for both walks (kClosest: 5c, else 6c).
-template <bool kClosest>
+// One CTA per 256-ray block, for the four walks: kClosest (5 / 5c, else
+// 6 / 6c) and kSc (the supercluster tier, 5c / 6c). A round is the unit of
+// admission: at the supercluster tier one list entry, whose `width` member
+// clusters are the round's clusters; at the resident and streaming tiers
+// `width` consecutive list entries, one cluster each. Cluster j of round k
+// is visit k * 32 + j.
+template <bool kClosest, bool kSc>
 __global__ void __launch_bounds__(kSub, 4)
-cluster_sc_kernel(const int* __restrict__ counts,
-                  const int* __restrict__ lists,
-                  const float* __restrict__ tnear,
-                  const float* __restrict__ comp, int n_comp,
-                  const float* __restrict__ member, int n_member_rows,
-                  int members, const float* __restrict__ rays, int c_pad,
-                  float* __restrict__ out, int* __restrict__ occ_out) {
+cluster_walk_kernel(const int* __restrict__ counts,
+                    const int* __restrict__ lists,
+                    const float* __restrict__ comp, int n_comp,
+                    const float* __restrict__ boxes, int n_box_rows,
+                    int width, const float* __restrict__ rays,
+                    int c_pad, int gate, float* __restrict__ out,
+                    int* __restrict__ occ_out) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  ScShared& sh = *reinterpret_cast<ScShared*>(smem_raw);
+  WalkShared& sh = *reinterpret_cast<WalkShared*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t b = blockIdx.x;
   const size_t ray = b * kSub + tid;
@@ -543,59 +478,76 @@ cluster_sc_kernel(const int* __restrict__ counts,
   unsigned parity = 0u;     // bit i: the phase ring slot i completes next
   const int count = counts[b];
   const int* lst = lists + b * c_pad;
-  const float* tnl = tnear + b * c_pad;
+  const int rounds = kSc ? count : (count + width - 1) / width;
 
-  // The list is read two entries ahead and the member boxes one ahead
-  // (cp.async), so neither is a round trip on an entry's critical path.
-  // The group bits of a list word are not read.
-  int s_a = count > 0 ? lst[0] & 0xFFFF : 0;
-  int s_b = count > 1 ? lst[1] & 0xFFFF : 0;
-  float t_a = count > 0 ? tnl[0] : 0.f;
-  float t_b = count > 1 ? tnl[1] : 0.f;
-  if (warp == 0 && count > 0)
-    fetch_member_boxes(sh.raw[0], member, s_a, members, n_member_rows, lane);
+  // The list word each thread holds for a round: the round's supercluster
+  // (5c / 6c; its group bits are not read), or its lane's entry of the
+  // round (5 / 6, warp 0 only; -1 past the round or the list). Words are
+  // read two rounds ahead and the boxes fetched one round ahead (cp.async),
+  // so neither is a round trip on a round's critical path.
+  auto word_of = [&](int k) {
+    if constexpr (kSc) return lst[k] & 0xFFFF;
+    const int p = k * width + lane;
+    return warp == 0 && lane < width && p < count ? lst[p] : -1;
+  };
+  auto fetch_round = [&](int k, int w) {
+    if constexpr (kSc)
+      fetch_boxes(sh.raw[k & 1],
+                  boxes + static_cast<size_t>(w) * 6 * width + lane, width,
+                  k < rounds && lane < width && w < n_box_rows, lane);
+    else
+      fetch_boxes(sh.raw[k & 1],
+                  boxes + static_cast<size_t>((w & 0xFFFF) >> 7) * 6 * kLanes +
+                      (w & 127),
+                  kLanes, k < rounds && w >= 0 && (w & 0xFFFF) < n_comp,
+                  lane);
+  };
+  int w_a = rounds > 0 ? word_of(0) : 0;
+  int w_b = rounds > 1 ? word_of(1) : 0;
+  if (warp == 0 && rounds > 0) fetch_round(0, w_a);
 
-  for (int k = 0; k < count; ++k) {
-    const int s = s_a;
-    const float t_k = t_a;
-    s_a = s_b;
-    t_a = t_b;
-    if (k + 2 < count) {
-      s_b = lst[k + 2] & 0xFFFF;
-      t_b = tnl[k + 2];
-    }
-    // The previous entry's work items ended at a barrier, so the shared
-    // best and flag are final here.
+  for (int k = 0; k < rounds; ++k) {
+    const int w = w_a;
+    w_a = w_b;
+    if (k + 2 < rounds) w_b = word_of(k + 2);
+    // The previous round's work items ended at a barrier, so the shared
+    // best and flag are final here. The barrier also ends the round's
+    // reads of the shared lists before warp 0 rewrites them.
     float best = 0.f;
     bool done;
     if constexpr (kClosest) {
       best = bits_t(static_cast<unsigned>(sh.key[tid] >> 32));
-      done = dead || best < t_k;
+      done = dead;
     } else {
-      done = dead || sh.occ[tid] != 0 || r.tmax < t_k;
+      done = dead || sh.occ[tid] != 0;
     }
     if (__syncthreads_and(done)) break;
-    if (warp == 0)   // entry k + 1's boxes (an empty group past the list)
-      fetch_member_boxes(sh.raw[(k + 1) & 1], member,
-                         k + 1 < count ? s_a : n_member_rows, members,
-                         n_member_rows, lane);
-    if (s >= n_member_rows) continue;
+    if (warp == 0)   // round k + 1's boxes (an empty group past the list)
+      fetch_round(k + 1, w_a);
+    if constexpr (kSc) {
+      if (w >= n_box_rows) continue;
+    }
 
-    // The entry's member boxes and their union's, each widened by the
-    // admission margin (warp 0, one lane per member).
+    // The round's boxes and their union's, each widened by the admission
+    // margin (warp 0, one lane per cluster); 5 / 6 also each entry's
+    // cluster and gate bits.
     if (warp == 0) {
-      asm volatile("cp.async.wait_group 1;" ::: "memory");   // entry k's
+      asm volatile("cp.async.wait_group 1;" ::: "memory");   // round k's
       bool real = false;
       float lo[3] = {kBig, kBig, kBig}, hi[3] = {-kBig, -kBig, -kBig};
-      if (lane < members) {
+      if (lane < width) {
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           lo[a] = sh.raw[k & 1][a][lane];
           hi[a] = sh.raw[k & 1][3 + a][lane];
         }
-        real = lo[0] <= hi[0] && lo[1] <= hi[1] && lo[2] <= hi[2] &&
-               static_cast<size_t>(s) * members + lane <
-                   static_cast<size_t>(n_comp);
+        if constexpr (kSc)
+          real = lo[0] <= hi[0] && lo[1] <= hi[1] && lo[2] <= hi[2] &&
+                 static_cast<size_t>(w) * width + lane <
+                     static_cast<size_t>(n_comp);
+        else
+          real = w >= 0 && (w & 0xFFFF) < n_comp && lo[0] <= hi[0] &&
+                 lo[1] <= hi[1] && lo[2] <= hi[2];
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
           sh.box[a][lane] = lo[a];
@@ -604,10 +556,19 @@ cluster_sc_kernel(const int* __restrict__ counts,
         widen_box(lo, hi, &sh.wbox[0][lane], kMaxMembers);
       }
       const unsigned rm = __ballot_sync(kFull, real);
-      // The union of the real members' boxes: it holds every widened member
-      // box (the margin grows with the extent and the magnitude, and every
-      // rounding is monotone), so a ray whose slab test misses it misses
-      // them all; the pre-test drops no admitted pair.
+      if constexpr (!kSc) {
+        const unsigned g =
+            !real ? 0u : gate ? (static_cast<unsigned>(w) >> 16) & 0xFFu
+                              : 0xFFu;
+        sh.cid[lane] = w & 0xFFFF;
+        sh.gm[lane] = g;
+        const unsigned gor = __reduce_or_sync(kFull, g);
+        if (lane == 0) sh.gor = gor;
+      }
+      // The union of the real boxes: it holds every widened box (the
+      // margin grows with the extent and the magnitude, and every rounding
+      // is monotone), so a ray whose slab test misses it misses them all;
+      // the pre-test drops no admitted pair.
 #pragma unroll
       for (int a = 0; a < 3; ++a) {
         float l = real ? lo[a] : kBig, h = real ? hi[a] : -kBig;
@@ -630,14 +591,17 @@ cluster_sc_kernel(const int* __restrict__ counts,
 
     // The pair admission rule, first against the union (one slab test per
     // ray; the rays that cross it are listed), then per (listed ray,
-    // member) pair spread over the block, each admitted pair appended to
-    // its member's list (their order is free: the merge is). A member is
-    // walked only when some live ray's own slab test crosses its box, as
-    // in the plain walks: an admitted ray that crosses it says so; for a
+    // cluster) pair spread over the block, each admitted pair appended to
+    // its cluster's list (their order is free: the merge is). On a gated
+    // walk (5 / 6) a ray is tested only where its 32-ray group's bit is
+    // set, as in the plain walks. At the supercluster tier a member is
+    // walked only when some live ray's own slab test crosses its box, as in
+    // the plain walks: an admitted ray that crosses it says so; for a
     // member none of them does, every ray of the block is asked.
     const unsigned rm = sh.real;
     {
       bool open = !dead && rm != 0u;
+      if constexpr (!kSc) open = open && ((sh.gor >> warp) & 1u);
       if constexpr (!kClosest) open = open && sh.occ[tid] == 0;
       float tn;
       if (open && slab_cross(sh.sc_box[0], sh.sc_box[1], sh.sc_box[2],
@@ -647,11 +611,14 @@ cluster_sc_kernel(const int* __restrict__ counts,
         sh.open[atomicAdd(&sh.n_open, 1)] = static_cast<unsigned char>(tid);
     }
     __syncthreads();
-    const int n_pairs = sh.n_open * members;
+    const int n_pairs = sh.n_open * width;
     for (int i = tid; i < n_pairs; i += kSub) {
-      const int oi = i / members, c = i - oi * members;
+      const int oi = i / width, c = i - oi * width;
       if (!((rm >> c) & 1u)) continue;
       const int rid = sh.open[oi];
+      if constexpr (!kSc) {
+        if (!((sh.gm[c] >> (rid >> 5)) & 1u)) continue;
+      }
       const float4 ra = sh.ray[rid][0], rb = sh.ray[rid][1];
       float tn;
       const float4 o4 = make_float4(ra.x, ra.y, ra.z, rb.z);
@@ -661,60 +628,65 @@ cluster_sc_kernel(const int* __restrict__ counts,
           (!kClosest ||
            tn <= bits_t(static_cast<unsigned>(sh.key[rid] >> 32)))) {
         sh.list[c][atomicAdd(&sh.cnt[c], 1)] = static_cast<unsigned char>(rid);
-        if (slab_cross(sh.box[0][c], sh.box[1][c], sh.box[2][c],
-                       sh.box[3][c], sh.box[4][c], sh.box[5][c], o4,
-                       sh.inv[rid], tn))
-          atomicOr(&sh.in_union[0], 1u << c);
+        if constexpr (kSc) {
+          if (slab_cross(sh.box[0][c], sh.box[1][c], sh.box[2][c],
+                         sh.box[3][c], sh.box[4][c], sh.box[5][c], o4,
+                         sh.inv[rid], tn))
+            atomicOr(&sh.in_union[0], 1u << c);
+        }
       }
     }
     __syncthreads();
-    // The walked members: admitted and in the block union, every thread
-    // alike.
-    unsigned um = __ballot_sync(kFull, lane < members && sh.cnt[lane] > 0);
-    const unsigned ask = um & ~sh.in_union[0];
-    if (ask != 0u) {
-      if (!dead) {
-        for (unsigned m = ask; m != 0u; m &= m - 1u) {
-          const int c = __ffs(m) - 1;
-          float tn;
-          if (slab_cross(sh.box[0][c], sh.box[1][c], sh.box[2][c],
-                         sh.box[3][c], sh.box[4][c], sh.box[5][c], org, inv,
-                         tn))
-            atomicOr(&sh.in_union[1], 1u << c);
+    // The walked clusters: admitted (and, 5c / 6c, in the block union),
+    // every thread alike.
+    unsigned um = __ballot_sync(kFull, lane < width && sh.cnt[lane] > 0);
+    if constexpr (kSc) {
+      const unsigned ask = um & ~sh.in_union[0];
+      if (ask != 0u) {
+        if (!dead) {
+          for (unsigned m = ask; m != 0u; m &= m - 1u) {
+            const int c = __ffs(m) - 1;
+            float tn;
+            if (slab_cross(sh.box[0][c], sh.box[1][c], sh.box[2][c],
+                           sh.box[3][c], sh.box[4][c], sh.box[5][c], org,
+                           inv, tn))
+              atomicOr(&sh.in_union[1], 1u << c);
+          }
         }
+        __syncthreads();
       }
-      __syncthreads();
+      um &= sh.in_union[0] | sh.in_union[1];
     }
-    um &= sh.in_union[0] | sh.in_union[1];
     const int nu = __popc(um);
-    const float* slab_src = comp + static_cast<size_t>(s) * members *
-                                       kCompRows * kLanes;
+    // Cluster j of the round: its constants in the table.
+    const float* sc_src = comp + static_cast<size_t>(w) * width *
+                                     kCompRows * kLanes;
+    auto slab_src = [&](int j) {
+      return kSc ? sc_src + static_cast<size_t>(j) * kCompRows * kLanes
+                 : comp + static_cast<size_t>(sh.cid[j]) * kCompRows * kLanes;
+    };
 
-    // Windows of kWin members: window w is tested from ring half w & 1
-    // while window w + 1 loads into the other.
+    // Windows of kWin clusters: window v is tested from ring half v & 1
+    // while window v + 1 loads into the other.
     if (tid == 0) {
       for (int j = 0; j < kWin && j < nu; ++j)
-        bulk_load_slab(sh.slab[j],
-                       slab_src + static_cast<size_t>(nth_bit(um, j)) *
-                                      kCompRows * kLanes,
-                       &sh.bar[j]);
+        bulk_load_slab(sh.slab[j], slab_src(nth_bit(um, j)), &sh.bar[j]);
     }
-    for (int w = 0; w * kWin < nu; ++w) {
-      const int half = (w & 1) * kWin;
+    for (int v = 0; v * kWin < nu; ++v) {
+      const int half = (v & 1) * kWin;
       if (tid == 0) {
-        const int nxt = (w + 1) * kWin, other = kWin - half;
+        const int nxt = (v + 1) * kWin, other = kWin - half;
         for (int j = 0; j < kWin && nxt + j < nu; ++j)
-          bulk_load_slab(sh.slab[other + j],
-                         slab_src + static_cast<size_t>(nth_bit(um, nxt + j)) *
-                                        kCompRows * kLanes,
+          bulk_load_slab(sh.slab[other + j], slab_src(nth_bit(um, nxt + j)),
                          &sh.bar[other + j]);
       }
-      // The window's members: id, first list position, rays, work items.
+      // The window's clusters: index in the round, first list position,
+      // rays, work items.
       int mc[kWin], mbeg[kWin], mn[kWin], mitems[kWin];
       int total = 0;
 #pragma unroll
       for (int j = 0; j < kWin; ++j) {
-        const int i = w * kWin + j;
+        const int i = v * kWin + j;
         mc[j] = i < nu ? nth_bit(um, i) : 0;
         mbeg[j] = mc[j] * kSub;
         mn[j] = i < nu ? sh.cnt[mc[j]] : 0;
@@ -725,10 +697,10 @@ cluster_sc_kernel(const int* __restrict__ counts,
           parity ^= 1u << (half + j);
         }
       }
-      // Work items: (member, quarter of 32 slots, chunk of kChunk rays),
+      // Work items: (cluster, quarter of 32 slots, chunk of kChunk rays),
       // one per warp at a time; lane l tests slot 32 * quarter + l.
       for (int it = warp; it < total; it += kWarps) {
-        // Item it → the window's j-th member (constant indices only, so
+        // Item it → the window's j-th cluster (constant indices only, so
         // the window's arrays stay in registers).
         int j = 0, local = it, beg = mbeg[0], n = mn[0], c = mc[0];
 #pragma unroll
@@ -784,8 +756,11 @@ cluster_sc_kernel(const int* __restrict__ counts,
     } else {
       const int visit = lo_key & 0x1ffffff;
       const int slot = lo_key >> 25;
-      const size_t row = static_cast<size_t>(lst[visit >> 5] & 0xFFFF) *
-                             members + (visit & 31);
+      const size_t row =
+          kSc ? static_cast<size_t>(lst[visit >> 5] & 0xFFFF) * width +
+                    (visit & 31)
+              : static_cast<size_t>(
+                    lst[(visit >> 5) * width + (visit & 31)] & 0xFFFF);
       const float* e = comp + row * kCompRows * kLanes + slot;
       float cst[kTestRows];
 #pragma unroll
@@ -929,70 +904,68 @@ extern "C" int ort_qwalk_any(const int* steps, int n_steps,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int ort_cluster_closest(const int* counts, const int* lists,
-                                   const float* tnear, const float* comp,
-                                   int n_comp, const float* rays,
-                                   int n_blocks, int c_pad, int gate,
-                                   float* out, void* stream) {
-  if (n_blocks > 0) {
-    cluster_closest_kernel<<<n_blocks, kSub, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        counts, lists, tnear, comp, n_comp, rays, c_pad, gate, out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int ort_cluster_any(const int* counts, const int* lists,
-                               const float* tnear, const float* comp,
-                               int n_comp, const float* rays, int n_blocks,
-                               int c_pad, int gate, int* occ, void* stream) {
-  if (n_blocks > 0) {
-    cluster_any_kernel<<<n_blocks, kSub, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        counts, lists, tnear, comp, n_comp, rays, c_pad, gate, occ);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Kernels 5c / 6c: above 48 KB of shared memory the kernel needs its limit
-// raised first; a refusal is returned, and the wrapper raises.
-template <bool kClosest>
-int launch_sc(const int* counts, const int* lists, const float* tnear,
-              const float* comp, int n_comp, const float* member,
-              int n_member_rows, int members, const float* rays,
-              int n_blocks, int c_pad, float* out, int* occ, void* stream) {
-  if (members < 1 || members > kMaxMembers)
+// Kernels 5 / 6 and 5c / 6c. The kernel needs its shared memory limit raised
+// above 48 KB first; a refusal is returned, and the wrapper raises.
+template <bool kClosest, bool kSc>
+int launch_walk(const int* counts, const int* lists, const float* comp,
+                int n_comp, const float* boxes, int n_box_rows, int width,
+                const float* rays, int n_blocks, int c_pad, int gate,
+                float* out, int* occ, void* stream) {
+  if (width < 1 || width > kMaxMembers)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_blocks <= 0) return 0;
   const cudaError_t err = cudaFuncSetAttribute(
-      cluster_sc_kernel<kClosest>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(sizeof(ScShared)));
+      cluster_walk_kernel<kClosest, kSc>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(WalkShared)));
   if (err != cudaSuccess) return static_cast<int>(err);
-  cluster_sc_kernel<kClosest><<<n_blocks, kSub, sizeof(ScShared),
-                                static_cast<cudaStream_t>(stream)>>>(
-      counts, lists, tnear, comp, n_comp, member, n_member_rows, members,
-      rays, c_pad, out, occ);
+  cluster_walk_kernel<kClosest, kSc><<<n_blocks, kSub, sizeof(WalkShared),
+                                       static_cast<cudaStream_t>(stream)>>>(
+      counts, lists, comp, n_comp, boxes, n_box_rows, width, rays, c_pad,
+      gate, out, occ);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernels 5 / 6: aabb is the table's cluster boxes [c_pad / 128][6][128],
+// win the list entries of a round.
+extern "C" int ort_cluster_closest(const int* counts, const int* lists,
+                                   const float* comp, int n_comp,
+                                   const float* aabb, const float* rays,
+                                   int n_blocks, int c_pad, int gate, int win,
+                                   float* out, void* stream) {
+  return launch_walk<true, false>(counts, lists, comp, n_comp, aabb, 0, win,
+                                  rays, n_blocks, c_pad, gate, out, nullptr,
+                                  stream);
+}
+
+extern "C" int ort_cluster_any(const int* counts, const int* lists,
+                               const float* comp, int n_comp,
+                               const float* aabb, const float* rays,
+                               int n_blocks, int c_pad, int gate, int win,
+                               int* occ, void* stream) {
+  return launch_walk<false, false>(counts, lists, comp, n_comp, aabb, 0, win,
+                                   rays, n_blocks, c_pad, gate, nullptr, occ,
+                                   stream);
+}
+
 extern "C" int ort_cluster_sc_closest(const int* counts, const int* lists,
-                                      const float* tnear, const float* comp,
-                                      int n_comp, const float* member,
-                                      int n_member_rows, int members,
-                                      const float* rays, int n_blocks,
-                                      int c_pad, float* out, void* stream) {
-  return launch_sc<true>(counts, lists, tnear, comp, n_comp, member,
-                         n_member_rows, members, rays, n_blocks, c_pad, out,
-                         nullptr, stream);
+                                      const float* comp, int n_comp,
+                                      const float* member, int n_member_rows,
+                                      int members, const float* rays,
+                                      int n_blocks, int c_pad, float* out,
+                                      void* stream) {
+  return launch_walk<true, true>(counts, lists, comp, n_comp, member,
+                                 n_member_rows, members, rays, n_blocks,
+                                 c_pad, 0, out, nullptr, stream);
 }
 
 extern "C" int ort_cluster_sc_any(const int* counts, const int* lists,
-                                  const float* tnear, const float* comp,
-                                  int n_comp, const float* member,
-                                  int n_member_rows, int members,
-                                  const float* rays, int n_blocks, int c_pad,
-                                  int* occ, void* stream) {
-  return launch_sc<false>(counts, lists, tnear, comp, n_comp, member,
-                          n_member_rows, members, rays, n_blocks, c_pad,
-                          nullptr, occ, stream);
+                                  const float* comp, int n_comp,
+                                  const float* member, int n_member_rows,
+                                  int members, const float* rays,
+                                  int n_blocks, int c_pad, int* occ,
+                                  void* stream) {
+  return launch_walk<false, true>(counts, lists, comp, n_comp, member,
+                                  n_member_rows, members, rays, n_blocks,
+                                  c_pad, 0, nullptr, occ, stream);
 }

@@ -78,16 +78,15 @@ _SIGNATURES = {
                      _I, _P, _P, _P),
     # aabb, c_pad, rays, n_blocks, tn, gm, stream
     "ort_cluster_cull_exact": (_P, _I, _P, _I, _P, _P, _P),
-    # counts, lists, tnear, comp, n_comp, rays, n_blocks, c_pad, gate, out,
-    # stream
-    "ort_cluster_closest": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
-    "ort_cluster_any": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
-    # counts, lists, tnear, comp, n_comp, member_aabb, n_member_rows,
-    # members, rays, n_blocks, c_pad, out, stream
-    "ort_cluster_sc_closest": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I,
-                               _P, _P),
-    "ort_cluster_sc_any": (_P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P,
-                           _P),
+    # counts, lists, comp, n_comp, aabb, rays, n_blocks, c_pad, gate, win,
+    # out, stream
+    "ort_cluster_closest": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P),
+    "ort_cluster_any": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P),
+    # counts, lists, comp, n_comp, member_aabb, n_member_rows, members, rays,
+    # n_blocks, c_pad, out, stream
+    "ort_cluster_sc_closest": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P,
+                               _P),
+    "ort_cluster_sc_any": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P),
     # aabb, c_pad, rays, n_blocks, om, stream
     "ort_qwalk_oct_cull": (_P, _I, _P, _I, _P, _P),
     # steps, n_steps, qrays, q_cols, comp, n_comp, out, stream

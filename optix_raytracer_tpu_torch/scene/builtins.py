@@ -1,5 +1,6 @@
 """The Cornell box (flat and instanced), the trefoil-knot scene, the bench's
-prims, PBR and textured scenes and their cameras (counterpart of
+prims, PBR and textured scenes, the fused kernel's mix scenes and their
+cameras (counterpart of
 `scene/builtins.py:18-141, 196-274` and of the scenes `bench.py:153-202,
 205-246, 418-450` builds inline).
 
@@ -294,6 +295,80 @@ def pbr_cornell(device, metallic=0.8, roughness=0.35) -> DeviceScene:
     return make_device_scene(verts, idx, tri_mat,
                              pbr_cornell_materials(metallic, roughness),
                              device, area_light=light)
+
+
+# A rough PBR material of the fused kernel's mix scenes.
+MIX_ROUGH = {"kind": mat.PBR, "base_color": (0.7, 0.7, 0.6), "metallic": 0.6,
+             "roughness": 0.4}
+
+
+def smooth_quad(mats, tri_mat, device):
+    """tests/test_fused_textures.py:115-134's smooth quad (a floor with up
+    normals, a tilted quad with leaning vertex normals) with the given
+    materials → (scene, camera)."""
+    s = 3.0
+    verts = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s],
+                      [-1, 0, -0.5], [1, 0, -0.5],
+                      [1, 1.6, -0.5], [-1, 1.6, -0.5]], np.float32)
+    idx = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7]], np.int32)
+    normals = np.zeros((8, 3), np.float32)
+    normals[:4] = (0, 1, 0)
+    nr = np.array([0.3, 0.2, -0.93], np.float32)
+    normals[4:] = nr / np.linalg.norm(nr)
+    light = ParallelogramLight.make((-1.0, 3.0, -1.0), (2, 0, 0), (0, 0, 2),
+                                    (8.0, 8.0, 8.0), device)
+    scene = make_device_scene(verts, idx, np.asarray(tri_mat, np.int32), mats,
+                              device, area_light=light, normals=normals)
+    return scene, lambda w, h: Camera(eye=(0, 1.5, -4.5), lookat=(0, 0.6, 0),
+                                      up=(0, 1, 0), fov_y=45.0, aspect=w / h)
+
+
+# The fused kernel's instantiations (kernels.pt_fused_name) that no bench
+# scene takes, and fused_mix_scene's scene for each.
+FUSED_MIXES = ("pt_fused_prims", "pt_fused_pbr_prims", "pt_fused_specular_pbr",
+               "pt_fused_specular_pbr_prims", "pt_fused_smooth_pbr",
+               "pt_fused_smooth_specular")
+
+
+def fused_mix_scene(name, device):
+    """A scene for the fused kernel's instantiation `name` (one of
+    FUSED_MIXES) → (scene, camera): the prims scene without glass, or with a
+    rough PBR floor (and glass); the PBR Cornell with a glass wall and a
+    mirror wall; the smooth quad with a PBR or a glass material."""
+    if name == "pt_fused_smooth_pbr":
+        return smooth_quad([MIX_ROUGH], [0, 0, 0, 0], device)
+    if name == "pt_fused_smooth_specular":
+        return smooth_quad([{"kind": mat.DIFFUSE,
+                             "base_color": (0.7, 0.5, 0.4)},
+                            {"kind": mat.GLASS,
+                             "base_color": (0.95, 0.95, 0.95), "ior": 1.5}],
+                           [0, 0, 1, 1], device)
+    if name == "pt_fused_specular_pbr":
+        mats = pbr_cornell_materials()
+        mats[GREEN] = {"kind": mat.GLASS, "base_color": (0.9, 1.0, 0.9),
+                       "ior": 1.45}
+        mats[RED] = {"kind": mat.PBR, "base_color": (0.9, 0.2, 0.2),
+                     "metallic": 1.0, "roughness": 0.0}
+        verts, idx, tri_mat = quads_to_triangles(_CORNELL_QUADS)
+        light = ParallelogramLight.make(
+            CORNELL_LIGHT_CORNER, CORNELL_LIGHT_V1, CORNELL_LIGHT_V2,
+            CORNELL_LIGHT_EMISSION, device)
+        return (make_device_scene(verts, idx, tri_mat, mats, device,
+                                  area_light=light), cornell_camera)
+    if name not in FUSED_MIXES:
+        raise ValueError(f"no mix scene for {name}; one of {FUSED_MIXES}")
+    glass = "specular" in name
+    mats = [dict(m) for m in PRIMS_MATERIALS]
+    if "pbr" in name:
+        mats[0] = MIX_ROUGH
+    if not glass:
+        mats = mats[:3]
+    verts, idx = prims_floor()
+    scene = make_device_scene(
+        verts, idx, np.zeros(2, np.int32), mats, device,
+        area_light=ParallelogramLight.make(*PRIMS_LIGHT, device),
+        prims=prim.make_prims(prims_list(glass), device))
+    return scene, prims_camera
 
 
 # bench.py:219-246 (bench_textured): the maps' sizes (base, normal,

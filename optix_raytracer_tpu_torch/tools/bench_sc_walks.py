@@ -1,28 +1,44 @@
-"""A/B of the supercluster walks (kernels 5c / 6c) on the 4M-triangle knot.
+"""A/B of the cluster walks: kernels 5c / 6c (--tier sc, the default) or
+kernels 5 / 6 (--tier resident).
 
-Builds chip_smoke.py's 4M knot (`knot_scene(1450, 1380)`, 4,002,002
-triangles, the supercluster tier) and its eight phase-f ray sets: tile-ordered
-primaries (interval cull), NEE shadow rays (exact cull) and the six cluster
-queries of one sample-major strip (bounces 0-2, closest and any-hit). Per set
-it culls once and then:
+--tier sc builds chip_smoke.py's 4M knot (`knot_scene(1450, 1380)`,
+4,002,002 triangles, the supercluster tier) and its eight phase-f ray sets:
+tile-ordered primaries (interval cull), NEE shadow rays (exact cull) and the
+six cluster queries of one sample-major strip (bounces 0-2, closest and
+any-hit).
+
+--tier resident builds chip_smoke.py's 25k knot (`knot_scene(200, 63)`,
+25,202 triangles, the resident tier) and its ten phase-b sets: tile-ordered
+primaries (interval cull), NEE shadow rays and the coherence-sorted bounce-1
+wavefront (exact cull; bounce 1 also gated) and the six cluster queries of
+one sample-major strip with the cull and gating the engine asks for; then
+the 500k knot (`trefoil_mesh(1000, 250)`, the streaming tier) and its
+phase-c primaries and shadow rays.
+
+Per set it culls once and then:
 
 - with --counts, prints the pair tests (ray x triangle slot) of the walks at
-  four granularities (block union, 32-ray warp union, each ray's own member
+  four granularities (block union, 32-ray warp union, each ray's own
   crossings, needed) and under the admission rule (chip_smoke.py
-  `sc_pair_counts`, `walk_bound`);
-- times kernel 5c and kernel 6c on all blocks (CUDA events, mean of --reps
-  launches). With --parent DIR it also times the walks of DIR's checkout of
-  the port (loaded as its own package, its kernels built from its own
-  sources) on the same lists, in the order parent, this tree, this tree,
-  parent, and requires both trees' rows and occlusion to be bit-equal.
+  `sc_pair_counts` or `walk_pair_counts`, `walk_bound`), and the list
+  entries per block;
+- times the closest and the any-hit walk on all blocks (CUDA events, mean
+  of --reps launches; --reps 0 times nothing). With --parent DIR it also
+  times the walks of DIR's checkout of the port (loaded as its own package,
+  its kernels built from its own sources) on the same lists, in the order
+  parent, this tree, this tree, parent, and requires both trees' rows and
+  occlusion to be bit-equal. With --windows W1,W2,... (resident) it times
+  this tree's walks at each WALK_WINDOW (list entries a round) too.
 
-With --launches N it then times N sample-major launches of the 4M knot
-(1920x1088, 16 samples per launch, depth 3, after one warm-up) with this
-tree's walks and, with --parent, with the parent's walks patched into the
-same engine (parent, this, this, parent), and requires equal ray counts.
+With --launches N it then times N launches of the tier's knot (1920x1088, 16
+samples per launch, depth 3, after one warm-up): sample-major, and at the
+resident tier also sequential, with this tree's walks and, with --parent,
+with the parent's walks patched into the same engine (parent, this, this,
+parent), and requires equal ray counts.
 
-    python optix_raytracer_tpu_torch/tools/bench_sc_walks.py [--parent DIR]
-        [--counts] [--reps 10] [--launches 1] [--out FILE]
+    python optix_raytracer_tpu_torch/tools/bench_sc_walks.py [--tier sc]
+        [--parent DIR] [--counts] [--reps 10] [--windows 2,4,8]
+        [--launches 1] [--out FILE]
 
 Needs a CUDA device. Prints one JSON line per set and one for the launches,
 then the card's name and power limit; --out also writes them as one JSON
@@ -31,8 +47,10 @@ file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -55,11 +73,82 @@ def load_parent(root):
     return importlib.import_module("ort_parent.accel.clusters")
 
 
+def resident_walks(M):
+    """Module M's kernels 5 / 6 as (closest, any), each called as
+    fn(counts, lists, tnear, comp, aabb, packed, gate); a tree whose walks
+    take no cluster boxes gets none."""
+    def bind(fn):
+        if "aabb" in inspect.signature(fn).parameters:
+            return fn
+        return lambda c, l, t, comp, aabb, p, g: fn(c, l, t, comp, p, g)
+    return bind(M.walk_closest), bind(M.walk_any)
+
+
+def sc_tier(S, C, dev):
+    """The 4M knot and its phase-f sets → (scene, camera, configuration,
+    [(table, the table the cull runs on, member boxes, [(name, rays,
+    exact, gated)])])."""
+    from optix_raytracer_tpu_torch.scene.builtins import (knot_camera,
+                                                         knot_scene)
+    K = S.KNOT_SC
+    scene = knot_scene(K["segments"], K["sides"], device=dev)
+    W, H = K["width"], K["height"]
+    prim, shadow, _ = S.knot_ray_sets(scene, W, H, dev)
+    cam = knot_camera(W, H).params(dev)
+    closest_calls, any_calls = S.main_path_strip_sets(scene, cam, W, H,
+                                                      K["spl"], K["depth"])
+    sets = [("primary", prim, False, False), ("shadow", shadow, True, False)]
+    for bounce, ((rc, ec, _), (ra, ea, _)) in enumerate(
+            zip(closest_calls, any_calls)):
+        sets += [(f"strip_bounce{bounce}", rc, ec, False),
+                 (f"strip_bounce{bounce}_shadow", ra, ea, False)]
+    cull_aabb, member, n_sc = C._sc_tables(scene.clusters)
+    facade = C._sc_facade(scene.clusters, cull_aabb, n_sc)
+    return scene, cam, K, [(scene.clusters, facade, member, sets)]
+
+
+def resident_tier(S, C, dev):
+    """The 25k knot's phase-b sets and the 500k knot's phase-c sets, as
+    sc_tier returns them (no member boxes)."""
+    from optix_raytracer_tpu_torch.accel import native
+    from optix_raytracer_tpu_torch.accel.geometry import (
+        build_triangle_geometry)
+    from optix_raytracer_tpu_torch.scene.builtins import (knot_camera,
+                                                         knot_scene,
+                                                         trefoil_mesh)
+    K = S.KNOT
+    scene = knot_scene(K["segments"], K["sides"], device=dev)
+    W, H = K["width"], K["height"]
+    prim, shadow, bounce1 = S.knot_ray_sets(scene, W, H, dev)
+    sets = [("primary", prim, False, False), ("shadow", shadow, True, False),
+            ("bounce1", bounce1, True, False),
+            ("bounce1_gated", bounce1, True, True)]
+    cam = knot_camera(W, H).params(dev)
+    closest_calls, any_calls = S.main_path_strip_sets(scene, cam, W, H,
+                                                      K["spl"], K["depth"])
+    for bounce, ((rc, ec, gc), (ra, ea, ga)) in enumerate(
+            zip(closest_calls, any_calls)):
+        sets += [(f"strip_bounce{bounce}", rc, ec, ec and gc),
+                 (f"strip_bounce{bounce}_shadow", ra, ea, ga)]
+    verts, idx, normals = trefoil_mesh(S.KNOT_STREAM["segments"],
+                                       S.KNOT_STREAM["sides"])
+    geom = build_triangle_geometry(verts, idx, dev, normals=normals)
+    big = C.build_clusters(geom, order=native.sah_leaf_order(geom))
+    bprim, bshadow, _ = S.knot_ray_sets(
+        dataclasses.replace(scene, clusters=big), W, H, dev)
+    big_sets = [("knot500k_primary", bprim, False, False),
+                ("knot500k_shadow", bshadow, True, False)]
+    return scene, cam, K, [(scene.clusters, scene.clusters, None, sets),
+                           (big, big, None, big_sets)]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--tier", choices=("sc", "resident"), default="sc")
     ap.add_argument("--parent", default=None)
     ap.add_argument("--counts", action="store_true")
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--windows", default="")
     ap.add_argument("--launches", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -70,8 +159,6 @@ def main():
     import chip_smoke as S
     from optix_raytracer_tpu_torch import kernels
     from optix_raytracer_tpu_torch.accel import clusters as C
-    from optix_raytracer_tpu_torch.scene.builtins import (knot_camera,
-                                                         knot_scene)
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -80,85 +167,113 @@ def main():
     P = load_parent(args.parent) if args.parent else None
     if P is not None:
         P.kernels.lib()
-    K = S.KNOT_SC
+    sc = args.tier == "sc"
+    windows = [int(w) for w in args.windows.split(",") if w]
     t0 = time.perf_counter()
-    scene = knot_scene(K["segments"], K["sides"], device=dev)
+    scene, cam, K, tables = (sc_tier if sc else resident_tier)(S, C, dev)
     torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    cl = scene.clusters
-    W, H, spl, depth = K["width"], K["height"], K["spl"], K["depth"]
-    prim, shadow, _ = S.knot_ray_sets(scene, W, H, dev)
-    cam = knot_camera(W, H).params(dev)
-    closest_calls, any_calls = S.main_path_strip_sets(scene, cam, W, H, spl,
-                                                      depth)
-    sets = [("primary", prim, False), ("shadow", shadow, True)]
-    for bounce, ((rc, ec, _), (ra, ea, _)) in enumerate(
-            zip(closest_calls, any_calls)):
-        sets += [(f"strip_bounce{bounce}", rc, ec),
-                 (f"strip_bounce{bounce}_shadow", ra, ea)]
-    cull_aabb, member, n_sc = C._sc_tables(cl)
-    facade = C._sc_facade(cl, cull_aabb, n_sc)
-    results = dict(card=card, build_s=build_s, sets={})
-    for name, rays, exact in sets:
-        packed = C._pack_rays(rays, C._padded(rays.tmin.shape[0]))
-        n_blocks = packed.shape[0] // C.SUB
-        culled = C._cull(facade, packed, packed.shape[0] // C.SUPER,
-                         facade.c_pad, exact=exact)
-        counts, lists, tnear = (t.reshape(n_blocks, -1) for t in culled)
-        full = (counts, lists, tnear, cl.comp, member, packed)
-        row = dict(rays=int(rays.tmin.shape[0]), exact=exact)
-        walks = dict(closest=C.walk_sc_closest, any=C.walk_sc_any)
-        out = {w: fn(*full) for w, fn in walks.items()}
-        if P is not None:
-            for w, fn in dict(closest=P.walk_sc_closest,
-                              any=P.walk_sc_any).items():
-                ref = fn(*full)
-                if not torch.equal(out[w].view(torch.int32),
-                                   ref.view(torch.int32)):
-                    raise SystemExit(f"{name}: {w} walk differs from the "
-                                     f"parent's")
-                p1 = S.cuda_ms(lambda: fn(*full), args.reps)
-                c1 = S.cuda_ms(lambda: walks[w](*full), args.reps)
-                c2 = S.cuda_ms(lambda: walks[w](*full), args.reps)
-                p2 = S.cuda_ms(lambda: fn(*full), args.reps)
-                row[f"{w}_ms"] = [c1, c2]
-                row[f"{w}_parent_ms"] = [p1, p2]
-        else:
+    results = dict(card=card, tier=args.tier,
+                   build_s=time.perf_counter() - t0, sets={})
+    for cl, cull_cl, member, sets in tables:
+        for name, rays, exact, gate in sets:
+            packed = C._pack_rays(rays, C._padded(rays.tmin.shape[0]))
+            n_blocks = packed.shape[0] // C.SUB
+            culled = C._cull(cull_cl, packed, packed.shape[0] // C.SUPER,
+                             cull_cl.c_pad, exact=exact)
+            counts, lists, tnear = (t.reshape(n_blocks, -1) for t in culled)
+            if sc:
+                full = (counts, lists, tnear, cl.comp, member, packed)
+                walks = dict(closest=C.walk_sc_closest, any=C.walk_sc_any)
+                pwalks = (None if P is None else
+                          dict(closest=P.walk_sc_closest, any=P.walk_sc_any))
+            else:
+                full = (counts, lists, tnear, cl.comp, cl.aabb, packed, gate)
+                walks = dict(zip(("closest", "any"), resident_walks(C)))
+                pwalks = (None if P is None else
+                          dict(zip(("closest", "any"), resident_walks(P))))
+            row = dict(rays=int(rays.tmin.shape[0]), exact=exact, gated=gate,
+                       entries_per_block=int(counts.sum()) / n_blocks)
+            out = {w: fn(*full) for w, fn in walks.items()}
             for w, fn in walks.items():
-                row[f"{w}_ms"] = [S.cuda_ms(lambda: fn(*full), args.reps)]
-        if args.counts:
-            closest = not name.endswith("shadow")
-            res = out["closest" if closest else "any"]
-            row["counted_walk"] = "closest" if closest else "any"
-            row.update({f"pairs_{k}": v for k, v in S.sc_pair_counts(
-                counts, lists, member, packed, res, closest).items()})
-            row["pairs_needed"] = S.walk_bound(
-                counts, lists, member, cl.num_clusters, packed, res, closest,
-                sc=member.shape[2])["pairs"]
-            row["entries"] = int(counts.sum())
-        results["sets"][name] = row
-        print(json.dumps({"set": name, **row}), flush=True)
-    del closest_calls, any_calls, sets, prim, shadow
+                if pwalks is not None:
+                    pfn = pwalks[w]
+                    ref = pfn(*full)
+                    if not torch.equal(out[w].view(torch.int32),
+                                       ref.view(torch.int32)):
+                        raise SystemExit(f"{name}: {w} walk differs from the "
+                                         f"parent's")
+                    if args.reps:
+                        p1 = S.cuda_ms(lambda: pfn(*full), args.reps)
+                        c1 = S.cuda_ms(lambda: fn(*full), args.reps)
+                        c2 = S.cuda_ms(lambda: fn(*full), args.reps)
+                        p2 = S.cuda_ms(lambda: pfn(*full), args.reps)
+                        row[f"{w}_ms"] = [c1, c2]
+                        row[f"{w}_parent_ms"] = [p1, p2]
+                elif args.reps:
+                    row[f"{w}_ms"] = [S.cuda_ms(lambda: fn(*full), args.reps)]
+                if args.reps and windows and not sc:
+                    keep = C.WALK_WINDOW
+                    try:
+                        for win in windows:
+                            C.WALK_WINDOW = win
+                            if not torch.equal(fn(*full).view(torch.int32),
+                                               out[w].view(torch.int32)):
+                                raise SystemExit(f"{name}: {w} walk at "
+                                                 f"window {win} differs")
+                            row[f"{w}_ms_window{win}"] = S.cuda_ms(
+                                lambda: fn(*full), args.reps)
+                    finally:
+                        C.WALK_WINDOW = keep
+            if args.counts:
+                for w, closest in (("closest", True), ("any", False)):
+                    if sc:
+                        if closest == name.endswith("shadow"):
+                            continue      # phase f counts the set's own walk
+                        pairs = S.sc_pair_counts(counts, lists, member,
+                                                 packed, out[w], closest)
+                        boxes, width = member, member.shape[2]
+                    else:
+                        pairs = S.walk_pair_counts(counts, lists, cl.aabb,
+                                                   packed, out[w], closest,
+                                                   gate)
+                        boxes, width = C._aabb_rows(cl)[:, :, None], 0
+                    row.update({f"{w}_pairs_{k}": v
+                                for k, v in pairs.items()})
+                    row[f"{w}_pairs_needed"] = S.walk_bound(
+                        counts, lists, boxes, cl.num_clusters, packed,
+                        out[w], closest, sc=width)["pairs"]
+            results["sets"][name] = row
+            print(json.dumps({"set": name, **row}), flush=True)
+    del tables
     if args.launches:
-        own = (C.walk_sc_closest, C.walk_sc_any)
+        launch = dict()
+        names = (("walk_sc_closest", "walk_sc_any") if sc
+                 else ("walk_closest", "walk_any"))
+        own = tuple(getattr(C, n) for n in names)
         trees = [("this", own)]
         if P is not None:
-            trees = [("parent", (P.walk_sc_closest, P.walk_sc_any)),
-                     ("this", own), ("this", own),
-                     ("parent", (P.walk_sc_closest, P.walk_sc_any))]
-        launch = dict()
+            theirs = (tuple(getattr(P, n) for n in names) if sc
+                      else resident_walks(P))
+            trees = [("parent", theirs), ("this", own), ("this", own),
+                     ("parent", theirs)]
+        impls = ("auto",) if sc else ("auto", "wavefront")
+        W, H, spl, depth = K["width"], K["height"], K["spl"], K["depth"]
         try:
-            for tree, (wc, wa) in trees:
-                C.walk_sc_closest, C.walk_sc_any = wc, wa
-                (_, _, dt, _, _, first_rays, _, _) = S.timed_launches(
-                    scene, cam, W, H, spl, depth, "auto", args.launches,
-                    dev)
-                launch.setdefault(f"{tree}_ms_per_launch", []).append(
-                    1e3 * dt / args.launches)
-                launch.setdefault(f"{tree}_first_launch_rays", []).append(
-                    first_rays)
+            for impl in impls:
+                for tree, fns in trees:
+                    for n, fn in zip(names, fns):
+                        setattr(C, n, fn)
+                    (_, _, dt, _, _, first_rays, _, _) = S.timed_launches(
+                        scene, cam, W, H, spl, depth, impl, args.launches,
+                        dev)
+                    key = f"{impl}_{tree}"
+                    launch.setdefault(f"{key}_ms_per_launch", []).append(
+                        1e3 * dt / args.launches)
+                    launch.setdefault(f"{key}_first_launch_rays", []).append(
+                        first_rays)
         finally:
-            C.walk_sc_closest, C.walk_sc_any = own
+            for n, fn in zip(names, own):
+                setattr(C, n, fn)
         rays_seen = {r for k, v in launch.items() if k.endswith("_rays")
                      for r in v}
         if len(rays_seen) != 1:

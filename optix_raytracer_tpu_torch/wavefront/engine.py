@@ -441,10 +441,11 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
 def render_sample(scene: DeviceScene, cam_params, width: int, height: int,
                   subframe, max_depth: int = 4,
                   chunk_size: Optional[int] = 65536,
-                  y0=0, full_width=None, full_height=None):
+                  y0=0, full_width=None, full_height=None, group_walk=None):
     """One progressive sample of a [height, width] row tile → (radiance
     [H, W, 3], rays_traced). The RNG is seeded from the global pixel index
-    and `subframe` (an int or an integer tensor on the device)."""
+    and `subframe` (an int or an integer tensor on the device). group_walk:
+    trace_paths'."""
     dev = scene.device
     n = width * height
     full_w = width if full_width is None else full_width
@@ -460,19 +461,21 @@ def render_sample(scene: DeviceScene, cam_params, width: int, height: int,
     full_h = height if full_height is None else full_height
     radiance, _, rays_traced = trace_paths(
         scene, rays.reshape(n), rng.reshape(n), max_depth=max_depth,
-        chunk_size=chunk_size, spread=pixel_spread(cam_params, full_h))
+        chunk_size=chunk_size, group_walk=group_walk,
+        spread=pixel_spread(cam_params, full_h))
     return radiance.reshape(height, width, 3), rays_traced
 
 
 def render_sample_group(scene: DeviceScene, cam_params, width: int,
                         height: int, subframe, spl: int, max_depth: int = 4,
                         chunk_size: Optional[int] = 65536, y0=0,
-                        full_width=None, full_height=None):
+                        full_width=None, full_height=None, group_walk=None):
     """`spl` progressive samples of a [height, width] tile traced as one
     sample-major wavefront (engine.py:706-754) → (radiance SUM [H, W, 3],
     rays_traced). Lane p*spl + s is sample s of pixel p, seeded
     seed(pixel_idx, subframe + s): the streams of the sequential loop.
-    Rows past `full_height` (strip padding) are dead on arrival."""
+    Rows past `full_height` (strip padding) are dead on arrival.
+    group_walk: trace_paths'."""
     dev = scene.device
     n = width * height
     full_w = width if full_width is None else full_width
@@ -498,7 +501,7 @@ def render_sample_group(scene: DeviceScene, cam_params, width: int,
     radiance, _, rays_traced = trace_paths(
         scene, rays, to_flat(rng), max_depth=max_depth,
         chunk_size=chunk_size, sample_major=True, active0=in_frame,
-        spread=pixel_spread(cam_params, full_h))
+        group_walk=group_walk, spread=pixel_spread(cam_params, full_h))
     return radiance.reshape(height, width, spl, 3).sum(dim=2), rays_traced
 
 
@@ -563,7 +566,7 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
                       max_depth: int = 4,
                       chunk_size: Optional[int] = 65536,
                       y0=0, full_width=None, full_height=None,
-                      impl: str = "auto"):
+                      impl: str = "auto", group_walk=None):
     """Add `samples_per_launch` samples to the film → (film, rays_traced).
 
     impl: "fused" runs the fused path-trace kernel (kernel 3 and its
@@ -576,7 +579,9 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
     kernel where `_use_fused` allows it, else "spl" on a cluster scene with
     at least 8 samples per launch, else "wavefront". All consume identical
     RNG streams. On a cluster scene the walk's group gating is on for
-    "spl" and off for "wavefront" (trace_paths).
+    "spl" and off for "wavefront" (trace_paths); group_walk=True or False
+    sets it on both (engine.py:846-852). Gating changes only the work,
+    never a hit.
     """
     if _use_fused(scene, impl):
         from . import pallas_pt
@@ -590,12 +595,14 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
         rad_sum, count = render_sum_sample_major(
             scene, cam_params, width, height, film.subframe,
             samples_per_launch, max_depth=max_depth, chunk_size=chunk_size,
-            y0=y0, full_width=full_width, full_height=full_height)
+            y0=y0, full_width=full_width, full_height=full_height,
+            group_walk=group_walk)
     else:
         rad_sum, count = render_sum_wavefront(
             scene, cam_params, width, height, film.subframe,
             samples_per_launch, max_depth=max_depth, chunk_size=chunk_size,
-            y0=y0, full_width=full_width, full_height=full_height)
+            y0=y0, full_width=full_width, full_height=full_height,
+            group_walk=group_walk)
     return _merge_launch(film, rad_sum, samples_per_launch), count
 
 
@@ -603,10 +610,11 @@ def render_sum_sample_major(scene: DeviceScene, cam_params, width: int,
                             height: int, subframe, samples_per_launch: int,
                             max_depth: int = 4,
                             chunk_size: Optional[int] = 65536, y0=0,
-                            full_width=None, full_height=None):
+                            full_width=None, full_height=None,
+                            group_walk=None):
     """`samples_per_launch` samples as sample-major strips of `rows` rows,
     each about _SPL_TILE_RAYS rays (engine.py:872-904) → (radiance SUM
-    [H, W, 3], rays_traced)."""
+    [H, W, 3], rays_traced). group_walk: trace_paths'."""
     rows = min(height, max(1, _SPL_TILE_RAYS
                            // max(width * samples_per_launch, 1)))
     n_strips = -(-height // rows)
@@ -618,7 +626,8 @@ def render_sum_sample_major(scene: DeviceScene, cam_params, width: int,
             scene, cam_params, width, rows, subframe, samples_per_launch,
             max_depth=max_depth, chunk_size=chunk_size, y0=y0 + i * rows,
             full_width=full_width if full_width is not None else width,
-            full_height=full_height if full_height is not None else height)
+            full_height=full_height if full_height is not None else height,
+            group_walk=group_walk)
         rad_sum[i * rows:(i + 1) * rows] = r
         count = count + c
     return rad_sum[:height], count
@@ -628,9 +637,10 @@ def render_sum_wavefront(scene: DeviceScene, cam_params, width: int,
                          height: int, subframe, samples_per_launch: int,
                          max_depth: int = 4,
                          chunk_size: Optional[int] = 65536,
-                         y0=0, full_width=None, full_height=None):
+                         y0=0, full_width=None, full_height=None,
+                         group_walk=None):
     """`samples_per_launch` sequential `render_sample`s from `subframe` →
-    (radiance SUM [H, W, 3], rays_traced)."""
+    (radiance SUM [H, W, 3], rays_traced). group_walk: trace_paths'."""
     rad_sum = torch.zeros((height, width, 3), dtype=torch.float32,
                           device=scene.device)
     count = torch.zeros((), dtype=torch.int64, device=scene.device)
@@ -638,7 +648,8 @@ def render_sum_wavefront(scene: DeviceScene, cam_params, width: int,
         radiance, rays_traced = render_sample(
             scene, cam_params, width, height, subframe + i,
             max_depth=max_depth, chunk_size=chunk_size, y0=y0,
-            full_width=full_width, full_height=full_height)
+            full_width=full_width, full_height=full_height,
+            group_walk=group_walk)
         rad_sum = rad_sum + radiance
         count = count + rays_traced
     return rad_sum, count

@@ -383,4 +383,4 @@ def test_wrappers_need_cuda_or_cpu(knot):
     for fn in (tcl.walk_closest, tcl.walk_any):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(counts, lists, lists.float(), ts.clusters.comp.to(meta),
-               packed, False)
+               ts.clusters.aabb.to(meta), packed, False)

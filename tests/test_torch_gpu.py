@@ -138,19 +138,56 @@ def _assert_hits_equal(out, ref):
                                    getattr(ref, k).cpu().numpy(), **tol)
 
 
-@pytest.mark.parametrize("exact,gate,segments,sides",
-                         [(False, False, 20, 14), (True, False, 20, 14),
-                          (True, True, 20, 14), (True, True, 512, 125)])
-def test_cluster_kernels_match_plain(cuda, exact, gate, segments, sides):
-    """Kernels 4-6 against their plain versions on the same inputs; the
-    128,002-triangle knot has 1,001 clusters, the resident tier's c_pad of
-    1024 (four clusters per cull thread)."""
-    cl = knot_scene(segments, sides, device=cuda).clusters
-    rays = _knot_rays(20000, 5, cuda)
+@pytest.mark.parametrize("exact,gate,segments,sides,case,max_clusters", [
+    pytest.param(False, False, 20, 14, "random", 1024, id="False-False-20-14"),
+    pytest.param(True, False, 20, 14, "random", 1024, id="True-False-20-14"),
+    pytest.param(True, True, 20, 14, "random", 1024, id="True-True-20-14"),
+    pytest.param(True, True, 512, 125, "random", 1024,
+                 id="True-True-512-125"),
+    pytest.param(False, False, 90, 50, "grazing", 1024,
+                 id="grazing-False-False-90-50"),
+    pytest.param(True, True, 90, 50, "grazing", 1024,
+                 id="grazing-True-True-90-50"),
+    pytest.param(True, True, 90, 50, "lone", 1024, id="lone-True-True-90-50"),
+    pytest.param(True, False, 90, 50, "lone", 1024,
+                 id="lone-True-False-90-50"),
+    pytest.param(False, False, 0, 0, "ties", 1024, id="ties-False-False"),
+    pytest.param(True, True, 0, 0, "ties", 1024, id="ties-True-True"),
+    pytest.param(True, True, 20, 14, "random", 2, id="stream-20-14"),
+    pytest.param(False, False, 90, 50, "grazing", 2, id="stream-grazing")])
+def test_cluster_kernels_match_plain(cuda, monkeypatch, exact, gate,
+                                     segments, sides, case, max_clusters):
+    """Kernels 4-6 against their plain versions on the same inputs: the
+    cull tables, the walks' rows and occlusion bit-equal. The 128,002-
+    triangle knot has 1,001 clusters, the resident tier's c_pad of 1024
+    (four clusters per cull thread). "grazing": torch_parity.sc_grazing_rays
+    on the 71 cluster boxes of the 9,002-triangle knot; "lone":
+    torch_parity.lone_gated_rays, a grazing ray alone in its gated group
+    whose accepted hit lies in a cluster only another group's ray crosses;
+    "ties": torch_parity.sc_tie_case's exact ties at t = 1 across clusters
+    and slots. MAX_CLUSTERS = 2 takes the streaming tier's cull (interval,
+    no gate bits)."""
+    monkeypatch.setattr(C, "MAX_CLUSTERS", max_clusters)
+    if case == "ties":
+        geom, tri_mat, order, rays8, _ = torch_parity.sc_tie_case(cuda)
+        cl = C.build_clusters(geom, tri_mat, order=order)
+    else:
+        scene = knot_scene(segments, sides, device=cuda)
+        cl = scene.clusters
+        if case == "grazing":
+            rays8 = torch_parity.sc_grazing_rays(
+                scene.geom, cl, C._entry_boxes(cl.aabb), seed=3)
+        elif case == "lone":
+            rays8 = torch_parity.lone_gated_rays(scene.geom, cl)
+    if case == "random":
+        rays = _knot_rays(20000, 5, cuda)
+    else:
+        rays = Rays(*(torch.as_tensor(rays8[:, i], device=cuda)
+                      for i in (slice(0, 3), slice(3, 6), 6, 7)))
     n = rays.tmin.shape[0]
     packed = C._pack_rays(rays, C._padded(n))
     nb, c_pad = packed.shape[0] // C.SUB, cl.c_pad
-    if exact:
+    if exact and c_pad <= C.MAX_CLUSTERS:
         before = kernels.LAUNCHES["cluster_cull_exact"]
         tn, gm = C.exact_cull(cl.aabb, packed, nb, c_pad)
         assert kernels.LAUNCHES["cluster_cull_exact"] == before + 1
@@ -159,14 +196,39 @@ def test_cluster_kernels_match_plain(cuda, exact, gate, segments, sides):
         assert torch.equal(gm, gm_p)
     counts, lists, tnear = C._cull(cl, packed, nb // C.GROUPS, c_pad,
                                    exact=exact)
-    args = (counts, lists, tnear, cl.comp, packed, gate)
+    args = (counts, lists, tnear, cl.comp, cl.aabb, packed, gate)
+    before = dict(kernels.LAUNCHES)
     rows, rows_p = C.walk_closest(*args), C.walk_closest_plain(*args)
-    live = torch.repeat_interleave(counts.reshape(-1) > 0, C.SUB)[:n]
-    _assert_hits_equal(C._hits_from_rows(rows[:n], live, rays.tmax),
-                       C._hits_from_rows(rows_p[:n], live, rays.tmax))
     occ, occ_p = C.walk_any(*args), C.walk_any_plain(*args)
     torch.cuda.synchronize()
-    assert torch.equal(occ, occ_p) and 0 < int(occ.sum()) < n
+    for name in ("cluster_closest", "cluster_any"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    assert torch.equal(rows.view(torch.int32), rows_p.view(torch.int32))
+    assert torch.equal(occ, occ_p)
+    assert int(occ.sum()) > 0
+    if case == "random":
+        live = torch.repeat_interleave(counts.reshape(-1) > 0, C.SUB)[:n]
+        _assert_hits_equal(C._hits_from_rows(rows[:n], live, rays.tmax),
+                           C._hits_from_rows(rows_p[:n], live, rays.tmax))
+        assert int(occ.sum()) < n
+
+
+@pytest.mark.parametrize("window", [1, 3, 8, 16, 32])
+def test_cluster_walk_windows(cuda, monkeypatch, window):
+    """Kernels 5 / 6 give the plain walks' rows and occlusion bit for bit
+    at any round width (WALK_WINDOW, list entries a round) from 1 to 32."""
+    monkeypatch.setattr(C, "WALK_WINDOW", window)
+    cl = knot_scene(90, 50, device=cuda).clusters
+    rays = _knot_rays(20000, 8, cuda)
+    packed = C._pack_rays(rays, C._padded(rays.tmin.shape[0]))
+    nb = packed.shape[0] // C.SUB
+    for exact, gate in ((False, False), (True, True)):
+        counts, lists, tnear = C._cull(cl, packed, nb // C.GROUPS, cl.c_pad,
+                                       exact=exact)
+        args = (counts, lists, tnear, cl.comp, cl.aabb, packed, gate)
+        assert torch.equal(C.walk_closest(*args).view(torch.int32),
+                           C.walk_closest_plain(*args).view(torch.int32))
+        assert torch.equal(C.walk_any(*args), C.walk_any_plain(*args))
 
 
 @pytest.mark.parametrize("max_clusters", [1024, 2])
@@ -210,6 +272,10 @@ def _sc_tier(monkeypatch, members, segments, sides, device):
     pytest.param(True, 2, 20, 14, "grazing", id="grazing-True-2-20-14"),
     pytest.param(False, 32, 90, 50, "lone", id="lone-False-32-90-50"),
     pytest.param(True, 32, 90, 50, "lone", id="lone-True-32-90-50"),
+    pytest.param(True, 32, 90, 50, "lone_pair",
+                 id="lone-pair-True-32-90-50"),
+    pytest.param(False, 32, 90, 50, "lone_pair",
+                 id="lone-pair-False-32-90-50"),
     pytest.param(False, 2, 0, 0, "ties", id="ties-False-2"),
     pytest.param(True, 2, 0, 0, "ties", id="ties-True-2")])
 def test_sc_kernels_match_plain(cuda, monkeypatch, exact, members, segments,
@@ -220,7 +286,11 @@ def test_sc_kernels_match_plain(cuda, monkeypatch, exact, members, segments,
     the knot; "grazing": torch_parity.sc_grazing_rays (faces, edges, the
     vertices that set a face, +-0 directions, windows ending on a face);
     "lone": torch_parity.sc_lone_grazing_rays, one live ray a block whose
-    accepted hit lies outside the block union; "ties":
+    accepted hit lies outside the block union; "lone_pair":
+    torch_parity.lone_gated_rays, a grazing ray whose accepted hit lies in
+    a member only another ray of its block crosses, so the member is in
+    the block union but the grazing ray is not among the rays the cull's
+    entry bound covers; "ties":
     torch_parity.sc_tie_case's exact ties at t = 1, whose winners (earlier
     visit at an equal slot, then the lower slot) are checked."""
     expect = None
@@ -240,6 +310,8 @@ def test_sc_kernels_match_plain(cuda, monkeypatch, exact, members, segments,
         elif case == "lone":
             rays8 = torch_parity.sc_lone_grazing_rays(
                 scene.geom, cl, C._sc_tables(cl)[1])
+        elif case == "lone_pair":
+            rays8 = torch_parity.lone_gated_rays(scene.geom, cl)
     if case == "random":
         rays = _knot_rays(20000, 5, cuda)
     else:
@@ -260,7 +332,7 @@ def test_sc_kernels_match_plain(cuda, monkeypatch, exact, members, segments,
     assert torch.equal(occ, occ_p)
     live = torch.repeat_interleave(counts.reshape(-1) > 0, C.SUB)[:n]
     hits = C._hits_from_rows(rows[:n], live, rays.tmax)
-    if case == "lone":
+    if case.startswith("lone"):
         return
     assert 0 < int(occ.sum())
     if expect is None:
@@ -361,46 +433,19 @@ def test_knot_launch_on_card(cuda):
         np.testing.assert_allclose(img, ref_img, atol=2e-3, rtol=1e-3)
 
 
-def _smooth_quad(mats, tri_mat, device):
-    """tests/test_fused_textures.py:115-134's smooth quad (a floor with up
-    normals, a tilted quad with leaning vertex normals) with the given
-    materials, and its camera."""
-    from optix_raytracer_tpu_torch.core.camera import Camera
-    from optix_raytracer_tpu_torch.scene.device_scene import make_device_scene
-    from optix_raytracer_tpu_torch.shade.lights import ParallelogramLight
-    s = 3.0
-    verts = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s],
-                      [-1, 0, -0.5], [1, 0, -0.5],
-                      [1, 1.6, -0.5], [-1, 1.6, -0.5]], np.float32)
-    idx = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7]], np.int32)
-    normals = np.zeros((8, 3), np.float32)
-    normals[:4] = (0, 1, 0)
-    nr = np.array([0.3, 0.2, -0.93], np.float32)
-    normals[4:] = nr / np.linalg.norm(nr)
-    light = ParallelogramLight.make((-1.0, 3.0, -1.0), (2, 0, 0), (0, 0, 2),
-                                    (8.0, 8.0, 8.0), device)
-    scene = make_device_scene(verts, idx, np.asarray(tri_mat, np.int32), mats,
-                              device, area_light=light, normals=normals)
-    return scene, lambda w, h: Camera(eye=(0, 1.5, -4.5), lookat=(0, 0.6, 0),
-                                      up=(0, 1, 0), fov_y=45.0, aspect=w / h)
-
-
 def _variant_scene(name, device):
     """A scene per instantiation <geometry, specular, pbr, prims> of the
     fused kernel (kernels.pt_fused_name) and its camera: the bench's prims
-    scene with and without glass, the PBR and mirror Cornell boxes, mixes,
-    the instanced Cornell, the instanced cube with prims, the small smooth
-    knot and the smooth quad with PBR or glass."""
+    and PBR scenes, the mirror Cornell, the instanced Cornell, the
+    instanced cube with prims, the small smooth knot, and
+    builtins.fused_mix_scene's mixes."""
     import dataclasses
     from optix_raytracer_tpu_torch.accel import primitives as prim
     from optix_raytracer_tpu_torch.core.camera import Camera
     from optix_raytracer_tpu_torch.scene import builtins as B
-    from optix_raytracer_tpu_torch.scene.device_scene import make_device_scene
-    from optix_raytracer_tpu_torch.shade import materials as M
-    from optix_raytracer_tpu_torch.shade.lights import ParallelogramLight
     from torch_parity import instanced_cube
-    rough = {"kind": M.PBR, "base_color": (0.7, 0.7, 0.6), "metallic": 0.6,
-             "roughness": 0.4}
+    if name in B.FUSED_MIXES:
+        return B.fused_mix_scene(name, device)
     if name == "pt_fused_inst":
         return B.cornell_box_instanced(device), B.cornell_camera
     if name == "pt_fused_inst_prims":
@@ -412,41 +457,11 @@ def _variant_scene(name, device):
                                           fov_y=45.0, aspect=w / h)
     if name == "pt_fused_smooth":
         return B.knot_scene(8, 6, device=device), B.knot_camera
-    if name == "pt_fused_smooth_pbr":
-        return _smooth_quad([rough], [0, 0, 0, 0], device)
-    if name == "pt_fused_smooth_specular":
-        return _smooth_quad([{"kind": M.DIFFUSE, "base_color": (0.7, 0.5,
-                                                                0.4)},
-                             {"kind": M.GLASS, "base_color": (0.95, 0.95,
-                                                              0.95),
-                              "ior": 1.5}], [0, 0, 1, 1], device)
-    if name in ("pt_fused_prims", "pt_fused_specular_prims",
-                "pt_fused_pbr_prims", "pt_fused_specular_pbr_prims"):
-        glass = "specular" in name
-        mats = [dict(m) for m in B.PRIMS_MATERIALS]
-        if "pbr" in name:
-            mats[0] = rough
-        if not glass:
-            mats = mats[:3]
-        verts, idx = B.prims_floor()
-        scene = make_device_scene(
-            verts, idx, np.zeros(2, np.int32), mats, device,
-            area_light=ParallelogramLight.make(*B.PRIMS_LIGHT, device),
-            prims=prim.make_prims(B.prims_list(glass), device))
-        return scene, B.prims_camera
-    mats = B.pbr_cornell_materials(*((1.0, 0.02) if name == "pt_fused_specular"
-                                     else (0.8, 0.35)))
-    if name == "pt_fused_specular_pbr":
-        mats[B.GREEN] = {"kind": M.GLASS, "base_color": (0.9, 1.0, 0.9),
-                         "ior": 1.45}
-        mats[B.RED] = {"kind": M.PBR, "base_color": (0.9, 0.2, 0.2),
-                       "metallic": 1.0, "roughness": 0.0}
-    verts, idx, tri_mat = B.quads_to_triangles(B._CORNELL_QUADS)
-    light = ParallelogramLight.make(B.CORNELL_LIGHT_CORNER, B.CORNELL_LIGHT_V1,
-                                    B.CORNELL_LIGHT_V2,
-                                    B.CORNELL_LIGHT_EMISSION, device)
-    return (make_device_scene(verts, idx, tri_mat, mats, device,
-                              area_light=light), B.cornell_camera)
+    if name == "pt_fused_specular_prims":
+        return B.prims_scene(device), B.prims_camera
+    if name == "pt_fused_specular":
+        return B.pbr_cornell(device, 1.0, 0.02), B.cornell_camera
+    return B.pbr_cornell(device), B.cornell_camera
 
 
 _VARIANTS = ["pt_fused_prims", "pt_fused_specular_prims", "pt_fused_pbr",

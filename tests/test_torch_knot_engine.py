@@ -214,3 +214,28 @@ def test_own_knot_scene_renders_like_handed_over(scenes):
     assert int(ca) == int(cb)
     np.testing.assert_allclose(a.accum.numpy(), b.accum.numpy(), atol=ATOL,
                                rtol=RTOL)
+
+
+@pytest.mark.parametrize("impl", ["spl", "wavefront"])
+def test_render_accumulate_group_walk(scenes, monkeypatch, impl):
+    """render_accumulate(group_walk=...) reaches the cluster queries
+    (engine.py:846-852's keyword) and changes only the work: True and False
+    give the same image and ray count as the path's default."""
+    _, ts, _, tcam = scenes
+    seen = []
+    query = tcl.closest_hit
+
+    def spy(cl, rays, exact=False, group_walk=False):
+        seen.append(group_walk)
+        return query(cl, rays, exact=exact, group_walk=group_walk)
+    monkeypatch.setattr(tcl, "closest_hit", spy)
+    out = {}
+    for gw in (None, True, False):
+        seen.clear()
+        out[gw] = _launch(ts, tcam, impl, spl=8, depth=2, group_walk=gw)
+        default = impl == "spl"      # trace_paths: gating on sample-major
+        assert set(seen) == {default if gw is None else gw}
+    for gw in (True, False):
+        assert int(out[gw][1]) == int(out[None][1])
+        np.testing.assert_array_equal(out[gw][0].accum.numpy(),
+                                      out[None][0].accum.numpy())

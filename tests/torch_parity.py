@@ -376,3 +376,40 @@ def sc_lone_grazing_rays(geom, cl, member, seeds=range(4)):
     out = np.zeros((len(lone) * 256, 8), np.float32)
     out[::256] = r8[lone.cpu().numpy()]
     return out
+
+
+def lone_gated_rays(geom, cl, seeds=range(4)):
+    """Blocks for the gate term of kernels 5 / 6: each holds a grazing ray
+    (sc_grazing_rays on the cluster boxes) at lane 0, whose accepted Woop
+    hit lies in a cluster X that its own slab test misses, and at lane 32 a
+    ray through the middle of X's box, so that the exact cull lists X with
+    the gate bit of group 1 set and that of group 0 clear; the other rays
+    are dead (all zero). A gated plain walk never tests the grazing ray
+    against X; an ungated one does, although the cull's entry bound for X
+    comes from the other ray alone. At the supercluster tier X's
+    supercluster is listed and X is in the block union. → [n * 256, 8] f32
+    numpy."""
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    boxes = C._entry_boxes(cl.aabb)[:cl.num_clusters]      # [C, 6, 1]
+    r8 = np.concatenate([sc_grazing_rays(geom, cl, boxes, seed=s, boxes=96)
+                         for s in seeds])
+    a = torch.as_tensor(r8, device=boxes.device)[None]
+    accepted = torch.stack([
+        C._pair_ok(cl.comp[c:c + 1], a, None, False)[0].any(dim=2)[0]
+        for c in range(cl.num_clusters)], dim=1)          # [N, C]
+    cross = C._member_cross(a.expand(cl.num_clusters, -1, -1),
+                            boxes)[:, :, 0].T                # [N, C]
+    lone = (accepted & ~cross).cpu().numpy()
+    rows = np.nonzero(lone.any(axis=1))[0]
+    bx = boxes[:, :, 0].cpu().numpy()
+    rng = np.random.default_rng(23)
+    out = np.zeros((len(rows) * 256, 8), np.float32)
+    for i, n in enumerate(rows):
+        x = int(np.argmax(lone[n]))
+        lo, hi = bx[x, 0:3], bx[x, 3:6]
+        d = rng.normal(size=3)
+        d = (d / np.linalg.norm(d)).astype(np.float32)
+        o = (0.5 * (lo + hi) - d * (2.0 * float((hi - lo).max()) + 1.0))
+        out[256 * i] = r8[n]
+        out[256 * i + 32] = np.concatenate([o, d, [1e-3, 1e16]])
+    return out
