@@ -18,9 +18,14 @@ mirror Cornell, the instanced Cornell and a 482-triangle smooth knot, and
 time their headline launches (1920x1088, 16 samples per launch, depth 4;
 depth 3 on the knot); phases k1-k3 do the same for the texture
 instantiations on bench.py's textured scene (its own frame: 1920x1088, 4
-samples per launch, depth 3) and two smaller textured variants, and phase l
-holds kernel 9, the texture-fetch study's row fetch, to its plain version
-and repeats the study's A/B against torch's row gather.
+samples per launch, depth 3) and two smaller textured variants; phases 7w
+and 7c hold all 32 instantiations to the wavefront bit for bit on tables
+tested whole and the 24 outside instances on tables the kernel culls by
+groups, and phase m prints the group size and the culled tests a ray of
+the headlines it culls (through
+optix_raytracer_tpu_torch/tools/bench_fused.py), which give their bound;
+and phase l holds kernel 9, the texture-fetch study's row fetch, to its
+plain version and repeats the study's A/B against torch's row gather.
 
     python3 chip_smoke.py
 
@@ -1401,7 +1406,16 @@ def variant_phases(dev, card, record):
     of each scene (1920x1088, spl 16, depth 4; 3 on the knot): "auto" (must
     be the fused kernel alone: its LAUNCHES key counts, bf_closest does not)
     for 2 timed launches against "wavefront" (kernels 1-2, once per instance
-    per query, + torch prims and shading) for 1, launches counted per path.
+    per query, + torch prims and shading) for 1, launches counted per path;
+    (m) on a headline whose table the kernel culls by groups, the group
+    size and the culled loops' tests a ray, whose needed work gives the
+    bound where it is below brute force's (culled_bound), the brute-force
+    one kept as bound_brute_ms;
+    (7w, 7c) time_mixes on builtins.fused_variant_scene's
+    scenes: all 32 instantiations on tables tested whole, and the 24
+    outside instances on tables the kernel culls (group < triangles),
+    image and ray count bit-equal to the wavefront's, timed (CUDA events,
+    3 calls) beside one plain call.
     Fills the kernels' record and returns the headlines' launch counts."""
     import torch
     from optix_raytracer_tpu_torch import kernels
@@ -1462,6 +1476,10 @@ def variant_phases(dev, card, record):
                 f"{name}: ray counts {int(c_k)} != {int(c_p)}")
         require(np.allclose(out, ref, atol=atol, rtol=RTOL),
                 f"{name}: radiance off by {np.abs(out - ref).max()}")
+        # the kernel computes the wavefront's operations in its order
+        require(np.array_equal(out, ref),
+                f"{name}: radiance not bit-equal to the wavefront's "
+                f"({np.mean(np.all(out == ref, axis=-1)):.6f} of pixels)")
         halves = [to_np(pallas_pt.render_sum_fused(
             scene, cam, w, h // 2, sub, samples_per_launch=2, max_depth=3,
             y0=y0, full_width=w, full_height=h)[0]) for y0 in (0, h // 2)]
@@ -1480,6 +1498,17 @@ def variant_phases(dev, card, record):
               kernel_bound_ms="{bound_ms:.3g}({bound_by})".format(**bound(
                   (int(c_k) // 2) * (fused_ops(scene) + PAIR_OPS),
                   w * h * 16)))
+
+    # --- phases 7w / 7c: every instantiation against the wavefront, bit
+    # for bit, on a table tested whole and (outside instances) on one the
+    # kernel culls ---
+    for tag, culled in (("7w", False), ("7c", True)):
+        for kname, row in time_mixes(dev, 3, culled=culled).items():
+            phase(f"{tag} {kname} {'culled' if culled else 'whole'} vs "
+                  f"plain", triangles=row["triangles"], group=row["group"],
+                  rays=row["rays"], bit_equal=row["bit_equal"],
+                  kernel_ms=f"{row['ms']:.3f}",
+                  plain_ms=f"{row['plain_ms']:.1f}")
 
     # --- phase 8: fused vs wavefront launch, 256², spl 4, depth 4 ---
     w = h = 256
@@ -1537,6 +1566,7 @@ def variant_phases(dev, card, record):
         head_err = float(np.abs(a - b).max())
         phase(f"9 {name} headline", card=repr(card), kernel=kname,
               dim=f"{W}x{H}", spl=spl, depth=depth,
+              group=pallas_pt.fused_group_size(scene),
               fused_ms_per_launch=f"{ms_f:.2f}",
               mrays_per_s=f"{rays_f / dt_f / 1e6:.1f}",
               msamples_per_s=f"{2 * W * H * spl / dt_f / 1e6:.1f}",
@@ -1556,11 +1586,105 @@ def variant_phases(dev, card, record):
         rays_launch = rays_f // 2
         record[kname]["max_abs_err"] = max(record[kname]["max_abs_err"],
                                            head_err)
-        record[kname].update(
-            ms=ms_f, plain_ms=ms_w, plain_blocks="all",
-            **bound((rays_launch // 2) * (fused_ops(scene) + PAIR_OPS),
-                    W * H * 16))
+        brute = bound((rays_launch // 2) * (fused_ops(scene) + PAIR_OPS),
+                      W * H * 16)
+        record[kname].update(ms=ms_f, plain_ms=ms_w, plain_blocks="all",
+                             **brute)
+        if pallas_pt.fused_group_size(scene) < scene.num_triangles:
+            # --- phase m: the bound of the work a culled launch needs ---
+            record[kname].update(
+                **culled_bound(name, scene, cam, W, H, depth, rays_launch,
+                               brute, card),
+                bound_brute_ms=brute["bound_ms"])
+
     return launches
+
+
+def time_mixes(dev, reps, culled=False):
+    """Every instantiation of the kernel (builtins.fused_variant_scene's
+    scene for it, its table tested whole; with culled, its culled scene at
+    the scene's group size, instances left out) at phase 7's size, 64²,
+    spl 2, depth 3, from subframe 5: the kernel (CUDA events,
+    mean of reps calls) and its plain version, the wavefront (one call),
+    whose image and ray count it must equal bit for bit → {instantiation:
+    row}. Fails where they differ, or where a culled scene's table is
+    tested whole."""
+    import torch
+    from optix_raytracer_tpu_torch import kernels as K
+    from optix_raytracer_tpu_torch.scene import builtins as B
+    from optix_raytracer_tpu_torch.wavefront import pallas_pt as P
+    out = {}
+    for name in K.FUSED_INSTANTIATIONS:
+        if culled and name.startswith("pt_fused_inst"):
+            continue
+        scene, camera = B.fused_variant_scene(name, dev, culled)
+        group = (P.fused_group_size(scene) if culled
+                 else scene.num_triangles)
+        require(not culled or group < scene.num_triangles,
+                f"{name}: the culled scene's {scene.num_triangles} "
+                f"triangles are tested whole")
+        cam = camera(64, 64).params(dev)
+        sub = torch.tensor(5, dtype=torch.int64, device=dev)
+
+        def kernel():
+            return P.render_sum_fused(scene, cam, 64, 64, sub,
+                                      samples_per_launch=2, max_depth=3,
+                                      group=group)
+
+        def plain():
+            return P.render_sum_plain(scene, cam, 64, 64, sub,
+                                      samples_per_launch=2, max_depth=3)
+
+        before = K.LAUNCHES[name]
+        (rad, count), (ref, ref_count) = kernel(), plain()
+        require(K.LAUNCHES[name] == before + 1,
+                f"{name}: the scene took another instantiation")
+        require(torch.equal(rad, ref) and int(count) == int(ref_count),
+                f"{name}: the kernel differs from the wavefront")
+        out[name] = dict(triangles=scene.num_triangles, group=group,
+                         rays=int(count), bit_equal=True,
+                         ms=cuda_ms(kernel, reps),
+                         plain_ms=cuda_ms(plain, 1))
+    return out
+
+
+def culled_bound(name, scene, cam, W, H, depth, rays_launch, brute, card):
+    """Phase m, on a headline scene whose table the fused kernel culls by
+    groups: the wavefront's first sample (subframe 0) records its closest
+    and shadow rays, and the culled loops' torch emulation at the scene's
+    group size counts their triangle and slab tests
+    (bench_fused.triangle_test_counts, which also holds their ids and
+    occlusion to brute force's). The needed work of a closest ray is its
+    admitted triangle tests and slab tests (PAIR_OPS, SLAB_OPS) plus its
+    smooth interpolation and prim tests; a shadow ray needs one test
+    (PAIR_OPS), as in brute force's bound. Scaled from the sample's rays to
+    the launch's → bound(), and never above brute force's (`brute`, whose
+    figure it returns where it is the smaller)."""
+    from optix_raytracer_tpu_torch.tools import bench_fused
+    from optix_raytracer_tpu_torch.wavefront import engine, pallas_pt
+    group = pallas_pt.fused_group_size(scene)
+    closest, shadow, sample_rays = bench_fused.record_queries(
+        engine, scene, cam, W, H, depth)
+    counts = bench_fused.triangle_test_counts(pallas_pt, scene, closest,
+                                              shadow, (group,), W, H)
+    c, sh = counts["closest"], counts["shadow"]
+    per_hit = ((SMOOTH_OPS if scene.geom.smooth else 0)
+               + sum(PRIM_OPS[k] for k in scene.prims.kinds_static))
+    ops = (c["rays"] * (PAIR_OPS * c.get(f"ray_g{group}", 0)
+                        + SLAB_OPS * c.get(f"slab_g{group}", 0) + per_hit)
+           + sh["rays"] * PAIR_OPS)
+    b = bound(ops * rays_launch / sample_rays, W * H * 16)
+    require(b["bound_ms"] > 0, f"{name}: no culled work counted")
+    b = min(b, brute, key=lambda x: x["bound_ms"])
+    phase(f"m {name} culled work", card=repr(card), group=group,
+          triangles=scene.num_triangles, sample_rays=sample_rays,
+          launch_rays=rays_launch,
+          **{f"{kind}_{k}": f"{v:.3f}" for kind, r in
+             (("closest", c), ("shadow", sh)) for k, v in r.items()
+             if k != "rays"},
+          bound_ms="{bound_ms:.3f}({bound_by})".format(**b),
+          bound_brute_ms=f"{brute['bound_ms']:.3f}")
+    return b
 
 
 def fused_ops(scene):
@@ -1718,6 +1842,7 @@ def texture_phases(dev, card, record):
                    + head.num_triangles * pallas_pt.TEX_ATTR_COLS * 4)
     phase("k3 textured headline", card=repr(card), kernel=kname,
           dim=f"{W}x{H}", spl=spl, depth=depth,
+          group=pallas_pt.fused_group_size(head),
           fused_ms_per_launch=f"{ms_f:.2f}", fused_kernel_ms=f"{ms_k:.3f}",
           mrays_per_s=f"{rays_f / dt_f / 1e6:.1f}",
           msamples_per_s=f"{2 * W * H * spl / dt_f / 1e6:.1f}",
@@ -1934,6 +2059,7 @@ def main():
             and img.mean() > 0, "headline image not finite / empty")
     ms_f, ms_w = 1e3 * dt_f / 2, 1e3 * dt_w
     phase("6 headline", card=repr(card), dim=f"{W}x{H}", spl=spl, depth=depth,
+          group=pallas_pt.fused_group_size(scene),
           mrays_per_s=f"{rays_f / dt_f / 1e6:.1f}",
           msamples_per_s=f"{2 * W * H * spl / dt_f / 1e6:.1f}",
           rays_per_launch=rays_f // 2, fused_ms_per_launch=f"{ms_f:.2f}",
@@ -1952,11 +2078,19 @@ def main():
     # closest-hit rays (each NEE shadow ray follows a hit), each tested
     # against every triangle; a shadow ray needs one test at the least.
     # Bytes: the radiance and count planes written once.
+    # Where the kernel culls the table by groups, the bound is the needed
+    # work's where that is the smaller (phase m, culled_bound), this one
+    # kept as bound_brute_ms.
     m = scene.num_triangles
     rays_launch = rays_f // 2
-    record["pt_fused_cornell"].update(
-        ms=ms_f, plain_ms=ms_w, plain_blocks="all",
-        **bound(PAIR_OPS * (rays_launch // 2) * (m + 1), W * H * 16))
+    brute = bound(PAIR_OPS * (rays_launch // 2) * (m + 1), W * H * 16)
+    record["pt_fused_cornell"].update(ms=ms_f, plain_ms=ms_w,
+                                      plain_blocks="all", **brute)
+    if pallas_pt.fused_group_size(scene) < m:
+        record["pt_fused_cornell"].update(
+            **culled_bound("cornell", scene, cam, W, H, depth, rays_launch,
+                           brute, card),
+            bound_brute_ms=brute["bound_ms"])
 
     # kernels 1 and 2 vs their plain versions on one 2M-ray wavefront
     cam_rays, shadow = camera_and_shadow_rays(scene, W, H, dev)

@@ -16,7 +16,8 @@ void launch_flat(const FusedArgs& a, bool specular, bool pbr, bool prims) {
 // geometry: 0 flat, 1 instances (inst [n_inst, 16], inst_ranges [n_inst, 2]),
 // 2 smooth normals (corner [m, 9]), 3 textures (corner [m, 20], bundles
 // [n_b, atlas_h, atlas_w, 16], bundle_mip [n_b, n_levels, 4]);
-// kernels.GEOMETRY.
+// kernels.GEOMETRY. boxes [ceil(m / group), 8]: the widened group boxes
+// (pallas_pt.fused_group_boxes), read when group < m outside instances.
 extern "C" int ort_pt_fused(const float* tri, int m, const float* prims,
                             int np, const float* mats, int k,
                             const float* light, const float* cam,
@@ -27,14 +28,15 @@ extern "C" int ort_pt_fused(const float* tri, int m, const float* prims,
                             const int* inst_ranges, int n_inst,
                             const float* corner, const float* bundles,
                             const int* bundle_mip, int n_levels, int atlas_h,
-                            int atlas_w, float* rad, int* count,
-                            void* stream) {
+                            int atlas_w, const float* boxes, int group,
+                            float* rad, int* count, void* stream) {
+  if (group < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (width * height > 0) {
     const ort_fused::FusedArgs a{
         tri, m, prims, np, mats, k, light, cam, subframe, width, height,
         full_w, full_h, y0, spl, max_depth, rad, count, inst, inst_ranges,
         n_inst, corner, bundles, bundle_mip, n_levels, atlas_h, atlas_w,
-        static_cast<cudaStream_t>(stream)};
+        boxes, group, static_cast<cudaStream_t>(stream)};
     const bool sp = specular != 0, pb = pbr != 0, pr = np > 0;
     if (geometry == 1) {
       ort_fused::launch_inst(a, sp, pb, pr);

@@ -27,22 +27,59 @@
 // in int64).
 //
 // What bounds it on the H100: FP32 issue and divergence. A bounce tests
-// every triangle and prim twice (closest, then shadow) at ~20-60 flops each;
+// triangles and prims twice (closest, then shadow) at ~20-60 flops a test;
 // the scene (at most 512 triangles + 128 materials + 16 prims + 32
-// instances, 44 KB) lives in shared memory and every read is a broadcast;
-// HBM sees 16 bytes per pixel out. Paths end at different depths and glass,
-// PBR and diffuse lanes of one warp take different branches, so warps lose
-// lanes.
+// instances + 64 group boxes, 46 KB) lives in shared memory and every read
+// is a broadcast; HBM sees 16 bytes per pixel out. Paths end at different
+// depths and glass, PBR and diffuse lanes of one warp take different
+// branches, so warps lose lanes.
 //
-// Design: one thread per pixel, the path state in registers, a per-thread
-// loop of spl samples x max_depth bounces. A path that misses or loses
-// Russian roulette leaves the bounce loop; that gives the values of both
-// the lock-step and the regeneration schedules of the TPU kernel, whose
-// dead lanes add nothing. The shadow test is skipped when the light faces
-// away or the lane is specular (its weight is zero either way) and stops at
-// the first occluder. A prim's kind is a column of its row (the TPU kernel
-// unrolls a static tuple); every thread reads the same row, so the switch
-// on it never diverges.
+// Design: one thread per pixel, the path state in registers, and one loop
+// in which every lane that still has a path traces exactly one segment: the
+// TPU kernel's path-regeneration schedule (pallas_pt.py:1318-1372,
+// regen_body). A lane whose path ends (miss, Russian roulette, the depth
+// cap) adds the path's radiance to its pixel's sum, takes its next sample
+// and runs raygen for it at the top of the next iteration; a lane whose
+// spl samples are done leaves the loop. A warp so pays the largest per-lane
+// total of segments, not per sample the longest of its 32 paths (the
+// lock-step cost, which the sample x bounce nest paid). Each lane still
+// runs its own samples in order, with the RNG a function of its pixel and
+// subframe + s, so the values (radiance sums, counts) are those of both of
+// the TPU kernel's schedules. Against the lock-step schedule in the same
+// kernel (a lane whose path ends waits for its warp's), regeneration is
+// 5-23% faster on five of the seven headline scenes and 4-9% slower on the
+// mirror Cornell and the culled knots, whose lock-step warps test closer
+// rays (PERF.md); one schedule runs. The shadow test is skipped when
+// the light faces away or the lane is specular (its weight is zero either
+// way) and stops at the first occluder. A prim's kind is a column of its
+// row (the TPU kernel unrolls a static tuple); every thread reads the same
+// row, so the switch on it never diverges.
+//
+// Triangle tests: ort::tri_test + ort::tri_accept, branch-free. Rejecting
+// a pair before its x and y rows and the reciprocal (|dpz| <= kDegenEps,
+// or -opz and dpz of different signs or opz == 0, where t <= 0 < tmin) is
+// exact, but a branch a pair costs more than it saves on the H100: 4-16%
+// on six headline scenes (prims even), 4-19% when the pair is skipped
+// only where the whole warp rejects it (PERF.md). So every pair computes
+// t, u and v.
+//
+// Group culling (kFlat, kSmooth, kTex, where the wrapper's group size G is
+// below the triangle count; pallas_pt.fused_group_size takes 4, 8 or 16
+// from 10 triangles on, by the table's size and mode, as the H100's cutoff
+// table measured them): the table is cut into groups of G consecutive
+// triangles, each with the box of its vertices widened by the walks'
+// admission margin (pallas_pt.fused_group_boxes: extent * 2^-6 + magnitude
+// * 2^-14, the rule of accel/clusters.py sc_widened_boxes). A ray tests a
+// group's triangles only when its slab test (kernel 4's, with the +-1e12
+// pseudo-inverse) crosses the box inside its window: [tmin, best t) for the
+// closest ray, [kRayTmin, shadow tmax) for the shadow ray. Groups go in
+// ascending order and triangles in ascending order within a group, with the
+// strict t < best t, so the lowest index still wins a tie, and a skipped
+// group holds no pair that brute force would accept there. A lane skips a
+// group on its own slab test (no warp vote), so the kernel uses no warp
+// collective and the lanes past the frame may leave at once. A warp shades
+// an 8x4 pixel tile (a block 16x8), not 32 pixels of a row, so its rays
+// start close together and the groups its lanes admit overlap more.
 //
 // Instances (kInst): per instance, the ray moves into object space by the
 // instance's world -> object 3x4 inverse (shared memory, row-major, sbt
@@ -138,11 +175,14 @@ struct FusedArgs {
   const float* bundles;
   const int* bundle_mip;
   int n_levels, atlas_h, atlas_w;
+  const float* boxes;   // [ceil(m / group), kBoxCols] widened group boxes
+  int group;            // triangles a group; >= m: one group, no box test
   cudaStream_t stream;
 };
 
-// Each launches its geometry mode's instantiation <specular, pbr, prims>:
-// pt_fused.cu, pt_fused_inst.cu and pt_fused_smooth.cu define one each.
+// Each launches its geometry mode's instantiation <specular, pbr, prims>
+// (pt_fused.cu, pt_fused_inst.cu, pt_fused_smooth.cu and pt_fused_tex.cu
+// define one each).
 void launch_flat(const FusedArgs& a, bool specular, bool pbr, bool prims);
 void launch_inst(const FusedArgs& a, bool specular, bool pbr, bool prims);
 void launch_smooth(const FusedArgs& a, bool specular, bool pbr, bool prims);
@@ -158,12 +198,20 @@ constexpr int kTexBase = 1, kTexNormal = 2, kTexMr = 4, kTexEmissive = 8;
 constexpr int kTexChainShift = 4;
 
 constexpr int kThreads = 128;
+// Pixel order: a block shades a kBlockW x kBlockH tile of the frame, each
+// of its four warps a kWarpW x kWarpH tile of it.
+constexpr int kBlockW = 16, kBlockH = 8, kWarpW = 8, kWarpH = 4;
+constexpr int kWarpsX = kBlockW / kWarpW;
+static_assert(kWarpW * kWarpH == 32 && kBlockW * kBlockH == kThreads,
+              "a warp is 32 pixels and a block kThreads");
+constexpr int kBoxCols = 8;                 // pallas_pt.BOX_COLS
 constexpr float kRayTmin = 1e-2f;           // engine.RAY_TMIN
 constexpr float kShadowTmaxScale = 0.999f;  // engine.SHADOW_TMAX_SCALE
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvPi = 0.3183098861837907f;   // engine.INV_PI
 constexpr float kBig = 1e30f;               // primitives._BIG: no crossing
+constexpr float kSlabBig = 3.0e38f;         // clusters._BIG: the slab's start
 constexpr float kGlass = 2.0f, kPbrKind = 1.0f;   // shade.materials tags
 
 struct V3 {
@@ -400,6 +448,42 @@ __device__ __forceinline__ float pbr_pdf(V3 n, V3 wo, V3 wi, float rough,
   return p_spec * pdf_ggx + (1.0f - p_spec) * pdf_cos;
 }
 
+// ---- triangle groups and the triangle test ----
+
+// clusters._slab_cross's finite pseudo-inverse: +-1e12 below |d| = 1e-12
+// (-0.0 gets +1e12).
+__device__ __forceinline__ float pseudo_inv(float d) {
+  return fabsf(d) > ort::kDegenEps ? __frcp_rn(d) : (d < 0.f ? -1e12f : 1e12f);
+}
+
+__device__ __forceinline__ V3 pseudo_inv3(V3 d) {
+  return {pseudo_inv(d.x), pseudo_inv(d.y), pseudo_inv(d.z)};
+}
+
+// The slab test of kernel 4 (accel/clusters.py::_slab_cross) against one
+// group box b = (lo xyz, hi xyz, pad) in shared memory: per axis t0, t1 =
+// (box - o) * inv, tn = max(tn, min(t0, t1)), tf = min(tf, max(t0, t1))
+// from (-kSlabBig, kSlabBig); the ray crosses when max(tn, tmin) <=
+// min(tf, tmax) (pallas_pt.fused_group_admitted_plain).
+__device__ __forceinline__ bool box_cross(const float* b, V3 o, V3 iv,
+                                          float tmin, float tmax) {
+  const float4 b0 = *reinterpret_cast<const float4*>(b);
+  const float4 b1 = *reinterpret_cast<const float4*>(b + 4);
+  float t0 = __fmul_rn(__fsub_rn(b0.x, o.x), iv.x);
+  float t1 = __fmul_rn(__fsub_rn(b0.w, o.x), iv.x);
+  float tn = fmaxf(-kSlabBig, fminf(t0, t1));
+  float tf = fminf(kSlabBig, fmaxf(t0, t1));
+  t0 = __fmul_rn(__fsub_rn(b0.y, o.y), iv.y);
+  t1 = __fmul_rn(__fsub_rn(b1.x, o.y), iv.y);
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  t0 = __fmul_rn(__fsub_rn(b0.z, o.z), iv.z);
+  t1 = __fmul_rn(__fsub_rn(b1.y, o.z), iv.z);
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  return fmaxf(tn, tmin) <= fminf(tf, tmax);
+}
+
 // ---- custom prims (accel/primitives.py::_prim_candidates, kinds 0-3) ----
 // A prim row: params[0:12], mat_id (col 12), kind (col 13).
 
@@ -529,17 +613,21 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
                 const float* __restrict__ corner,
                 const float* __restrict__ bundles,
                 const int* __restrict__ bundle_mip, int n_levels, int atlas_h,
-                int atlas_w) {
+                int atlas_w, const float* __restrict__ boxes, int group) {
   // Shared: triangles [m,16] (col 15 = material id), prims [np,16],
-  // materials [k,16], light [16], camera [2,16]; with kInst the instances
-  // [ni,16] and their ranges [ni,2].
-  extern __shared__ float smem[];
-  float* s_tri = smem;
+  // materials [k,16], light [16], camera [2,16], the group boxes
+  // [n_boxes,kBoxCols] (none without culling); with kInst the instances
+  // [ni,16] and their ranges [ni,2]. Every row starts 16-byte aligned.
+  extern __shared__ float4 smem4[];
+  const int n_boxes = kGeom != kInst && group < m ? (m + group - 1) / group
+                                                  : 0;
+  float* s_tri = reinterpret_cast<float*>(smem4);
   float* s_prim = s_tri + 16 * m;
   float* s_mat = s_prim + 16 * np;
   float* s_light = s_mat + 16 * k;
   float* s_cam = s_light + 16;
-  float* s_inst = s_cam + 32;
+  float* s_box = s_cam + 32;
+  float* s_inst = s_box + kBoxCols * n_boxes;
   int* s_rng = reinterpret_cast<int*>(s_inst + 16 * ni);
   for (int i = threadIdx.x; i < 16 * m; i += blockDim.x) s_tri[i] = tri[i];
   if constexpr (kPrims) {
@@ -548,20 +636,30 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
   for (int i = threadIdx.x; i < 16 * k; i += blockDim.x) s_mat[i] = mats[i];
   for (int i = threadIdx.x; i < 16; i += blockDim.x) s_light[i] = light[i];
   for (int i = threadIdx.x; i < 32; i += blockDim.x) s_cam[i] = cam[i];
+  for (int i = threadIdx.x; i < kBoxCols * n_boxes; i += blockDim.x) {
+    s_box[i] = boxes[i];
+  }
   if constexpr (kGeom == kInst) {
     for (int i = threadIdx.x; i < 16 * ni; i += blockDim.x) s_inst[i] = inst[i];
     for (int i = threadIdx.x; i < 2 * ni; i += blockDim.x) s_rng[i] = inst_rng[i];
   }
   __syncthreads();
 
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= width * height) return;
-  const int gx = p % width;
-  const int gy = p / width + y0;
+  const int tiles_x = (width + kBlockW - 1) / kBlockW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gx = (blockIdx.x % tiles_x) * kBlockW + (warp % kWarpsX) * kWarpW +
+                 lane % kWarpW;
+  const int ly = (blockIdx.x / tiles_x) * kBlockH + (warp / kWarpsX) * kWarpH +
+                 lane / kWarpW;
+  if (gx >= width || ly >= height) return;
+  const int p = ly * width + gx;
+  const int gy = ly + y0;
   const uint32_t pixel_index =
       static_cast<uint32_t>(gy) * static_cast<uint32_t>(full_w) +
       static_cast<uint32_t>(gx);
   const uint32_t subframe0 = static_cast<uint32_t>(*subframe_in);
+  // One group of the whole table: no box test.
+  const int gsize = n_boxes > 0 ? group : m;
 
   const V3 eye = {s_cam[0], s_cam[1], s_cam[2]};
   const V3 U = {s_cam[3], s_cam[4], s_cam[5]};
@@ -570,14 +668,13 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
   const float aperture = s_cam[12], focal = s_cam[13];
   const bool is_ortho = s_cam[14] > 0.0f;
   const float ohx = s_cam[16], ohy = s_cam[17];
-  const V3 miss = {s_cam[18], s_cam[19], s_cam[20]};
-  const float spread = s_cam[21];   // kTex: the ray cone's pixel spread
-  const V3 lc = {s_light[0], s_light[1], s_light[2]};
-  const V3 lv1 = {s_light[3], s_light[4], s_light[5]};
-  const V3 lv2 = {s_light[6], s_light[7], s_light[8]};
-  const V3 ln = {s_light[9], s_light[10], s_light[11]};
-  const V3 lem = {s_light[12], s_light[13], s_light[14]};
-  const float larea = s_light[15];
+  // The miss colour, the spread and the light are read from shared
+  // memory where they are used: volatile, so they are not held in
+  // registers across the loop (7-9% faster on most headline scenes, and
+  // the texture variants spill no more than before the regenerating loop:
+  // PERF.md).
+  const volatile float* vcam = s_cam;
+  const volatile float* vl = s_light;
 
   const float ulen = sqrtf(fmaxf(dot3(U, U), 1e-20f));
   const float vlen = sqrtf(fmaxf(dot3(V, V), 1e-20f));
@@ -591,41 +688,54 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f;
   int count = 0;
-  for (int s = 0; s < spl; ++s) {
-    // --- raygen (pallas_pt.py raygen_state) ---
-    uint32_t rng = ort::tea4(pixel_index, subframe0 + static_cast<uint32_t>(s));
-    const float jx = ort::uniform(rng);
-    const float jy = ort::uniform(rng);
-    const float ndc_x = 2.0f * ((gxf + jx) / full_wf) - 1.0f;
-    const float ndc_y = 1.0f - 2.0f * ((gyf + jy) / full_hf);
-    V3 d = normalize3({ndc_x * U.x + ndc_y * V.x + W.x,
-                       ndc_x * U.y + ndc_y * V.y + W.y,
-                       ndc_x * U.z + ndc_y * V.z + W.z});
-    V3 o = eye;
-    if (is_ortho) {
-      o = {eye.x + ndc_x * ohx * un.x + ndc_y * ohy * vn.x,
-           eye.y + ndc_x * ohx * un.y + ndc_y * ohy * vn.y,
-           eye.z + ndc_x * ohx * un.z + ndc_y * ohy * vn.z};
-      d = wn;
+  // The regenerating loop: the lane's sample s at bounce `depth`, one
+  // segment an iteration; depth 0 starts sample s with raygen.
+  const int n_samples = max_depth > 0 ? spl : 0;
+  int s = 0, depth = 0;
+  uint32_t rng = 0u;
+  V3 o = eye, d = wn;
+  V3 thr = {1.f, 1.f, 1.f};
+  V3 rad = {0.f, 0.f, 0.f};
+  bool prev_spec = true;
+  float tmin = 1e-4f;
+  float plen = 0.0f;            // kTex: the path length to the last hit
+  while (s < n_samples) {
+    if (depth == 0) {
+      // --- raygen (pallas_pt.py raygen_state, regen_body) ---
+      rng = ort::tea4(pixel_index, subframe0 + static_cast<uint32_t>(s));
+      const float jx = ort::uniform(rng);
+      const float jy = ort::uniform(rng);
+      const float ndc_x = 2.0f * ((gxf + jx) / full_wf) - 1.0f;
+      const float ndc_y = 1.0f - 2.0f * ((gyf + jy) / full_hf);
+      d = normalize3({ndc_x * U.x + ndc_y * V.x + W.x,
+                      ndc_x * U.y + ndc_y * V.y + W.y,
+                      ndc_x * U.z + ndc_y * V.z + W.z});
+      o = eye;
+      if (is_ortho) {
+        o = {eye.x + ndc_x * ohx * un.x + ndc_y * ohy * vn.x,
+             eye.y + ndc_x * ohx * un.y + ndc_y * ohy * vn.y,
+             eye.z + ndc_x * ohx * un.z + ndc_y * ohy * vn.z};
+        d = wn;
+      }
+      const float lu1 = ort::uniform(rng);   // thin-lens pair, always drawn
+      const float lu2 = ort::uniform(rng);
+      if (aperture > 0.0f) {
+        const float r_l = sqrtf(lu1) * aperture;
+        const float phi = kTwoPi * lu2;
+        const float c = r_l * cosf(phi), sn = r_l * sinf(phi);
+        const V3 f = {o.x + focal * d.x, o.y + focal * d.y, o.z + focal * d.z};
+        o = {o.x + (c * un.x + sn * vn.x), o.y + (c * un.y + sn * vn.y),
+             o.z + (c * un.z + sn * vn.z)};
+        d = normalize3({f.x - o.x, f.y - o.y, f.z - o.z});
+      }
+      thr = {1.f, 1.f, 1.f};
+      rad = {0.f, 0.f, 0.f};
+      prev_spec = true;
+      tmin = 1e-4f;             // camera rays: Rays.make's default tmin
+      plen = 0.0f;
     }
-    const float lu1 = ort::uniform(rng);   // thin-lens pair, always drawn
-    const float lu2 = ort::uniform(rng);
-    if (aperture > 0.0f) {
-      const float r_l = sqrtf(lu1) * aperture;
-      const float phi = kTwoPi * lu2;
-      const float c = r_l * cosf(phi), sn = r_l * sinf(phi);
-      const V3 f = {o.x + focal * d.x, o.y + focal * d.y, o.z + focal * d.z};
-      o = {o.x + (c * un.x + sn * vn.x), o.y + (c * un.y + sn * vn.y),
-           o.z + (c * un.z + sn * vn.z)};
-      d = normalize3({f.x - o.x, f.y - o.y, f.z - o.z});
-    }
-
-    V3 thr = {1.f, 1.f, 1.f};
-    V3 rad = {0.f, 0.f, 0.f};
-    bool prev_spec = true;
-    float tmin = 1e-4f;           // camera rays: Rays.make's default tmin
-    float plen = 0.0f;            // kTex: the path length to the last hit
-    for (int depth = 0; depth < max_depth; ++depth) {
+    bool ends = true;           // the path ends with this segment
+    do {
       // --- closest hit: triangles, then prims (a triangle wins ties) ---
       float bt = 1e16f;
       int bid = -1;
@@ -649,14 +759,22 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
           }
         }
       } else {
-        for (int t = 0; t < m; ++t) {
-          const float* c = s_tri + 16 * t;
-          float tt, uu, vv, dpz;
-          ort::tri_test(c, o.x, o.y, o.z, d.x, d.y, d.z, tt, uu, vv, dpz);
-          if (ort::tri_accept(tt, uu, vv, dpz, tmin, bt)) {
-            bt = tt; bid = t; bc = c;
-            if constexpr (kGeom == kSmooth || kGeom == kTex) {
-              bu = uu; bv = vv;
+        const V3 iv = n_boxes > 0 ? pseudo_inv3(d) : V3{0.f, 0.f, 0.f};
+        for (int g = 0, t0 = 0; t0 < m; ++g, t0 += gsize) {
+          if (n_boxes > 0 &&
+              !box_cross(s_box + kBoxCols * g, o, iv, tmin, bt)) {
+            continue;
+          }
+          const int t1 = min(t0 + gsize, m);
+          for (int t = t0; t < t1; ++t) {
+            const float* c = s_tri + 16 * t;
+            float tt, uu, vv, dpz;
+            ort::tri_test(c, o.x, o.y, o.z, d.x, d.y, d.z, tt, uu, vv, dpz);
+            if (ort::tri_accept(tt, uu, vv, dpz, tmin, bt)) {
+              bt = tt; bid = t; bc = c;
+              if constexpr (kGeom == kSmooth || kGeom == kTex) {
+                bu = uu; bv = vv;
+              }
             }
           }
         }
@@ -672,9 +790,9 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
       }
       count += 1;
       if (bid < 0 && bp == nullptr) {   // miss: constant background, ends
-        rad.x += thr.x * miss.x;
-        rad.y += thr.y * miss.y;
-        rad.z += thr.z * miss.z;
+        rad.x += thr.x * vcam[18];
+        rad.y += thr.y * vcam[19];
+        rad.z += thr.z * vcam[20];
         break;
       }
       const V3 hp = {o.x + bt * d.x, o.y + bt * d.y, o.z + bt * d.z};
@@ -717,7 +835,7 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
           const float w = (1.0f - bu) - bv;
           const float uvx = (w * a[9] + bu * a[11]) + bv * a[13];
           const float uvy = (w * a[10] + bu * a[12]) + bv * a[14];
-          const float cone = spread * (plen + bt);
+          const float cone = vcam[21] * (plen + bt);
           const int flags = static_cast<int>(mt[14]);
           float ch[12];
           sample_bundle(bundles, bundle_mip, n_levels, atlas_h, atlas_w,
@@ -778,6 +896,12 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
       const float u1 = ort::uniform(rng);
       const float u2 = ort::uniform(rng);
       if (!is_specular) {
+        const V3 lc = {vl[0], vl[1], vl[2]};
+        const V3 lv1 = {vl[3], vl[4], vl[5]};
+        const V3 lv2 = {vl[6], vl[7], vl[8]};
+        const V3 ln = {vl[9], vl[10], vl[11]};
+        const V3 lem = {vl[12], vl[13], vl[14]};
+        const float larea = vl[15];
         const V3 lp = {lc.x + u1 * lv1.x + u2 * lv2.x,
                        lc.y + u1 * lv1.y + u2 * lv2.y,
                        lc.z + u1 * lv1.z + u2 * lv2.z};
@@ -804,11 +928,19 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
               }
             }
           } else {
-            for (int t = 0; t < m && !occ; ++t) {
-              float tt, uu, vv, dpz;
-              ort::tri_test(s_tri + 16 * t, hp.x, hp.y, hp.z, wi.x, wi.y,
-                            wi.z, tt, uu, vv, dpz);
-              occ = ort::tri_accept(tt, uu, vv, dpz, kRayTmin, sh_tmax);
+            const V3 iw = n_boxes > 0 ? pseudo_inv3(wi) : V3{0.f, 0.f, 0.f};
+            for (int g = 0, t0 = 0; t0 < m && !occ; ++g, t0 += gsize) {
+              if (n_boxes > 0 && !box_cross(s_box + kBoxCols * g, hp, iw,
+                                            kRayTmin, sh_tmax)) {
+                continue;
+              }
+              const int t1 = min(t0 + gsize, m);
+              for (int t = t0; t < t1 && !occ; ++t) {
+                float tt, uu, vv, dpz;
+                ort::tri_test(s_tri + 16 * t, hp.x, hp.y, hp.z, wi.x, wi.y,
+                              wi.z, tt, uu, vv, dpz);
+                occ = ort::tri_accept(tt, uu, vv, dpz, kRayTmin, sh_tmax);
+              }
             }
           }
           if constexpr (kPrims) {
@@ -913,10 +1045,17 @@ pt_fused_kernel(const float* __restrict__ tri, int m,
         if (u5 >= q) break;
         thr = {nthr.x / q, nthr.y / q, nthr.z / q};
       }
+      ends = depth + 1 == max_depth;
+    } while (false);
+    if (ends) {
+      acc_r += rad.x;
+      acc_g += rad.y;
+      acc_b += rad.z;
+      ++s;
+      depth = 0;
+    } else {
+      ++depth;
     }
-    acc_r += rad.x;
-    acc_g += rad.y;
-    acc_b += rad.z;
   }
   rad_out[3 * p] = acc_r;
   rad_out[3 * p + 1] = acc_g;
@@ -940,16 +1079,21 @@ void launch_geometry(const FusedArgs& a, bool specular, bool pbr,
       pt_fused_kernel<kGeom, true, false, true>,
       pt_fused_kernel<kGeom, true, true, false>,
       pt_fused_kernel<kGeom, true, true, true>};
-  const int n = a.width * a.height;
+  const Kernel kernel =
+      kVariants[(specular ? 4 : 0) + (pbr ? 2 : 0) + (prims ? 1 : 0)];
+  const int blocks = ((a.width + kBlockW - 1) / kBlockW) *
+                     ((a.height + kBlockH - 1) / kBlockH);
   const int ni = kGeom == kInst ? a.ni : 0;
-  const size_t smem = sizeof(float) * (16 * (a.m + a.np + a.k + ni) + 16 + 32)
+  const int n_boxes = kGeom != kInst && a.group < a.m
+                          ? (a.m + a.group - 1) / a.group : 0;
+  const size_t smem = sizeof(float) * (16 * (a.m + a.np + a.k + ni) + 16 + 32
+                                       + kBoxCols * n_boxes)
                       + sizeof(int) * 2 * ni;
-  kVariants[(specular ? 4 : 0) + (pbr ? 2 : 0) + (prims ? 1 : 0)]
-      <<<(n + kThreads - 1) / kThreads, kThreads, smem, a.stream>>>(
-          a.tri, a.m, a.prims, a.np, a.mats, a.k, a.light, a.cam, a.subframe,
-          a.width, a.height, a.full_w, a.full_h, a.y0, a.spl, a.max_depth,
-          a.rad, a.count, a.inst, a.inst_rng, ni, a.corner, a.bundles,
-          a.bundle_mip, a.n_levels, a.atlas_h, a.atlas_w);
+  kernel<<<blocks, kThreads, smem, a.stream>>>(
+      a.tri, a.m, a.prims, a.np, a.mats, a.k, a.light, a.cam, a.subframe,
+      a.width, a.height, a.full_w, a.full_h, a.y0, a.spl, a.max_depth,
+      a.rad, a.count, a.inst, a.inst_rng, ni, a.corner, a.bundles,
+      a.bundle_mip, a.n_levels, a.atlas_h, a.atlas_w, a.boxes, a.group);
 }
 
 }  // namespace

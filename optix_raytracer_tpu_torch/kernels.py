@@ -52,9 +52,14 @@ def pt_fused_name(specular: bool, pbr: bool, prims: bool,
     return "pt_fused_" + ("_".join(on) if on else "cornell")
 
 
+# The fused kernel's 32 instantiations, by geometry mode, then <specular,
+# pbr, prims> as csrc/pt_fused.cuh launch_geometry indexes them.
+FUSED_INSTANTIATIONS = tuple(pt_fused_name(*v, g) for g in GEOMETRY
+                             for v in itertools.product((False, True),
+                                                        repeat=3))
+
 LAUNCHES = {"bf_closest": 0, "bf_any": 0,
-            **{pt_fused_name(*v, g): 0 for g in GEOMETRY
-               for v in itertools.product((False, True), repeat=3)},
+            **{name: 0 for name in FUSED_INSTANTIATIONS},
             "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0,
             "cluster_sc_closest": 0, "cluster_sc_any": 0,
             "qwalk_oct_cull": 0, "qwalk_closest": 0, "qwalk_any": 0,
@@ -72,10 +77,10 @@ _SIGNATURES = {
     # tri, m, prims, p, mats, k, light, cam, subframe, width, height,
     # full_w, full_h, y0, spl, max_depth, specular, pbr, geometry, inst,
     # inst_ranges, n_inst, corner, bundles, bundle_mip, n_levels, atlas_h,
-    # atlas_w, rad, count, stream
+    # atlas_w, boxes, group, rad, count, stream
     "ort_pt_fused": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
-                     _I, _P, _P, _P),
+                     _I, _P, _I, _P, _P, _P),
     # aabb, c_pad, rays, n_blocks, tn, gm, stream
     "ort_cluster_cull_exact": (_P, _I, _P, _I, _P, _P, _P),
     # counts, lists, comp, n_comp, aabb, rays, n_blocks, c_pad, gate, win,

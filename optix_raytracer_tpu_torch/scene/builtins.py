@@ -180,10 +180,10 @@ KNOT_MATERIALS = [
 
 
 def knot_scene(segments: int = 140, sides: int = 45, *,
-               device) -> DeviceScene:
+               device, smooth=True) -> DeviceScene:
     """Large-mesh scene: a trefoil-knot tube (2*segments*sides smooth
     triangles) over a two-triangle floor, lit by an overhead parallelogram
-    light."""
+    light. smooth=False drops the vertex normals (a flat mesh)."""
     verts, idx, normals = trefoil_mesh(segments, sides)
     lo = verts.min(axis=0)
     hi = verts.max(axis=0)
@@ -207,7 +207,8 @@ def knot_scene(segments: int = 140, sides: int = 45, *,
         (lo[0], ly, lo[2]), (hi[0] - lo[0], 0.0, 0.0),
         (0.0, 0.0, hi[2] - lo[2]), (10.0, 10.0, 10.0), device)
     return make_device_scene(verts, idx, tri_mat, KNOT_MATERIALS, device,
-                             area_light=light, normals=normals,
+                             area_light=light,
+                             normals=normals if smooth else None,
                              miss_color=(0.0, 0.0, 0.0))
 
 
@@ -323,6 +324,16 @@ def smooth_quad(mats, tri_mat, device):
                                       up=(0, 1, 0), fov_y=45.0, aspect=w / h)
 
 
+# The fused kernel's headline frames (width, height, samples per launch,
+# depth): the Cornell scenes and the prims scene at bench.py:18-21's, the
+# smooth knot_scene(16, 15) (482 triangles) at the knot headline's depth
+# (bench.py:299-304), the textured scene at its own (bench.py:219-259).
+HEADLINE_FRAME = (1920, 1088, 16, 4)
+SMOOTH_KNOT_MESH = (16, 15)
+SMOOTH_KNOT_FRAME = (1920, 1088, 16, 3)
+TEXTURED_FRAME = (1920, 1088, 4, 3)
+
+
 # The fused kernel's instantiations (kernels.pt_fused_name) that no bench
 # scene takes, and fused_mix_scene's scene for each.
 FUSED_MIXES = ("pt_fused_prims", "pt_fused_pbr_prims", "pt_fused_specular_pbr",
@@ -371,6 +382,86 @@ def fused_mix_scene(name, device):
     return scene, prims_camera
 
 
+# The textured scene's cells a quad side in fused_variant_scene(culled=True):
+# 4 * 8² = 256 triangles, culled in groups of pallas_pt.FUSED_GROUP.
+CULLED_TEX_GRID = 8
+
+
+def fused_variant_scene(name, device, culled=False):
+    """A scene for any of the fused kernel's 32 instantiations (`name` =
+    kernels.pt_fused_name(specular, pbr, prims, geometry)) → (scene,
+    camera): the Cornell box (flat), the instanced Cornell (inst),
+    knot_scene(8, 6) (smooth) or the textured scene with its base map alone
+    at 32 / 16 / 16 / 8 (tex; its PBR material made diffuse unless pbr),
+    with a glass material (specular) on every fifth triangle from the
+    second, a rough PBR one (pbr) on every fifth from the third, and the
+    prims scene's four prims (prims; glass-free, materials clamped to the
+    table). These tables are small enough that the kernel tests them whole;
+    culled=True takes tables it cuts into groups instead (outside
+    instances): knot_scene(16, 15) (482 triangles; flat: without its
+    normals) or the textured scene cut into CULLED_TEX_GRID² cells a quad
+    (4 CULLED_TEX_GRID² triangles)."""
+    import dataclasses
+
+    import torch
+    flags = dict(specular=False, pbr=False, prims=False)
+    geometry = "flat"
+    for part in name[len("pt_fused_"):].split("_"):
+        if part in ("inst", "smooth", "tex"):
+            geometry = part
+        elif part in flags:
+            flags[part] = True
+    if geometry == "inst":
+        scene, camera = cornell_box_instanced(device), cornell_camera
+    elif geometry == "tex":
+        scene = textured_scene(device, (32, 16, 16, 8), 0.6, 0.8, maps="base",
+                               grid=CULLED_TEX_GRID if culled else 1)
+        camera = textured_camera
+    elif geometry == "smooth" or culled:
+        scene = knot_scene(*((16, 15) if culled else (8, 6)), device=device,
+                           smooth=geometry == "smooth")
+        camera = knot_camera
+    else:
+        scene, camera = cornell_box(device), cornell_camera
+    mats = dataclasses.replace(scene.materials)
+    if not flags["pbr"]:
+        mats.kind = torch.where(mats.kind == mat.PBR, mat.DIFFUSE, mats.kind)
+    extra = []
+    if flags["specular"]:
+        extra.append({"kind": mat.GLASS, "base_color": (0.95, 0.95, 0.95),
+                      "ior": 1.5})
+    if flags["pbr"]:
+        extra.append(dict(MIX_ROUGH))
+    tri_mat = scene.tri_mat.clone()
+    k = mats.num
+    if extra:
+        more = mat.make_material_table(extra, device)
+        for f in dataclasses.fields(mats):
+            setattr(mats, f.name, torch.cat([getattr(mats, f.name),
+                                             getattr(more, f.name)]))
+        idx = torch.arange(scene.num_triangles, device=device)
+        for j in range(len(extra)):
+            tri_mat = torch.where(idx % 5 == 1 + j, k + j, tri_mat)
+    if scene.has_instances and int(scene.instances.sbt_offset.max()) != 0:
+        raise ValueError("the instanced base scene has sbt offsets")
+    prims = scene.prims
+    if flags["prims"]:
+        plist = prims_list(False)
+        for p in plist:
+            p["mat_id"] = min(p["mat_id"], mats.num - 1)
+        prims = prim.make_prims(plist, device)
+    features = tuple(f for f, on in (("glass", flags["specular"]),
+                                     ("pbr", flags["pbr"])) if on)
+    tex_flags = scene.mat_tex_flags
+    if tex_flags:
+        tex_flags = tex_flags + ((-1, False, False, False, False),) * len(
+            extra)
+    scene = dataclasses.replace(
+        scene, materials=mats, tri_mat=tri_mat.to(torch.int32), prims=prims,
+        features=features, mat_tex_flags=tex_flags)
+    return scene, camera
+
+
 # bench.py:219-246 (bench_textured): the maps' sizes (base, normal,
 # metallic-roughness, emissive); tests/test_fused_textures.py:29-63 makes the
 # same scene with maps of (32, 16, 16, 8), metallic 0.6 and roughness 0.8.
@@ -394,15 +485,51 @@ def textured_maps(sizes=TEXTURED_SIZES):
     return [base, normal, mr, emissive]
 
 
+def _grid_quads(verts, uvs, normals, quads, n):
+    """Each quad (corners a, b, c, d of `verts`, a parallelogram, its
+    triangles (a, x, y), (a, y', z) as `quads` gives them) cut into n x n
+    cells with the same winding, the uvs and normals interpolated →
+    (vertices, indices, uvs, normals or None)."""
+    out_v, out_i, out_uv, out_n = [], [], [], []
+    s = np.linspace(0.0, 1.0, n + 1, dtype=np.float32)
+    for (a, b, c, d), tris in quads:
+        base = sum(len(v) for v in out_v)
+        w0 = (1 - s)[:, None, None] * (1 - s)[None, :, None]
+        w1 = s[:, None, None] * (1 - s)[None, :, None]
+        w2 = s[:, None, None] * s[None, :, None]
+        w3 = (1 - s)[:, None, None] * s[None, :, None]
+
+        def lerp(x):
+            return (w0 * x[a] + w1 * x[b] + w2 * x[c] + w3 * x[d]).reshape(
+                -1, x.shape[1]).astype(np.float32)
+        out_v.append(lerp(verts))
+        out_uv.append(lerp(uvs))
+        if normals is not None:
+            out_n.append(lerp(normals))
+        i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        corner = {a: i * (n + 1) + j, b: (i + 1) * (n + 1) + j,
+                  c: (i + 1) * (n + 1) + j + 1, d: i * (n + 1) + j + 1}
+        for t in tris:
+            out_i.append(np.stack([corner[k] for k in t], -1).reshape(-1, 3)
+                         + base)
+    cells = np.concatenate(out_i).reshape(len(quads), 2, n * n, 3)
+    idx = cells.transpose(0, 2, 1, 3).reshape(-1, 3)
+    return (np.concatenate(out_v), idx.astype(np.int32),
+            np.concatenate(out_uv),
+            np.concatenate(out_n) if normals is not None else None)
+
+
 def textured_scene(device, sizes=TEXTURED_SIZES, metallic=1.0, roughness=1.0,
-                   smooth=False, maps="all") -> DeviceScene:
+                   smooth=False, maps="all", grid=1) -> DeviceScene:
     """bench.py's textured scene: a 6x6 floor with its uvs tiled 4x and a
     2 x 1.6 upright quad tiled 2x (4 triangles), one PBR material with
     base-color, normal, metallic-roughness and emissive maps (white base,
     emission 1), under a parallelogram light; the maps make one 16-channel
     bundle of 256x256 texels and 9 mip levels. smooth=True gives the floor
     up normals and the quad leaning vertex normals, maps="base" keeps the
-    base-color map alone (tests/test_fused_textures.py:29-63)."""
+    base-color map alone (tests/test_fused_textures.py:29-63). grid > 1
+    cuts each quad into grid x grid cells of two triangles (4 grid²
+    triangles, the surfaces and their uvs unchanged)."""
     s = 3.0
     verts = np.array([[-s, 0, -s], [s, 0, -s], [s, 0, s], [-s, 0, s],
                       [-1.0, 0.0, -0.5], [1.0, 0.0, -0.5],
@@ -423,7 +550,13 @@ def textured_scene(device, sizes=TEXTURED_SIZES, metallic=1.0, roughness=1.0,
         m.update(normal_tex=1, mr_tex=2, emissive_tex=3)
     light = ParallelogramLight.make((-1.0, 3.0, -1.0), (2, 0, 0), (0, 0, 2),
                                     (8.0, 8.0, 8.0), device)
-    return make_device_scene(verts, idx, np.zeros(4, np.int32), [m], device,
+    if grid > 1:
+        verts, idx, uvs, normals = _grid_quads(
+            verts, uvs, normals, [((0, 1, 2, 3), ((0, 2, 1), (0, 3, 2))),
+                                  ((4, 5, 6, 7), ((4, 5, 6), (4, 6, 7)))],
+            grid)
+    return make_device_scene(verts, idx, np.zeros(len(idx), np.int32), [m],
+                             device,
                              area_light=light, normals=normals, uvs=uvs,
                              textures=textured_maps(sizes))
 

@@ -22,6 +22,7 @@ roulette pair.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -387,7 +388,8 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
     wavefront peels bounce 0, coherence-sorts the whole state before each
     later bounce, takes the exact cull with gating off, and is put back in
     pixel order at the end (the rng too). group_walk overrides the gating
-    (it never changes a hit, only the work).
+    (it never changes a hit, only the work); unset, the sample-major path
+    reads ORT_GROUP_WALK (0 turns gating off, engine.py:622-628).
     active0 marks lanes that are live on arrival (strip padding is not).
     spread (pixel_spread's value) sets the textured mip level.
     """
@@ -412,7 +414,8 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         rays_traced=torch.zeros((), dtype=torch.int64, device=dev))
 
     if scene.has_clusters and sample_major:
-        gw = True if group_walk is None else group_walk
+        gw = (os.environ.get("ORT_GROUP_WALK", "1") != "0"
+              if group_walk is None else group_walk)
         state = _bounce(scene, state, 0, chunk_size, group_walk=gw,
                         spread=spread)
         for depth in range(1, max_depth):
@@ -561,6 +564,13 @@ def _merge_launch(film: Film, rad_sum, samples_per_launch: int) -> Film:
                 sq=sq, launches=launches)
 
 
+def _spl_major_default() -> bool:
+    """Whether "auto" takes the sample-major path on a cluster scene: on
+    unless ORT_SPL_MAJOR is set to anything but 1 (engine.py:763-769), read
+    at call time. Either path gives the same estimator and rays."""
+    return os.environ.get("ORT_SPL_MAJOR", "1") == "1"
+
+
 def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
                       height: int, samples_per_launch: int = 1,
                       max_depth: int = 4,
@@ -577,7 +587,8 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
     strips of
     about _SPL_TILE_RAYS rays (render_sample_group); "auto" the fused
     kernel where `_use_fused` allows it, else "spl" on a cluster scene with
-    at least 8 samples per launch, else "wavefront". All consume identical
+    at least 8 samples per launch unless ORT_SPL_MAJOR=0
+    (`_spl_major_default`), else "wavefront". All consume identical
     RNG streams. On a cluster scene the walk's group gating is on for
     "spl" and off for "wavefront" (trace_paths); group_walk=True or False
     sets it on both (engine.py:846-852). Gating changes only the work,
@@ -591,7 +602,8 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
             y0=y0, full_width=full_width, full_height=full_height)
         return _merge_launch(film, rad_sum, samples_per_launch), rays
     if impl == "spl" or (impl == "auto" and scene.has_clusters
-                         and samples_per_launch >= 8):
+                         and samples_per_launch >= 8
+                         and _spl_major_default()):
         rad_sum, count = render_sum_sample_major(
             scene, cam_params, width, height, film.subframe,
             samples_per_launch, max_depth=max_depth, chunk_size=chunk_size,

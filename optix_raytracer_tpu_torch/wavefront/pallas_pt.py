@@ -27,12 +27,21 @@ normals nor textures (pallas_pt.py:1430-1432), so 4 x 8 instantiations
 exist. <flat, false, false, false> is the Cornell configuration. Each
 instantiation counts its launches under its own `kernels.LAUNCHES` key
 (`kernels.pt_fused_name`).
+
+Outside instances the kernel culls the triangle table by groups of
+`fused_group_size` consecutive triangles: a ray tests a group only when its
+slab test crosses the group's box widened by the walks' admission margin
+(`fused_group_boxes`, `fused_group_admitted_plain`). The torch emulations
+of the culled loops (`fused_group_closest_plain`, `fused_group_any_plain`)
+give brute force's ids and occlusion and count the tests.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
+from ..accel import clusters as cluster_mod
+from ..accel.pallas_bf import _accept, _tri_test
 from ..accel.tlas import instance_ranges
 from ..scene.device_scene import DeviceScene
 # The plain version of kernel 3 is the wavefront engine's sample loop (on
@@ -63,6 +72,17 @@ FLAT, INST, SMOOTH, TEX = "flat", "inst", "smooth", "tex"
 TEX_BASE, TEX_NORMAL, TEX_MR, TEX_EMISSIVE, TEX_CHAIN_SHIFT = 1, 2, 4, 8, 4
 # Columns of the texture variant's per-triangle plane (pack_tex_attrs).
 TEX_ATTR_COLS = 20
+# Group culling (fused_group_size), outside instances: a table of at least
+# FUSED_CULL_MIN_TRIS triangles is cut into groups of FUSED_GROUP
+# consecutive triangles; a smaller table is tested whole, without a box.
+# From the cutoff table of tools/bench_fused.py on the H100 (PERF.md §6):
+# culling paid on every table measured from 10 triangles up (knots of
+# 10-482, the Cornell scenes' 32, textured grids of 16-256), and groups of 8
+# were within 13% of the best size (4, 8 or 16) on every one of them.
+FUSED_CULL_MIN_TRIS = 10
+FUSED_GROUP = 8
+# Columns of a group box row: lo xyz, hi xyz, two pad (32-byte rows).
+BOX_COLS = 8
 
 
 def pack_materials(mt, bundle_mip=None) -> torch.Tensor:
@@ -170,6 +190,124 @@ def fused_variant(scene: DeviceScene) -> tuple:
             fused_geometry(scene))
 
 
+def fused_group_size(scene: DeviceScene) -> int:
+    """Triangles a culling group of the kernel on `scene` (the default of
+    render_sum_fused's `group`): the whole table (one group, no box test)
+    below FUSED_CULL_MIN_TRIS triangles or with instances (their ranges are
+    tested whole), else FUSED_GROUP."""
+    m = scene.num_triangles
+    if scene.has_instances or m < FUSED_CULL_MIN_TRIS:
+        return max(m, 1)
+    return FUSED_GROUP
+
+
+def fused_group_boxes(geom, group: int) -> torch.Tensor:
+    """The kernel's group boxes: triangles [g * group, (g + 1) * group) of
+    `geom` → [ceil(M / group), BOX_COLS] f32 rows (lo xyz, hi xyz, 0, 0),
+    the box of the group's vertices v0, v0 + e1, v0 + e2 widened on every
+    side by the walks' admission margin, extent * 2^-6 + magnitude * 2^-14
+    (accel/clusters.py sc_widened_boxes). A hit the Woop test accepts lies
+    within a few ulps of its triangle, and the slab test errs by a few ulps
+    of the distance along the ray; the margin covers both (the cluster
+    walks' dropped-pair audits hold it on the card, tests/
+    test_torch_fused_groups.py here)."""
+    m = geom.num_triangles
+    n = -(-m // group)
+    verts = torch.stack([geom.v0, geom.v0 + geom.e1, geom.v0 + geom.e2],
+                        dim=1)                                  # [M, 3, 3]
+    pad = n * group - m
+    lo = torch.cat([verts.amin(dim=1),
+                    verts[-1:].amin(dim=1).expand(pad, 3)])
+    hi = torch.cat([verts.amax(dim=1),
+                    verts[-1:].amax(dim=1).expand(pad, 3)])
+    box = torch.cat([lo.reshape(n, group, 3).amin(dim=1),
+                     hi.reshape(n, group, 3).amax(dim=1)], dim=1)  # [n, 6]
+    wlo, whi, _ = cluster_mod.sc_widened_boxes(box.T[None])
+    out = torch.zeros((n, BOX_COLS), dtype=torch.float32, device=box.device)
+    out[:, 0:3] = wlo[0].T
+    out[:, 3:6] = whi[0].T
+    return out
+
+
+def fused_group_admitted_plain(o, d, tmin, tmax, boxes) -> torch.Tensor:
+    """The kernel's group test in plain PyTorch: rays o, d [N, 3], tmin,
+    tmax [N] against group boxes [G, BOX_COLS] → bool [N, G], set where the
+    ray is live and its slab test (clusters._slab_cross, the exact cull's:
+    the +-1e12 pseudo-inverse, max(tn, tmin) <= min(tf, tmax)) crosses the
+    box. The closest loop passes the ray's running best t as tmax."""
+    a = torch.cat([o, d, tmin[:, None], tmax[:, None]], dim=1)[None]
+    return cluster_mod._slab_cross(a, boxes[None, :, 0:3].transpose(1, 2),
+                                   boxes[None, :, 3:6].transpose(1, 2))[0][0]
+
+
+def _group_walk(tri, boxes, group, o, d, tmin, tmax, any_hit):
+    """The kernel's culled triangle loop over rays o, d [N, 3], tmin, tmax
+    [N]: groups ascending, a group's triangles ascending, the strict t <
+    best t → (best t [N] or None with any_hit, id [N] int64 (-1 none) or
+    occluded [N] with any_hit, tests [N] int64: the ray-triangle tests the
+    loop makes, the triangles of each admitted group up to the first
+    occluder with any_hit, slabs [N] int64: the group slab tests it makes
+    (none without culling), admitted [N, groups] bool: the groups the ray
+    tests)."""
+    m = tri.shape[0]
+    n = o.shape[0]
+    cols = [o[:, k:k + 1] for k in range(3)] + [d[:, k:k + 1]
+                                                 for k in range(3)]
+    bt = tmax.clone()
+    bid = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    tests = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    slabs = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    done = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    admitted = torch.zeros((n, -(-m // group)), dtype=torch.bool,
+                           device=o.device)
+    for g, t0 in enumerate(range(0, m, group)):
+        t1 = min(t0 + group, m)
+        adm = (tmax > tmin) & ~done
+        if group < m:
+            slabs += adm.to(torch.int64)
+            adm = adm & fused_group_admitted_plain(o, d, tmin, bt,
+                                                   boxes[g:g + 1])[:, 0]
+        admitted[:, g] = adm
+        tt, uu, vv, dpz = _tri_test(tri[t0:t1], *cols)
+        acc = (_accept(tt, uu, vv, dpz, tmin[:, None], bt[:, None])
+               & adm[:, None])
+        if any_hit:
+            first = torch.where(acc.any(dim=1), acc.int().argmax(dim=1),
+                                t1 - t0 - 1)
+            tests += torch.where(adm, first + 1, 0)
+            done = done | acc.any(dim=1)
+            continue
+        tests += adm.to(torch.int64) * (t1 - t0)
+        for j in range(t1 - t0):      # ascending, strict: the lowest wins
+            win = acc[:, j] & (tt[:, j] < bt)
+            bt = torch.where(win, tt[:, j], bt)
+            bid = torch.where(win, t0 + j, bid)
+    if any_hit:
+        return None, done, tests, slabs, admitted
+    return bt, bid, tests, slabs, admitted
+
+
+def fused_group_closest_plain(tri, boxes, group, o, d, tmin, tmax,
+                              with_groups=False):
+    """The kernel's culled closest loop in torch (tri the scene's [M, 16]
+    tri_consts, boxes fused_group_boxes(geom, group)) → (t [N], id [N]
+    int64, -1 for none, tests [N] int64), with_groups also the slab tests
+    [N] int64 and the admitted groups [N, groups] bool. Ids equal brute
+    force's
+    (pallas_bf.closest_hit_plain) bit for bit, ties included."""
+    out = _group_walk(tri, boxes, group, o, d, tmin, tmax, False)
+    return out if with_groups else out[:3]
+
+
+def fused_group_any_plain(tri, boxes, group, o, d, tmin, tmax,
+                          with_groups=False):
+    """The kernel's culled shadow loop in torch → (occluded [N] bool,
+    tests [N] int64: up to the first occluder), with_groups also the slab
+    tests [N] int64 and the admitted groups [N, groups] bool."""
+    out = _group_walk(tri, boxes, group, o, d, tmin, tmax, True)[1:]
+    return out if with_groups else out[:2]
+
+
 def pack_light(light) -> torch.Tensor:
     """ParallelogramLight → [1, 16] f32: corner3 v1_3 v2_3 normal3 emission3 area."""
     return torch.cat([light.corner, light.v1, light.v2, light.normal,
@@ -205,8 +343,9 @@ def scene_tables(scene: DeviceScene) -> dict:
     ranges [max(I, 1), 2] int32, and the corner plane the variant reads for
     the winner only: the smooth variant's corner normals [M, 9] (n0, n1, n2),
     the texture variant's attribute plane [M, 20] (pack_tex_attrs), the
-    triangles for the others. Raises for a scene past the kernel's caps or
-    with a feature it does not render."""
+    triangles for the others; and a cache of group boxes by group size
+    (render_sum_fused fills it). Raises for a scene past the kernel's caps
+    or with a feature it does not render."""
     dev = scene.device
     m, k, p = scene.num_triangles, scene.materials.num, scene.prims.num
     ranges = fused_inst_ranges(scene)
@@ -232,7 +371,7 @@ def scene_tables(scene: DeviceScene) -> dict:
                inst=pack_instances(scene.instances),
                inst_rng=torch.tensor(ranges or ((0, 0),), dtype=torch.int32,
                                      device=dev),
-               corner=tri)
+               corner=tri, boxes={})
     if geometry == SMOOTH:
         out["corner"] = scene.geom.corner_normal.reshape(m, 9).contiguous()
         kernels.require(out["corner"], "corner", torch.float32, (m, 9), dev)
@@ -257,14 +396,20 @@ def scene_tables(scene: DeviceScene) -> dict:
 def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
                      subframe, samples_per_launch: int = 1,
                      max_depth: int = 4, y0=0, full_width=None,
-                     full_height=None, regen=None):
+                     full_height=None, regen=None, group=None):
     """`samples_per_launch` samples of a [height, width] row tile from
     subframe `subframe` → (radiance SUM [H, W, 3], rays_traced int64).
 
+    group: triangles a culling group of the kernel (None:
+    fused_group_size(scene); the number of triangles or more: no culling;
+    ignored with instances). Every group size gives the same values.
+
     regen: the TPU kernel's choice between the lock-step and the
     path-regeneration schedules (pallas_pt.py:1318-1372), which give the
-    same values. The CUDA kernel's per-thread loop ends each path where it
-    dies, which is both, so the argument selects nothing here."""
+    same values. The CUDA kernel runs the regenerating one only: each lane
+    traces one segment a step and starts its next sample where a path
+    ends, each lane's samples in order, so its values are those of both
+    and the argument selects nothing here."""
     del regen
     scene.require_supported()
     if scene.has_textures and scene.has_instances:
@@ -301,6 +446,17 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
         return rad, torch.zeros((), dtype=torch.int64, device=dev)
     name = kernels.pt_fused_name(specular, pbr, has_prims, geometry)
     bundles, bundle_mip = scene.bundles, scene.bundle_mip
+    group = (fused_group_size(scene) if group is None or scene.has_instances
+             else min(int(group), max(scene.num_triangles, 1)))
+    if group < 1:
+        raise ValueError(f"render_sum_fused: group size {group} < 1")
+    boxes = tables["boxes"].get(group)
+    if boxes is None:
+        boxes = (fused_group_boxes(scene.geom, group)
+                 if group < scene.num_triangles
+                 else torch.zeros((1, BOX_COLS), dtype=torch.float32,
+                                  device=dev))
+        tables["boxes"][group] = boxes
     with torch.cuda.device(dev):
         err = kernels.lib().ort_pt_fused(
             tables["tri"].data_ptr(), scene.num_triangles,
@@ -312,8 +468,8 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
             tables["inst"].data_ptr(), tables["inst_rng"].data_ptr(),
             len(fused_inst_ranges(scene)), tables["corner"].data_ptr(),
             bundles.data_ptr(), bundle_mip.data_ptr(), bundle_mip.shape[1],
-            bundles.shape[1], bundles.shape[2], rad.data_ptr(),
-            count.data_ptr(), kernels.stream_ptr(dev))
+            bundles.shape[1], bundles.shape[2], boxes.data_ptr(), group,
+            rad.data_ptr(), count.data_ptr(), kernels.stream_ptr(dev))
         kernels.LAUNCHES[name] += 1
     kernels.check(err, name)
     return rad, count.sum(dtype=torch.int64)

@@ -16,6 +16,7 @@ from optix_raytracer_tpu_torch.accel import pallas_bf
 from optix_raytracer_tpu_torch.accel.geometry import build_triangle_geometry
 from optix_raytracer_tpu_torch.core.film import Film
 from optix_raytracer_tpu_torch.core.rays import Rays
+from optix_raytracer_tpu_torch.scene import builtins as B
 from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
                                                      cornell_camera,
                                                      knot_camera, knot_scene)
@@ -507,6 +508,38 @@ def test_fused_variants_match_plain(cuda, name):
              for y0 in (0, 16)]
     np.testing.assert_array_equal(
         torch.cat([p[0] for p in parts]).cpu().numpy(), out.cpu().numpy())
+
+
+@pytest.mark.parametrize("name,culled",
+                         [(n, False) for n in kernels.FUSED_INSTANTIATIONS]
+                         + [(n, True) for n in kernels.FUSED_INSTANTIATIONS
+                            if not n.startswith("pt_fused_inst")])
+def test_fused_instantiations_bit_equal_to_wavefront(cuda, name, culled):
+    """Each of the kernel's 32 instantiations against the wavefront engine
+    (its plain version, kernels 1-2 on the card) at 64², spl 2, depth 3:
+    its own LAUNCHES key, images and ray counts bit-equal; on small tables
+    tested whole (group = the table) and, outside instances, on tables it
+    culls by groups (fused_variant_scene(culled=True), the scene's own
+    group size)."""
+    scene, camera = B.fused_variant_scene(name, cuda, culled)
+    assert kernels.pt_fused_name(*pallas_pt.fused_variant(scene)) == name
+    group = (pallas_pt.fused_group_size(scene) if culled
+             else scene.num_triangles)
+    assert (group < scene.num_triangles) == culled
+    assert engine._use_fused(scene, "auto")
+    w = h = 64
+    cam = camera(w, h).params(cuda)
+    before = dict(kernels.LAUNCHES)
+    out, count = pallas_pt.render_sum_fused(scene, cam, w, h, 5,
+                                            samples_per_launch=2, max_depth=3,
+                                            group=group)
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    ref, ref_count = pallas_pt.render_sum_plain(scene, cam, w, h, 5,
+                                                samples_per_launch=2,
+                                                max_depth=3)
+    assert int(count) == int(ref_count)
+    assert float(ref.max()) > 0.05
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
 
 
 def _textured_scene(name, device):
