@@ -47,18 +47,22 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+try:
+    # the knot configurations, probe sets, timing and work counts (the
+    # card's peaks: FP32 outside the tensor cores, HBM3)
+    from optix_raytracer_tpu_torch.tools.knot_probe import (
+        KNOT, KNOT_SC, KNOT_STREAM, PAIR_OPS, RAY_BYTES, SLAB_OPS, bound,
+        cuda_ms, cull_fields, knot_ray_sets, listed_entries, listed_words,
+        main_path_strip_sets, sc_pair_counts, timed_launches, walk_bound,
+        walk_pair_counts)
+except ImportError as e:
+    raise SystemExit(f"chip_smoke: FAILED: run from a checkout of the "
+                     f"repository ({e})")
 ORACLE = os.path.join(ROOT, "tools", "oracle_cache",
                       "cornell_d256x256_spp928_depth4_seed{}.npz")
 ATOL, RTOL = 2e-3, 1e-3          # tests/test_fused_kernel.py:77-78
 HEADLINE = dict(width=1920, height=1088, spl=16, depth=4)   # bench.py:18-21
-# bench.py:299-304 (mesh, frame, depth) on the lit builtin knot_scene
-KNOT = dict(segments=200, sides=63, width=1920, height=1088, spl=16,
-            depth=3)
-KNOT_STREAM = dict(segments=1000, sides=250)                # bench.py:124
-# bench.py:361's 4.0M-triangle mesh on the lit knot_scene, at the knot
-# headline's frame, spl and depth: the supercluster tier (kernels 5c/6c)
-KNOT_SC = dict(segments=1450, sides=1380, width=1920, height=1088, spl=16,
-               depth=3)
 # List entries (block x cluster pairs, 32,768 ray-triangle tests each) past
 # which the plain walks run on a subset of blocks (about 2 s on the card).
 PLAIN_WALK_ENTRIES = 200_000
@@ -79,15 +83,6 @@ QWALK_QF = 6
 # plain version runs on every k-th step only.
 PLAIN_QUEUE_STEPS = 4096
 
-# The card's peaks for the bound of each kernel (H100 SXM data sheet, dense,
-# at 700 W): FP32 outside the tensor cores, and HBM3.
-FP32_PEAK = 67e12
-HBM_RATE = 3.35e12
-PAIR_OPS = 30      # FP32 operations of one Woop ray-triangle test
-SLAB_OPS = 20      # FP32 operations of one ray-box slab test
-RAY_BYTES = 32     # ox oy oz dx dy dz tmin tmax
-SLOT_BYTES = 4 * 128               # one constant row of a 128-slot cluster
-CLOSEST_ROWS, ANY_ROWS = 23, 12    # rows a closest / any-hit walk reads
 # FP32 operations of one ray against one custom prim of each kind, counted
 # from accel/primitives.py's formulas (per-prim constants left out): sphere,
 # shell (two spheres), parallelogram, capsule (body + two cap spheres).
@@ -133,40 +128,6 @@ def to_np(t):
     return t.detach().cpu().numpy()
 
 
-def bound(ops, nbytes):
-    """The least time the card could take for work of `ops` FP32 operations
-    moving `nbytes` bytes: the larger of ops / FP32 peak and bytes / HBM
-    rate → dict(bound_ms, bound_by)."""
-    t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
-    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
-
-
-def live_rays(packed):
-    """Live rays (tmax > tmin) per 32-ray group of packed rays → [n_blocks,
-    8] int64."""
-    return (packed[:, 7] > packed[:, 6]).reshape(-1, 8, 32).sum(2)
-
-
-def listed_words(counts, lists):
-    """The valid entries of per-block lists → (blocks [E] int64, list words
-    [E] int32: box id in bits 0-15, gate bits 16-23)."""
-    import torch
-    nb = counts.numel()
-    lst = lists.reshape(nb, -1)
-    valid = (torch.arange(lst.shape[1], device=lst.device)[None]
-             < counts.reshape(nb, 1))
-    be, ke = torch.nonzero(valid, as_tuple=True)
-    return be, lst[be, ke]
-
-
-def listed_entries(counts, lists):
-    """The valid entries of per-block lists → (blocks [E], box ids [E]),
-    each int64; the group bits of an entry are dropped."""
-    be, we = listed_words(counts, lists)
-    return be, (we & 0xFFFF).long()
-
-
 def member_visits(counts, lists, member, packed, chunk=4096):
     """Member visits of kernels 5c/6c per block [n_blocks] int64: for each
     listed supercluster, the members that some live ray of the block
@@ -185,136 +146,6 @@ def member_visits(counts, lists, member, packed, chunk=4096):
     return visits
 
 
-def needed_work(counts, lists, boxes, n_real, packed, end, occluded=0):
-    """The least work of a walk over these lists: for each listed entry
-    (block b, box s) and each ray of block b, the members of boxes[s]
-    ([S, 6, M]: lo xyz, hi xyz of M boxes; member c of s is cluster
-    s * M + c, a real one below n_real) that the ray's own slab test
-    crosses on [tmin, end]. `end` [n_padded] is the ray's closest hit for a
-    closest walk (a walk must open every box the ray enters before it), its
-    tmax for an any-hit walk, or its tmin for a ray that needs no walk; each
-    of the `occluded` rays adds one pair test, its hit. → dict(entries,
-    pairs (ray x crossed member x 128 triangles), slabs (ray x entry x M,
-    over the entries where the ray crosses a member), members (distinct
-    members crossed), listed (distinct listed boxes))."""
-    import torch
-    from optix_raytracer_tpu_torch.accel import clusters as C
-    nb, m = counts.numel(), boxes.shape[2]
-    ends = packed.clone()
-    ends[:, 7] = end
-    rays = ends.reshape(nb, C.SUB, 8)
-    be, se = listed_entries(counts, lists)
-    used = torch.zeros((boxes.shape[0], m), dtype=torch.int64,
-                       device=packed.device)
-    lane = torch.arange(m, device=packed.device)
-    pairs = slabs = 0
-    chunk = max(1, (1 << 25) // (C.SUB * m))
-    for i in range(0, be.numel(), chunk):
-        b, s = be[i:i + chunk], se[i:i + chunk]
-        real = (s[:, None] * m + lane[None]) < n_real           # [B, M]
-        cross = C._member_cross(rays[b], boxes[s]) & real[:, None]
-        pairs += int(cross.sum()) * C.LANES
-        slabs += int(cross.any(dim=2).sum()) * m
-        used.index_put_((s,), cross.any(dim=1).to(torch.int64),
-                        accumulate=True)
-    return dict(entries=int(be.numel()), pairs=pairs + int(occluded),
-                slabs=slabs, members=int((used > 0).sum()),
-                listed=int(se.unique().numel()))
-
-
-def sc_pair_counts(counts, lists, member, packed, out, closest,
-                   chunk=4096):
-    """The pair tests (ray x triangle slot) of kernels 5c / 6c on these
-    lists at three granularities and under the admission rule, over all
-    blocks → dict: block (each listed supercluster's block-union members,
-    every ray of the block: the parent design's kernel and the plain
-    walks), warp (the members some ray of the 32-ray warp crosses, the
-    warp's rays), ray (the members each ray's own slab test crosses) and
-    admitted (the rule, `sc_admitted_pairs_plain`, at the walk's final
-    state: for 5c at the ray's row t, a lower bound on the kernel's, whose
-    running t is never below it; for 6c on every live ray, occlusion not
-    applied, an upper bound). The needed count is walk_bound's."""
-    import torch
-    from optix_raytracer_tpu_torch.accel import clusters as C
-    nb, m = counts.numel(), member.shape[2]
-    rays = packed.reshape(nb, C.SUB, 8)
-    best = out[:, 0].reshape(nb, C.SUB) if closest else None
-    be, se = listed_entries(counts, lists)
-    tot = dict(block=0, warp=0, ray=0, admitted=0)
-    for i in range(0, be.numel(), chunk):
-        b, s = be[i:i + chunk], se[i:i + chunk]
-        a, boxes = rays[b], member[s]
-        cross = C._member_cross(a, boxes)                    # [E, 256, M]
-        adm = C.sc_admitted_pairs_plain(
-            a, boxes, None if best is None else best[b])
-        tot["block"] += int(cross.any(dim=1).sum()) * C.SUB
-        tot["warp"] += int(cross.reshape(-1, 8, 32, m).any(dim=2).sum()) * 32
-        tot["ray"] += int(cross.sum())
-        tot["admitted"] += int(adm.sum())
-    return {k: v * C.LANES for k, v in tot.items()}
-
-
-def walk_pair_counts(counts, lists, aabb, packed, out, closest, gate,
-                     chunk=4096):
-    """The pair tests (ray x triangle slot) of kernels 5 / 6 on these lists
-    at three granularities and under the admission rule, over all blocks →
-    dict: block (every ray of the block against every listed cluster: the
-    ungated walk of the parent design and of the plain version), warp (the
-    32-ray groups of which some ray crosses the cluster, every ray of such
-    a group: the gated walk's, as the exact cull's gate bits give them),
-    ray (the clusters each ray's own slab test crosses) and admitted (the
-    rule, `admitted_pairs_plain`, gated when `gate`, at the walk's final
-    state: for 5 at the ray's row t, a lower bound on the kernel's, whose
-    best t is never below it; for 6 on every live ray, occlusion not
-    applied, an upper bound). The needed count is walk_bound's."""
-    import torch
-    from optix_raytracer_tpu_torch.accel import clusters as C
-    nb = counts.numel()
-    rays = packed.reshape(nb, C.SUB, 8)
-    best = out[:, 0].reshape(nb, C.SUB) if closest else None
-    boxes = C._entry_boxes(aabb)
-    be, we = listed_words(counts, lists)
-    tot = dict(block=0, warp=0, ray=0, admitted=0)
-    for i in range(0, be.numel(), chunk):
-        b, w = be[i:i + chunk], we[i:i + chunk]
-        c, gm = (w & 0xFFFF).long(), (w >> 16) & 0xFF
-        a = rays[b]
-        cross = C._member_cross(a, boxes[c])[:, :, 0]            # [E, 256]
-        adm = C.admitted_pairs_plain(a, boxes[c], gm, gate,
-                                     None if best is None else best[b])
-        tot["block"] += int(b.numel()) * C.SUB
-        tot["warp"] += int(cross.reshape(-1, 8, 32).any(dim=2).sum()) * 32
-        tot["ray"] += int(cross.sum())
-        tot["admitted"] += int(adm.sum())
-    return {k: v * C.LANES for k, v in tot.items()}
-
-
-def walk_bound(counts, lists, boxes, n_real, packed, out, closest, sc=0):
-    """Bound of a walk on all blocks of these lists, from needed_work with
-    the walk's own result: out is the closest walk's rows (the hit t ends
-    each ray's window) or the any-hit walk's occlusion. The pair tests (and,
-    for the supercluster walks, sc > 0, the member slab tests) over the FP32
-    peak; the rays, counts, listed entries (id + bound), the listed
-    superclusters' member boxes, the crossed members' rows and the output
-    over the HBM rate."""
-    import torch
-    if closest:
-        work = needed_work(counts, lists, boxes, n_real, packed, out[:, 0])
-    else:
-        hit = out != 0
-        work = needed_work(counts, lists, boxes, n_real, packed,
-                           torch.where(hit, packed[:, 6], packed[:, 7]),
-                           occluded=int(hit.sum()))
-    n_padded = packed.shape[0]
-    rows = CLOSEST_ROWS if closest else ANY_ROWS
-    nbytes = (n_padded * (RAY_BYTES + (RAY_BYTES if closest else 4))
-              + (n_padded // 256) * 4 + work["entries"] * 8
-              + work["listed"] * 6 * sc * 4
-              + work["members"] * rows * SLOT_BYTES)
-    ops = PAIR_OPS * work["pairs"] + (SLAB_OPS * work["slabs"] if sc else 0)
-    return dict(bound(ops, nbytes), pairs=work["pairs"])
-
-
 def fmt(r):
     """A parity result as phase fields: times to the microsecond, each
     bound as its milliseconds and what bounds it, and a walk's bound its
@@ -323,6 +154,8 @@ def fmt(r):
     for k, v in r.items():
         if k.endswith("_bound"):
             out[f"{k}_ms"] = f"{v['bound_ms']:.3f}({v['bound_by']})"
+            if "bound_brute_ms" in v:
+                out[f"{k}_brute_ms"] = f"{v['bound_brute_ms']:.3f}"
             if "pairs" in v:
                 out[f"{k}_pairs"] = v["pairs"]
         elif isinstance(v, float) and k.endswith("ms"):
@@ -330,21 +163,6 @@ def fmt(r):
         else:
             out[k] = v
     return out
-
-
-def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps launches, after one warm-up."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def compare_hits(out, ref, what):
@@ -443,126 +261,6 @@ def render_mean(scene, cam, size, spp, subframe0, device, spl=256):
     return to_np(film.accum).astype(np.float64) * (subframe0 + spp) / spp
 
 
-def timed_launches(scene, cam, W, H, spl, depth, impl, launches, dev):
-    """One warm-up launch from subframe 0, then `launches` timed launches
-    continuing its film → (film, rays of the timed launches, seconds, peak
-    bytes, first film, rays of the first launch, kernel launch counts of
-    this path alone: set to 0 just before its first launch, read just after
-    its last; the warm-up's seconds)."""
-    import torch
-    from optix_raytracer_tpu_torch import kernels
-    from optix_raytracer_tpu_torch.core.film import Film
-    from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    first, first_rays = render_accumulate(
-        scene, cam, Film.create(H, W, dev), W, H, spl, depth, impl=impl)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    film = first
-    torch.cuda.reset_peak_memory_stats(dev)
-    rays = []
-    t0 = time.perf_counter()
-    for _ in range(launches):
-        film, r = render_accumulate(scene, cam, film, W, H, spl, depth,
-                                    impl=impl)
-        rays.append(r)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = dict(kernels.LAUNCHES)
-    return (film, int(sum(int(r) for r in rays)), dt,
-            torch.cuda.max_memory_allocated(dev), first, int(first_rays),
-            counts, first_s)
-
-
-def tile_order(width, height):
-    """Pixel permutation into 16x16 tiles, row-major inside each
-    (bench.py:50-56)."""
-    yy, xx = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
-    key = (((yy // 16) * (width // 16) + (xx // 16)).ravel() * 256
-           + ((yy % 16) * 16 + (xx % 16)).ravel())
-    return np.argsort(key, kind="stable")
-
-
-def knot_ray_sets(scene, width, height, device):
-    """Phase (b)'s ray sets: unjittered knot-camera primaries in tile order;
-    NEE-style shadow rays from their hits toward the light's centre (dead
-    where the primary missed); and the bounce-1 wavefront (a cosine-sampled
-    diffuse bounce from each hit, seeded per pixel) sorted by
-    coherence_key."""
-    import torch
-    from optix_raytracer_tpu_torch.accel import clusters
-    from optix_raytracer_tpu_torch.core import rng as _rng
-    from optix_raytracer_tpu_torch.core.camera import generate_rays
-    from optix_raytracer_tpu_torch.core.rays import Rays
-    from optix_raytracer_tpu_torch.core.vecmath import dot
-    from optix_raytracer_tpu_torch.scene.builtins import knot_camera
-    from optix_raytracer_tpu_torch.shade.sampling import (
-        cosine_sample_hemisphere)
-
-    def permute(r, perm):
-        return Rays(origin=r.origin[perm], direction=r.direction[perm],
-                    tmin=r.tmin[perm], tmax=r.tmax[perm])
-
-    n = width * height
-    cam = knot_camera(width, height).params(device)
-    rays, _ = generate_rays(cam, width, height, rng_state=None, jitter=False)
-    prim = permute(rays.reshape(n),
-                   torch.as_tensor(tile_order(width, height), device=device))
-    hits = clusters.closest_hit(scene.clusters, prim)
-    p = prim.at(hits.t)
-    light = scene.area_light
-    delta = light.corner + 0.5 * light.v1 + 0.5 * light.v2 - p
-    dist = torch.sqrt(dot(delta, delta))
-    shadow = Rays(origin=p, direction=delta / dist[:, None],
-                  tmin=torch.full_like(dist, 1e-2),
-                  tmax=torch.where(hits.valid, dist * 0.999, 0.0))
-    nrm = hits.normal * torch.sign(-dot(hits.normal, prim.direction))[:, None]
-    u1, u2, _ = _rng.uniform2(_rng.seed(torch.arange(n, device=device), 0))
-    bounce = Rays(origin=p + nrm * 1e-2,
-                  direction=cosine_sample_hemisphere(u1, u2, nrm),
-                  tmin=torch.full_like(dist, 1e-2),
-                  tmax=torch.where(hits.valid, 1e16, 0.0))
-    order = torch.argsort(clusters.coherence_key(scene.clusters, bounce),
-                          stable=True)
-    return prim, shadow, permute(bounce, order)
-
-
-def main_path_strip_sets(scene, cam, width, height, spl, depth):
-    """The rays the knot's main path hands kernels 4-6 in one sample-major
-    strip: render_sample_group at render_sum_sample_major's strip height
-    (136 rows x 1920 x 16 samples = 4,177,920 lanes), the middle strip of
-    the frame, subframe 0. Each cluster query of the strip is recorded as
-    (rays, exact, group_walk) → (closest-hit calls, any-hit calls), one
-    per bounce."""
-    from optix_raytracer_tpu_torch.accel import clusters as C
-    from optix_raytracer_tpu_torch.wavefront import engine
-    rows = min(height, max(1, engine._SPL_TILE_RAYS // (width * spl)))
-    strip = (-(-height // rows)) // 2
-    calls = dict(closest_hit=[], any_hit=[])
-    query = {name: getattr(C, name) for name in calls}
-
-    def recorder(name):
-        def call(cl, rays, exact=False, group_walk=False):
-            calls[name].append((rays, exact, group_walk))
-            return query[name](cl, rays, exact=exact, group_walk=group_walk)
-        return call
-
-    try:
-        for name in calls:
-            setattr(C, name, recorder(name))
-        engine.render_sample_group(scene, cam, width, rows, 0, spl,
-                                   max_depth=depth, y0=strip * rows,
-                                   full_width=width, full_height=height)
-    finally:
-        for name, fn in query.items():
-            setattr(C, name, fn)
-    require(all(len(c) == depth for c in calls.values()),
-            "the strip did not query the cluster table once per bounce")
-    return calls["closest_hit"], calls["any_hit"]
-
-
 def hits_dict(h):
     return {f: getattr(h, f) for f in ("t", "prim_id", "mat_id", "uv",
                                        "normal")}
@@ -571,8 +269,9 @@ def hits_dict(h):
 def cull_parity(cl, packed, what, out):
     """Kernel 4 against its plain version on cl's table (a cluster set, or
     the supercluster facade): tn / gm and the compacted counts / lists /
-    bounds bit-equal. Adds its CUDA-event times and bound to `out` and
-    returns the kernel's compacted lists."""
+    bounds bit-equal. Adds its CUDA-event times, its bound (the needed
+    work's and brute force's) and its test counts (cull_fields) to `out`
+    and returns the kernel's compacted lists."""
     import torch
     from optix_raytracer_tpu_torch.accel import clusters as C
     n_blocks, c_pad = packed.shape[0] // C.SUB, cl.c_pad
@@ -586,15 +285,12 @@ def cull_parity(cl, packed, what, out):
     require(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                 for a, b in zip(culled, culled_p)),
             f"{what}: counts / lists / bounds differ")
-    live = int(live_rays(packed).sum())
     out.update(
         cull_ms=cuda_ms(lambda: C.exact_cull(cl.aabb, packed, n_blocks,
                                              c_pad), 10),
         cull_plain_ms=cuda_ms(lambda: C.exact_cull_plain(
             cl.aabb, packed, n_blocks, c_pad), 1),
-        cull_bound=bound(SLAB_OPS * live * cl.num_clusters,
-                         packed.shape[0] * RAY_BYTES + c_pad * 24
-                         + n_blocks * c_pad * 8))
+        **cull_fields(cl.aabb, packed, 8, "cull"))
     return culled
 
 
@@ -982,9 +678,7 @@ def queue_parity(cl, rays, closest, gate, what, queue_bound, p2c):
         query_ms=cuda_ms(lambda: query(cl, rays, qf=qf_fit), 10),
         walk_query_ms=cuda_ms(lambda: walk(cl, rays, exact=True,
                                            group_walk=gate), 10),
-        oct_bound=bound(SLAB_OPS * live_n * cl.num_clusters,
-                        n_padded * RAY_BYTES + c_pad * 24
-                        + n_blocks * c_pad * 4),
+        **cull_fields(cl.aabb, packed, 4, "oct"),
         queue_bound=queue_bound)
     out["build_marshal_reduce_ms"] = (out["query_ms"] - out["oct_ms"]
                                       - out["queue_ms"])

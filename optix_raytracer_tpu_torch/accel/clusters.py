@@ -9,7 +9,9 @@ blocks of SUB = 256 and then:
 1. culls every (block, cluster) pair: the interval cull (`_block_cull`,
    plain PyTorch) for tile-coherent primaries, or the exact per-ray slab
    test (kernel 4, `exact_cull`) for scattered wavefronts, which also emits
-   one crossing bit per 32-ray group;
+   one crossing bit per 32-ray group; the kernel tests a cluster only for
+   the live rays that cross its group box of `cull_group(c_pad)` clusters
+   (`cull_admitted_pairs_plain`);
 2. sorts each block's crossed clusters front to back (`_cull`: one int32 sort
    whose key carries the cluster id and the group bits in the low bits of
    the entry distance);
@@ -71,6 +73,8 @@ MAX_SUPERCLUSTERS = 1024    # supercluster-tier cap (10 id bits, 4.19M tris)
 MAX_MEMBERS = 32            # the sc kernels' member mask is one uint32
 COMP_ROWS = 32              # constants per cluster slot, see ClusterSet
 WALK_WINDOW = 4             # list entries a round of kernels 5 / 6 admits
+CULL_GROUPS = (4, 8, 16, 32)  # group sizes kernels 4 / 7 are built for
+CULL_WIDE = 512             # past this many columns, groups of 16 (not 8)
 
 _DEGEN_EPS = 1e-12
 _BIG = 3.0e38
@@ -290,9 +294,21 @@ def exact_cull_plain(aabb, packed, n_blocks: int, c_pad: int):
     return tn_out, gm_out
 
 
+def cull_group(c_pad: int) -> int:
+    """Columns a group box of kernels 4 / 7 covers on a table of c_pad
+    columns: 8 up to CULL_WIDE, 16 past it. Measured on the H100
+    (`tools/bench_sc_walks.py --cull --k`, PERF.md §6): 8 is within 5% of
+    the best size on every 25k-knot set (c_pad 256), 16 the best on every
+    set of the 4M facade (c_pad 1024) and the 500k table (3968). The
+    kernels are built for CULL_GROUPS and refuse any other size."""
+    return 8 if c_pad <= CULL_WIDE else 16
+
+
 def exact_cull(aabb, packed, n_blocks: int, c_pad: int):
     """Kernel 4 (replaces `_exact_cull_kernel`, clusters.py:231-302): see
-    exact_cull_plain for what it computes."""
+    exact_cull_plain for what it computes. The kernel slab-tests a member
+    column only for the live rays that cross its group box of
+    `cull_group(c_pad)` columns (`cull_admitted_pairs_plain`)."""
     dev = packed.device
     if dev.type == "cpu":
         return exact_cull_plain(aabb, packed, n_blocks, c_pad)
@@ -312,10 +328,63 @@ def exact_cull(aabb, packed, n_blocks: int, c_pad: int):
     with torch.cuda.device(dev):
         err = kernels.lib().ort_cluster_cull_exact(
             aabb.data_ptr(), c_pad, packed.data_ptr(), n_blocks,
-            tn.data_ptr(), gm.data_ptr(), kernels.stream_ptr(dev))
+            tn.data_ptr(), gm.data_ptr(), cull_group(c_pad),
+            kernels.stream_ptr(dev))
         kernels.LAUNCHES["cluster_cull_exact"] += 1
     kernels.check(err, "cluster_cull_exact")
     return tn, gm
+
+
+def _cull_columns(aabb):
+    """The columns of a cull table aabb [c_pad / 128, 6, 128] as kernels 4
+    and 7 class them → (boxes [c_pad, 6], pad [c_pad] bool: the canonical
+    padding box lo = _BIG, hi = -_BIG, regular [c_pad] bool: lo <= hi on
+    every axis). A column that is neither (another inverted box, or NaN)
+    is irregular."""
+    boxes = aabb.transpose(1, 2).reshape(-1, 6)
+    lo, hi = boxes[:, 0:3], boxes[:, 3:6]
+    pad = (lo == _BIG).all(dim=1) & (hi == -_BIG).all(dim=1)
+    regular = (lo <= hi).all(dim=1)
+    return boxes, pad, regular
+
+
+def cull_group_boxes(aabb, group: int):
+    """The group boxes of kernels 4 and 7: each run of `group` consecutive
+    columns → (lo, hi [G, 3], the exact min / max of the group's regular
+    members' boxes, kind [G] int: 0 no member to test (all padding), 1
+    test the box, 2 admit the group whole (an irregular member: an
+    inverted box crosses every live ray, so no box can hold it))."""
+    boxes, pad, regular = _cull_columns(aabb)
+    g = boxes.shape[0] // group
+    lo = torch.where(regular[:, None], boxes[:, 0:3], _BIG)
+    hi = torch.where(regular[:, None], boxes[:, 3:6], -_BIG)
+    irregular = (~pad & ~regular).reshape(g, group).any(dim=1)
+    kind = torch.where(irregular, 2,
+                       regular.reshape(g, group).any(dim=1).to(torch.int64))
+    return (lo.reshape(g, group, 3).amin(dim=1),
+            hi.reshape(g, group, 3).amax(dim=1), kind)
+
+
+def cull_admitted_pairs_plain(packed, aabb, group: int):
+    """The pairs kernels 4 and 7 slab-test, in plain PyTorch: rays packed
+    [N, 8] against the columns of aabb [c_pad / 128, 6, 128] → bool
+    [N, c_pad]. A live ray tests a member column only where it crosses
+    the column's group box (`cull_group_boxes`; a group of kind 2 whole,
+    one of kind 0 never); a padding column takes the ray's own test of the
+    padding box, made once. Every crossing pair of `_slab_cross` is
+    admitted: a regular member's box lies in its group box, round-to-
+    nearest is monotone and the ray's reciprocal is fixed, so the ray's
+    slab interval for the group box holds the member's."""
+    glo, ghi, kind = cull_group_boxes(aabb, group)
+    _, pad, _ = _cull_columns(aabb)
+    a = packed[None]
+    gcross, _ = _slab_cross(a, glo.T[None], ghi.T[None])      # [1, N, G]
+    live = (packed[:, 7] > packed[:, 6])[:, None]
+    gadm = ((gcross[0] & (kind == 1)[None]) | ((kind == 2)[None] & live))
+    adm = gadm.repeat_interleave(group, dim=1)                # [N, c_pad]
+    big = torch.full((1, 3, 1), _BIG, device=packed.device)
+    pad_cross = _slab_cross(a, big, -big)[0][0]               # [N, 1]
+    return torch.where(pad[None], pad_cross, adm)
 
 
 def _cull_tables(tn, gm):

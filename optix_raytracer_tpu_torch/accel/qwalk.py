@@ -87,7 +87,10 @@ def oct_cull_plain(aabb, packed, n_blocks: int, c_pad: int):
 
 def _oct_cull(cl: C.ClusterSet, packed, n_blocks: int, c_pad: int):
     """Kernel 7 (replaces `_oct_cull_kernel`, qwalk.py:69; pallas_call at
-    :117): see oct_cull_plain."""
+    :117): see oct_cull_plain. Kernel 4's template with octet bits: a
+    member column is slab-tested only for the live rays that cross its
+    group box (`clusters.cull_admitted_pairs_plain`,
+    `clusters.cull_group(c_pad)` columns a group)."""
     dev = packed.device
     if dev.type == "cpu":
         return oct_cull_plain(cl.aabb, packed, n_blocks, c_pad)
@@ -106,7 +109,7 @@ def _oct_cull(cl: C.ClusterSet, packed, n_blocks: int, c_pad: int):
     with torch.cuda.device(dev):
         err = kernels.lib().ort_qwalk_oct_cull(
             cl.aabb.data_ptr(), c_pad, packed.data_ptr(), n_blocks,
-            om.data_ptr(), kernels.stream_ptr(dev))
+            om.data_ptr(), C.cull_group(c_pad), kernels.stream_ptr(dev))
         kernels.LAUNCHES["qwalk_oct_cull"] += 1
     kernels.check(err, "qwalk_oct_cull")
     return om

@@ -3,8 +3,8 @@
 // 5c/6c of the port), and the cluster-major queue traversal (kernels 7-8).
 //
 // Replaces, in optix_raytracer_tpu/accel/clusters.py:
-//   kernel 4  cull_exact_kernel<5, true> <- _exact_cull_kernel (:231), called
-//             by _exact_block_cull (pallas_call at :312);
+//   kernel 4  cull_exact_kernel<5, true, K> <- _exact_cull_kernel (:231),
+//             called by _exact_block_cull (pallas_call at :312);
 //   kernel 5  cluster_walk_kernel<true, false> <- _closest_kernel (:453) and
 //             _closest_kernel_stream (:537), called by _closest_core (:1150);
 //   kernel 6  cluster_walk_kernel<false, false> <- _any_kernel (:669) and
@@ -14,8 +14,8 @@
 //   kernel 6c cluster_walk_kernel<false, true> <- _sc_any_kernel (:933),
 //             called by _any_core (:1372);
 // and in optix_raytracer_tpu/accel/qwalk.py:
-//   kernel 7  cull_exact_kernel<3, false> <- _oct_cull_kernel (:69), called
-//             by _oct_cull (pallas_call at :117);
+//   kernel 7  cull_exact_kernel<3, false, K> <- _oct_cull_kernel (:69),
+//             called by _oct_cull (pallas_call at :117);
 //   kernel 8  qwalk_closest_kernel, qwalk_any_kernel <- _q_closest_kernel
 //             (:227), _q_any_kernel (:208), called by _run_queue (:283).
 //
@@ -23,14 +23,46 @@
 // kSub = 256; a cluster is 128 triangle slots whose constants are
 // comp[c] = [32 rows][128 slots] f32 (accel/clusters.py ClusterSet).
 //
-// Kernel 4. What bounds it: FP32 issue, ~20 operations per (ray, cluster)
-// pair on 32 bytes of staged ray data. Design: one CTA per 256-ray block; the
-// block's rays (origin, pseudo-inverse direction, window) are staged once in
-// shared memory as two float4 per ray; each thread owns clusters c = tid,
-// tid + 256, ... and loops over the 256 rays, whose loads are broadcasts. The
-// minimum entry and the 8 group bits need no cross-thread reduction, so the
-// result is deterministic.
-//
+// Kernels 4 and 7, the exact cull: one template, cull_exact_kernel<kShift,
+// kEntry, kGroup>. Its outputs need only the (live ray, cluster) pairs whose
+// slab test crosses (3.4-7.6 clusters a live ray on the 25k knot's strip
+// queries), so what bounds it is bytes: the rays in, the boxes, and the
+// [blocks, c_pad] tables out. A test of every ray against every column,
+// as the TPU's (256, 128) tile does it, costs a live block 256 x c_pad slab
+// tests and a dead ray a loop trip each. Design: one CTA per 256-ray block:
+// - live rays only: the block's live rays are listed in shared memory (warp
+//   ballots and a prefix over the warps); a block with none writes its
+//   empty rows (kBig, 0) and exits;
+// - columns in tiles of kCullTile: the tile's boxes are staged once
+//   (coalesced), and consecutive columns form groups of kGroup whose box is
+//   the exact min / max of their real (lo <= hi) members' boxes, built in the
+//   kernel. A live ray slab-tests a group box with slab_cross and its
+//   members only where that crosses. The group tests go out as units
+//   (group, 32 live rays) dealt to the warps in turn, so a block of few
+//   live rays still spreads them over every warp. Nothing is dropped: a
+//   member box lies inside its group box, round-to-nearest is monotone and
+//   the ray's reciprocal is fixed, so the ray's rounded slab interval for
+//   the group box holds its interval for the member (accel/clusters.py
+//   cull_admitted_pairs_plain is the plain form). An inverted box crosses
+//   every live ray, so it cannot sit in a group box: the canonical padding
+//   box (lo = kBig, hi = -kBig) is tested once a ray and its result applied
+//   to every padding column; a group with any other inverted (or NaN)
+//   member is admitted whole;
+// - admitted (ray, group) pairs go to a work list in shared memory (a warp
+//   ballot and one atomicAdd a warp and group), in rounds of kCullWork
+//   entries; the pairs are spread over the block's 256 threads, one a
+//   thread testing the group's members in turn, and merged with shared
+//   atomics: atomicOr of the ray's group (kernel 4, kShift 5) or octet
+//   (kernel 7, kShift 3) bit, atomicMin of the bits of max(tn, 0), since
+//   non-negative floats order as their bits (a -0.0 entry is taken as
+//   +0.0, as the card's torch.clamp_min gives it). OR and min are
+//   order-free, so the rows are deterministic; each row is written once,
+//   coalesced.
+// On the H100 this reaches about a fifth of the bytes bound on dense
+// blocks: a live block's chain (stage the boxes, build the group boxes,
+// two barriers a round, write the rows) is latency, which six CTAs an SM
+// hide only in part.
+
 // Kernels 5 / 6 and 5c / 6c, the cluster walks: one template,
 // cluster_walk_kernel<kClosest, kSc>. At the resident (<= 1024 clusters)
 // and streaming (<= 8192) tiers a list entry is one 128-slot cluster, with
@@ -100,8 +132,8 @@
 // the box unwidened, so a grazing ray's hit can lie in front of it
 // (tests/torch_parity.py lone_gated_rays).
 //
-// Kernel 7 is kernel 4's loop with 8-ray octet bits and no entry distance
-// (one template). Kernel 8: a work list (accel/qwalk.py) puts each crossing
+// Kernel 7 is kernel 4 with 8-ray octet bits and no entry distance (one
+// template). Kernel 8: a work list (accel/qwalk.py) puts each crossing
 // (8-ray octet, cluster) pair in a step of 32 items, 256 marshalled rays of
 // one cluster. What bounds it: the pair tests, 256 x 128 per step with no
 // gate and no early exit, plus the marshalled rays (32 B in) and candidates
@@ -177,45 +209,217 @@ __device__ __forceinline__ bool slab_cross(float lox, float loy, float loz,
   return fmaxf(tn, o.w) <= fminf(tf, iv.w);
 }
 
-// The exact cull of kernels 4 and 7: one CTA per 256-ray block, one thread
-// per cluster column. Bit (j >> kShift) of the mask is set when live ray j
+constexpr int kCullTile = 512;    // columns staged a pass (a multiple of 128)
+constexpr int kCullWork = 2048;   // work-list entries a round
+constexpr unsigned short kNoWork = 0xffffu;
+
+// The canonical padding box (accel/clusters.py build_clusters, _sc_tables).
+__device__ __forceinline__ bool padding_box(float lox, float loy, float loz,
+                                            float hix, float hiy, float hiz) {
+  return lox == kBig && loy == kBig && loz == kBig && hix == -kBig &&
+         hiy == -kBig && hiz == -kBig;
+}
+
+// max(tn, 0) as bits that order as its value (-0.0 taken as +0.0).
+__device__ __forceinline__ int entry_bits(float tn) {
+  return __float_as_int(fmaxf(tn, 0.f)) & 0x7fffffff;
+}
+
+// The exact cull of kernels 4 and 7 (design: at the top of the file). Bit
+// (lane >> kShift) of the mask is set when the block's live ray `lane`
 // crosses: 32-ray groups for kernel 4 (kShift 5), 8-ray octets for kernel 7
 // (kShift 3). Kernel 4 also writes the minimum entry distance (kEntry).
-template <int kShift, bool kEntry>
-__global__ void __launch_bounds__(kSub)
+// kGroup columns form a group box. Six CTAs an SM (40 registers): a live
+// block's chain of barriers is latency, and on the H100 six CTAs beat the
+// four or five that 48-64 registers allow by 3-12% (PERF.md §6).
+template <int kShift, bool kEntry, int kGroup>
+__global__ void __launch_bounds__(kSub, 6)
 cull_exact_kernel(const float* __restrict__ aabb, int c_pad,
                   const float* __restrict__ rays, float* __restrict__ tn_out,
                   int* __restrict__ mask_out) {
-  __shared__ float4 s_org[kSub];   // ox oy oz tmin
-  __shared__ float4 s_inv[kSub];   // 1/dx 1/dy 1/dz tmax
-  const int tid = threadIdx.x;
+  constexpr int kGroups = kCullTile / kGroup;
+  constexpr int kWarps = kSub / 32;
+  static_assert(kGroups <= kSub && kGroups < 256, "one group a thread");
+  __shared__ float4 s_org[kSub];              // live ray i: ox oy oz tmin
+  __shared__ float4 s_inv[kSub];              // 1/dx 1/dy 1/dz tmax
+  __shared__ unsigned char s_lane[kSub];      // its lane in the block
+  __shared__ float s_box[6][kCullTile];       // the tile's boxes
+  __shared__ float4 s_glo[kGroups];           // its group boxes' lo
+  __shared__ float4 s_ghi[kGroups];           // and hi
+  __shared__ unsigned char s_gkind[kGroups];  // 0 skip, 1 box, 2 whole
+  __shared__ int s_tn[kCullTile];             // entry bits
+  __shared__ unsigned s_m[kCullTile];         // group / octet bits
+  __shared__ unsigned short s_work[kCullWork];  // group << 8 | live ray
+  __shared__ int s_warp_live[kWarps];
+  __shared__ int s_nwork, s_pad_tn;
+  __shared__ unsigned s_pad_m;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1u;
   const size_t b = blockIdx.x;
   const Ray r = load_ray(rays, b * kSub + tid);
   const bool live = r.tmax > r.tmin;
-  slab_ray(r, s_org[tid], s_inv[tid]);
-  const int any_live = __syncthreads_or(live);
-  int* mask_row = mask_out + b * c_pad;
-  for (int c = tid; c < c_pad; c += kSub) {
-    float tnb = kBig;
-    unsigned m = 0u;
-    if (any_live) {
-      const float* ab = aabb + (c / kLanes) * 6 * kLanes + (c % kLanes);
-      const float lox = ab[0], loy = ab[kLanes], loz = ab[2 * kLanes];
-      const float hix = ab[3 * kLanes], hiy = ab[4 * kLanes],
-                  hiz = ab[5 * kLanes];
-      for (int j = 0; j < kSub; ++j) {
-        const float4 o = s_org[j];
-        const float4 iv = s_inv[j];
-        if (!(iv.w > o.w)) continue;            // dead ray: never crosses
-        float tn;
-        if (slab_cross(lox, loy, loz, hix, hiy, hiz, o, iv, tn)) {
-          if constexpr (kEntry) tnb = fminf(tnb, fmaxf(tn, 0.f));
-          m |= 1u << (j >> kShift);
+  const unsigned ballot = __ballot_sync(kFull, live);
+  if (lane == 0) s_warp_live[warp] = __popc(ballot);
+  if (tid == 0) {
+    s_pad_tn = __float_as_int(kBig);
+    s_pad_m = 0u;
+  }
+  __syncthreads();
+  int n_live = 0, before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? s_warp_live[w] : 0;
+    n_live += s_warp_live[w];
+  }
+  float* tn_row = kEntry ? tn_out + b * c_pad : nullptr;
+  int* m_row = mask_out + b * c_pad;
+  if (n_live == 0) {
+    for (int c = tid; c < c_pad; c += kSub) {
+      if constexpr (kEntry) tn_row[c] = kBig;
+      m_row[c] = 0;
+    }
+    return;
+  }
+  if (live) {
+    float4 org, inv;
+    slab_ray(r, org, inv);
+    const int i = before + __popc(ballot & lt);
+    s_org[i] = org;
+    s_inv[i] = inv;
+    s_lane[i] = static_cast<unsigned char>(tid);
+    float tn;   // the padding box, once a ray
+    if (slab_cross(kBig, kBig, kBig, -kBig, -kBig, -kBig, org, inv, tn)) {
+      atomicOr(&s_pad_m, 1u << (tid >> kShift));
+      if constexpr (kEntry) atomicMin(&s_pad_tn, entry_bits(tn));
+    }
+  }
+  // The group pass: units (group g, chunk of 32 live rays), chunk-minor,
+  // dealt to the warps in turn, so a block of few live rays spreads its
+  // group tests over every warp; a warp keeps its chunk's rays in
+  // registers while the chunk stays the same.
+  const int n_chunks = (n_live + 31) >> 5;
+  const int dg = kWarps / n_chunks, dc = kWarps % n_chunks;
+  for (int base = 0; base < c_pad; base += kCullTile) {
+    const int cols = min(kCullTile, c_pad - base);
+    const int n_groups = cols / kGroup;
+    // aabb is [c_pad / 128][6][128]: the tile's rows are contiguous.
+    const float* src = aabb + static_cast<size_t>(base) * 6;
+    for (int i = tid; i < 6 * cols; i += kSub) {
+      const int row = i / (6 * kLanes), rem = i % (6 * kLanes);
+      s_box[rem / kLanes][row * kLanes + rem % kLanes] = src[i];
+    }
+    for (int c = tid; c < cols; c += kSub) {
+      s_tn[c] = __float_as_int(kBig);
+      s_m[c] = 0u;
+    }
+    __syncthreads();
+    if (tid < n_groups) {
+      float lx = kBig, ly = kBig, lz = kBig;
+      float hx = -kBig, hy = -kBig, hz = -kBig;
+      int kind = 0;
+      for (int m = 0; m < kGroup; ++m) {
+        const int c = tid * kGroup + m;
+        const float blx = s_box[0][c], bly = s_box[1][c], blz = s_box[2][c];
+        const float bhx = s_box[3][c], bhy = s_box[4][c], bhz = s_box[5][c];
+        if (padding_box(blx, bly, blz, bhx, bhy, bhz)) continue;
+        if (blx <= bhx && bly <= bhy && blz <= bhz) {
+          kind = max(kind, 1);
+          lx = fminf(lx, blx);
+          ly = fminf(ly, bly);
+          lz = fminf(lz, blz);
+          hx = fmaxf(hx, bhx);
+          hy = fmaxf(hy, bhy);
+          hz = fmaxf(hz, bhz);
+        } else {
+          kind = 2;
         }
       }
+      s_glo[tid] = make_float4(lx, ly, lz, 0.f);
+      s_ghi[tid] = make_float4(hx, hy, hz, 0.f);
+      s_gkind[tid] = static_cast<unsigned char>(kind);
     }
-    if constexpr (kEntry) tn_out[b * c_pad + c] = tnb;
-    mask_row[c] = static_cast<int>(m);
+    int g = warp / n_chunks, chunk = warp % n_chunks;  // the warp's unit
+    int held = -1;                                    // chunk in registers
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f), iv = o;
+    bool more;
+    do {
+      for (int i = tid; i < kCullWork; i += kSub) s_work[i] = kNoWork;
+      if (tid == 0) s_nwork = 0;
+      __syncthreads();
+      for (; g < n_groups; g += dg, chunk += dc) {
+        if (chunk >= n_chunks) {
+          chunk -= n_chunks;
+          ++g;
+          if (g >= n_groups) break;
+        }
+        const int kind = s_gkind[g];
+        if (kind == 0) continue;
+        const int ri = chunk * 32 + lane;
+        if (chunk != held) {
+          held = chunk;
+          if (ri < n_live) {
+            o = s_org[ri];
+            iv = s_inv[ri];
+          }
+        }
+        bool adm = false;
+        if (ri < n_live) {
+          if (kind == 2) {
+            adm = true;
+          } else {
+            const float4 glo = s_glo[g], ghi = s_ghi[g];
+            float tn;
+            adm = slab_cross(glo.x, glo.y, glo.z, ghi.x, ghi.y, ghi.z, o, iv,
+                             tn);
+          }
+        }
+        const unsigned bal = __ballot_sync(kFull, adm);
+        if (bal == 0u) continue;
+        int at = 0;
+        if (lane == 0) at = atomicAdd(&s_nwork, __popc(bal));
+        at = __shfl_sync(kFull, at, 0);
+        if (at + __popc(bal) > kCullWork) break;   // retry next round
+        if (adm)
+          s_work[at + __popc(bal & lt)] =
+              static_cast<unsigned short>((g << 8) | ri);
+      }
+      __syncthreads();
+      // The member pass: one admitted (ray, group) a thread, its kGroup
+      // members in turn.
+      const int n_items = min(s_nwork, kCullWork);
+      for (int it = tid; it < n_items; it += kSub) {
+        const unsigned w = s_work[it];
+        if (w == kNoWork) continue;
+        const int c0 = static_cast<int>(w >> 8) * kGroup;
+        const int ri = static_cast<int>(w & 0xffu);
+        const float4 ro = s_org[ri], rv = s_inv[ri];
+        const unsigned bit = 1u << (s_lane[ri] >> kShift);
+        for (int c = c0; c < c0 + kGroup; ++c) {
+          const float lox = s_box[0][c], loy = s_box[1][c],
+                      loz = s_box[2][c];
+          const float hix = s_box[3][c], hiy = s_box[4][c],
+                      hiz = s_box[5][c];
+          if (padding_box(lox, loy, loz, hix, hiy, hiz)) continue;
+          float tn;
+          if (slab_cross(lox, loy, loz, hix, hiy, hiz, ro, rv, tn)) {
+            if (!(s_m[c] & bit)) atomicOr(&s_m[c], bit);
+            if constexpr (kEntry) {
+              const int eb = entry_bits(tn);
+              if (eb < s_tn[c]) atomicMin(&s_tn[c], eb);
+            }
+          }
+        }
+      }
+      more = __syncthreads_or(g < n_groups);
+    } while (more);
+    for (int c = tid; c < cols; c += kSub) {
+      const bool pad = padding_box(s_box[0][c], s_box[1][c], s_box[2][c],
+                                   s_box[3][c], s_box[4][c], s_box[5][c]);
+      if constexpr (kEntry)
+        tn_row[base + c] = __int_as_float(pad ? s_pad_tn : s_tn[c]);
+      m_row[base + c] = static_cast<int>(pad ? s_pad_m : s_m[c]);
+    }
+    __syncthreads();
   }
 }
 
@@ -856,26 +1060,54 @@ qwalk_any_kernel(const int* __restrict__ steps, int n_steps,
 
 }  // namespace
 
+// Kernels 4 and 7 with kGroup columns a group box: one CTA a ray block.
+template <int kShift, bool kEntry, int kGroup>
+int launch_cull_group(const float* aabb, int c_pad, const float* rays,
+                      int n_blocks, float* tn, int* mask, void* stream) {
+  cull_exact_kernel<kShift, kEntry, kGroup>
+      <<<n_blocks, kSub, 0, static_cast<cudaStream_t>(stream)>>>(
+          aabb, c_pad, rays, tn, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernels 4 and 7 at a group size of 4, 8, 16 or 32 columns; any other is
+// refused.
+template <int kShift, bool kEntry>
+int launch_cull(const float* aabb, int c_pad, const float* rays,
+                int n_blocks, float* tn, int* mask, int group, void* stream) {
+  if (c_pad % kLanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_blocks <= 0) return 0;
+  switch (group) {
+    case 4:
+      return launch_cull_group<kShift, kEntry, 4>(aabb, c_pad, rays, n_blocks,
+                                                  tn, mask, stream);
+    case 8:
+      return launch_cull_group<kShift, kEntry, 8>(aabb, c_pad, rays, n_blocks,
+                                                  tn, mask, stream);
+    case 16:
+      return launch_cull_group<kShift, kEntry, 16>(aabb, c_pad, rays,
+                                                   n_blocks, tn, mask, stream);
+    case 32:
+      return launch_cull_group<kShift, kEntry, 32>(aabb, c_pad, rays,
+                                                   n_blocks, tn, mask, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 extern "C" int ort_cluster_cull_exact(const float* aabb, int c_pad,
                                       const float* rays, int n_blocks,
-                                      float* tn, int* gm, void* stream) {
-  if (n_blocks > 0) {
-    cull_exact_kernel<5, true><<<n_blocks, kSub, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        aabb, c_pad, rays, tn, gm);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                      float* tn, int* gm, int group,
+                                      void* stream) {
+  return launch_cull<5, true>(aabb, c_pad, rays, n_blocks, tn, gm, group,
+                              stream);
 }
 
 extern "C" int ort_qwalk_oct_cull(const float* aabb, int c_pad,
                                   const float* rays, int n_blocks, int* om,
-                                  void* stream) {
-  if (n_blocks > 0) {
-    cull_exact_kernel<3, false><<<n_blocks, kSub, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-        aabb, c_pad, rays, nullptr, om);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                  int group, void* stream) {
+  return launch_cull<3, false>(aabb, c_pad, rays, n_blocks, nullptr, om,
+                               group, stream);
 }
 
 extern "C" int ort_qwalk_closest(const int* steps, int n_steps,

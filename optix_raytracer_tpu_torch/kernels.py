@@ -81,8 +81,8 @@ _SIGNATURES = {
     "ort_pt_fused": (_P, _I, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _I, _I,
                      _I, _P, _I, _P, _P, _P),
-    # aabb, c_pad, rays, n_blocks, tn, gm, stream
-    "ort_cluster_cull_exact": (_P, _I, _P, _I, _P, _P, _P),
+    # aabb, c_pad, rays, n_blocks, tn, gm, group, stream
+    "ort_cluster_cull_exact": (_P, _I, _P, _I, _P, _P, _I, _P),
     # counts, lists, comp, n_comp, aabb, rays, n_blocks, c_pad, gate, win,
     # out, stream
     "ort_cluster_closest": (_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P),
@@ -92,8 +92,8 @@ _SIGNATURES = {
     "ort_cluster_sc_closest": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P,
                                _P),
     "ort_cluster_sc_any": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P),
-    # aabb, c_pad, rays, n_blocks, om, stream
-    "ort_qwalk_oct_cull": (_P, _I, _P, _I, _P, _P),
+    # aabb, c_pad, rays, n_blocks, om, group, stream
+    "ort_qwalk_oct_cull": (_P, _I, _P, _I, _P, _I, _P),
     # steps, n_steps, qrays, q_cols, comp, n_comp, out, stream
     "ort_qwalk_closest": (_P, _I, _P, _L, _P, _I, _P, _P),
     "ort_qwalk_any": (_P, _I, _P, _L, _P, _I, _P, _P),

@@ -1,5 +1,6 @@
 """A/B of the cluster walks: kernels 5c / 6c (--tier sc, the default) or
-kernels 5 / 6 (--tier resident).
+kernels 5 / 6 (--tier resident); with --cull, of the exact cull and the
+octet cull (kernels 4 and 7) instead.
 
 --tier sc builds chip_smoke.py's 4M knot (`knot_scene(1450, 1380)`,
 4,002,002 triangles, the supercluster tier) and its eight phase-f ray sets:
@@ -30,15 +31,25 @@ Per set it culls once and then:
   occlusion to be bit-equal. With --windows W1,W2,... (resident) it times
   this tree's walks at each WALK_WINDOW (list entries a round) too.
 
+With --cull the walks are not run: on each set whose cull is exact it holds
+kernel 4 (on the supercluster facade at --tier sc) and, at the resident
+tier, kernel 7 bit for bit to their plain versions, times them (CUDA
+events, mean of --reps), with --parent DIR against DIR's kernels in the
+order parent, this tree, this tree, parent (requiring tn / gm / om to be
+bit-equal), and prints the set's cull counts and bounds
+(knot_probe.cull_fields); with --k K1,K2,... it also times this tree's
+kernels at each group size (clusters.cull_group) and prints the group
+boxes crossed and the tests a live ray at each.
+
 With --launches N it then times N launches of the tier's knot (1920x1088, 16
 samples per launch, depth 3, after one warm-up): sample-major, and at the
-resident tier also sequential, with this tree's walks and, with --parent,
-with the parent's walks patched into the same engine (parent, this, this,
-parent), and requires equal ray counts.
+resident tier also sequential, with this tree's walks (with --cull: its
+exact cull) and, with --parent, with the parent's patched into the same
+engine (parent, this, this, parent), and requires equal ray counts.
 
-    python optix_raytracer_tpu_torch/tools/bench_sc_walks.py [--tier sc]
+    python -m optix_raytracer_tpu_torch.tools.bench_sc_walks [--tier sc]
         [--parent DIR] [--counts] [--reps 10] [--windows 2,4,8]
-        [--launches 1] [--out FILE]
+        [--cull] [--k 4,8,16,32] [--launches 1] [--out FILE]
 
 Needs a CUDA device. Prints one JSON line per set and one for the launches,
 then the card's name and power limit; --out also writes them as one JSON
@@ -57,12 +68,17 @@ import subprocess
 import sys
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
+import torch
+
+from optix_raytracer_tpu_torch import kernels
+from optix_raytracer_tpu_torch.accel import clusters as C
+from optix_raytracer_tpu_torch.accel import qwalk as Q
+from optix_raytracer_tpu_torch.tools import knot_probe as KP
 
 
 def load_parent(root):
-    """DIR/optix_raytracer_tpu_torch as the package `ort_parent`."""
+    """DIR/optix_raytracer_tpu_torch as the package `ort_parent` → its
+    (accel.clusters, accel.qwalk) modules."""
     pkg = os.path.join(root, "optix_raytracer_tpu_torch")
     spec = importlib.util.spec_from_file_location(
         "ort_parent", os.path.join(pkg, "__init__.py"),
@@ -70,7 +86,8 @@ def load_parent(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["ort_parent"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("ort_parent.accel.clusters")
+    return (importlib.import_module("ort_parent.accel.clusters"),
+            importlib.import_module("ort_parent.accel.qwalk"))
 
 
 def resident_walks(M):
@@ -84,18 +101,18 @@ def resident_walks(M):
     return bind(M.walk_closest), bind(M.walk_any)
 
 
-def sc_tier(S, C, dev):
+def sc_tier(dev):
     """The 4M knot and its phase-f sets → (scene, camera, configuration,
     [(table, the table the cull runs on, member boxes, [(name, rays,
     exact, gated)])])."""
     from optix_raytracer_tpu_torch.scene.builtins import (knot_camera,
                                                          knot_scene)
-    K = S.KNOT_SC
+    K = KP.KNOT_SC
     scene = knot_scene(K["segments"], K["sides"], device=dev)
     W, H = K["width"], K["height"]
-    prim, shadow, _ = S.knot_ray_sets(scene, W, H, dev)
+    prim, shadow, _ = KP.knot_ray_sets(scene, W, H, dev)
     cam = knot_camera(W, H).params(dev)
-    closest_calls, any_calls = S.main_path_strip_sets(scene, cam, W, H,
+    closest_calls, any_calls = KP.main_path_strip_sets(scene, cam, W, H,
                                                       K["spl"], K["depth"])
     sets = [("primary", prim, False, False), ("shadow", shadow, True, False)]
     for bounce, ((rc, ec, _), (ra, ea, _)) in enumerate(
@@ -107,7 +124,7 @@ def sc_tier(S, C, dev):
     return scene, cam, K, [(scene.clusters, facade, member, sets)]
 
 
-def resident_tier(S, C, dev):
+def resident_tier(dev):
     """The 25k knot's phase-b sets and the 500k knot's phase-c sets, as
     sc_tier returns them (no member boxes)."""
     from optix_raytracer_tpu_torch.accel import native
@@ -116,30 +133,106 @@ def resident_tier(S, C, dev):
     from optix_raytracer_tpu_torch.scene.builtins import (knot_camera,
                                                          knot_scene,
                                                          trefoil_mesh)
-    K = S.KNOT
+    K = KP.KNOT
     scene = knot_scene(K["segments"], K["sides"], device=dev)
     W, H = K["width"], K["height"]
-    prim, shadow, bounce1 = S.knot_ray_sets(scene, W, H, dev)
+    prim, shadow, bounce1 = KP.knot_ray_sets(scene, W, H, dev)
     sets = [("primary", prim, False, False), ("shadow", shadow, True, False),
             ("bounce1", bounce1, True, False),
             ("bounce1_gated", bounce1, True, True)]
     cam = knot_camera(W, H).params(dev)
-    closest_calls, any_calls = S.main_path_strip_sets(scene, cam, W, H,
+    closest_calls, any_calls = KP.main_path_strip_sets(scene, cam, W, H,
                                                       K["spl"], K["depth"])
     for bounce, ((rc, ec, gc), (ra, ea, ga)) in enumerate(
             zip(closest_calls, any_calls)):
         sets += [(f"strip_bounce{bounce}", rc, ec, ec and gc),
                  (f"strip_bounce{bounce}_shadow", ra, ea, ga)]
-    verts, idx, normals = trefoil_mesh(S.KNOT_STREAM["segments"],
-                                       S.KNOT_STREAM["sides"])
+    verts, idx, normals = trefoil_mesh(KP.KNOT_STREAM["segments"],
+                                       KP.KNOT_STREAM["sides"])
     geom = build_triangle_geometry(verts, idx, dev, normals=normals)
     big = C.build_clusters(geom, order=native.sah_leaf_order(geom))
-    bprim, bshadow, _ = S.knot_ray_sets(
+    bprim, bshadow, _ = KP.knot_ray_sets(
         dataclasses.replace(scene, clusters=big), W, H, dev)
     big_sets = [("knot500k_primary", bprim, False, False),
                 ("knot500k_shadow", bshadow, True, False)]
     return scene, cam, K, [(scene.clusters, scene.clusters, None, sets),
                            (big, big, None, big_sets)]
+
+
+def ab_ms(fn, pfn, reps):
+    """fn's time and, with a parent's pfn, pfn's, CUDA events, mean of
+    reps, in the order parent, this, this, parent → (this [ms], parent
+    [ms] or None)."""
+    if pfn is None:
+        return [KP.cuda_ms(fn, reps)], None
+    p1 = KP.cuda_ms(pfn, reps)
+    c1, c2 = KP.cuda_ms(fn, reps), KP.cuda_ms(fn, reps)
+    return [c1, c2], [p1, KP.cuda_ms(pfn, reps)]
+
+
+def bits(*ts):
+    return [t.view(torch.int32) for t in ts]
+
+
+def cull_row(cl, packed, with_oct, P, PQ, ks, reps):
+    """Kernel 4 (up to MAX_CLUSTERS columns) and kernel 7 (with_oct) on one
+    set: bit-equal to the plain version and to the parent's, timed (ab_ms),
+    at each group size of ks too, with the set's cull counts and
+    bounds."""
+    n_blocks, c_pad = packed.shape[0] // C.SUB, cl.c_pad
+    row = {}
+    culls = []
+    if c_pad <= C.MAX_CLUSTERS:     # the streaming tier's cull is interval
+        culls.append(("cull", 8, lambda M: M.exact_cull(
+            cl.aabb, packed, n_blocks, c_pad), C.exact_cull_plain(
+                cl.aabb, packed, n_blocks, c_pad), P))
+    if with_oct:
+        culls.append(("oct", 4, lambda M: M._oct_cull(cl, packed, n_blocks,
+                                                     c_pad),
+                      Q.oct_cull_plain(cl.aabb, packed, n_blocks, c_pad), PQ))
+    for tag, out_bytes, run, plain, parent in culls:
+        own = C if tag == "cull" else Q
+        plain = plain if isinstance(plain, tuple) else (plain,)
+
+        def check(out, who):
+            out = out if isinstance(out, tuple) else (out,)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(bits(*out), bits(*plain))):
+                raise SystemExit(f"{tag}: {who} differs from the plain "
+                                 f"version")
+        check(run(own), "this tree")
+        if parent is not None:
+            check(run(parent), "the parent")
+        row[f"{tag}_ms"], row[f"{tag}_parent_ms"] = ab_ms(
+            lambda: run(own), None if parent is None else (lambda: run(parent)),
+            reps)
+        row.update(KP.cull_fields(cl.aabb, packed, out_bytes, tag))
+        keep = C.cull_group
+        try:
+            for k in ks:
+                C.cull_group = lambda c_pad, k=k: k
+                check(run(own), f"group {k}")
+                row[f"{tag}_ms_k{k}"] = KP.cuda_ms(lambda: run(own), reps)
+                row.update({f"{f}_k{k}": v for f, v in KP.cull_fields(
+                    cl.aabb, packed, out_bytes, tag, k).items()
+                    if f.endswith(("groups_crossed_per_ray",
+                                   "tests_per_ray"))})
+        finally:
+            C.cull_group = keep
+    return row
+
+
+def cull_ptxas():
+    """ptxas's report (registers, shared memory, spills) for each build of
+    kernels 4 / 7, from the build's nvcc.log."""
+    log = kernels.build()[0].parent / "nvcc.log"
+    out, entry = [], None
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "cull_exact" in ln else None
+        elif entry and ("Used" in ln or "spill" in ln):
+            out.append(f"{entry}: {ln.split(' : ')[-1].strip()}")
+    return out
 
 
 def main():
@@ -149,28 +242,26 @@ def main():
     ap.add_argument("--counts", action="store_true")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--windows", default="")
+    ap.add_argument("--cull", action="store_true")
+    ap.add_argument("--k", default="")
     ap.add_argument("--launches", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    import torch
     if not torch.cuda.is_available():
         raise SystemExit("bench_sc_walks: needs a CUDA device")
-    sys.path.insert(0, ROOT)
-    import chip_smoke as S
-    from optix_raytracer_tpu_torch import kernels
-    from optix_raytracer_tpu_torch.accel import clusters as C
     dev = torch.device("cuda", 0)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     kernels.lib()
-    P = load_parent(args.parent) if args.parent else None
+    P, PQ = load_parent(args.parent) if args.parent else (None, None)
     if P is not None:
         P.kernels.lib()
+    ks = [int(k) for k in args.k.split(",") if k]
     sc = args.tier == "sc"
     windows = [int(w) for w in args.windows.split(",") if w]
     t0 = time.perf_counter()
-    scene, cam, K, tables = (sc_tier if sc else resident_tier)(S, C, dev)
+    scene, cam, K, tables = (sc_tier if sc else resident_tier)(dev)
     torch.cuda.synchronize()
     results = dict(card=card, tier=args.tier,
                    build_s=time.perf_counter() - t0, sets={})
@@ -178,6 +269,12 @@ def main():
         for name, rays, exact, gate in sets:
             packed = C._pack_rays(rays, C._padded(rays.tmin.shape[0]))
             n_blocks = packed.shape[0] // C.SUB
+            if args.cull:
+                if exact:
+                    results["sets"][name] = row = cull_row(
+                        cull_cl, packed, not sc, P, PQ, ks, args.reps)
+                    print(json.dumps({"set": name, **row}), flush=True)
+                continue
             culled = C._cull(cull_cl, packed, packed.shape[0] // C.SUPER,
                              cull_cl.c_pad, exact=exact)
             counts, lists, tnear = (t.reshape(n_blocks, -1) for t in culled)
@@ -195,22 +292,19 @@ def main():
                        entries_per_block=int(counts.sum()) / n_blocks)
             out = {w: fn(*full) for w, fn in walks.items()}
             for w, fn in walks.items():
-                if pwalks is not None:
-                    pfn = pwalks[w]
-                    ref = pfn(*full)
-                    if not torch.equal(out[w].view(torch.int32),
-                                       ref.view(torch.int32)):
-                        raise SystemExit(f"{name}: {w} walk differs from the "
-                                         f"parent's")
-                    if args.reps:
-                        p1 = S.cuda_ms(lambda: pfn(*full), args.reps)
-                        c1 = S.cuda_ms(lambda: fn(*full), args.reps)
-                        c2 = S.cuda_ms(lambda: fn(*full), args.reps)
-                        p2 = S.cuda_ms(lambda: pfn(*full), args.reps)
-                        row[f"{w}_ms"] = [c1, c2]
-                        row[f"{w}_parent_ms"] = [p1, p2]
-                elif args.reps:
-                    row[f"{w}_ms"] = [S.cuda_ms(lambda: fn(*full), args.reps)]
+                pfn = None if pwalks is None else pwalks[w]
+                if pfn is not None and not torch.equal(
+                        out[w].view(torch.int32),
+                        pfn(*full).view(torch.int32)):
+                    raise SystemExit(f"{name}: {w} walk differs from the "
+                                     f"parent's")
+                if args.reps:
+                    row[f"{w}_ms"], parent_ms = ab_ms(
+                        lambda: fn(*full),
+                        None if pfn is None else (lambda: pfn(*full)),
+                        args.reps)
+                    if parent_ms is not None:
+                        row[f"{w}_parent_ms"] = parent_ms
                 if args.reps and windows and not sc:
                     keep = C.WALK_WINDOW
                     try:
@@ -220,7 +314,7 @@ def main():
                                                out[w].view(torch.int32)):
                                 raise SystemExit(f"{name}: {w} walk at "
                                                  f"window {win} differs")
-                            row[f"{w}_ms_window{win}"] = S.cuda_ms(
+                            row[f"{w}_ms_window{win}"] = KP.cuda_ms(
                                 lambda: fn(*full), args.reps)
                     finally:
                         C.WALK_WINDOW = keep
@@ -229,31 +323,35 @@ def main():
                     if sc:
                         if closest == name.endswith("shadow"):
                             continue      # phase f counts the set's own walk
-                        pairs = S.sc_pair_counts(counts, lists, member,
+                        pairs = KP.sc_pair_counts(counts, lists, member,
                                                  packed, out[w], closest)
                         boxes, width = member, member.shape[2]
                     else:
-                        pairs = S.walk_pair_counts(counts, lists, cl.aabb,
+                        pairs = KP.walk_pair_counts(counts, lists, cl.aabb,
                                                    packed, out[w], closest,
                                                    gate)
                         boxes, width = C._aabb_rows(cl)[:, :, None], 0
                     row.update({f"{w}_pairs_{k}": v
                                 for k, v in pairs.items()})
-                    row[f"{w}_pairs_needed"] = S.walk_bound(
+                    row[f"{w}_pairs_needed"] = KP.walk_bound(
                         counts, lists, boxes, cl.num_clusters, packed,
                         out[w], closest, sc=width)["pairs"]
             results["sets"][name] = row
             print(json.dumps({"set": name, **row}), flush=True)
     del tables
+    if args.cull:
+        results["ptxas"] = cull_ptxas()
+        print(json.dumps({"ptxas": results["ptxas"]}), flush=True)
     if args.launches:
         launch = dict()
-        names = (("walk_sc_closest", "walk_sc_any") if sc
+        names = (("exact_cull",) if args.cull
+                 else ("walk_sc_closest", "walk_sc_any") if sc
                  else ("walk_closest", "walk_any"))
         own = tuple(getattr(C, n) for n in names)
         trees = [("this", own)]
         if P is not None:
-            theirs = (tuple(getattr(P, n) for n in names) if sc
-                      else resident_walks(P))
+            theirs = (tuple(getattr(P, n) for n in names)
+                      if sc or args.cull else resident_walks(P))
             trees = [("parent", theirs), ("this", own), ("this", own),
                      ("parent", theirs)]
         impls = ("auto",) if sc else ("auto", "wavefront")
@@ -263,7 +361,7 @@ def main():
                 for tree, fns in trees:
                     for n, fn in zip(names, fns):
                         setattr(C, n, fn)
-                    (_, _, dt, _, _, first_rays, _, _) = S.timed_launches(
+                    (_, _, dt, _, _, first_rays, _, _) = KP.timed_launches(
                         scene, cam, W, H, spl, depth, impl, args.launches,
                         dev)
                     key = f"{impl}_{tree}"

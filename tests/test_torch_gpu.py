@@ -6,6 +6,8 @@ Marked `gpu`; every test skips when `torch.cuda.is_available()` is false
 occlusion equal, t within rtol 1e-5, uv 1e-4, normals 1e-5
 (test_pallas_intersect.py); the exact cull's tables bit-equal; ray counts
 equal and radiance within atol 2e-3 / rtol 1e-3 (test_fused_kernel.py)."""
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -392,6 +394,83 @@ def test_qwalk_kernels_match_plain(cuda, segments, sides):
         assert 0 < int(hit.sum()) < out.shape[1]
     for name in ("qwalk_oct_cull", "qwalk_closest", "qwalk_any"):
         assert kernels.LAUNCHES[name] == before[name] + 1
+
+
+def _assert_culls_match_plain(aabb, packed, what):
+    """Kernels 4 and 7 against their plain versions on one table and ray
+    set: tn, gm and om bit-equal, one launch each."""
+    from optix_raytracer_tpu_torch.accel import qwalk as Q
+    nb, c_pad = packed.shape[0] // C.SUB, aabb.shape[0] * C.LANES
+    before = dict(kernels.LAUNCHES)
+    tn, gm = C.exact_cull(aabb, packed, nb, c_pad)
+    om = Q._oct_cull(types.SimpleNamespace(aabb=aabb), packed, nb, c_pad)
+    torch.cuda.synchronize()
+    for name in ("cluster_cull_exact", "qwalk_oct_cull"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    tn_p, gm_p = C.exact_cull_plain(aabb, packed, nb, c_pad)
+    assert torch.equal(tn.view(torch.int32), tn_p.view(torch.int32)), what
+    assert torch.equal(gm, gm_p), what
+    assert torch.equal(om, Q.oct_cull_plain(aabb, packed, nb, c_pad)), what
+    assert (gm != 0).any(), what
+    return tn, gm
+
+
+def _edge_sets(aabb, device, seeds=(0, 1)):
+    return [torch.as_tensor(torch_parity.cull_edge_rays(
+        aabb.cpu().numpy(), seed), device=device) for seed in seeds]
+
+
+@pytest.mark.parametrize("group", C.CULL_GROUPS)
+def test_cull_kernels_match_plain(cuda, monkeypatch, group):
+    """Kernels 4 and 7 at each group size against their plain versions, bit
+    for bit: the edge-case rays (torch_parity.cull_edge_rays, with a dead
+    block and a block of one live ray) on the edge-case table
+    (torch_parity.cull_edge_table: interleaved padding, other inverted
+    boxes) and on the 25k knot's table; the 25k knot's probe sets at
+    64x64 (knot_probe.knot_ray_sets); and the cluster queries of one
+    sample-major strip of the 25k knot at 64x64, 4 samples, depth 3."""
+    from optix_raytracer_tpu_torch.tools import knot_probe as KP
+    monkeypatch.setattr(C, "cull_group", lambda c_pad: group)
+    knot = knot_scene(200, 63, device=cuda)
+    edge = torch.as_tensor(torch_parity.cull_edge_table(), device=cuda)
+    for name, aabb in (("edge", edge), ("knot25k", knot.clusters.aabb)):
+        for i, packed in enumerate(_edge_sets(aabb, cuda)):
+            tn, gm = _assert_culls_match_plain(aabb, packed,
+                                               f"{name} edge rays {i}")
+            assert (gm[2] == 0).all() and (tn[2] == C._BIG).all()
+            assert (gm[5] != 0).any()
+            assert ((gm[5] == 0) | (gm[5] == 1 << (77 // 32))).all()
+    prim, shadow, bounce1 = KP.knot_ray_sets(knot, 64, 64, cuda)
+    closest, shadows = KP.main_path_strip_sets(
+        knot, knot_camera(64, 64).params(cuda), 64, 64, 4, 3)
+    sets = [prim, shadow, bounce1] + [r for r, _, _ in closest + shadows]
+    for i, rays in enumerate(sets):
+        packed = C._pack_rays(rays, C._padded(rays.tmin.shape[0]))
+        _assert_culls_match_plain(knot.clusters.aabb, packed,
+                                  f"knot25k set {i}")
+
+
+@pytest.mark.parametrize("group", C.CULL_GROUPS)
+def test_cull_kernels_match_plain_sc_facade(cuda, monkeypatch, group):
+    """The same on a supercluster facade of c_pad 1024: the 500,000-triangle
+    knot (trefoil_mesh(1000, 250), 3,907 clusters) on the supercluster tier
+    at 4 clusters a supercluster (977 superclusters), with the edge-case
+    rays and random rays around the mesh."""
+    from optix_raytracer_tpu_torch.accel import native
+    monkeypatch.setattr(C, "cull_group", lambda c_pad: group)
+    monkeypatch.setattr(C, "MAX_STREAM_CLUSTERS", 2)
+    monkeypatch.setattr(C, "SC_CLUSTERS", 4)
+    verts, idx, normals = B.trefoil_mesh(1000, 250)
+    geom = build_triangle_geometry(verts, idx, cuda, normals=normals)
+    cl = C.build_clusters(geom, order=native.sah_leaf_order(geom))
+    cull_aabb, _, n_sc = C._sc_tables(cl)
+    facade = C._sc_facade(cl, cull_aabb, n_sc)
+    assert facade.c_pad == 1024 and n_sc == 977
+    sets = _edge_sets(facade.aabb, cuda, seeds=(2,))
+    rays = _knot_rays(40000, 7, cuda)
+    sets.append(C._pack_rays(rays, C._padded(rays.tmin.shape[0])))
+    for i, packed in enumerate(sets):
+        _assert_culls_match_plain(facade.aabb, packed, f"facade set {i}")
 
 
 @pytest.mark.parametrize("qf", [6, 1])

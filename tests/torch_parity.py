@@ -413,3 +413,89 @@ def lone_gated_rays(geom, cl, seeds=range(4)):
         out[256 * i] = r8[n]
         out[256 * i + 32] = np.concatenate([o, d, [1e-3, 1e16]])
     return out
+
+
+def cull_edge_table(seed=0, c_pad=256):
+    """A cull table [c_pad / 128, 6, 128] f32 numpy for kernels 4 / 7:
+    random boxes in [-2, 2]^3, flat and point boxes (lo == hi on some
+    axes), canonical padding boxes (lo = 3e38, hi = -3e38) both
+    interleaved and as the table's tail, and two other inverted boxes (lo >
+    hi on one axis), which no group box can hold."""
+    rng = np.random.default_rng(seed)
+    big = np.float32(3.0e38)
+    lo = rng.uniform(-2, 2, (c_pad, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0, 0.6, (c_pad, 3)).astype(np.float32)
+    hi[10:20, 1] = lo[10:20, 1]                       # flat boxes
+    hi[20:24] = lo[20:24]                             # points
+    pad = np.zeros(c_pad, bool)
+    pad[[3, 37, 38, 39, 90, 131]] = True              # interleaved
+    pad[c_pad - 40:] = True                           # the tail
+    lo[pad], hi[pad] = big, -big
+    for c in (45, 170):                               # inverted on x
+        lo[c, 0], hi[c, 0] = hi[c, 0], lo[c, 0] - np.float32(0.1)
+    boxes = np.concatenate([lo, hi], axis=1)          # [c_pad, 6]
+    return np.ascontiguousarray(
+        boxes.reshape(c_pad // 128, 128, 6).transpose(0, 2, 1))
+
+
+def cull_edge_rays(aabb, seed=0, n=4096):
+    """Rays [n, 8] f32 numpy (n a multiple of 256) for the exact cull's
+    edge cases on a table aabb [rows, 6, 128]: direction components +0.0,
+    -0.0, +-1e-12 (the pseudo-inverse's +-1e12) and just above it; rays in
+    a real box's face plane along it, through its corners, and starting on
+    a face; windows with tmax at 3e38 or inf, and dead lanes (tmax <=
+    tmin). Block 2 is all dead; block 5 holds one live ray (lane 77)."""
+    rng = np.random.default_rng(seed)
+    boxes = aabb.transpose(0, 2, 1).reshape(-1, 6)
+    real = np.nonzero((boxes[:, 0:3] <= boxes[:, 3:6]).all(axis=1))[0]
+    lo_all, hi_all = boxes[real, 0:3].min(0), boxes[real, 3:6].max(0)
+    span = hi_all - lo_all
+    o = rng.uniform(lo_all - 0.3 * span, hi_all + 0.3 * span, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    tiny = np.array([0.0, -0.0, 1e-12, -1e-12, 1.5e-12, -1.5e-12],
+                    np.float32)
+    i = rng.choice(n, n // 6, replace=False)           # one axis tiny
+    d[i, rng.integers(0, 3, i.size)] = rng.choice(tiny, i.size)
+    i = rng.choice(n, n // 12, replace=False)          # two axes tiny
+    ax = rng.integers(0, 3, i.size)
+    d[i, ax] = rng.choice(tiny, i.size)
+    d[i, (ax + 1) % 3] = rng.choice(tiny, i.size)
+    # along a face: in the plane of a real box's face, that axis's
+    # direction +-0, aimed at the face's centre
+    g = rng.choice(n, n // 6, replace=False)
+    b = rng.choice(real, g.size)
+    ax = rng.integers(0, 3, g.size)
+    side = rng.integers(0, 2, g.size)
+    lo, hi = boxes[b, 0:3], boxes[b, 3:6]
+    centre = 0.5 * (lo + hi)
+    start = centre + rng.uniform(-2, 2, (g.size, 3)).astype(np.float32)
+    rows = np.arange(g.size)
+    start[rows, ax] = np.where(side == 0, lo[rows, ax], hi[rows, ax])
+    aim = centre.copy()
+    aim[rows, ax] = start[rows, ax]
+    dd = aim - start
+    dd /= np.maximum(np.linalg.norm(dd, axis=1, keepdims=True), 1e-6)
+    dd[rows, ax] = np.where(rng.integers(0, 2, g.size) == 0, 0.0, -0.0)
+    o[g], d[g] = start, dd.astype(np.float32)
+    # through a corner, and starting on a face (the entry is +-0)
+    c = rng.choice(np.setdiff1d(np.arange(n), g), n // 12, replace=False)
+    b = rng.choice(real, c.size)
+    corner = np.where(rng.integers(0, 2, (c.size, 3)) == 0, boxes[b, 0:3],
+                      boxes[b, 3:6])
+    half = c.size // 2
+    o[c[:half]] = corner[:half] - 1.5 * d[c[:half]]
+    o[c[half:]] = corner[half:]
+    tmin = np.where(rng.random(n) < 0.2, 0.0, 1e-3).astype(np.float32)
+    tmax = np.full(n, 50.0, np.float32)
+    u = rng.random(n)
+    tmax[u < 0.1] = 3.0e38
+    tmax[(u >= 0.1) & (u < 0.15)] = np.inf
+    tmax[(u >= 0.15) & (u < 0.25)] = 0.0                   # dead
+    tmax[(u >= 0.25) & (u < 0.28)] = tmin[(u >= 0.25) & (u < 0.28)]  # dead
+    tmax[512:768] = 0.0                                     # block 2
+    tmax[1280:1536] = 0.0                                   # block 5 ...
+    tmax[1280 + 77] = 50.0                                  # ... but one
+    return np.concatenate([o, d, tmin[:, None], tmax[:, None]],
+                          axis=1).astype(np.float32)

@@ -22,6 +22,11 @@ time summed over kernels, the device's idle share of the window, and the
 kernels that take the most device time. Needs a CUDA device; with --out DIR
 it also writes the Chrome traces there.
 
+On a knot scene each launch also gets the split of the cluster table's
+query stages outside the walks (`cull_stages_ms`): the device time of the
+kernels launched inside clusters._pack_rays, _block_cull (the interval
+cull), _cull_tables and _compact (the sort), and of kernel 4 by name.
+
 --qwalk (with a knot scene) runs the launches under ORT_QWALK=1, through
 the cluster-major queue (accel/qwalk.py), and adds the queue's split of the
 device time: kernel 7 and kernel 8 (by kernel name), the queue's torch ops
@@ -67,6 +72,10 @@ _QWALK_KERNELS = {"kernel7": "cull_exact_kernel<3", "kernel8_closest":
 # The profiler ranges of --qwalk. The profiler also records each range on
 # the device's timeline; those records are not kernels.
 _RANGES = ("qwalk.query", "clusters.query")
+# The cluster table's query stages of a knot launch: profiler ranges around
+# these functions of accel/clusters.py (cull_stages_ms).
+_STAGES = ("_pack_rays", "_block_cull", "_cull_tables", "_compact")
+_STAGE_RANGES = tuple(f"clusters.{n}" for n in _STAGES)
 
 
 def _label_queries():
@@ -84,6 +93,41 @@ def _label_queries():
             with torch.profiler.record_function(_label):
                 return _fn(*a, **k)
         setattr(mod, name, wrapped)
+
+
+def _label_cull_stages():
+    """Wrap the cluster stages of _STAGES in profiler ranges (module
+    attributes, looked up at call time by their callers)."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters
+    for name in _STAGES:
+        fn = getattr(clusters, name)
+
+        def wrapped(*a, _fn=fn, _label=f"clusters.{name}", **k):
+            with torch.profiler.record_function(_label):
+                return _fn(*a, **k)
+        setattr(clusters, name, wrapped)
+
+
+def _stage_split(prof, kernels):
+    """Device time (ms) of the kernels inside each range of _STAGE_RANGES
+    on the device's timeline, and of kernel 4 by name."""
+    import torch
+    dev = torch.autograd.DeviceType.CUDA
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events()
+             if e.device_type == dev and e.name in _STAGE_RANGES]
+    out = {n: 0.0 for n in (*_STAGES, "kernel4")}
+    for k in kernels:
+        s, e = k.time_range.start, k.time_range.end
+        if "cull_exact_kernel<5" in k.name:
+            out["kernel4"] += (e - s) / 1e3
+            continue
+        for a, b, n in spans:
+            if a <= s and e <= b:
+                out[n.split(".", 1)[1]] += (e - s) / 1e3
+                break
+    return out
 
 
 def _inside(e, label):
@@ -162,7 +206,7 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
                                               f"trace_{tag}_{impl}.json"))
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name not in _RANGES]
+               and e.name not in _RANGES + _STAGE_RANGES]
     busy = _busy_us(kernels)
     by_name = {}
     for e in kernels:
@@ -176,6 +220,8 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
                kernel_launches=len(kernels),
                top=[dict(name=n[:80], calls=c, ms=t / 1e3)
                     for n, (c, t) in top])
+    if tag.startswith("knot"):
+        out["cull_stages_ms"] = _stage_split(prof, kernels)
     if qwalk:
         out.update(qwalk_ms=_qwalk_split(prof, kernels, busy / 1e3),
                    qwalk_queries=dict(Q.STATS))
@@ -213,6 +259,7 @@ def main():
     w, h = (int(v) for v in args.dim.split("x"))
     dev = torch.device("cuda")
     if args.scene in ("knot", "knot4m"):
+        _label_cull_stages()
         mesh = (200, 63) if args.scene == "knot" else (1450, 1380)
         scene = builtins.knot_scene(*mesh, device=dev)
         cam = builtins.knot_camera(w, h).params(dev)
