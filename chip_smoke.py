@@ -54,8 +54,8 @@ try:
     from optix_raytracer_tpu_torch.tools.knot_probe import (
         KNOT, KNOT_SC, KNOT_STREAM, PAIR_OPS, RAY_BYTES, SLAB_OPS, bound,
         cuda_ms, cull_fields, knot_ray_sets, listed_entries, listed_words,
-        main_path_strip_sets, sc_pair_counts, timed_launches, walk_bound,
-        walk_pair_counts)
+        main_path_strip_sets, ptxas_report, queue_counts, sc_pair_counts,
+        timed_launches, walk_bound, walk_pair_counts)
 except ImportError as e:
     raise SystemExit(f"chip_smoke: FAILED: run from a checkout of the "
                      f"repository ({e})")
@@ -152,7 +152,7 @@ def fmt(r):
     needed pair tests."""
     out = {}
     for k, v in r.items():
-        if k.endswith("_bound"):
+        if k.endswith(("_bound", "_floor")):
             out[f"{k}_ms"] = f"{v['bound_ms']:.3f}({v['bound_by']})"
             if "bound_brute_ms" in v:
                 out[f"{k}_brute_ms"] = f"{v['bound_brute_ms']:.3f}"
@@ -604,7 +604,10 @@ def queue_parity(cl, rays, closest, gate, what, queue_bound, p2c):
     kernel 8 on all steps, the whole query at qf_fit and the walk's whole
     query; build_marshal_reduce_ms is the query's rest (packing, work-list
     build, marshalling, per-ray reduction). `queue_bound` is the walk's
-    bound on this set (walk_bound): kernel 8 answers the same query."""
+    bound on this set (walk_bound): kernel 8 answers the same query.
+    Kernel 8's lane tests a step (tested / admitted / needed) and the
+    queue's own floor (marshalled bytes against admitted pair tests) are
+    queue_counts'."""
     import torch
     from optix_raytracer_tpu_torch.accel import clusters as C
     from optix_raytracer_tpu_torch.accel import qwalk as Q
@@ -631,9 +634,9 @@ def queue_parity(cl, rays, closest, gate, what, queue_bound, p2c):
     sub = live[:, idx].clone()                 # own output columns 0..S-1
     sub[1] = torch.arange(idx.numel(), dtype=torch.int32, device=idx.device)
     plain = Q.queue_closest_plain if closest else Q.queue_any_plain
-    sub_k = Q._run_queue(closest, cl.comp, sub, qrays)
+    sub_k = Q._run_queue(closest, cl.comp, sub, qrays, cl.aabb)
     sub_p = plain(sub, qrays, cl.comp)
-    full_k = Q._run_queue(closest, cl.comp, live, qrays)
+    full_k = Q._run_queue(closest, cl.comp, live, qrays, cl.aabb)
     lane = torch.arange(Q.ROWS, device=idx.device)
     cols = (idx[:, None] * Q.ROWS + lane[None]).reshape(-1)
     out["queue_err"] = float(torch.where(sub_k == sub_p, 0.0,
@@ -670,15 +673,16 @@ def queue_parity(cl, rays, closest, gate, what, queue_bound, p2c):
         oct_ms=cuda_ms(lambda: Q._oct_cull(cl, packed, n_blocks, c_pad), 10),
         oct_plain_ms=cuda_ms(lambda: Q.oct_cull_plain(cl.aabb, packed,
                                                       n_blocks, c_pad), 1),
-        queue_ms=cuda_ms(lambda: Q._run_queue(closest, cl.comp, live, qrays),
-                         10),
+        queue_ms=cuda_ms(lambda: Q._run_queue(closest, cl.comp, live, qrays,
+                                              cl.aabb), 10),
         queue_plain_ms=cuda_ms(lambda: plain(sub, qrays, cl.comp), 1),
         queue_subset_ms=cuda_ms(lambda: Q._run_queue(closest, cl.comp, sub,
-                                                     qrays), 10),
+                                                     qrays, cl.aabb), 10),
         query_ms=cuda_ms(lambda: query(cl, rays, qf=qf_fit), 10),
         walk_query_ms=cuda_ms(lambda: walk(cl, rays, exact=True,
                                            group_walk=gate), 10),
         **cull_fields(cl.aabb, packed, 4, "oct"),
+        **queue_counts(live, qrays, cl.aabb, n_items, closest),
         queue_bound=queue_bound)
     out["build_marshal_reduce_ms"] = (out["query_ms"] - out["oct_ms"]
                                       - out["queue_ms"])
@@ -692,7 +696,9 @@ def qwalk_parity_phases(cl, big, sets, big_shadow, res, record):
     name → (rays, closest, gated), res's walk bounds under the same name)
     and on the 500k knot's NEE set (the streaming tier, past
     MAX_CLUSTERS). Fills the JSON record of kernels 7-8 from the strip's
-    bounce-1 queries."""
+    bounce-1 queries (kernel 8: the walk's bound and the queue's own
+    floor) and prints kernel 8's registers and spills (ptxas)."""
+    from optix_raytracer_tpu_torch import kernels
     p2c = prim_clusters(cl)
     qres = {}
     for name, (rays, closest, gate) in sets.items():
@@ -716,7 +722,11 @@ def qwalk_parity_phases(cl, big, sets, big_shadow, res, record):
         record[name] = dict(
             max_abs_err=max(x["queue_err"] for x in every),
             ms=src["queue_ms"], plain_ms=src["queue_plain_ms"],
-            **src["queue_bound"], plain_blocks=f"steps {src['plain_steps']}")
+            **src["queue_bound"], queue_floor_ms=src["queue_floor"][
+                "bound_ms"], queue_floor_by=src["queue_floor"]["bound_by"],
+            plain_blocks=f"steps {src['plain_steps']}")
+    log = kernels.build()[0].parent / "nvcc.log"
+    phase("h kernel 8 ptxas", report=ptxas_report(log, ("qwalk_kernel",)))
 
 
 def qwalk_headline(scene, cam, W, H, spl, depth, dev, card, ref_img,

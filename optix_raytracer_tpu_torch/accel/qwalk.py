@@ -16,7 +16,10 @@ listed cluster. The queue turns the loop around. A query
    array (`_marshal`);
 4. pair-tests each step's 256 marshalled rays against its cluster's 128
    triangle slots (kernel 8, `_run_queue`): a closest candidate row or an
-   occlusion flag per marshalled ray;
+   occlusion flag per marshalled ray. The kernel tests only the rays its
+   admission rule lets through (`queue_admitted_plain`: live, and crossing
+   the cluster's box widened by the walks' margin) and writes the miss row
+   for the others, which is what the plain versions give there;
 5. reduces the candidates per source ray with PyTorch scatter ops: the
    minimum t among hit rows, ties to the lowest marshalled row (that is the
    lowest cluster id, then the lowest slot), or the OR of the flags.
@@ -237,22 +240,55 @@ def queue_any_plain(steps, qrays, comp, step_chunk: int = 64):
     return out
 
 
-def _run_queue(closest: bool, comp, steps, qrays):
+def queue_admitted_plain(steps, qrays, aabb, step_chunk: int = 256):
+    """Kernel 8's admission rule in plain PyTorch → bool [n_steps*256], by
+    output column as the candidates: lane r of live step s (column
+    steps[1, s]*256 + r) is admitted when its marshalled ray is live and
+    its own slab test (`clusters._slab_cross`) crosses the box of cluster
+    steps[0, s] (aabb [c_pad / 128, 6, 128]) widened by the walks' margin
+    (`clusters.sc_widened_boxes`, the kernels' rounding); a box that is
+    not real (inverted) admits every live ray. A Woop hit lies inside the
+    widened box, so a ray left out has no hit in that cluster: its plain
+    candidate is the miss row (flag 0.0), which the kernel writes without
+    a test. Columns of dead steps are False."""
+    n_steps = steps.shape[1]
+    out = torch.zeros((1, n_steps * ROWS), dtype=torch.bool,
+                      device=qrays.device)
+    boxes = C._entry_boxes(aabb)                             # [c_pad, 6, 1]
+    for c, o, rays in _step_chunks(steps, qrays, step_chunk):
+        lo, hi, real = C.sc_widened_boxes(boxes[c])
+        cross = C._slab_cross(rays, lo, hi)[0][:, :, 0]
+        live = rays[:, :, 7] > rays[:, :, 6]
+        _scatter_cols(out, o, (cross | (live & ~real)).reshape(-1, 1))
+    return out[0]
+
+
+def _run_queue(closest: bool, comp, steps, qrays, aabb=None):
     """Kernel 8 (replaces `_q_closest_kernel` / `_q_any_kernel`, qwalk.py:
     227, 208; pallas_call at :283): see queue_closest_plain and
     queue_any_plain. steps [3, n_steps] int32, qrays [8, Q] f32 planar,
-    comp [C, 32, 128] f32 → [8 or 1, n_steps*256] f32."""
+    comp [C, 32, 128] f32 → [8 or 1, n_steps*256] f32. The kernel also
+    takes the table's cluster boxes aabb [c_pad / 128, 6, 128] for its
+    admission rule (`queue_admitted_plain`); the plain versions test every
+    ray and do not read them."""
     dev = qrays.device
     if dev.type == "cpu":
         plain = queue_closest_plain if closest else queue_any_plain
         return plain(steps, qrays, comp)
     if dev.type != "cuda":
         raise ValueError(f"_run_queue: unsupported device {dev}")
+    if aabb is None:
+        raise ValueError("_run_queue: kernel 8 needs the cluster boxes")
     n_steps = steps.shape[1]
     kernels.require(steps, "steps", torch.int32, (3, n_steps), dev)
     kernels.require(qrays, "qrays", torch.float32, (8, qrays.shape[1]), dev)
     kernels.require(comp, "comp", torch.float32,
                     (comp.shape[0], C.COMP_ROWS, C.LANES), dev)
+    kernels.require(aabb, "aabb", torch.float32, (aabb.shape[0], 6, C.LANES),
+                    dev)
+    if aabb.shape[0] * C.LANES < comp.shape[0]:
+        raise ValueError(f"_run_queue: aabb holds {aabb.shape[0] * C.LANES} "
+                         f"boxes for {comp.shape[0]} clusters")
     out = torch.zeros((8 if closest else 1, n_steps * ROWS),
                       dtype=torch.float32, device=dev)
     if n_steps == 0:
@@ -261,7 +297,7 @@ def _run_queue(closest: bool, comp, steps, qrays):
     with torch.cuda.device(dev):
         err = getattr(kernels.lib(), f"ort_{name}")(
             steps.data_ptr(), n_steps, qrays.data_ptr(), qrays.shape[1],
-            comp.data_ptr(), comp.shape[0], out.data_ptr(),
+            comp.data_ptr(), comp.shape[0], aabb.data_ptr(), out.data_ptr(),
             kernels.stream_ptr(dev))
         kernels.LAUNCHES[name] += 1
     kernels.check(err, name)
@@ -295,7 +331,8 @@ def _queue(cl: C.ClusterSet, rays: Rays, qf: int, closest: bool):
         return n, n_padded, None, None
     qrays, qrow = _marshal(packed, work_oct[:n_items], n_padded)
     cand = _run_queue(closest, cl.comp,
-                      steps[:, :n_items // ITEMS].contiguous(), qrays)
+                      steps[:, :n_items // ITEMS].contiguous(), qrays,
+                      cl.aabb)
     return n, n_padded, cand, qrow
 
 

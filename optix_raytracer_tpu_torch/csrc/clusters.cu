@@ -135,16 +135,37 @@
 // Kernel 7 is kernel 4 with 8-ray octet bits and no entry distance (one
 // template). Kernel 8: a work list (accel/qwalk.py) puts each crossing
 // (8-ray octet, cluster) pair in a step of 32 items, 256 marshalled rays of
-// one cluster. What bounds it: the pair tests, 256 x 128 per step with no
-// gate and no early exit, plus the marshalled rays (32 B in) and candidates
-// (32 B or 4 B out) per item ray through HBM. Design: one CTA of 256
-// threads per live step, one thread per marshalled ray (planar [8][cols]
-// rows, coalesced); the step's cluster is staged slot-major ([128][12],
-// three 16-byte broadcast loads per slot; the closest kernel also its ids
-// and normal rows) and tested with closest_step / any_step. closest_step
-// keeps one running best and replaces it when t < best or (t == best and
-// slot < best slot), _q_closest_kernel's tie rule. The per-ray reduction
-// over steps is PyTorch scatter ops.
+// one cluster, and the kernel writes each marshalled ray's candidate row
+// (closest) or flag (any-hit) against that cluster. The list is octet-
+// granular and has padding items, so most of a step's rays cannot hit: on
+// the 25k knot's strip bounce 1, 3.5x the pair tests the rays' own
+// crossings need. What bounds it: the needed pair tests (30 FP32
+// operations each) and the marshalled rays (32 B in, 32 B or 4 B out) per
+// item ray. Design: one CTA of 256 threads a step, thread tid on lane tid:
+// - admission: a ray is tested only when it is live and its own slab test
+//   crosses the step's cluster box widened by the walks' margin (the rule
+//   and the soundness argument of kernels 5 / 6; accel/qwalk.py
+//   queue_admitted_plain is its plain form); a ray left out writes the miss
+//   row (flag 0.0), as the plain version gives it there;
+// - spread: the admitted rays are listed in shared memory (a warp ballot
+//   and a prefix over the warps); work units (chunk of up to 16 listed
+//   rays, quarter of 32 slots) go to the warps, warp w holding slot
+//   32 * (w & 3) + lane in registers and taking every other chunk;
+// - closest: one 64-bit key per ray, t's order-preserving bits over the
+//   slot, merged by shared atomicMin (only when lower), so the minimum is
+//   the plain version's winner (smaller t, then lower slot; -0.0 taken as
+//   +0.0, which compare equal). Each ray with a winner re-runs that one
+//   pair test (the same operations, so the same t, u, v bits) and reads
+//   the slot's ids and normal rows;
+// - any-hit: one flag per ray in shared memory; a unit skips flagged rays
+//   (a warp owning its rays and taking the quarters in turn, so that a ray
+//   stops at its first hit quarter, measured 3-11% slower on the H100);
+// - staging: the step's slab loads by one bulk copy while the rays are
+//   admitted: the 12 test rows (6 KB) for any-hit, rows 0-26 (13.5 KB,
+//   the ids and normal rows too) for closest, which on the H100 beat
+//   reading the winner's rows from the table by 3-4% (and staging them
+//   with plain loads by 2%).
+// The per-ray reduction over steps is PyTorch scatter ops.
 #include "common.cuh"
 
 namespace {
@@ -423,33 +444,6 @@ cull_exact_kernel(const float* __restrict__ aabb, int c_pad,
   }
 }
 
-// Stage comp[c] rows 0-11 slot-major into s_tri ([128][12] floats).
-__device__ __forceinline__ void stage_test_rows(float* s_tri,
-                                                const float* __restrict__ src) {
-  for (int i = threadIdx.x; i < kTestRows * kLanes; i += kSub) {
-    const int row = i / kLanes, slot = i % kLanes;
-    s_tri[slot * kTestRows + row] = src[i];
-  }
-}
-
-// The closest walk's staging: the test rows, and the ids and normal rows
-// 16-26 as they are ([11][128]).
-__device__ __forceinline__ void stage_closest(float* s_tri, float* s_ext,
-                                              const float* __restrict__ src) {
-  stage_test_rows(s_tri, src);
-  for (int i = threadIdx.x; i < kExtRows * kLanes; i += kSub)
-    s_ext[i] = src[kExtRow0 * kLanes + i];
-}
-
-__device__ __forceinline__ void slot_consts(const float4* s_tri4, int j,
-                                            float* c) {
-  const float4 a = s_tri4[3 * j], b = s_tri4[3 * j + 1],
-               d = s_tri4[3 * j + 2];
-  c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
-  c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
-  c[8] = d.x; c[9] = d.y; c[10] = d.z; c[11] = d.w;
-}
-
 // One thread's running closest hit.
 struct Closest {
   float bt;
@@ -461,34 +455,19 @@ __device__ __forceinline__ Closest closest_init(const Ray& r) {
   return Closest{r.tmax, kLanes, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f, -1.f};
 }
 
-// Pair-test the thread's ray against the staged cluster's 128 slots and keep
-// the better hit (smaller t, or equal t at a lower slot).
-__device__ __forceinline__ void closest_step(const float* s_tri,
-                                             const float* s_ext, const Ray& r,
-                                             Closest& h) {
-  const float4* s_tri4 = reinterpret_cast<const float4*>(s_tri);
-  for (int j = 0; j < kLanes; ++j) {
-    float cst[kTestRows];
-    slot_consts(s_tri4, j, cst);
-    float tt, uu, vv, dpz;
-    ort::tri_test(cst, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tt, uu, vv, dpz);
-    if (ort::tri_accept(tt, uu, vv, dpz, r.tmin, r.tmax) &&
-        (tt < h.bt || (tt == h.bt && j < h.blane))) {
-      h.bt = tt;
-      h.blane = j;
-      h.bu = uu;
-      h.bv = vv;
-      const float* e = s_ext + j;
-      h.bprim = e[0];
-      h.bmat = e[kLanes];
-      h.bnx = __fadd_rn(__fadd_rn(e[2 * kLanes], __fmul_rn(uu, e[5 * kLanes])),
-                        __fmul_rn(vv, e[8 * kLanes]));
-      h.bny = __fadd_rn(__fadd_rn(e[3 * kLanes], __fmul_rn(uu, e[6 * kLanes])),
-                        __fmul_rn(vv, e[9 * kLanes]));
-      h.bnz = __fadd_rn(__fadd_rn(e[4 * kLanes], __fmul_rn(uu, e[7 * kLanes])),
-                        __fmul_rn(vv, e[10 * kLanes]));
-    }
-  }
+// A winner's ids and unnormalised normal n0 + u * d10 + v * d20 (the plain
+// walks' order) from its slot's rows 16-26 (e: row 16; rows kLanes apart).
+__device__ __forceinline__ void winner_ext(const float* __restrict__ e,
+                                           Closest& h) {
+  h.bprim = e[0];
+  h.bmat = e[kLanes];
+  const float u = h.bu, v = h.bv;
+  h.bnx = __fadd_rn(__fadd_rn(e[2 * kLanes], __fmul_rn(u, e[5 * kLanes])),
+                    __fmul_rn(v, e[8 * kLanes]));
+  h.bny = __fadd_rn(__fadd_rn(e[3 * kLanes], __fmul_rn(u, e[6 * kLanes])),
+                    __fmul_rn(v, e[9 * kLanes]));
+  h.bnz = __fadd_rn(__fadd_rn(e[4 * kLanes], __fmul_rn(u, e[7 * kLanes])),
+                    __fmul_rn(v, e[10 * kLanes]));
 }
 
 __device__ __forceinline__ void emit_closest(float* __restrict__ out,
@@ -496,19 +475,6 @@ __device__ __forceinline__ void emit_closest(float* __restrict__ out,
   float4* o = reinterpret_cast<float4*>(out + 8 * ray);
   o[0] = make_float4(h.bt, h.bu, h.bv, h.bnx);
   o[1] = make_float4(h.bny, h.bnz, h.bprim, h.bmat);
-}
-
-// True when the thread's ray hits one of the staged cluster's 128 slots.
-__device__ __forceinline__ bool any_step(const float* s_tri, const Ray& r) {
-  const float4* s_tri4 = reinterpret_cast<const float4*>(s_tri);
-  for (int j = 0; j < kLanes; ++j) {
-    float cst[kTestRows];
-    slot_consts(s_tri4, j, cst);
-    float tt, uu, vv, dpz;
-    ort::tri_test(cst, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, tt, uu, vv, dpz);
-    if (ort::tri_accept(tt, uu, vv, dpz, r.tmin, r.tmax)) return true;
-  }
-  return false;
 }
 
 // ---------------------------------------------------------------------------
@@ -561,18 +527,20 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Ring slot i's next cluster slab: comp[row] rows 0-11 (6 KB, contiguous) in
-// one bulk copy that completes on the slot's mbarrier.
+// Ring slot i's next cluster slab: comp[row] rows 0-11 (6 KB, contiguous;
+// kernel 8's closest variant rows 0-26) in one bulk copy that completes on
+// the slot's mbarrier.
 __device__ __forceinline__ void bulk_load_slab(float* dst,
                                                const float* __restrict__ src,
-                                               unsigned long long* bar) {
+                                               unsigned long long* bar,
+                                               unsigned bytes = kSlabBytes) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(kSlabBytes) : "memory");
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(kSlabBytes), "r"(smem_u32(bar))
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -973,22 +941,17 @@ cluster_walk_kernel(const int* __restrict__ counts,
       float dpz;
       ort::tri_test(cst, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, h.bt, h.bu, h.bv,
                     dpz);
-      e += kExtRow0 * kLanes;
-      h.bprim = e[0];
-      h.bmat = e[kLanes];
-      const float u = h.bu, v = h.bv;   // closest_step's normal, its order
-      h.bnx = __fadd_rn(__fadd_rn(e[2 * kLanes], __fmul_rn(u, e[5 * kLanes])),
-                        __fmul_rn(v, e[8 * kLanes]));
-      h.bny = __fadd_rn(__fadd_rn(e[3 * kLanes], __fmul_rn(u, e[6 * kLanes])),
-                        __fmul_rn(v, e[9 * kLanes]));
-      h.bnz = __fadd_rn(__fadd_rn(e[4 * kLanes], __fmul_rn(u, e[7 * kLanes])),
-                        __fmul_rn(v, e[10 * kLanes]));
+      winner_ext(e + kExtRow0 * kLanes, h);
       emit_closest(out, ray, h);
     }
   } else {
     occ_out[ray] = (sh.occ[tid] != 0 && !dead) ? 1 : 0;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Kernel 8: the queue (see the note at the head).
+// ---------------------------------------------------------------------------
 
 // Kernel 8's view of one step: its cluster, its output column block and its
 // marshalled rays' column block, from steps [3][n_steps]. False for a dead
@@ -1014,48 +977,149 @@ __device__ __forceinline__ Ray load_planar(const float* __restrict__ q,
              q[7 * q_cols + i]};
 }
 
-__global__ void __launch_bounds__(kSub)
-qwalk_closest_kernel(const int* __restrict__ steps, int n_steps,
-                     const float* __restrict__ qrays, size_t q_cols,
-                     const float* __restrict__ comp, int n_comp,
-                     float* __restrict__ out) {
-  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
-  __shared__ float s_ext[kExtRows * kLanes];
-  int c, o, q;
-  if (!queue_step(steps, n_steps, q_cols, n_comp, c, o, q)) return;
-  const Ray r = load_planar(qrays, q_cols,
-                            static_cast<size_t>(q) * kSub + threadIdx.x);
-  stage_closest(s_tri, s_ext, comp + static_cast<size_t>(c) * kCompRows *
-                                         kLanes);
-  __syncthreads();
-  Closest h = closest_init(r);
-  closest_step(s_tri, s_ext, r, h);
-  const size_t cols = static_cast<size_t>(n_steps) * kSub;
-  float* col = out + static_cast<size_t>(o) * kSub + threadIdx.x;
-  col[0] = h.bt;
-  col[cols] = h.bu;
-  col[2 * cols] = h.bv;
-  col[3 * cols] = h.bnx;
-  col[4 * cols] = h.bny;
-  col[5 * cols] = h.bnz;
-  col[6 * cols] = h.bprim;
-  col[7 * cols] = h.bmat;
-}
+constexpr unsigned long long kNoKey = ~0ull;
 
-__global__ void __launch_bounds__(kSub)
-qwalk_any_kernel(const int* __restrict__ steps, int n_steps,
-                 const float* __restrict__ qrays, size_t q_cols,
-                 const float* __restrict__ comp, int n_comp,
-                 float* __restrict__ out) {
-  __shared__ __align__(16) float s_tri[kLanes * kTestRows];
+// Kernel 8, closest (kClosest) or any-hit: one CTA a step, thread tid on
+// lane tid. The step's cluster slab (the test rows; closest: rows 0-26,
+// with the ids and normal rows) loads by one bulk copy while the rays are
+// admitted. Five CTAs an SM (48 registers): on the H100 they beat four (54
+// registers) by 2-4% on every set, and one step a CTA beat a loop over two
+// or four (the next slab loading while a step is tested) by 7-12%
+// (PERF.md §6).
+template <bool kClosest>
+__global__ void __launch_bounds__(kSub, 5)
+qwalk_kernel(const int* __restrict__ steps, int n_steps,
+             const float* __restrict__ qrays, size_t q_cols,
+             const float* __restrict__ comp, int n_comp,
+             const float* __restrict__ aabb, float* __restrict__ out) {
+  constexpr int kRows = kClosest ? kExtRow0 + kExtRows : kTestRows;
+  constexpr unsigned kBytes = kRows * kLanes * sizeof(float);
+  __shared__ __align__(128) float s_slab[kRows * kLanes];
+  __shared__ float4 s_ray[kSub][2];     // admitted ray i: ox oy oz dx,
+                                        // dy dz tmin tmax
+  __shared__ unsigned long long s_key[kClosest ? kSub : 1];  // its best key
+  __shared__ int s_occ[kClosest ? 1 : kSub];                 // its flag
+  __shared__ int s_warp[kWarps];        // admitted rays per warp
+  __shared__ unsigned long long s_bar;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned lt = (1u << lane) - 1u;
   int c, o, q;
   if (!queue_step(steps, n_steps, q_cols, n_comp, c, o, q)) return;
+  const float* src = comp + static_cast<size_t>(c) * kCompRows * kLanes;
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                 :: "r"(smem_u32(&s_bar)), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk_load_slab(s_slab, src, &s_bar, kBytes);
+  }
+  // Admission: live, and the ray's own slab test crosses the cluster's box
+  // widened by the margin (a box that is not real admits every live ray).
+  // A Woop hit lies in the widened box, so a ray left out has no hit here
+  // and writes the miss row, as the plain version gives it.
   const Ray r = load_planar(qrays, q_cols,
-                            static_cast<size_t>(q) * kSub + threadIdx.x);
-  stage_test_rows(s_tri, comp + static_cast<size_t>(c) * kCompRows * kLanes);
+                            static_cast<size_t>(q) * kSub + tid);
+  const float* bx =
+      aabb + static_cast<size_t>(c >> 7) * 6 * kLanes + (c & (kLanes - 1));
+  float lo[3], hi[3], wb[6];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = bx[a * kLanes];
+    hi[a] = bx[(3 + a) * kLanes];
+  }
+  const bool real = lo[0] <= hi[0] && lo[1] <= hi[1] && lo[2] <= hi[2];
+  widen_box(lo, hi, wb, 1);
+  float4 org, inv;
+  slab_ray(r, org, inv);
+  float tn;
+  const bool adm =
+      r.tmax > r.tmin &&
+      (!real ||
+       slab_cross(wb[0], wb[1], wb[2], wb[3], wb[4], wb[5], org, inv, tn));
+  // The admitted rays, listed: a warp ballot and a prefix over the warps.
+  const unsigned bal = __ballot_sync(kFull, adm);
+  if (lane == 0) s_warp[warp] = __popc(bal);
   __syncthreads();
-  out[static_cast<size_t>(o) * kSub + threadIdx.x] =
-      any_step(s_tri, r) ? 1.f : 0.f;
+  int n_adm = 0, i = __popc(bal & lt);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    i += w < warp ? s_warp[w] : 0;
+    n_adm += s_warp[w];
+  }
+  if (adm) {
+    s_ray[i][0] = make_float4(r.ox, r.oy, r.oz, r.dx);
+    s_ray[i][1] = make_float4(r.dy, r.dz, r.tmin, r.tmax);
+    if constexpr (kClosest)
+      s_key[i] = kNoKey;
+    else
+      s_occ[i] = 0;
+  }
+  __syncthreads();
+  mbar_wait(&s_bar, 0u);
+  // Work units (chunk of up to 16 admitted rays, quarter of 32 slots): warp
+  // w holds slot 32 * (w & 3) + lane and takes every other chunk, so the 8
+  // warps share the pair tests evenly.
+  if (n_adm > 0) {
+    const int n_chunks = 2 * ((n_adm + 31) >> 5);
+    const int chunk = (n_adm + n_chunks - 1) / n_chunks;
+    const int slot = 32 * (warp & 3) + lane;
+    float cst[kTestRows];
+#pragma unroll
+    for (int k = 0; k < kTestRows; ++k) cst[k] = s_slab[k * kLanes + slot];
+    for (int k = warp >> 2; k < n_chunks; k += 2) {
+      const int p1 = min((k + 1) * chunk, n_adm);
+      for (int p = k * chunk; p < p1; ++p) {
+        if constexpr (!kClosest) {
+          if (s_occ[p]) continue;
+        }
+        const float4 ra = s_ray[p][0], rb = s_ray[p][1];
+        float tt, uu, vv, dpz;
+        ort::tri_test(cst, ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, tt, uu, vv,
+                      dpz);
+        if (ort::tri_accept(tt, uu, vv, dpz, rb.z, rb.w)) {
+          if constexpr (kClosest) {
+            // t's order-preserving bits over the slot: the minimum is the
+            // plain version's winner (smaller t, then lower slot).
+            const unsigned long long key =
+                (static_cast<unsigned long long>(t_bits(tt)) << 32) |
+                static_cast<unsigned>(slot);
+            if (key < s_key[p]) atomicMin(&s_key[p], key);
+          } else {
+            s_occ[p] = 1;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  float* col = out + static_cast<size_t>(o) * kSub + tid;
+  if constexpr (kClosest) {
+    // The winner's row: its pair test again (the same operations, so the
+    // same t, u, v bits), its ids and normal rows from the slab.
+    Closest h = closest_init(r);
+    const unsigned long long key = adm ? s_key[i] : kNoKey;
+    if (key != kNoKey) {
+      const int slot = static_cast<int>(key & (kLanes - 1));
+      float cst[kTestRows];
+#pragma unroll
+      for (int k = 0; k < kTestRows; ++k) cst[k] = s_slab[k * kLanes + slot];
+      const float4 ra = s_ray[i][0], rb = s_ray[i][1];
+      float dpz;
+      ort::tri_test(cst, ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, h.bt, h.bu,
+                    h.bv, dpz);
+      winner_ext(s_slab + kExtRow0 * kLanes + slot, h);
+    }
+    const size_t cols = static_cast<size_t>(n_steps) * kSub;
+    col[0] = h.bt;
+    col[cols] = h.bu;
+    col[2 * cols] = h.bv;
+    col[3 * cols] = h.bnx;
+    col[4 * cols] = h.bny;
+    col[5 * cols] = h.bnz;
+    col[6 * cols] = h.bprim;
+    col[7 * cols] = h.bmat;
+  } else {
+    col[0] = adm && s_occ[i] ? 1.f : 0.f;
+  }
 }
 
 }  // namespace
@@ -1110,30 +1174,35 @@ extern "C" int ort_qwalk_oct_cull(const float* aabb, int c_pad,
                                group, stream);
 }
 
+// Kernel 8: one CTA a step; aabb is the table's cluster boxes
+// [c_pad / 128][6][128].
+template <bool kClosest>
+int launch_queue(const int* steps, int n_steps, const float* qrays,
+                 long long q_cols, const float* comp, int n_comp,
+                 const float* aabb, float* out, void* stream) {
+  if (n_steps <= 0) return 0;
+  qwalk_kernel<kClosest><<<n_steps, kSub, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      steps, n_steps, qrays, static_cast<size_t>(q_cols), comp, n_comp, aabb,
+      out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int ort_qwalk_closest(const int* steps, int n_steps,
                                  const float* qrays, long long q_cols,
-                                 const float* comp, int n_comp, float* out,
+                                 const float* comp, int n_comp,
+                                 const float* aabb, float* out,
                                  void* stream) {
-  if (n_steps > 0) {
-    qwalk_closest_kernel<<<n_steps, kSub, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        steps, n_steps, qrays, static_cast<size_t>(q_cols), comp, n_comp,
-        out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_queue<true>(steps, n_steps, qrays, q_cols, comp, n_comp,
+                            aabb, out, stream);
 }
 
 extern "C" int ort_qwalk_any(const int* steps, int n_steps,
                              const float* qrays, long long q_cols,
-                             const float* comp, int n_comp, float* out,
-                             void* stream) {
-  if (n_steps > 0) {
-    qwalk_any_kernel<<<n_steps, kSub, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        steps, n_steps, qrays, static_cast<size_t>(q_cols), comp, n_comp,
-        out);
-  }
-  return static_cast<int>(cudaGetLastError());
+                             const float* comp, int n_comp, const float* aabb,
+                             float* out, void* stream) {
+  return launch_queue<false>(steps, n_steps, qrays, q_cols, comp, n_comp,
+                             aabb, out, stream);
 }
 
 // Kernels 5 / 6 and 5c / 6c. The kernel needs its shared memory limit raised

@@ -94,9 +94,9 @@ _SIGNATURES = {
     "ort_cluster_sc_any": (_P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P),
     # aabb, c_pad, rays, n_blocks, om, group, stream
     "ort_qwalk_oct_cull": (_P, _I, _P, _I, _P, _I, _P),
-    # steps, n_steps, qrays, q_cols, comp, n_comp, out, stream
-    "ort_qwalk_closest": (_P, _I, _P, _L, _P, _I, _P, _P),
-    "ort_qwalk_any": (_P, _I, _P, _L, _P, _I, _P, _P),
+    # steps, n_steps, qrays, q_cols, comp, n_comp, aabb, out, stream
+    "ort_qwalk_closest": (_P, _I, _P, _L, _P, _I, _P, _P, _P),
+    "ort_qwalk_any": (_P, _I, _P, _L, _P, _I, _P, _P, _P),
     # atlas, tile_idx, local, tile_w, n_blocks, out, stream
     "ort_texfetch": (_P, _P, _P, _I, _I, _P, _P),
 }

@@ -1,6 +1,7 @@
 """A/B of the cluster walks: kernels 5c / 6c (--tier sc, the default) or
 kernels 5 / 6 (--tier resident); with --cull, of the exact cull and the
-octet cull (kernels 4 and 7) instead.
+octet cull (kernels 4 and 7) instead; with --queue, of the queue kernel
+(kernel 8, resident tier) instead.
 
 --tier sc builds chip_smoke.py's 4M knot (`knot_scene(1450, 1380)`,
 4,002,002 triangles, the supercluster tier) and its eight phase-f ray sets:
@@ -41,15 +42,27 @@ bit-equal), and prints the set's cull counts and bounds
 kernels at each group size (clusters.cull_group) and prints the group
 boxes crossed and the tests a live ray at each.
 
+With --queue (resident tier) the walks are not run either: on chip_smoke.py's
+phase-h sets (the 25k probe bounce-1 and NEE sets, the strip's queries
+the queue answers: bounces 1-2 closest, bounces 0-2 NEE) and the 500k NEE
+set (phase i) it builds the query's whole work list, holds kernel 8
+(closest on closest sets, any-hit on NEE sets) bit for bit to its plain
+version (on every k-th step past 4,096 steps) and to DIR's kernel 8 (all
+steps), times both (parent, this, this, parent) and prints the set's
+lane tests a step (tested / admitted / needed) and the queue's own floor
+(knot_probe.queue_counts).
+
 With --launches N it then times N launches of the tier's knot (1920x1088, 16
 samples per launch, depth 3, after one warm-up): sample-major, and at the
 resident tier also sequential, with this tree's walks (with --cull: its
-exact cull) and, with --parent, with the parent's patched into the same
-engine (parent, this, this, parent), and requires equal ray counts.
+exact cull; with --queue: under ORT_QWALK=1, its kernel 8) and, with
+--parent, with the parent's patched into the same engine (parent, this,
+this, parent), and requires equal ray counts. With --cull or --queue it
+prints ptxas's registers and spills of kernels 4-8 of both trees.
 
     python -m optix_raytracer_tpu_torch.tools.bench_sc_walks [--tier sc]
         [--parent DIR] [--counts] [--reps 10] [--windows 2,4,8]
-        [--cull] [--k 4,8,16,32] [--launches 1] [--out FILE]
+        [--cull] [--k 4,8,16,32] [--queue] [--launches 1] [--out FILE]
 
 Needs a CUDA device. Prints one JSON line per set and one for the launches,
 then the card's name and power limit; --out also writes them as one JSON
@@ -222,17 +235,70 @@ def cull_row(cl, packed, with_oct, P, PQ, ks, reps):
     return row
 
 
-def cull_ptxas():
-    """ptxas's report (registers, shared memory, spills) for each build of
-    kernels 4 / 7, from the build's nvcc.log."""
-    log = kernels.build()[0].parent / "nvcc.log"
-    out, entry = [], None
-    for ln in log.read_text().splitlines():
-        if "Compiling entry function" in ln:
-            entry = ln.split("'")[1] if "cull_exact" in ln else None
-        elif entry and ("Used" in ln or "spill" in ln):
-            out.append(f"{entry}: {ln.split(' : ')[-1].strip()}")
-    return out
+def ptxas(K, names):
+    """ptxas's report (registers, shared memory, spills) of the kernels
+    named by `names` in module K's build (this tree's or the parent's)."""
+    return KP.ptxas_report(K.build()[0].parent / "nvcc.log", names)
+
+
+# chip_smoke.py's phase-h sets (the 25k sets the queue answers) and phase
+# i's 500k NEE set, by resident_tier's names
+QUEUE_SETS = ("bounce1", "shadow", "strip_bounce1", "strip_bounce2",
+              "strip_bounce0_shadow", "strip_bounce1_shadow",
+              "strip_bounce2_shadow", "knot500k_shadow")
+PLAIN_QUEUE_STEPS = 4096     # as chip_smoke.py
+
+
+def queue_run(Q_):
+    """Module Q_'s kernel 8 as fn(closest, comp, steps, qrays, aabb); a tree
+    whose kernel takes no cluster boxes gets none."""
+    fn = Q_._run_queue
+    if "aabb" in inspect.signature(fn).parameters:
+        return fn
+    return lambda closest, comp, steps, qrays, aabb=None: fn(
+        closest, comp, steps, qrays)
+
+
+def queue_row(cl, rays, closest, PQ, reps):
+    """Kernel 8 on one set's whole work list: bit-equal to its plain
+    version (every k-th step past PLAIN_QUEUE_STEPS) and to the parent's,
+    timed (ab_ms), with the set's lane tests a step and the queue's own
+    floor."""
+    n, n_padded, packed, n_blocks, c_pad, k_cap = Q._prep(cl, rays, 6)
+    om = Q._oct_cull(cl, packed, n_blocks, c_pad)
+    n_items = Q._build_queue(om, cl.num_clusters, n_padded, k_cap)[3]
+    steps, work, _, _ = Q._build_queue(om, cl.num_clusters, n_padded,
+                                       -(-n_items // Q.ITEMS) * Q.ITEMS)
+    qrays, _ = Q._marshal(packed, work[:n_items], n_padded)
+    live = steps[:, :n_items // Q.ITEMS].contiguous()
+    n_steps = live.shape[1]
+    stride = max(1, -(-n_steps // PLAIN_QUEUE_STEPS))
+    sub = live[:, ::stride].clone()
+    sub[1] = torch.arange(sub.shape[1], dtype=torch.int32,
+                          device=sub.device)
+    plain = (Q.queue_closest_plain if closest else Q.queue_any_plain)(
+        sub, qrays, cl.comp)
+    own = queue_run(Q)
+
+    def run(fn):
+        return fn(closest, cl.comp, live, qrays, cl.aabb)
+    if not torch.equal(own(closest, cl.comp, sub, qrays, cl.aabb).view(
+            torch.int32), plain.view(torch.int32)):
+        raise SystemExit("queue: this tree's kernel 8 differs from the "
+                         "plain version")
+    out = run(own)
+    theirs = None if PQ is None else queue_run(PQ)
+    if theirs is not None and not torch.equal(run(theirs).view(torch.int32),
+                                              out.view(torch.int32)):
+        raise SystemExit("queue: kernel 8 differs from the parent's")
+    row = dict(rays=int(rays.tmin.shape[0]), closest=closest,
+               n_items=n_items, steps=n_steps,
+               plain_steps=f"{sub.shape[1]} of {n_steps}",
+               **KP.queue_counts(live, qrays, cl.aabb, n_items, closest))
+    row["queue_ms"], row["queue_parent_ms"] = ab_ms(
+        lambda: run(own), None if theirs is None else (lambda: run(theirs)),
+        reps)
+    return row
 
 
 def main():
@@ -244,6 +310,7 @@ def main():
     ap.add_argument("--windows", default="")
     ap.add_argument("--cull", action="store_true")
     ap.add_argument("--k", default="")
+    ap.add_argument("--queue", action="store_true")
     ap.add_argument("--launches", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -258,6 +325,9 @@ def main():
     if P is not None:
         P.kernels.lib()
     ks = [int(k) for k in args.k.split(",") if k]
+    if args.queue and (args.cull or args.tier != "resident"):
+        raise SystemExit("bench_sc_walks: --queue runs at --tier resident, "
+                         "without --cull")
     sc = args.tier == "sc"
     windows = [int(w) for w in args.windows.split(",") if w]
     t0 = time.perf_counter()
@@ -267,6 +337,12 @@ def main():
                    build_s=time.perf_counter() - t0, sets={})
     for cl, cull_cl, member, sets in tables:
         for name, rays, exact, gate in sets:
+            if args.queue:
+                if name in QUEUE_SETS:
+                    results["sets"][name] = row = queue_row(
+                        cl, rays, not name.endswith("shadow"), PQ, args.reps)
+                    print(json.dumps({"set": name, **row}), flush=True)
+                continue
             packed = C._pack_rays(rays, C._padded(rays.tmin.shape[0]))
             n_blocks = packed.shape[0] // C.SUB
             if args.cull:
@@ -339,28 +415,38 @@ def main():
             results["sets"][name] = row
             print(json.dumps({"set": name, **row}), flush=True)
     del tables
-    if args.cull:
-        results["ptxas"] = cull_ptxas()
-        print(json.dumps({"ptxas": results["ptxas"]}), flush=True)
+    if args.cull or args.queue:
+        names = ("cull_exact", "cluster_walk", "qwalk")
+        results["ptxas"] = ptxas(kernels, names)
+        if P is not None:
+            results["ptxas_parent"] = ptxas(P.kernels, names)
+        print(json.dumps({k: v for k, v in results.items()
+                          if k.startswith("ptxas")}), flush=True)
     if args.launches:
         launch = dict()
-        names = (("exact_cull",) if args.cull
+        M = Q if args.queue else C      # the module whose functions swap
+        names = (("_run_queue",) if args.queue
+                 else ("exact_cull",) if args.cull
                  else ("walk_sc_closest", "walk_sc_any") if sc
                  else ("walk_closest", "walk_any"))
-        own = tuple(getattr(C, n) for n in names)
+        own = tuple(getattr(M, n) for n in names)
         trees = [("this", own)]
         if P is not None:
-            theirs = (tuple(getattr(P, n) for n in names)
+            theirs = ((queue_run(PQ),) if args.queue
+                      else tuple(getattr(P, n) for n in names)
                       if sc or args.cull else resident_walks(P))
             trees = [("parent", theirs), ("this", own), ("this", own),
                      ("parent", theirs)]
         impls = ("auto",) if sc else ("auto", "wavefront")
         W, H, spl, depth = K["width"], K["height"], K["spl"], K["depth"]
+        qwalk_env = os.environ.get("ORT_QWALK")
+        if args.queue:
+            os.environ["ORT_QWALK"] = "1"
         try:
             for impl in impls:
                 for tree, fns in trees:
                     for n, fn in zip(names, fns):
-                        setattr(C, n, fn)
+                        setattr(M, n, fn)
                     (_, _, dt, _, _, first_rays, _, _) = KP.timed_launches(
                         scene, cam, W, H, spl, depth, impl, args.launches,
                         dev)
@@ -371,7 +457,11 @@ def main():
                         first_rays)
         finally:
             for n, fn in zip(names, own):
-                setattr(C, n, fn)
+                setattr(M, n, fn)
+            if qwalk_env is None:
+                os.environ.pop("ORT_QWALK", None)
+            else:
+                os.environ["ORT_QWALK"] = qwalk_env
         rays_seen = {r for k, v in launch.items() if k.endswith("_rays")
                      for r in v}
         if len(rays_seen) != 1:

@@ -2,14 +2,16 @@
 (4-8), shared by chip_smoke.py and tools/bench_sc_walks.py: the knot
 configurations and frames, the probe ray sets and the rays one sample-major
 strip of the main path hands the cluster table, CUDA-event timing, timed
-launches, and the least work (pair and slab tests, bytes) each kernel's
-outputs need, as a bound on the card (`bound`).
+launches, the least work (pair and slab tests, bytes) each kernel's
+outputs need, as a bound on the card (`bound`), and ptxas's report of a
+build (`ptxas_report`).
 
 The peaks are the H100 SXM data sheet's (dense, at 700 W): FP32 outside the
 tensor cores, and HBM3.
 """
 from __future__ import annotations
 
+import re
 import time
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from .. import kernels
 from ..accel import clusters as C
+from ..accel import qwalk as Q
 from ..core import rng as _rng
 from ..core.camera import generate_rays
 from ..core.film import Film
@@ -193,6 +196,55 @@ def walk_bound(counts, lists, boxes, n_real, packed, out, closest, sc=0):
               + work["members"] * rows * SLOT_BYTES)
     ops = PAIR_OPS * work["pairs"] + (SLAB_OPS * work["slabs"] if sc else 0)
     return dict(bound(ops, nbytes), pairs=work["pairs"])
+
+
+def queue_counts(steps, qrays, aabb, n_items, closest, step_chunk=256):
+    """Kernel 8's lane tests (ray x triangle slot) on a query's live steps
+    (steps [3, S], planar qrays, the table's aabb; n_items = 32 S work
+    items), three ways a step → dict: tested (every lane: 256 x 128, the
+    parent design's), admitted (`qwalk.queue_admitted_plain`, the kernel's
+    rule) and needed (the rays whose own slab test crosses the unwidened
+    cluster box); and the queue's own floor (`queue_floor`, `bound`): the
+    marshalled rays in and candidates out, n_items x 8 x (32 B + 32 B or
+    4 B), over the HBM rate, against the admitted pair tests over the FP32
+    peak."""
+    n_adm = int(Q.queue_admitted_plain(steps, qrays, aabb,
+                                       step_chunk).sum())
+    boxes = C._entry_boxes(aabb)
+    needed = 0
+    for c, _, rays in Q._step_chunks(steps, qrays, step_chunk):
+        needed += int(C._slab_cross(rays, boxes[c][:, 0:3],
+                                    boxes[c][:, 3:6])[0].sum())
+    per = max(steps.shape[1], 1)
+    nbytes = n_items * Q.OCT * (RAY_BYTES + (RAY_BYTES if closest else 4))
+    return dict(lane_tests_per_step=dict(
+        tested=Q.ROWS * C.LANES, admitted=n_adm * C.LANES / per,
+        needed=needed * C.LANES / per),
+        queue_floor=bound(PAIR_OPS * n_adm * C.LANES, nbytes))
+
+
+def ptxas_report(log, names):
+    """ptxas's registers, spills and shared memory of each kernel entry
+    whose mangled name holds one of `names`, from a build's nvcc.log →
+    {"kernel<template args>": "N registers, S bytes spill stores, L bytes
+    spill loads, M bytes smem"}."""
+    out, entry = {}, None
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            m = re.search(r"\d([a-z_]+kernel)((?:I(?:L[ib]\d+E)+E)?)", name)
+            entry = None
+            if m and any(n in name for n in names):
+                args = re.findall(r"L[ib](\d+)E", m.group(2))
+                entry = m.group(1) + (f"<{','.join(args)}>" if args else "")
+                out[entry] = []
+        elif entry and "spill stores" in ln:
+            out[entry] += [p.strip() for p in ln.split(",")[1:]]
+        elif entry and "Used" in ln:
+            used = ln.split(" : ")[-1].split(",")
+            out[entry] = [used[0].replace("Used ", "").strip()] + out[
+                entry] + [p.strip() for p in used if "smem" in p]
+    return {k: ", ".join(v) for k, v in out.items()}
 
 
 def cuda_ms(fn, reps):

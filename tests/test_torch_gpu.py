@@ -366,14 +366,58 @@ def test_sc_queries_match_cpu(cuda, monkeypatch):
                        C.any_hit_sorted(cpu, rays))
 
 
-@pytest.mark.parametrize("segments,sides", [(20, 14), (512, 125)])
-def test_qwalk_kernels_match_plain(cuda, segments, sides):
+def _rays8(rays8, device):
+    """[N, 8] f32 numpy rays → Rays on device."""
+    t = torch.as_tensor(rays8, device=device)
+    return Rays(t[:, 0:3].contiguous(), t[:, 3:6].contiguous(),
+                t[:, 6].contiguous(), t[:, 7].contiguous())
+
+
+def _queue_case(case, device):
+    """(cluster table, rays) of one case of test_qwalk_kernels_match_plain."""
+    if case in ("knot20x14", "knot512x125", "padding"):
+        segments, sides = (512, 125) if case == "knot512x125" else (20, 14)
+        rays = _knot_rays(20000, 5, device)
+        if case == "padding":      # a few live rays: most items are padding
+            keep = torch.arange(20000, device=device) % 401 == 0
+            rays = Rays(rays.origin, rays.direction, rays.tmin,
+                        torch.where(keep, rays.tmax, 0.0))
+        return knot_scene(segments, sides, device=device).clusters, rays
+    if case == "tie":
+        geom, tri_mat, order, rays8, _ = torch_parity.sc_tie_case(device)
+        return (C.build_clusters(geom, tri_mat, order=order),
+                _rays8(rays8, device))
+    scene = knot_scene(90, 50, device=device)
+    cl = scene.clusters
+    if case == "edge":
+        rays8 = np.concatenate([torch_parity.cull_edge_rays(
+            cl.aabb.cpu().numpy(), s) for s in (0, 1)])
+    elif case == "grazing":
+        boxes = C._entry_boxes(cl.aabb)[:cl.num_clusters]
+        rays8 = np.concatenate([torch_parity.sc_grazing_rays(
+            scene.geom, cl, boxes, seed=s, boxes=71) for s in range(4)])
+    elif case == "lone":
+        rays8 = torch_parity.lone_gated_rays(scene.geom, cl)
+    else:                          # "all_miss"
+        rays8 = torch_parity.queue_miss_rays(cl)
+    return cl, _rays8(rays8, device)
+
+
+@pytest.mark.parametrize("case", ["knot20x14", "knot512x125", "edge",
+                                  "grazing", "lone", "all_miss", "tie",
+                                  "padding"])
+def test_qwalk_kernels_match_plain(cuda, case):
     """Kernel 7's octet masks and kernel 8's candidate columns (closest and
-    any-hit) against their plain versions on the same work list, bit-equal;
-    the 128,002-triangle knot has 1,001 clusters (four per cull thread)."""
+    any-hit) against their plain versions on the same work list, bit-equal:
+    random rays on the small knot and on the 128,002-triangle knot (1,001
+    clusters, four per cull thread); on the 9k knot the cull's edge-case
+    rays, grazing rays and rays alone in their octet, and whole steps
+    whose admitted rays all miss
+    (torch_parity.queue_miss_rays); exact ties (sc_tie_case at the
+    resident tier: two copies of a triangle in one cluster, the lower slot
+    wins); and a list of mostly padding items."""
     from optix_raytracer_tpu_torch.accel import qwalk as Q
-    cl = knot_scene(segments, sides, device=cuda).clusters
-    rays = _knot_rays(20000, 5, cuda)
+    cl, rays = _queue_case(case, cuda)
     n, n_padded, packed, nb, c_pad, _ = Q._prep(cl, rays, 6)
     before = dict(kernels.LAUNCHES)
     om = Q._oct_cull(cl, packed, nb, c_pad)
@@ -384,16 +428,21 @@ def test_qwalk_kernels_match_plain(cuda, segments, sides):
     assert not overflow and n_items > 0
     qrays, _ = Q._marshal(packed, work[:n_items], n_padded)
     live = steps[:, :n_items // Q.ITEMS].contiguous()
+    adm = Q.queue_admitted_plain(live, qrays, cl.aabb)
+    assert adm.any()
     for closest in (True, False):
-        out = Q._run_queue(closest, cl.comp, live, qrays)
+        out = Q._run_queue(closest, cl.comp, live, qrays, cl.aabb)
         plain = (Q.queue_closest_plain if closest else Q.queue_any_plain)(
             live, qrays, cl.comp)
         torch.cuda.synchronize()
         assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
         hit = out[6] >= 0 if closest else out[0] > 0
-        assert 0 < int(hit.sum()) < out.shape[1]
+        assert hit.any() == (case != "all_miss")
+        assert int(hit.sum()) < out.shape[1]
     for name in ("qwalk_oct_cull", "qwalk_closest", "qwalk_any"):
         assert kernels.LAUNCHES[name] == before[name] + 1
+    with pytest.raises(ValueError, match="cluster boxes"):
+        Q._run_queue(True, cl.comp, live, qrays)
 
 
 def _assert_culls_match_plain(aabb, packed, what):

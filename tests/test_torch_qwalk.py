@@ -35,10 +35,12 @@ from optix_raytracer_tpu_torch.accel import bruteforce as tbf
 from optix_raytracer_tpu_torch.accel import clusters as tcl
 from optix_raytracer_tpu_torch.accel import qwalk as tqwalk
 from optix_raytracer_tpu_torch.core.film import Film
+from optix_raytracer_tpu_torch.scene import builtins as tbuiltins
 from optix_raytracer_tpu_torch.wavefront import engine
 from optix_raytracer_tpu_torch.wavefront import intersect as tintersect
 
 from test_torch_clusters import assert_hits_match, jrays, ray_set, trays
+import torch_parity
 from torch_parity import one_torch_thread, torch_cam, torch_scene  # noqa: F401
 
 ATOL, RTOL = 2e-3, 1e-3
@@ -195,6 +197,98 @@ def test_queue_candidates_match_pallas(knot, closest):
     d = np.abs(ts.clusters.comp.numpy()[:, 21:27]).max()
     duv = np.abs(own[1:3] - ref[1:3]).sum(axis=0)
     assert (np.abs(own[3:6] - ref[3:6]) <= 1e-5 + d * duv).all()
+
+
+@pytest.fixture(scope="module")
+def knot9k():
+    return tbuiltins.knot_scene(90, 50, device="cpu")   # 71 clusters
+
+
+def _arrs(rays8):
+    """[N, 8] rays → ray_set's (o, d, tmin, tmax)."""
+    return (rays8[:, 0:3].copy(), rays8[:, 3:6].copy(), rays8[:, 6].copy(),
+            rays8[:, 7].copy())
+
+
+def _admission_rays(case, knot, knot9k):
+    """(table, ray_set-style arrays) of one admission case."""
+    small, big = knot[1].clusters, knot9k.clusters
+    if case == "knot_random":
+        return small, ray_set()
+    if case == "knot9k_random":
+        return big, ray_set(seed=5)
+    if case.startswith("edge"):
+        return small, _arrs(torch_parity.cull_edge_rays(
+            small.aabb.numpy(), int(case[-1])))
+    if case == "lone":
+        return big, _arrs(torch_parity.lone_gated_rays(knot9k.geom, big))
+    if case == "grazing":
+        boxes = tcl._entry_boxes(big.aabb)[:big.num_clusters]
+        return big, _arrs(np.concatenate([torch_parity.sc_grazing_rays(
+            knot9k.geom, big, boxes, seed=s, boxes=71) for s in (0, 1)]))
+    if case == "all_miss":
+        return small, _arrs(torch_parity.queue_miss_rays(small))
+    if case == "tie":
+        geom, tri_mat, order, rays8, _ = torch_parity.sc_tie_case()
+        return tcl.build_clusters(geom, tri_mat, order=order), _arrs(rays8)
+    o, d, tmin, tmax = ray_set(seed=11)                 # "padding"
+    tmax = np.where(np.arange(tmax.size) % 401 == 0, 1e16, 0.0)
+    return small, (o, d, tmin, tmax.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["knot_random", "knot9k_random", "edge0",
+                                  "edge1", "lone", "grazing", "all_miss",
+                                  "tie", "padding"])
+def test_queue_admission_rule(knot, knot9k, case):
+    """Kernel 8's admission rule (queue_admitted_plain) on a query's whole
+    work list: random rays on both knots, the cull's edge-case rays
+    (torch_parity.cull_edge_rays), grazing rays (sc_grazing_rays on the
+    9k knot's cluster boxes), rays alone in their octet
+    (lone_gated_rays), steps whose admitted rays all miss
+    (queue_miss_rays), exact ties (sc_tie_case at the resident tier: two
+    copies of a triangle in one cluster) and a list of mostly padding
+    items. Every column
+    left out holds the plain versions' miss row (t = tmax, zeros, ids -1)
+    and flag 0.0, bit for bit, so the kernel's rule applied to the plain
+    candidates gives them back whole; the admitted rays hold every ray
+    whose own slab test crosses the unwidened box (needed) and are live.
+    On the edge, grazing and tie sets (the tie set's rays through the flat
+    triangles' corners and edges) some hit lies outside the unwidened box:
+    the margin is needed."""
+    cl, arrs = _admission_rays(case, knot, knot9k)
+    tr = trays(arrs)
+    n, n_padded, packed, n_blocks, c_pad, _ = tqwalk._prep(cl, tr, 6)
+    om = tqwalk._oct_cull(cl, packed, n_blocks, c_pad)
+    steps, work, overflow, n_items = tqwalk._build_queue(
+        om, cl.num_clusters, n_padded, 1 << 20)
+    assert not overflow and n_items > 0
+    qrays, _ = tqwalk._marshal(packed, work[:n_items], n_padded)
+    steps = steps[:, :n_items // tqwalk.ITEMS].contiguous()
+    adm = tqwalk.queue_admitted_plain(steps, qrays, cl.aabb)
+    cand = tqwalk.queue_closest_plain(steps, qrays, cl.comp)
+    occ = tqwalk.queue_any_plain(steps, qrays, cl.comp)[0]
+    miss = torch.zeros_like(cand)
+    miss[0], miss[6:] = qrays[7], -1.0
+    kernel_rule = torch.where(adm[None], cand, miss)
+    assert torch.equal(kernel_rule.view(torch.int32), cand.view(torch.int32))
+    assert torch.equal(torch.where(adm, occ, 0.0), occ)
+    needed = torch.zeros_like(adm)
+    boxes = tcl._entry_boxes(cl.aabb)
+    for c, o, rays in tqwalk._step_chunks(steps, qrays, 256):
+        cross = tcl._slab_cross(rays, boxes[c][:, 0:3], boxes[c][:, 3:6])[0]
+        tqwalk._scatter_cols(needed[None], o, cross.reshape(-1, 1))
+    live = qrays[7] > qrays[6]
+    assert not (needed & ~adm).any() and not (adm & ~live).any()
+    assert int(needed.sum()) <= int(adm.sum()) <= adm.numel()
+    hit = cand[6] >= 0
+    assert torch.equal(hit, occ > 0) and hit.any() == (case != "all_miss")
+    if case == "all_miss":
+        assert int(adm.sum()) >= 8 * tqwalk.ROWS
+    assert (hit & ~needed).any() == (case in ("edge0", "edge1", "grazing",
+                                              "tie"))
+    if case == "padding":
+        assert int((work[:n_items] < 0).sum()) > 0.75 * n_items
+        assert int(adm.sum()) < 0.1 * adm.numel()
 
 
 @pytest.mark.parametrize("n,seed", [(4096, 3), (3000, 8)])

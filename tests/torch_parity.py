@@ -415,6 +415,24 @@ def lone_gated_rays(geom, cl, seeds=range(4)):
     return out
 
 
+def queue_miss_rays(cl, n_boxes=8, seed=0):
+    """Rays [n_boxes * 256, 8] f32 numpy for kernel 8's steps whose rays all
+    miss: 256 from the centre of each of the first n_boxes cluster boxes,
+    in random directions, with the window [0, 1e-4]. Each crosses its box
+    (it starts inside), so the exact cull lists the box for all 32 octets
+    and kernel 8 admits every ray of a whole step; no triangle lies within
+    1e-4 of a centre, so none hits."""
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    bx = C._entry_boxes(cl.aabb)[:n_boxes, :, 0].cpu().numpy()
+    rng = np.random.default_rng(seed)
+    o = np.repeat(0.5 * (bx[:, 0:3] + bx[:, 3:6]), 256, axis=0)
+    d = rng.normal(size=o.shape)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    n = len(o)
+    return np.concatenate([o, d, np.zeros((n, 1)), np.full((n, 1), 1e-4)],
+                          axis=1).astype(np.float32)
+
+
 def cull_edge_table(seed=0, c_pad=256):
     """A cull table [c_pad / 128, 6, 128] f32 numpy for kernels 4 / 7:
     random boxes in [-2, 2]^3, flat and point boxes (lo == hi on some

@@ -68,7 +68,7 @@ def _busy_us(events):
 
 # Kernel names of kernels 7 and 8 (csrc/clusters.cu).
 _QWALK_KERNELS = {"kernel7": "cull_exact_kernel<3", "kernel8_closest":
-                  "qwalk_closest_kernel", "kernel8_any": "qwalk_any_kernel"}
+                  "qwalk_kernel<true>", "kernel8_any": "qwalk_kernel<false>"}
 # The profiler ranges of --qwalk. The profiler also records each range on
 # the device's timeline; those records are not kernels.
 _RANGES = ("qwalk.query", "clusters.query")
