@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (optix_raytracer_tpu_torch) on one
 CUDA card: builds the hand-written kernels from this checkout, checks each
-against its plain PyTorch version, checks the renderer against the JAX
-package's engine semantics and the committed numpy-oracle pair, then times
-the two main paths: the Cornell headline launch (1920x1088, 16 samples per
-launch, depth 4; kernels 1-3) and the large-mesh launch (the 25,202-triangle
-trefoil-knot scene, 1920x1088, 16 samples per launch, depth 3; kernels 4-6,
-the cluster-culled traversal), whose kernels are also held against their
-plain versions on the 25k knot and on a 500k-triangle knot, and the same
-launch through the cluster-major queue (ORT_QWALK=1; kernels 7-8, held
-against their plain versions and A/B-timed against the walk on the same
-sets); then the 4M-triangle knot through the supercluster tier. Between
+against its plain PyTorch version (kernels 1-2 in phase 2 on a random mesh,
+Cornell rays, random meshes of 1-700 triangles with half their lanes dead
+and a table of exact ties, culled by their group boxes, and in phase 6 on
+the 1080p Cornell camera and shadow rays and the wavefront's recorded
+queries on the Cornell box and the smooth knot, each timed beside its
+needed-work, brute-force and SASS issue-floor bounds, through
+optix_raytracer_tpu_torch/tools/bench_bf.py), checks the renderer against
+the JAX package's engine semantics and the committed numpy-oracle pair, then
+times the two main paths: the Cornell headline launch (1920x1088, 16 samples
+per launch, depth 4; kernels 1-3) and the large-mesh launch (the
+25,202-triangle trefoil-knot scene, 1920x1088, 16 samples per launch, depth
+3; kernels 4-6, the cluster-culled traversal), whose kernels are also held
+against their plain versions on the 25k knot and on a 500k-triangle knot,
+and the same launch through the cluster-major queue (ORT_QWALK=1; kernels
+7-8, held against their plain versions and A/B-timed against the walk on the
+same sets); then the 4M-triangle knot through the supercluster tier. Between
 the Cornell and the knot phases, phases 7-9 hold the fused kernel's
 specular, PBR, prim, instance and smooth-normal instantiations (3') against
 the wavefront on the bench's prims + glass scene, the PBR Cornell, the
@@ -21,11 +27,11 @@ instantiations on bench.py's textured scene (its own frame: 1920x1088, 4
 samples per launch, depth 3) and two smaller textured variants; phases 7w
 and 7c hold all 32 instantiations to the wavefront bit for bit on tables
 tested whole and the 24 outside instances on tables the kernel culls by
-groups, and phase m prints the group size and the culled tests a ray of
-the headlines it culls (through
-optix_raytracer_tpu_torch/tools/bench_fused.py), which give their bound;
-and phase l holds kernel 9, the texture-fetch study's row fetch, to its
-plain version and repeats the study's A/B against torch's row gather.
+groups, and phase m prints the group size and the culled tests a ray of the
+headlines it culls (through optix_raytracer_tpu_torch/tools/bench_fused.py),
+which give their bound; and phase l holds kernel 9, the texture-fetch
+study's row fetch, to its plain version and repeats the study's A/B against
+torch's row gather.
 
     python3 chip_smoke.py
 
@@ -52,7 +58,7 @@ try:
     # the knot configurations, probe sets, timing and work counts (the
     # card's peaks: FP32 outside the tensor cores, HBM3)
     from optix_raytracer_tpu_torch.tools.knot_probe import (
-        KNOT, KNOT_SC, KNOT_STREAM, PAIR_OPS, RAY_BYTES, SLAB_OPS, bound,
+        KNOT, KNOT_SC, KNOT_STREAM, PAIR_OPS, SLAB_OPS, bound,
         cuda_ms, cull_fields, knot_ray_sets, listed_entries, listed_words,
         main_path_strip_sets, ptxas_report, queue_counts, sc_pair_counts,
         timed_launches, walk_bound, walk_pair_counts)
@@ -82,6 +88,16 @@ QWALK_QF = 6
 # Queue steps (256 marshalled rays x one cluster) past which kernel 8's
 # plain version runs on every k-th step only.
 PLAIN_QUEUE_STEPS = 4096
+# Kernels 1-2's table sizes of phase 2: across the group cutoff (10
+# triangles), the Cornell box's 32, the smooth knot's 482 and past the
+# fused kernel's 512.
+BF_TRIS = (1, 9, 10, 31, 32, 33, 257, 482, 700)
+# Phase 6's kernel 1-2 sets (tools/bench_bf.py): the 1080p Cornell camera
+# and shadow rays, the wavefront's recorded queries of the first sample on
+# the Cornell box (bounces 0-3) and the smooth knot (bounces 0-2).
+BF_SETS = ("cornell_camera", "cornell_shadow",
+           *(f"cornell_b{k}{s}" for k in range(4) for s in ("", "_shadow")),
+           *(f"knot_b{k}{s}" for k in range(3) for s in ("", "_shadow")))
 
 # FP32 operations of one ray against one custom prim of each kind, counted
 # from accel/primitives.py's formulas (per-prim constants left out): sphere,
@@ -165,26 +181,37 @@ def fmt(r):
     return out
 
 
-def compare_hits(out, ref, what):
-    """Kernel-1 bars of tests/test_pallas_intersect.py:37-45; returns the max
-    absolute difference over the float outputs of hit rays."""
+def compare_hits(out, ref, what, mixed=True):
+    """Kernel-1 bars of tests/test_pallas_intersect.py:37-45 (ids equal, t /
+    uv / normals within them) → (the max absolute difference over the
+    float outputs of hit rays, the hit rays whose t, uv or normal differ in
+    any bit: phases 2 and 6 require 0, as kernel 1 was bit-equal there
+    before its redesign). mixed: the set must hold both hits and misses."""
     for k in ("prim_id", "mat_id"):
         require(np.array_equal(to_np(out[k]), to_np(ref[k])),
                 f"{what}: {k} differs from the plain version")
     hit = to_np(ref["prim_id"]) >= 0
-    require(hit.any() and (~hit).any(), f"{what}: degenerate test rays")
-    err = 0.0
+    require(hit.any() and ((~hit).any() or not mixed),
+            f"{what}: degenerate test rays")
+    err, differ = 0.0, np.zeros(hit.sum(), dtype=bool)
     for k, tol in (("t", dict(rtol=1e-5, atol=0)),
                    ("uv", dict(rtol=0, atol=1e-4)),
                    ("normal", dict(rtol=0, atol=1e-5))):
         a, b = to_np(out[k])[hit], to_np(ref[k])[hit]
         require(np.allclose(a, b, **tol), f"{what}: {k} outside {tol}")
         err = max(err, float(np.abs(a - b).max()))
-    return err
+        bits = a.view(np.int32) != b.view(np.int32)
+        differ |= bits.reshape(len(bits), -1).any(axis=1)
+    return err, int(differ.sum())
 
 
-def random_case(device, num_tris=40, n_rays=1500, seed=7):
-    """A random mesh with one degenerate triangle and rays around it."""
+def random_case(device, num_tris=40, n_rays=1500, seed=7, dead=0.0,
+                dup=False, aim=False):
+    """A random mesh (triangle 17 degenerate where there is one) and rays
+    around it; with aim half of them toward a triangle's centroid, a `dead`
+    share of them with an empty window (tmax 0 or tmax = tmin); with dup
+    the table twice over, so that every hit is an exact tie between rows
+    num_tris apart."""
     import torch
     from optix_raytracer_tpu_torch.accel.geometry import build_triangle_geometry
     from optix_raytracer_tpu_torch.core.rays import Rays
@@ -193,46 +220,33 @@ def random_case(device, num_tris=40, n_rays=1500, seed=7):
     verts = np.concatenate([v0, v0 + rng.uniform(-1, 1, (num_tris, 3)),
                             v0 + rng.uniform(-1, 1, (num_tris, 3))])
     idx = np.arange(3 * num_tris).reshape(3, num_tris).T.copy()
-    idx[17, 2] = idx[17, 1]
+    if num_tris > 17:
+        idx[17, 2] = idx[17, 1]
+    if dup:
+        idx = np.concatenate([idx, idx])
     geom = build_triangle_geometry(verts.astype(np.float32),
                                    idx.astype(np.int32), device)
-    require(not bool(geom.valid[17]), "degenerate triangle not flagged")
-    tri_mat = torch.as_tensor(rng.integers(0, 5, num_tris).astype(np.int32),
+    require(num_tris <= 17 or not bool(geom.valid[17]),
+            "degenerate triangle not flagged")
+    tri_mat = torch.as_tensor(rng.integers(0, 5, len(idx)).astype(np.int32),
                               device=device)
     o = rng.uniform(-3, 3, (n_rays, 3)).astype(np.float32)
     d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    if aim:
+        tri = verts.reshape(3, num_tris, 3)
+        half = rng.random(n_rays) < 0.5
+        pick = rng.integers(0, num_tris, int(half.sum()))
+        d[half] = tri.mean(axis=0)[pick] - o[half]
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     rays = Rays.make(torch.as_tensor(o, device=device),
                      torch.as_tensor(d, device=device), tmin=1e-3, tmax=50.0)
+    if dead:
+        gone = rng.random(n_rays) < dead
+        tmax = np.where(gone, np.where(rng.random(n_rays) < 0.5, 0.0, 1e-3),
+                        50.0).astype(np.float32)
+        rays = Rays(rays.origin, rays.direction, rays.tmin,
+                    torch.as_tensor(tmax, device=device))
     return geom, tri_mat, rays
-
-
-def camera_and_shadow_rays(scene, width, height, device):
-    """Jittered Cornell camera rays of subframe 0, and NEE-style shadow rays
-    from their closest hits toward the light's centre."""
-    import torch
-    from optix_raytracer_tpu_torch.accel import pallas_bf
-    from optix_raytracer_tpu_torch.core import rng as _rng
-    from optix_raytracer_tpu_torch.core.camera import generate_rays
-    from optix_raytracer_tpu_torch.core.rays import Rays
-    from optix_raytracer_tpu_torch.scene.builtins import cornell_camera
-    cam = cornell_camera(width, height).params(device)
-    pix = torch.arange(width * height, dtype=torch.int64, device=device)
-    state = _rng.seed(pix, 0).reshape(height, width)
-    rays, _ = generate_rays(cam, width, height, rng_state=state)
-    rays = rays.reshape(width * height)
-    hits = pallas_bf.closest_hit_plain(scene.geom.tri_consts, scene.tri_mat,
-                                       rays)
-    p = rays.origin + hits["t"][:, None] * rays.direction
-    light = scene.area_light
-    target = light.corner + 0.5 * light.v1 + 0.5 * light.v2
-    delta = target - p
-    dist = torch.linalg.vector_norm(delta, dim=1)
-    wi = delta / dist[:, None]
-    shadow = Rays(origin=p, direction=wi,
-                  tmin=torch.full_like(dist, 1e-2),
-                  tmax=torch.where(hits["prim_id"] >= 0, dist * 0.999, 0.0))
-    return rays, shadow
 
 
 def srgb64(x):
@@ -345,7 +359,7 @@ def cluster_parity(cl, rays, exact, gate, what):
 
     rows_k = C.walk_closest(*part, gate)
     rows_p = C.walk_closest_plain(*part, gate)
-    out["closest_err"] = compare_hits(hits(rows_k), hits(rows_p), what)
+    out["closest_err"] = compare_hits(hits(rows_k), hits(rows_p), what)[0]
     require(torch.equal(rows_k.view(torch.int32), rows_p.view(torch.int32)),
             f"{what}: closest rows differ from the plain version (max abs "
             f"err {out['closest_err']})")
@@ -1619,11 +1633,12 @@ def main():
                            "a checkout of the repository")
     sys.path.insert(0, ROOT)
     from optix_raytracer_tpu_torch import kernels
-    from optix_raytracer_tpu_torch.accel import pallas_bf
+    from optix_raytracer_tpu_torch.accel import pallas_bf, tri_groups
     from optix_raytracer_tpu_torch.core.film import Film
     from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
                                                          cornell_camera)
     from optix_raytracer_tpu_torch.wavefront import pallas_pt
+    from optix_raytracer_tpu_torch.tools import bench_bf as BB
     from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
 
     dev = torch.device("cuda", 0)
@@ -1651,29 +1666,48 @@ def main():
     record = {}
 
     # --- phase 2: kernels 1 and 2 vs their plain versions ---
+    record["bf_closest"] = dict(max_abs_err=0.0, bitwise_diff_hits=0)
+    record["bf_any"] = dict(max_abs_err=0.0)
     geom, tri_mat, rays = random_case(dev)
-    e1 = compare_hits(pallas_bf.closest_hit(geom.tri_consts, tri_mat, rays),
-                      pallas_bf.closest_hit_plain(geom.tri_consts, tri_mat,
-                                                  rays), "random mesh")
-    occ_k = to_np(pallas_bf.any_hit(geom.tri_consts, rays))
-    occ_p = to_np(pallas_bf.any_hit_plain(geom.tri_consts, rays))
-    require(np.array_equal(occ_k, occ_p), "random mesh: occlusion differs")
     scene = cornell_box(dev)
-    cam_rays, shadow = camera_and_shadow_rays(scene, 256, 256, dev)
-    e2 = compare_hits(
-        pallas_bf.closest_hit(scene.geom.tri_consts, scene.tri_mat, cam_rays),
-        pallas_bf.closest_hit_plain(scene.geom.tri_consts, scene.tri_mat,
-                                    cam_rays), "cornell 256^2")
-    occ2_k = to_np(pallas_bf.any_hit(scene.geom.tri_consts, shadow))
-    occ2_p = to_np(pallas_bf.any_hit_plain(scene.geom.tri_consts, shadow))
-    require(np.array_equal(occ2_k, occ2_p), "cornell: occlusion differs")
-    record["bf_closest"] = dict(max_abs_err=max(e1, e2))
-    record["bf_any"] = dict(max_abs_err=float(max(
-        np.abs(occ_k.astype(int) - occ_p).max(),
-        np.abs(occ2_k.astype(int) - occ2_p).max())))
-    phase("2 bf kernels", closest_max_abs_err=max(e1, e2),
-          any_mismatches=int((occ_k != occ_p).sum() + (occ2_k != occ2_p).sum()),
-          cornell_occluded=int(occ2_k.sum()), rays=1500 + 256 * 256)
+    cam_rays, shadow = BB.camera_and_shadow_rays(scene, 256, 256, dev)
+    sets = [("random mesh", geom, tri_mat, rays, None),
+            ("cornell 256^2", scene.geom, scene.tri_mat, cam_rays, shadow)]
+    # mixed liveness (half the lanes dead, 4099 rays: no whole block;
+    # half the rays aimed at a triangle) across the group cutoff and past
+    # 512 triangles, and exact ties (32 triangles twice over, each pair in
+    # groups 4 apart, a quarter of the rays dead)
+    for m in BF_TRIS:
+        sets.append((f"m{m} mixed", *random_case(dev, m, 4099, seed=m,
+                                                 dead=0.5, aim=True), None))
+    sets.append(("ties", *random_case(dev, 32, 4099, seed=5, dead=0.25,
+                                      dup=True, aim=True), None))
+    mismatches = occluded = n_rays = 0
+    for what, g, tm, r, sh in sets:
+        boxes = tri_groups.bf_group_boxes(g)
+        err, nbits = compare_hits(
+            pallas_bf.closest_hit(g.tri_consts, tm, r, boxes=boxes),
+            pallas_bf.closest_hit_plain(g.tri_consts, tm, r), what)
+        record["bf_closest"]["max_abs_err"] = max(
+            record["bf_closest"]["max_abs_err"], err)
+        record["bf_closest"]["bitwise_diff_hits"] += nbits
+        r_any = r if sh is None else sh
+        occ_k = to_np(pallas_bf.any_hit(g.tri_consts, r_any, boxes=boxes))
+        occ_p = to_np(pallas_bf.any_hit_plain(g.tri_consts, r_any))
+        mismatches += int((occ_k != occ_p).sum())
+        occluded += int(occ_k.sum())
+        n_rays += r.tmin.shape[0]
+    require(mismatches == 0, f"kernel 2: {mismatches} occlusion flags "
+                             f"differ from the plain version")
+    # kernel 1 was bit-equal to its plain version here before its redesign
+    # (the parent's phase 2): any hit ray differing in a bit fails
+    require(record["bf_closest"]["bitwise_diff_hits"] == 0,
+            f"kernel 1: {record['bf_closest']['bitwise_diff_hits']} hit "
+            f"rays differ from the plain version in t, uv or normal bits")
+    phase("2 bf kernels", sets=len(sets), rays=n_rays,
+          closest_max_abs_err=record["bf_closest"]["max_abs_err"],
+          closest_bitwise_diff_hits=record["bf_closest"]["bitwise_diff_hits"],
+          any_mismatches=mismatches, occluded=occluded)
 
     # --- phase 3: kernel 3 vs its plain version, 64^2, spl 2, depth 2 ---
     w = h = 64
@@ -1796,40 +1830,68 @@ def main():
                            brute, card),
             bound_brute_ms=brute["bound_ms"])
 
-    # kernels 1 and 2 vs their plain versions on one 2M-ray wavefront
-    cam_rays, shadow = camera_and_shadow_rays(scene, W, H, dev)
-    tc, tm = scene.geom.tri_consts, scene.tri_mat
-    e_head = compare_hits(pallas_bf.closest_hit(tc, tm, cam_rays),
-                          pallas_bf.closest_hit_plain(tc, tm, cam_rays),
-                          "cornell 1920x1088")
-    occ_k = to_np(pallas_bf.any_hit(tc, shadow))
-    occ_p = to_np(pallas_bf.any_hit_plain(tc, shadow))
-    require(np.array_equal(occ_k, occ_p), "cornell 1920x1088: occlusion")
-    record["bf_closest"]["max_abs_err"] = max(
-        record["bf_closest"]["max_abs_err"], e_head)
-    times = dict(
-        bf_closest=(cuda_ms(lambda: pallas_bf.closest_hit(tc, tm, cam_rays), 20),
-                    cuda_ms(lambda: pallas_bf.closest_hit_plain(tc, tm,
-                                                                cam_rays), 3)),
-        bf_any=(cuda_ms(lambda: pallas_bf.any_hit(tc, shadow), 20),
-                cuda_ms(lambda: pallas_bf.any_hit_plain(tc, shadow), 3)))
-    for name, (k_ms, p_ms) in times.items():
-        record[name].update(ms=k_ms, plain_ms=p_ms, plain_blocks="all")
-    # Bounds: every live camera ray tests all m triangles; a shadow ray that
-    # is occluded needs one test at the least, one that is not all m. Bytes:
-    # the rays and triangle table read once, the hits / occlusion written.
-    table = m * (16 + 1) * 4
-    live_s = to_np(shadow.tmax > shadow.tmin)
-    record["bf_closest"].update(bound(
-        PAIR_OPS * int(to_np(cam_rays.tmax > cam_rays.tmin).sum()) * m,
-        W * H * (RAY_BYTES + 32) + table))
-    record["bf_any"].update(bound(
-        PAIR_OPS * (int((live_s & ~occ_k).sum()) * m
-                    + int((live_s & occ_k).sum())),
-        W * H * (RAY_BYTES + 1) + table))
-    phase("6 bf timing", rays=W * H,
-          **{f"{n}_ms": f"{t[0]:.3f}" for n, t in times.items()},
-          **{f"{n}_plain_ms": f"{t[1]:.3f}" for n, t in times.items()})
+    # kernels 1 and 2 vs their plain versions on the main path's sets: the
+    # 1080p camera and shadow rays and the wavefront's recorded queries on
+    # the Cornell box and the smooth knot (tools/bench_bf.py), each culled
+    # by the scene's group boxes; the kernels line keeps the camera /
+    # shadow sets' numbers, each set's time beside its bounds (the needed
+    # work where culling makes it the smaller, brute force's, the SASS
+    # issue floor of the culled loop's tests)
+    sass = BB.sass_counts(lib_path)
+    bf_sets = {}
+    for name, calls in BB.make_sets(dev, BF_SETS).items():
+        kname = "bf_closest" if calls[0]["kind"] == "closest" else "bf_any"
+        outs = [BB.run_call(pallas_bf, c, c["boxes"]) for c in calls]
+        for c, o in zip(calls, outs):
+            ref = BB.plain(c)
+            if kname == "bf_closest":
+                # the camera rays hold hits and misses; a recorded query
+                # may hit everywhere
+                err, nbits = compare_hits(o, ref, name,
+                                          mixed=name == "cornell_camera")
+                record[kname]["max_abs_err"] = max(
+                    record[kname]["max_abs_err"], err)
+                record[kname]["bitwise_diff_hits"] += nbits
+            else:
+                require(torch.equal(o, ref), f"{name}: occlusion differs")
+        instr = sass.get(calls[0]["kind"], {})
+        row = BB.bf_bounds(calls, outs, instr.get("instr_per_test"))
+        row["ms"] = cuda_ms(lambda calls=calls: [
+            BB.run_call(pallas_bf, c, c["boxes"]) for c in calls], 20)
+        row["plain_ms"] = cuda_ms(lambda calls=calls: [
+            BB.plain(c) for c in calls], 3)
+        bf_sets[name] = row
+        phase(f"6 bf {name}", rays=row["rays"], live=row["live"],
+              tests_per_live_ray=f"{row['tests_per_live_ray']:.2f}",
+              slabs_per_live_ray=f"{row['slabs_per_live_ray']:.2f}",
+              needed_tests_per_live_ray=(
+                  f"{row['needed_tests_per_live_ray']:.2f}"),
+              brute_tests_per_live_ray=(
+                  f"{row['brute_tests_per_live_ray']:.2f}"),
+              ms=f"{row['ms']:.4f}", plain_ms=f"{row['plain_ms']:.3f}",
+              bound_ms=f"{row['bound']['bound_ms']:.4f}"
+                       f"({row['bound']['bound_by']})",
+              bound_brute_ms=f"{row['bound']['bound_brute_ms']:.4f}",
+              issue_floor_ms=(f"{row['issue_floor_ms']:.4f}"
+                              if "issue_floor_ms" in row else None))
+    require(record["bf_closest"]["bitwise_diff_hits"] == 0,
+            f"kernel 1: {record['bf_closest']['bitwise_diff_hits']} hit "
+            f"rays differ from the plain version in t, uv or normal bits")
+    for kname, head in (("bf_closest", "cornell_camera"),
+                        ("bf_any", "cornell_shadow")):
+        row = bf_sets[head]
+        record[kname].update(
+            ms=row["ms"], plain_ms=row["plain_ms"], plain_blocks="all",
+            **row["bound"], issue_floor_ms=row.get("issue_floor_ms"),
+            sass=sass.get(kname[3:]),
+            sets_ms={n: r["ms"] for n, r in bf_sets.items()
+                     if n.endswith("shadow") == (kname == "bf_any")})
+    phase("6 bf timing", card=repr(card), rays=W * H,
+          bf_closest_ms=f"{record['bf_closest']['ms']:.4f}",
+          bf_any_ms=f"{record['bf_any']['ms']:.4f}",
+          bf_closest_plain_ms=f"{record['bf_closest']['plain_ms']:.3f}",
+          bf_any_plain_ms=f"{record['bf_any']['plain_ms']:.3f}",
+          closest_bitwise_diff_hits=record["bf_closest"]["bitwise_diff_hits"])
 
     # --- phases 7-9: the fused kernel's specular, PBR and prim variants ---
     variant_launches = variant_phases(dev, card, record)

@@ -8,8 +8,9 @@ geometry that the instance references. A query loops over the instances:
 it moves the rays into the instance's object space by the inverse (the
 direction is not normalised, so object-space t is world t), tests the
 instance's triangle range by brute force (kernels 1-2 on a contiguous slice
-of `tri_consts` on CUDA, their plain versions on the CPU) and keeps the
-per-ray minimum. The winner's object-space normal goes back to world by the
+of `tri_consts` on CUDA, culled by the slice's own group boxes where it is
+given them, their plain versions on the CPU) and keeps the per-ray
+minimum. The winner's object-space normal goes back to world by the
 inverse-transpose row rule and is normalised.
 
 The reference can give an instanced mesh past 512 triangles its own
@@ -118,11 +119,13 @@ def _object_rays(inv, rays: Rays, tmax) -> Rays:
 
 def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
                         rays: Rays, tri_mat=None,
-                        chunk_size: Optional[int] = 65536) -> Hits:
+                        chunk_size: Optional[int] = 65536,
+                        boxes: Optional[Sequence] = None) -> Hits:
     """Closest hit through the instances (flat rays [N]). Each instance's
     query gets the current best t as its tmax; a hit reports its global
     triangle id, the instance id and tri_mat + sbt_offset; a miss has
-    prim / inst / mat -1 and t = tmax."""
+    prim / inst / mat -1 and t = tmax. boxes: per instance its slice's
+    group boxes or None (`DeviceScene.bf_boxes`)."""
     n = rays.tmin.shape[0]
     dev = rays.origin.device
     t = rays.tmax
@@ -137,7 +140,7 @@ def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
         h = bf.intersect_closest(
             slice_geometry(geom, lo, hi), _object_rays(inv, rays, t),
             tri_mat=None if tri_mat is None else tri_mat[lo:hi],
-            chunk_size=chunk_size)
+            chunk_size=chunk_size, boxes=None if boxes is None else boxes[i])
         closer = h.valid & (h.t < t)
         t = torch.where(closer, h.t, t)
         prim = torch.where(closer, h.prim_id + lo, prim)
@@ -152,15 +155,18 @@ def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
 
 def intersect_instances_any(geom: TriangleGeometry,
                             instances: InstanceTable, rays: Rays,
-                            chunk_size: Optional[int] = 65536):
+                            chunk_size: Optional[int] = 65536,
+                            boxes: Optional[Sequence] = None):
     """Occlusion through the instances → bool [N]; a ray already occluded
-    gets an empty window in the later instances."""
+    gets an empty window in the later instances. boxes as
+    intersect_instances."""
     occ = torch.zeros(rays.tmin.shape, dtype=torch.bool,
                       device=rays.origin.device)
     ranges = instance_ranges(instances, geom.num_triangles)
     for i, (lo, hi) in enumerate(ranges):
         obj = _object_rays(instances.inv_transform[i], rays,
                            torch.where(occ, 0.0, rays.tmax))
-        occ = occ | bf.intersect_any(slice_geometry(geom, lo, hi), obj,
-                                     chunk_size=chunk_size)
+        occ = occ | bf.intersect_any(
+            slice_geometry(geom, lo, hi), obj, chunk_size=chunk_size,
+            boxes=None if boxes is None else boxes[i])
     return occ

@@ -192,9 +192,7 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
 }
 
 // _exact_cull_kernel's finite pseudo-inverse: +-1e12 below |d| = 1e-12.
-__device__ __forceinline__ float pseudo_inv(float d) {
-  return fabsf(d) > ort::kDegenEps ? __frcp_rn(d) : (d < 0.f ? -1e12f : 1e12f);
-}
+using ort::pseudo_inv;
 
 // A ray as the slab test reads it: (ox oy oz tmin) and (1/dx 1/dy 1/dz tmax).
 __device__ __forceinline__ void slab_ray(const Ray& r, float4& org,

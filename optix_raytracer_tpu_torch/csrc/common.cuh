@@ -1,5 +1,6 @@
-// Shared device helpers of the port's kernels: the Woop unit-triangle test
-// and the counter RNG, each the same arithmetic as its JAX counterpart.
+// Shared device helpers of the port's kernels: the Woop unit-triangle test,
+// the group-box slab test of kernels 1-3 and the counter RNG, each the same
+// arithmetic as its JAX or plain PyTorch counterpart.
 #pragma once
 
 #include <cstdint>
@@ -8,6 +9,7 @@
 namespace ort {
 
 constexpr float kDegenEps = 1e-12f;   // accel/pallas_bf.py _DEGEN_EPS
+constexpr float kSlabBig = 3.0e38f;   // clusters._BIG: the slab's start
 
 // accel/pallas_bf.py::_tri_test. c is one tri_consts row: M^-1 rows (0:9),
 // offsets (9:12), face normal (12:15). Every product and sum is rounded on
@@ -43,6 +45,37 @@ __device__ __forceinline__ bool tri_accept(float tt, float uu, float vv,
                                            float tmax) {
   return fabsf(dpz) > kDegenEps && uu >= 0.0f && vv >= 0.0f &&
          __fadd_rn(uu, vv) <= 1.0f && tt > tmin && tt < tmax;
+}
+
+// clusters._slab_cross's finite pseudo-inverse: +-1e12 below |d| = 1e-12
+// (-0.0 gets +1e12).
+__device__ __forceinline__ float pseudo_inv(float d) {
+  return fabsf(d) > kDegenEps ? __frcp_rn(d) : (d < 0.f ? -1e12f : 1e12f);
+}
+
+// The slab test of kernel 4 (accel/clusters.py::_slab_cross) against one
+// group box b0 = (lo x, lo y, lo z, hi x), b1 = (hi y, hi z, pad, pad) (a
+// tri_groups.fused_group_boxes row): per axis t0, t1 = (box - o) * inv,
+// tn = max(tn, min(t0, t1)), tf = min(tf, max(t0, t1)) from (-kSlabBig,
+// kSlabBig); the ray crosses when max(tn, tmin) <= min(tf, tmax)
+// (tri_groups.fused_group_admitted_plain).
+__device__ __forceinline__ bool box_cross(float4 b0, float4 b1, float ox,
+                                          float oy, float oz, float ivx,
+                                          float ivy, float ivz, float tmin,
+                                          float tmax) {
+  float t0 = __fmul_rn(__fsub_rn(b0.x, ox), ivx);
+  float t1 = __fmul_rn(__fsub_rn(b0.w, ox), ivx);
+  float tn = fmaxf(-kSlabBig, fminf(t0, t1));
+  float tf = fminf(kSlabBig, fmaxf(t0, t1));
+  t0 = __fmul_rn(__fsub_rn(b0.y, oy), ivy);
+  t1 = __fmul_rn(__fsub_rn(b1.x, oy), ivy);
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  t0 = __fmul_rn(__fsub_rn(b0.z, oz), ivz);
+  t1 = __fmul_rn(__fsub_rn(b1.y, oz), ivz);
+  tn = fmaxf(tn, fminf(t0, t1));
+  tf = fminf(tf, fmaxf(t0, t1));
+  return fmaxf(tn, tmin) <= fminf(tf, tmax);
 }
 
 // core/rng.py: tea<4> seed, LCG advance + constant-shift finalizer.

@@ -17,7 +17,7 @@ void launch_flat(const FusedArgs& a, bool specular, bool pbr, bool prims) {
 // 2 smooth normals (corner [m, 9]), 3 textures (corner [m, 20], bundles
 // [n_b, atlas_h, atlas_w, 16], bundle_mip [n_b, n_levels, 4]);
 // kernels.GEOMETRY. boxes [ceil(m / group), 8]: the widened group boxes
-// (pallas_pt.fused_group_boxes), read when group < m outside instances.
+// (tri_groups.fused_group_boxes), read when group < m outside instances.
 extern "C" int ort_pt_fused(const float* tri, int m, const float* prims,
                             int np, const float* mats, int k,
                             const float* light, const float* cam,

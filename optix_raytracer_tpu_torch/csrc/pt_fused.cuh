@@ -68,7 +68,7 @@
 // from 10 triangles on, by the table's size and mode, as the H100's cutoff
 // table measured them): the table is cut into groups of G consecutive
 // triangles, each with the box of its vertices widened by the walks'
-// admission margin (pallas_pt.fused_group_boxes: extent * 2^-6 + magnitude
+// admission margin (tri_groups.fused_group_boxes: extent * 2^-6 + magnitude
 // * 2^-14, the rule of accel/clusters.py sc_widened_boxes). A ray tests a
 // group's triangles only when its slab test (kernel 4's, with the +-1e12
 // pseudo-inverse) crosses the box inside its window: [tmin, best t) for the
@@ -204,14 +204,13 @@ constexpr int kBlockW = 16, kBlockH = 8, kWarpW = 8, kWarpH = 4;
 constexpr int kWarpsX = kBlockW / kWarpW;
 static_assert(kWarpW * kWarpH == 32 && kBlockW * kBlockH == kThreads,
               "a warp is 32 pixels and a block kThreads");
-constexpr int kBoxCols = 8;                 // pallas_pt.BOX_COLS
+constexpr int kBoxCols = 8;                 // tri_groups.BOX_COLS
 constexpr float kRayTmin = 1e-2f;           // engine.RAY_TMIN
 constexpr float kShadowTmaxScale = 0.999f;  // engine.SHADOW_TMAX_SCALE
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kInvPi = 0.3183098861837907f;   // engine.INV_PI
 constexpr float kBig = 1e30f;               // primitives._BIG: no crossing
-constexpr float kSlabBig = 3.0e38f;         // clusters._BIG: the slab's start
 constexpr float kGlass = 2.0f, kPbrKind = 1.0f;   // shade.materials tags
 
 struct V3 {
@@ -450,38 +449,17 @@ __device__ __forceinline__ float pbr_pdf(V3 n, V3 wo, V3 wi, float rough,
 
 // ---- triangle groups and the triangle test ----
 
-// clusters._slab_cross's finite pseudo-inverse: +-1e12 below |d| = 1e-12
-// (-0.0 gets +1e12).
-__device__ __forceinline__ float pseudo_inv(float d) {
-  return fabsf(d) > ort::kDegenEps ? __frcp_rn(d) : (d < 0.f ? -1e12f : 1e12f);
-}
-
 __device__ __forceinline__ V3 pseudo_inv3(V3 d) {
-  return {pseudo_inv(d.x), pseudo_inv(d.y), pseudo_inv(d.z)};
+  return {ort::pseudo_inv(d.x), ort::pseudo_inv(d.y), ort::pseudo_inv(d.z)};
 }
 
-// The slab test of kernel 4 (accel/clusters.py::_slab_cross) against one
-// group box b = (lo xyz, hi xyz, pad) in shared memory: per axis t0, t1 =
-// (box - o) * inv, tn = max(tn, min(t0, t1)), tf = min(tf, max(t0, t1))
-// from (-kSlabBig, kSlabBig); the ray crosses when max(tn, tmin) <=
-// min(tf, tmax) (pallas_pt.fused_group_admitted_plain).
+// ort::box_cross against the group box at b (a kBoxCols row in shared
+// memory).
 __device__ __forceinline__ bool box_cross(const float* b, V3 o, V3 iv,
                                           float tmin, float tmax) {
-  const float4 b0 = *reinterpret_cast<const float4*>(b);
-  const float4 b1 = *reinterpret_cast<const float4*>(b + 4);
-  float t0 = __fmul_rn(__fsub_rn(b0.x, o.x), iv.x);
-  float t1 = __fmul_rn(__fsub_rn(b0.w, o.x), iv.x);
-  float tn = fmaxf(-kSlabBig, fminf(t0, t1));
-  float tf = fminf(kSlabBig, fmaxf(t0, t1));
-  t0 = __fmul_rn(__fsub_rn(b0.y, o.y), iv.y);
-  t1 = __fmul_rn(__fsub_rn(b1.x, o.y), iv.y);
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  t0 = __fmul_rn(__fsub_rn(b0.z, o.z), iv.z);
-  t1 = __fmul_rn(__fsub_rn(b1.y, o.z), iv.z);
-  tn = fmaxf(tn, fminf(t0, t1));
-  tf = fminf(tf, fmaxf(t0, t1));
-  return fmaxf(tn, tmin) <= fminf(tf, tmax);
+  return ort::box_cross(*reinterpret_cast<const float4*>(b),
+                        *reinterpret_cast<const float4*>(b + 4), o.x, o.y,
+                        o.z, iv.x, iv.y, iv.z, tmin, tmax);
 }
 
 // ---- custom prims (accel/primitives.py::_prim_candidates, kinds 0-3) ----

@@ -69,11 +69,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # tri, tri_mat, m, org, dir, tmin, tmax, n, t, prim, mat, uv, normal, stream
-    "ort_bf_closest": (_P, _P, _I, _P, _P, _P, _P, _I,
+    # tri, tri_mat, m, boxes, group, org, dir, tmin, tmax, n, t, prim, mat,
+    # uv, normal, stream
+    "ort_bf_closest": (_P, _P, _I, _P, _I, _P, _P, _P, _P, _I,
                        _P, _P, _P, _P, _P, _P),
-    # tri, m, org, dir, tmin, tmax, n, occ, stream
-    "ort_bf_any": (_P, _I, _P, _P, _P, _P, _I, _P, _P),
+    # tri, m, boxes, group, org, dir, tmin, tmax, n, occ, stream
+    "ort_bf_any": (_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P),
     # tri, m, prims, p, mats, k, light, cam, subframe, width, height,
     # full_w, full_h, y0, spl, max_depth, specular, pbr, geometry, inst,
     # inst_ranges, n_inst, corner, bundles, bundle_mip, n_levels, atlas_h,

@@ -27,7 +27,8 @@ from ..accel import primitives as prim_mod
 from ..accel.geometry import (TriangleGeometry, build_triangle_geometry,
                               uv_frame)
 from ..core.vecmath import cross, dot
-from ..accel.tlas import InstanceTable, instance_ranges
+from ..accel.tlas import InstanceTable, instance_ranges, slice_geometry
+from ..accel.tri_groups import bf_group_boxes
 from ..shade.lights import ParallelogramLight
 from ..shade.materials import (GLASS, PBR, TEX_KEYS, MaterialTable,
                                make_material_table)
@@ -124,6 +125,22 @@ class DeviceScene:
         scene is a new DeviceScene, as dataclasses.replace makes one)."""
         from ..wavefront.pallas_pt import scene_tables
         return scene_tables(self)
+
+    @functools.cached_property
+    def bf_boxes(self) -> tuple:
+        """Kernels 1-2's group boxes (accel/tri_groups.bf_group_boxes), one
+        entry per instance range (one for the whole table without
+        instances), None for a range below FUSED_CULL_MIN_TRIS triangles:
+        built once, at the first brute-force query or fused launch (the
+        fused kernel's box cache holds the flat entry, scene_tables)."""
+        if not self.has_instances:
+            return (bf_group_boxes(self.geom),)
+        made = {}
+        for rng in instance_ranges(self.instances, self.num_triangles):
+            if rng not in made:
+                made[rng] = bf_group_boxes(slice_geometry(self.geom, *rng))
+        return tuple(made[rng] for rng in instance_ranges(
+            self.instances, self.num_triangles))
 
     def require_supported(self):
         """Raise for the features the port does not render yet."""

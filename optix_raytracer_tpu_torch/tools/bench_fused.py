@@ -65,13 +65,11 @@ from __future__ import annotations
 
 import argparse
 import importlib
-import importlib.util
 import inspect
 import json
 import os
 import re
 import subprocess
-import sys
 
 SCENES = ("cornell", "prims", "pbr", "mirror", "instanced", "smooth_knot",
           "textured")
@@ -94,18 +92,6 @@ COUNT_CHUNK = 1 << 18
 SM_REGS, REG_UNIT, SM_WARPS, SM_BLOCKS = 65536, 256, 64, 32
 SM_SMEM, BLOCK_SMEM_SYS = 233472, 1024
 FUSED_THREADS = 128
-
-
-def load_parent(root):
-    """DIR/optix_raytracer_tpu_torch as the package `ort_parent`."""
-    pkg = os.path.join(root, "optix_raytracer_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "ort_parent", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["ort_parent"] = mod
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def make_scenes(pkg, dev, names):
@@ -290,6 +276,7 @@ def triangle_test_counts(P, scene, closest, shadow, groups, width, height):
     or occlusion differ from brute force's."""
     import torch
     from optix_raytracer_tpu_torch.accel.pallas_bf import _accept, _tri_test
+    from optix_raytracer_tpu_torch.accel.tri_groups import fused_group_boxes
     tri = scene.geom.tri_consts
     m = scene.num_triangles
     ranges = P.fused_inst_ranges(scene)
@@ -328,7 +315,7 @@ def triangle_test_counts(P, scene, closest, shadow, groups, width, height):
                 else:
                     tot["needed"] += int((res[0] & lv).sum())
                 for g in groups:
-                    boxes = P.fused_group_boxes(scene.geom, g)
+                    boxes = fused_group_boxes(scene.geom, g)
                     res_g = walk(tri, boxes, g, o, d, tmin, tmax,
                                  with_groups=True)
                     same = (res_g[1], res[1]) if kind == "closest" else (
@@ -477,6 +464,7 @@ def run(dev, parent=None, counts=False, reps=10, groups=(8, 16),
     import torch
     from optix_raytracer_tpu_torch import kernels as K
     from optix_raytracer_tpu_torch.wavefront import engine as E
+    from optix_raytracer_tpu_torch.tools import knot_probe as KP
     from optix_raytracer_tpu_torch.wavefront import pallas_pt as P
 
     def say(obj):
@@ -486,7 +474,7 @@ def run(dev, parent=None, counts=False, reps=10, groups=(8, 16),
     K.lib()
     trees = [("this", "optix_raytracer_tpu_torch")]
     if parent is not None:
-        load_parent(parent)
+        KP.load_parent(parent)
         importlib.import_module("ort_parent.kernels").lib()
         trees.append(("parent", "ort_parent"))
     results = {}

@@ -53,11 +53,11 @@ lane tests a step (tested / admitted / needed) and the queue's own floor
 (knot_probe.queue_counts).
 
 With --launches N it then times N launches of the tier's knot (1920x1088, 16
-samples per launch, depth 3, after one warm-up): sample-major, and at the
-resident tier also sequential, with this tree's walks (with --cull: its
-exact cull; with --queue: under ORT_QWALK=1, its kernel 8) and, with
---parent, with the parent's patched into the same engine (parent, this,
-this, parent), and requires equal ray counts. With --cull or --queue it
+samples per launch, depth 3, after one warm-up; `knot_probe.launch_ab`):
+sample-major, and at the resident tier also sequential (with --queue:
+sample-major under ORT_QWALK=1) of this tree's engine and, with --parent,
+of the parent's whole engine (parent, this, this, parent), and requires
+equal first-launch rays. With --cull or --queue it
 prints ptxas's registers and spills of kernels 4-8 of both trees.
 
     python -m optix_raytracer_tpu_torch.tools.bench_sc_walks [--tier sc]
@@ -73,12 +73,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
-import importlib.util
 import inspect
 import json
 import os
 import subprocess
-import sys
 import time
 
 import torch
@@ -87,20 +85,6 @@ from optix_raytracer_tpu_torch import kernels
 from optix_raytracer_tpu_torch.accel import clusters as C
 from optix_raytracer_tpu_torch.accel import qwalk as Q
 from optix_raytracer_tpu_torch.tools import knot_probe as KP
-
-
-def load_parent(root):
-    """DIR/optix_raytracer_tpu_torch as the package `ort_parent` → its
-    (accel.clusters, accel.qwalk) modules."""
-    pkg = os.path.join(root, "optix_raytracer_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "ort_parent", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["ort_parent"] = mod
-    spec.loader.exec_module(mod)
-    return (importlib.import_module("ort_parent.accel.clusters"),
-            importlib.import_module("ort_parent.accel.qwalk"))
 
 
 def resident_walks(M):
@@ -321,8 +305,11 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
     kernels.lib()
-    P, PQ = load_parent(args.parent) if args.parent else (None, None)
-    if P is not None:
+    P = PQ = None
+    if args.parent:
+        KP.load_parent(args.parent)
+        P = importlib.import_module("ort_parent.accel.clusters")
+        PQ = importlib.import_module("ort_parent.accel.qwalk")
         P.kernels.lib()
     ks = [int(k) for k in args.k.split(",") if k]
     if args.queue and (args.cull or args.tier != "resident"):
@@ -423,49 +410,11 @@ def main():
         print(json.dumps({k: v for k, v in results.items()
                           if k.startswith("ptxas")}), flush=True)
     if args.launches:
-        launch = dict()
-        M = Q if args.queue else C      # the module whose functions swap
-        names = (("_run_queue",) if args.queue
-                 else ("exact_cull",) if args.cull
-                 else ("walk_sc_closest", "walk_sc_any") if sc
-                 else ("walk_closest", "walk_any"))
-        own = tuple(getattr(M, n) for n in names)
-        trees = [("this", own)]
-        if P is not None:
-            theirs = ((queue_run(PQ),) if args.queue
-                      else tuple(getattr(P, n) for n in names)
-                      if sc or args.cull else resident_walks(P))
-            trees = [("parent", theirs), ("this", own), ("this", own),
-                     ("parent", theirs)]
-        impls = ("auto",) if sc else ("auto", "wavefront")
-        W, H, spl, depth = K["width"], K["height"], K["spl"], K["depth"]
-        qwalk_env = os.environ.get("ORT_QWALK")
-        if args.queue:
-            os.environ["ORT_QWALK"] = "1"
-        try:
-            for impl in impls:
-                for tree, fns in trees:
-                    for n, fn in zip(names, fns):
-                        setattr(M, n, fn)
-                    (_, _, dt, _, _, first_rays, _, _) = KP.timed_launches(
-                        scene, cam, W, H, spl, depth, impl, args.launches,
-                        dev)
-                    key = f"{impl}_{tree}"
-                    launch.setdefault(f"{key}_ms_per_launch", []).append(
-                        1e3 * dt / args.launches)
-                    launch.setdefault(f"{key}_first_launch_rays", []).append(
-                        first_rays)
-        finally:
-            for n, fn in zip(names, own):
-                setattr(M, n, fn)
-            if qwalk_env is None:
-                os.environ.pop("ORT_QWALK", None)
-            else:
-                os.environ["ORT_QWALK"] = qwalk_env
-        rays_seen = {r for k, v in launch.items() if k.endswith("_rays")
-                     for r in v}
-        if len(rays_seen) != 1:
-            raise SystemExit(f"launch ray counts differ: {launch}")
+        torch.cuda.empty_cache()
+        launch = KP.launch_ab(
+            dev, args.parent,
+            ("knot25k_queue",) if args.queue else ("knot4m_auto",) if sc
+            else ("knot25k_auto", "knot25k_sequential"), args.launches)
         results["launch"] = launch
         print(json.dumps({"launch": launch}), flush=True)
     if args.out:

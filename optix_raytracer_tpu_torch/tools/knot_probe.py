@@ -2,7 +2,8 @@
 (4-8), shared by chip_smoke.py and tools/bench_sc_walks.py: the knot
 configurations and frames, the probe ray sets and the rays one sample-major
 strip of the main path hands the cluster table, CUDA-event timing, timed
-launches, the least work (pair and slab tests, bytes) each kernel's
+launches and their A/B against a parent checkout of the port
+(`load_parent`, `launch_ab`), the least work (pair and slab tests, bytes) each kernel's
 outputs need, as a bound on the card (`bound`), and ptxas's report of a
 build (`ptxas_report`).
 
@@ -11,7 +12,11 @@ tensor cores, and HBM3.
 """
 from __future__ import annotations
 
+import importlib
+import importlib.util
+import os
 import re
+import sys
 import time
 
 import numpy as np
@@ -288,6 +293,93 @@ def timed_launches(scene, cam, W, H, spl, depth, impl, launches, dev):
     return (film, int(sum(int(r) for r in rays)), dt,
             torch.cuda.max_memory_allocated(dev), first, int(first_rays),
             counts, first_s)
+
+
+def load_parent(root):
+    """DIR/optix_raytracer_tpu_torch, a checkout of the port (an earlier
+    tree), as the package `ort_parent` (its kernels built from its own
+    sources at first use) → the package."""
+    if "ort_parent" in sys.modules:
+        return sys.modules["ort_parent"]
+    pkg = os.path.join(root, "optix_raytracer_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "ort_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["ort_parent"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# chip_smoke.py's launches (its phases 6, d, j, g): scene, impl, ORT_QWALK.
+AB_LAUNCHES = dict(cornell_auto=("cornell", "auto", "0"),
+                   cornell_wavefront=("cornell", "wavefront", "0"),
+                   knot25k_auto=("knot25k", "auto", "0"),
+                   knot25k_sequential=("knot25k", "wavefront", "0"),
+                   knot25k_queue=("knot25k", "auto", "1"),
+                   knot4m_auto=("knot4m", "auto", "0"))
+
+
+def _launch_scene(pkg, what, dev):
+    """Package pkg's scene `what` → (scene, camera params, W, H, spl,
+    depth), at chip_smoke.py's frames."""
+    TB = importlib.import_module(pkg + ".scene.builtins")
+    if what == "cornell":
+        W, H, spl, depth = TB.HEADLINE_FRAME
+        return (TB.cornell_box(dev), TB.cornell_camera(W, H).params(dev), W,
+                H, spl, depth)
+    K = KNOT if what == "knot25k" else KNOT_SC
+    W, H = K["width"], K["height"]
+    return (TB.knot_scene(K["segments"], K["sides"], device=dev),
+            TB.knot_camera(W, H).params(dev), W, H, K["spl"], K["depth"])
+
+
+def launch_ab(dev, parent_root, names, launches=1):
+    """Whole launches (AB_LAUNCHES `names`) of this tree's engine and, with
+    a parent_root, the parent's (load_parent: its own engine, kernels and
+    builders): one warm-up each, then `launches` timed (host clock,
+    synchronized; timed_launches) in the order parent, this, this, parent
+    (this, this without a parent) → {name: row of ms a launch per tree and
+    the first launch's rays}; the trees' first-launch rays must be
+    equal."""
+    trees = {"this": "optix_raytracer_tpu_torch"}
+    order = ("this", "this")
+    if parent_root is not None:
+        load_parent(parent_root)
+        trees["parent"] = "ort_parent"
+        order = ("parent", "this", "this", "parent")
+    out, made = {}, {}
+    for name in names:
+        what, impl, qwalk = AB_LAUNCHES[name]
+        if made.get("what") != what:
+            made = {"what": what}
+            torch.cuda.empty_cache()
+            for tree, pkg in trees.items():
+                made[tree] = _launch_scene(pkg, what, dev)
+        keep = os.environ.get("ORT_QWALK")
+        os.environ["ORT_QWALK"] = qwalk
+        row, first = dict(impl=impl, qwalk=qwalk), {}
+        try:
+            for tree in order:
+                scene, cam, W, H, spl, depth = made[tree]
+                TK = importlib.import_module(trees[tree]
+                                             + ".tools.knot_probe")
+                r = TK.timed_launches(scene, cam, W, H, spl, depth, impl,
+                                      launches, dev)
+                row.setdefault(f"{tree}_ms_per_launch", []).append(
+                    1e3 * r[2] / launches)
+                first.setdefault(tree, r[5])
+        finally:
+            if keep is None:
+                os.environ.pop("ORT_QWALK", None)
+            else:
+                os.environ["ORT_QWALK"] = keep
+        if len(set(first.values())) != 1:
+            raise SystemExit(f"{name}: first-launch rays differ: {first}")
+        row.update(dim=f"{W}x{H}", spl=spl, depth=depth,
+                   first_launch_rays=first["this"])
+        out[name] = row
+    return out
 
 
 def tile_order(width, height):

@@ -1,7 +1,8 @@
 """Scene-level intersection (counterpart of `wavefront/intersect.py:78-200`):
 the instance loop for a two-level scene (`accel/tlas.py`), the
 cluster-culled traversal for a scene with a cluster table, brute force
-otherwise, then the custom prims merged in (`accel/primitives.py`; a prim
+otherwise (culled by the scene's group boxes, `DeviceScene.bf_boxes`),
+then the custom prims merged in (`accel/primitives.py`; a prim
 hit reports prim_id = num_triangles + its row). BVHs, motion and cutout
 any-hit are not ported yet (ROADMAP.md Queue 1 items 6-9); the port's
 DeviceScene has none of them.
@@ -56,7 +57,7 @@ def scene_closest(scene: DeviceScene, rays: Rays,
     if scene.has_instances:
         hits = _flat_call(lambda r: tlas.intersect_instances(
             scene.geom, scene.instances, r, tri_mat=scene.tri_mat,
-            chunk_size=chunk_size), rays)
+            chunk_size=chunk_size, boxes=scene.bf_boxes), rays)
     elif scene.has_clusters:
         if exact and _use_qwalk():
             hits = _flat_call(lambda r: qwalk_mod.closest_hit(
@@ -66,7 +67,8 @@ def scene_closest(scene: DeviceScene, rays: Rays,
                 scene.clusters, r, exact=exact, group_walk=group_walk), rays)
     else:
         hits = bf.intersect_closest(scene.geom, rays, tri_mat=scene.tri_mat,
-                                    chunk_size=chunk_size)
+                                    chunk_size=chunk_size,
+                                    boxes=scene.bf_boxes[0])
     if scene.prims.num:
         ph = _flat_call(lambda r: prim_mod.intersect_prims_closest(
             scene.prims, r), rays)
@@ -81,7 +83,8 @@ def scene_any(scene: DeviceScene, rays: Rays,
     queue under ORT_QWALK=1."""
     if scene.has_instances:
         occ = _flat_call(lambda r: tlas.intersect_instances_any(
-            scene.geom, scene.instances, r, chunk_size=chunk_size), rays)
+            scene.geom, scene.instances, r, chunk_size=chunk_size,
+            boxes=scene.bf_boxes), rays)
     elif scene.has_clusters:
         if _use_qwalk():
             occ = _flat_call(lambda r: qwalk_mod.any_hit(scene.clusters, r),
@@ -90,7 +93,8 @@ def scene_any(scene: DeviceScene, rays: Rays,
             occ = _flat_call(lambda r: cluster_mod.any_hit(
                 scene.clusters, r, exact=True, group_walk=group_walk), rays)
     else:
-        occ = bf.intersect_any(scene.geom, rays, chunk_size=chunk_size)
+        occ = bf.intersect_any(scene.geom, rays, chunk_size=chunk_size,
+                               boxes=scene.bf_boxes[0])
     if scene.prims.num:
         occ = occ | _flat_call(lambda r: prim_mod.intersect_prims_any(
             scene.prims, r), rays)

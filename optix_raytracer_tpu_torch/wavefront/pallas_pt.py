@@ -31,18 +31,24 @@ instantiation counts its launches under its own `kernels.LAUNCHES` key
 Outside instances the kernel culls the triangle table by groups of
 `fused_group_size` consecutive triangles: a ray tests a group only when its
 slab test crosses the group's box widened by the walks' admission margin
-(`fused_group_boxes`, `fused_group_admitted_plain`). The torch emulations
-of the culled loops (`fused_group_closest_plain`, `fused_group_any_plain`)
-give brute force's ids and occlusion and count the tests.
+(`tri_groups.fused_group_boxes`, `fused_group_admitted_plain`). The torch
+emulations of the culled loops (`fused_group_closest_plain`,
+`fused_group_any_plain`) give brute force's ids and occlusion and count the
+tests.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
-from ..accel import clusters as cluster_mod
-from ..accel.pallas_bf import _accept, _tri_test
+from ..accel.pallas_bf import _group_walk
 from ..accel.tlas import instance_ranges
+# Group culling (fused_group_size), outside instances: a table of at least
+# FUSED_CULL_MIN_TRIS triangles is cut into groups of FUSED_GROUP
+# consecutive triangles; a smaller table is tested whole, without a box
+# (the group rule lives in accel/tri_groups.py, shared with kernels 1-2).
+from ..accel.tri_groups import (BOX_COLS, FUSED_CULL_MIN_TRIS, FUSED_GROUP,
+                                fused_group_boxes)
 from ..scene.device_scene import DeviceScene
 # The plain version of kernel 3 is the wavefront engine's sample loop (on
 # CUDA tensors its intersections come from kernels 1 and 2).
@@ -72,19 +78,6 @@ FLAT, INST, SMOOTH, TEX = "flat", "inst", "smooth", "tex"
 TEX_BASE, TEX_NORMAL, TEX_MR, TEX_EMISSIVE, TEX_CHAIN_SHIFT = 1, 2, 4, 8, 4
 # Columns of the texture variant's per-triangle plane (pack_tex_attrs).
 TEX_ATTR_COLS = 20
-# Group culling (fused_group_size), outside instances: a table of at least
-# FUSED_CULL_MIN_TRIS triangles is cut into groups of FUSED_GROUP
-# consecutive triangles; a smaller table is tested whole, without a box.
-# From the cutoff table of tools/bench_fused.py on the H100 (PERF.md §6):
-# culling paid on every table measured from 10 triangles up (knots of
-# 10-482, the Cornell scenes' 32, textured grids of 16-256), and groups of 8
-# were within 13% of the best size (4, 8 or 16) on every one of them.
-FUSED_CULL_MIN_TRIS = 10
-FUSED_GROUP = 8
-# Columns of a group box row: lo xyz, hi xyz, two pad (32-byte rows).
-BOX_COLS = 8
-
-
 def pack_materials(mt, bundle_mip=None) -> torch.Tensor:
     """MaterialTable → [K, 16] f32 rows. With `bundle_mip` (a textured
     scene) columns 13-15 carry the material's bundle id (-1 = none), its
@@ -201,92 +194,6 @@ def fused_group_size(scene: DeviceScene) -> int:
     return FUSED_GROUP
 
 
-def fused_group_boxes(geom, group: int) -> torch.Tensor:
-    """The kernel's group boxes: triangles [g * group, (g + 1) * group) of
-    `geom` → [ceil(M / group), BOX_COLS] f32 rows (lo xyz, hi xyz, 0, 0),
-    the box of the group's vertices v0, v0 + e1, v0 + e2 widened on every
-    side by the walks' admission margin, extent * 2^-6 + magnitude * 2^-14
-    (accel/clusters.py sc_widened_boxes). A hit the Woop test accepts lies
-    within a few ulps of its triangle, and the slab test errs by a few ulps
-    of the distance along the ray; the margin covers both (the cluster
-    walks' dropped-pair audits hold it on the card, tests/
-    test_torch_fused_groups.py here)."""
-    m = geom.num_triangles
-    n = -(-m // group)
-    verts = torch.stack([geom.v0, geom.v0 + geom.e1, geom.v0 + geom.e2],
-                        dim=1)                                  # [M, 3, 3]
-    pad = n * group - m
-    lo = torch.cat([verts.amin(dim=1),
-                    verts[-1:].amin(dim=1).expand(pad, 3)])
-    hi = torch.cat([verts.amax(dim=1),
-                    verts[-1:].amax(dim=1).expand(pad, 3)])
-    box = torch.cat([lo.reshape(n, group, 3).amin(dim=1),
-                     hi.reshape(n, group, 3).amax(dim=1)], dim=1)  # [n, 6]
-    wlo, whi, _ = cluster_mod.sc_widened_boxes(box.T[None])
-    out = torch.zeros((n, BOX_COLS), dtype=torch.float32, device=box.device)
-    out[:, 0:3] = wlo[0].T
-    out[:, 3:6] = whi[0].T
-    return out
-
-
-def fused_group_admitted_plain(o, d, tmin, tmax, boxes) -> torch.Tensor:
-    """The kernel's group test in plain PyTorch: rays o, d [N, 3], tmin,
-    tmax [N] against group boxes [G, BOX_COLS] → bool [N, G], set where the
-    ray is live and its slab test (clusters._slab_cross, the exact cull's:
-    the +-1e12 pseudo-inverse, max(tn, tmin) <= min(tf, tmax)) crosses the
-    box. The closest loop passes the ray's running best t as tmax."""
-    a = torch.cat([o, d, tmin[:, None], tmax[:, None]], dim=1)[None]
-    return cluster_mod._slab_cross(a, boxes[None, :, 0:3].transpose(1, 2),
-                                   boxes[None, :, 3:6].transpose(1, 2))[0][0]
-
-
-def _group_walk(tri, boxes, group, o, d, tmin, tmax, any_hit):
-    """The kernel's culled triangle loop over rays o, d [N, 3], tmin, tmax
-    [N]: groups ascending, a group's triangles ascending, the strict t <
-    best t → (best t [N] or None with any_hit, id [N] int64 (-1 none) or
-    occluded [N] with any_hit, tests [N] int64: the ray-triangle tests the
-    loop makes, the triangles of each admitted group up to the first
-    occluder with any_hit, slabs [N] int64: the group slab tests it makes
-    (none without culling), admitted [N, groups] bool: the groups the ray
-    tests)."""
-    m = tri.shape[0]
-    n = o.shape[0]
-    cols = [o[:, k:k + 1] for k in range(3)] + [d[:, k:k + 1]
-                                                 for k in range(3)]
-    bt = tmax.clone()
-    bid = torch.full((n,), -1, dtype=torch.int64, device=o.device)
-    tests = torch.zeros((n,), dtype=torch.int64, device=o.device)
-    slabs = torch.zeros((n,), dtype=torch.int64, device=o.device)
-    done = torch.zeros((n,), dtype=torch.bool, device=o.device)
-    admitted = torch.zeros((n, -(-m // group)), dtype=torch.bool,
-                           device=o.device)
-    for g, t0 in enumerate(range(0, m, group)):
-        t1 = min(t0 + group, m)
-        adm = (tmax > tmin) & ~done
-        if group < m:
-            slabs += adm.to(torch.int64)
-            adm = adm & fused_group_admitted_plain(o, d, tmin, bt,
-                                                   boxes[g:g + 1])[:, 0]
-        admitted[:, g] = adm
-        tt, uu, vv, dpz = _tri_test(tri[t0:t1], *cols)
-        acc = (_accept(tt, uu, vv, dpz, tmin[:, None], bt[:, None])
-               & adm[:, None])
-        if any_hit:
-            first = torch.where(acc.any(dim=1), acc.int().argmax(dim=1),
-                                t1 - t0 - 1)
-            tests += torch.where(adm, first + 1, 0)
-            done = done | acc.any(dim=1)
-            continue
-        tests += adm.to(torch.int64) * (t1 - t0)
-        for j in range(t1 - t0):      # ascending, strict: the lowest wins
-            win = acc[:, j] & (tt[:, j] < bt)
-            bt = torch.where(win, tt[:, j], bt)
-            bid = torch.where(win, t0 + j, bid)
-    if any_hit:
-        return None, done, tests, slabs, admitted
-    return bt, bid, tests, slabs, admitted
-
-
 def fused_group_closest_plain(tri, boxes, group, o, d, tmin, tmax,
                               with_groups=False):
     """The kernel's culled closest loop in torch (tri the scene's [M, 16]
@@ -344,8 +251,9 @@ def scene_tables(scene: DeviceScene) -> dict:
     the winner only: the smooth variant's corner normals [M, 9] (n0, n1, n2),
     the texture variant's attribute plane [M, 20] (pack_tex_attrs), the
     triangles for the others; and a cache of group boxes by group size
-    (render_sum_fused fills it). Raises for a scene past the kernel's caps
-    or with a feature it does not render."""
+    (render_sum_fused fills it; a flat table's FUSED_GROUP entry is
+    DeviceScene.bf_boxes[0], the boxes kernels 1-2 cull by). Raises for a
+    scene past the kernel's caps or with a feature it does not render."""
     dev = scene.device
     m, k, p = scene.num_triangles, scene.materials.num, scene.prims.num
     ranges = fused_inst_ranges(scene)
@@ -372,6 +280,8 @@ def scene_tables(scene: DeviceScene) -> dict:
                inst_rng=torch.tensor(ranges or ((0, 0),), dtype=torch.int32,
                                      device=dev),
                corner=tri, boxes={})
+    if not scene.has_instances and scene.bf_boxes[0] is not None:
+        out["boxes"][FUSED_GROUP] = scene.bf_boxes[0]
     if geometry == SMOOTH:
         out["corner"] = scene.geom.corner_normal.reshape(m, 9).contiguous()
         kernels.require(out["corner"], "corner", torch.float32, (m, 9), dev)

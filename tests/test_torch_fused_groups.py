@@ -1,7 +1,7 @@
 """The fused kernel's group culling and its path-regeneration counts, on the
-CPU (wavefront/pallas_pt.py fused_group_boxes, fused_group_admitted_plain,
-fused_group_closest_plain / _any_plain; tools/bench_fused.py path_lengths
-and warp_steps).
+CPU (accel/tri_groups.py fused_group_boxes, fused_group_admitted_plain;
+wavefront/pallas_pt.py fused_group_closest_plain / _any_plain;
+tools/bench_fused.py path_lengths and warp_steps).
 
 The rule: a ray tests a group of consecutive triangles only when its slab
 test crosses the group's box widened by the walks' admission margin. Held
@@ -27,6 +27,7 @@ from optix_raytracer_tpu.accel.geometry import build_triangle_geometry as jbuild
 from optix_raytracer_tpu.core.rays import Rays as JRays
 from optix_raytracer_tpu_torch import kernels
 from optix_raytracer_tpu_torch.accel import clusters as cluster_mod
+from optix_raytracer_tpu_torch.accel import tri_groups as G
 from optix_raytracer_tpu_torch.accel.geometry import TriangleGeometry
 from optix_raytracer_tpu_torch.accel.pallas_bf import (_accept, _tri_test,
                                                        any_hit_plain,
@@ -190,13 +191,13 @@ def test_accepted_pairs_lie_in_admitted_groups(scenes, name, kind):
     tri = scene.geom.tri_consts
     taken = 0
     for group in GROUPS[name]:
-        boxes = P.fused_group_boxes(scene.geom, group)
-        assert boxes.shape == (-(-scene.num_triangles // group), P.BOX_COLS)
+        boxes = G.fused_group_boxes(scene.geom, group)
+        assert boxes.shape == (-(-scene.num_triangles // group), G.BOX_COLS)
         o, d, tmin, tmax = (torch.as_tensor(x) for x in _rays(
             kind, scene, camera, depth, boxes, group))
         tt, uu, vv, dpz = _tri_test(tri, *_cols(o, d))
         acc = _accept(tt, uu, vv, dpz, tmin[:, None], tmax[:, None])
-        adm = P.fused_group_admitted_plain(o, d, tmin, tmax, boxes)
+        adm = G.fused_group_admitted_plain(o, d, tmin, tmax, boxes)
         group_of = torch.arange(scene.num_triangles) // group
         dropped = acc & ~adm[:, group_of]
         assert int(dropped.sum()) == 0, (group, int(dropped.sum()))
@@ -240,7 +241,7 @@ def test_culled_loops_give_brute_force_ids(scenes, name):
         best = torch.where(acc, tt, torch.inf).amin(dim=1, keepdim=True)
         ties += int(((acc & (tt == best)).sum(dim=1) > 1).sum())
         for group in GROUPS[name]:
-            boxes = P.fused_group_boxes(scene.geom, group)
+            boxes = G.fused_group_boxes(scene.geom, group)
             t, pid, tests = P.fused_group_closest_plain(tri, boxes, group, o,
                                                         d, tmin, tmax)
             np.testing.assert_array_equal(pid.numpy(),
@@ -276,7 +277,7 @@ def test_culled_closest_matches_jax_brute_force():
     hit = np.asarray(ref.valid)
     assert hit.sum() > 100
     for group in (8, 16):
-        boxes = P.fused_group_boxes(geom, group)
+        boxes = G.fused_group_boxes(geom, group)
         t, pid, _ = P.fused_group_closest_plain(
             geom.tri_consts, boxes, group, *(torch.as_tensor(x)
                                              for x in (o, d, tmin, tmax)))
@@ -405,10 +406,10 @@ def test_margin_is_needed(scenes, name, monkeypatch):
     scene, _, _ = scenes[name]
     tri = scene.geom.tri_consts
     group = GROUPS[name][0]
-    wide = P.fused_group_boxes(scene.geom, group)
+    wide = G.fused_group_boxes(scene.geom, group)
     monkeypatch.setattr(cluster_mod, "SC_MARGIN_REL", 0.0)
     monkeypatch.setattr(cluster_mod, "SC_MARGIN_FLOOR", 0.0)
-    narrow = P.fused_group_boxes(scene.geom, group)
+    narrow = G.fused_group_boxes(scene.geom, group)
     assert bool((narrow[:, 0:3] > wide[:, 0:3]).all())
     o, d, tmin, tmax = (torch.as_tensor(np.concatenate(x)) for x in zip(*(
         _grazing_rays(scene.geom, narrow, group, seed) for seed in range(2))))
@@ -419,7 +420,7 @@ def test_margin_is_needed(scenes, name, monkeypatch):
                             Rays(origin=o, direction=d, tmin=tmin, tmax=tmax))
     dropped, lost = {}, {}
     for key, boxes in (("stated", wide), ("zero", narrow)):
-        adm = P.fused_group_admitted_plain(o, d, tmin, tmax, boxes)
+        adm = G.fused_group_admitted_plain(o, d, tmin, tmax, boxes)
         dropped[key] = int((acc & ~adm[:, group_of]).sum())
         _, pid, _ = P.fused_group_closest_plain(tri, boxes, group, o, d,
                                                 tmin, tmax)
@@ -450,14 +451,14 @@ def test_group_size_is_the_measured_cutoff():
     m); from the cutoff on it is culled (group < m) in groups of
     FUSED_GROUP, whatever its size or geometry mode; an instanced scene
     is tested whole whatever its size."""
-    assert (P.FUSED_CULL_MIN_TRIS, P.FUSED_GROUP) == (10, 8)
+    assert (G.FUSED_CULL_MIN_TRIS, G.FUSED_GROUP) == (10, 8)
     sizes = []
     for scene, want in _cutoff_scenes():
         m = scene.num_triangles
         g = P.fused_group_size(scene)
         sizes.append(m)
         assert g == want, (m, g)
-        assert (g < m) == (m >= P.FUSED_CULL_MIN_TRIS), (m, g)
+        assert (g < m) == (m >= G.FUSED_CULL_MIN_TRIS), (m, g)
     assert sizes == [2, 4, 10, 32, 34, 66, 64, 194, 482]
     inst = B.cornell_box_instanced(CPU)
     assert P.fused_group_size(inst) == inst.num_triangles

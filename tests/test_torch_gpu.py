@@ -14,8 +14,10 @@ import torch
 
 from optix_raytracer_tpu_torch import kernels
 from optix_raytracer_tpu_torch.accel import clusters as C
-from optix_raytracer_tpu_torch.accel import pallas_bf
+from optix_raytracer_tpu_torch.accel import pallas_bf, tlas
 from optix_raytracer_tpu_torch.accel.geometry import build_triangle_geometry
+from optix_raytracer_tpu_torch.accel.tri_groups import (bf_group_boxes,
+                                                        fused_group_boxes)
 from optix_raytracer_tpu_torch.core.film import Film
 from optix_raytracer_tpu_torch.core.rays import Rays
 from optix_raytracer_tpu_torch.scene import builtins as B
@@ -55,24 +57,109 @@ def _mesh_and_rays(num_tris, n_rays, seed, device):
     return geom, tri_mat, rays
 
 
-@pytest.mark.parametrize("num_tris", [40, 700])   # 700 spans three tiles
-def test_bf_kernels_match_plain(cuda, num_tris):
-    geom, tri_mat, rays = _mesh_and_rays(num_tris, 1500, 7, cuda)
-    out = pallas_bf.closest_hit(geom.tri_consts, tri_mat, rays)
-    ref = pallas_bf.closest_hit_plain(geom.tri_consts, tri_mat, rays)
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _assert_bf_equal(geom, tri_mat, rays, boxes):
+    """Kernels 1-2 against their plain versions on the card, bit for bit
+    (ids, t, uv, normals, occlusion), culling by `boxes` (bf_group_boxes)
+    or not; each wrapper counts one launch."""
+    tri = geom.tri_consts
+    before = dict(kernels.LAUNCHES)
+    out = pallas_bf.closest_hit(tri, tri_mat, rays, boxes=boxes)
+    occ = pallas_bf.any_hit(tri, rays, boxes=boxes)
     torch.cuda.synchronize()
-    for k in ("prim_id", "mat_id"):
-        np.testing.assert_array_equal(out[k].cpu().numpy(),
-                                      ref[k].cpu().numpy())
-    hit = ref["prim_id"].cpu().numpy() >= 0
-    assert hit.any() and (~hit).any()
-    for k, tol in (("t", dict(rtol=1e-5)), ("uv", dict(atol=1e-4)),
-                   ("normal", dict(atol=1e-5))):
-        np.testing.assert_allclose(out[k].cpu().numpy()[hit],
-                                   ref[k].cpu().numpy()[hit], **tol)
-    np.testing.assert_array_equal(
-        pallas_bf.any_hit(geom.tri_consts, rays).cpu().numpy(),
-        pallas_bf.any_hit_plain(geom.tri_consts, rays).cpu().numpy())
+    assert kernels.LAUNCHES["bf_closest"] == before["bf_closest"] + 1
+    assert kernels.LAUNCHES["bf_any"] == before["bf_any"] + 1
+    ref = pallas_bf.closest_hit_plain(tri, tri_mat, rays)
+    for k in ("t", "prim_id", "mat_id", "uv", "normal"):
+        assert torch.equal(_bits(out[k]), _bits(ref[k])), k
+    assert torch.equal(occ, pallas_bf.any_hit_plain(tri, rays))
+    return ref, occ
+
+
+# m across the group cutoff (10), the Cornell box's 32 and past 512
+BF_TRIS = [1, 9, 10, 31, 32, 33, 40, 257, 482, 700]
+
+
+@pytest.mark.parametrize("num_tris", BF_TRIS)
+def test_bf_kernels_match_plain(cuda, num_tris):
+    """Random meshes, 1537 rays (not a multiple of any block), all live
+    and half dead, with the table's group boxes and without."""
+    geom, tri_mat = torch_parity.bf_mesh(num_tris, num_tris, device=cuda)
+    boxes = bf_group_boxes(geom)
+    for dead in (0.0, 0.5):
+        rays = torch_parity.bf_rays(1537, 7 + num_tris, dead=dead, geom=geom,
+                                    device=cuda)
+        for b in ((None,) if boxes is None else (boxes, None)):
+            ref, occ = _assert_bf_equal(geom, tri_mat, rays, b)
+            assert (ref["prim_id"] >= 0).any() and occ.any()
+
+
+@pytest.mark.parametrize("m", [16, 40, 64, 100])
+def test_bf_kernels_ties(cuda, m):
+    """Duplicated triangles, each pair ceil(m / 2) rows apart and so in
+    different groups, rays at their centroids and vertices: the lowest id
+    wins, as the plain version's argmin."""
+    geom, tri_mat = torch_parity.bf_mesh(m, 5, dup=True, device=cuda)
+    ref, _ = _assert_bf_equal(geom, tri_mat,
+                              torch_parity.tie_rays(geom, device=cuda),
+                              bf_group_boxes(geom))
+    pid = ref["prim_id"]
+    assert (pid >= 0).sum() > 3 * m // 4
+    assert (pid[pid >= 0] < -(-m // 2)).all()
+
+
+@pytest.mark.parametrize("m", [32, 482])
+def test_bf_kernels_edge_rays(cuda, m):
+    """torch_parity.cull_edge_rays on the group boxes, and the walks' lone
+    grazing rays on knot_scene(20, 14)'s 562 triangles."""
+    geom, tri_mat = torch_parity.bf_mesh(m, m + 1, device=cuda)
+    boxes = bf_group_boxes(geom)
+    r8 = torch_parity.cull_edge_rays(torch_parity.group_box_table(boxes),
+                                     seed=m, n=2048)
+    _assert_bf_equal(geom, tri_mat, torch_parity.rays8(r8, cuda), boxes)
+    scene = knot_scene(20, 14, device=cuda)
+    r8 = torch_parity.lone_gated_rays(scene.geom, scene.clusters,
+                                      seeds=range(2))
+    ref, _ = _assert_bf_equal(scene.geom, scene.tri_mat,
+                              torch_parity.rays8(r8, cuda),
+                              bf_group_boxes(scene.geom))
+    assert (ref["prim_id"] >= 0).sum() > 2
+
+
+def test_bf_kernels_instance_slices(cuda):
+    """The instanced Cornell box's slices of the shared table, rays in each
+    instance's object space, with the slice's own boxes
+    (DeviceScene.bf_boxes) and without; and the instance loop through the
+    scene against the CPU's."""
+    scene = B.cornell_box_instanced(cuda)
+    rng = np.random.default_rng(3)
+    o = rng.uniform([50, 50, -300], [500, 500, -100], (3000, 3))
+    d = rng.uniform([0, 0, 0], [556, 548, 559], (3000, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r8 = np.concatenate([o, d, np.full((3000, 1), 1e-2),
+                         rng.choice([1e16, 0.0], (3000, 1))], axis=1)
+    rays = torch_parity.rays8(r8, cuda)
+    ranges = tlas.instance_ranges(scene.instances, scene.num_triangles)
+    for i, (lo, hi) in enumerate(ranges):
+        sub = tlas.slice_geometry(scene.geom, lo, hi)
+        obj = tlas._object_rays(scene.instances.inv_transform[i], rays,
+                                rays.tmax)
+        assert scene.bf_boxes[i] is not None
+        for boxes in (scene.bf_boxes[i], None):
+            _assert_bf_equal(sub, scene.tri_mat[lo:hi], obj, boxes)
+    hits = tlas.intersect_instances(scene.geom, scene.instances, rays,
+                                    tri_mat=scene.tri_mat,
+                                    boxes=scene.bf_boxes)
+    cpu = B.cornell_box_instanced("cpu")
+    ref = tlas.intersect_instances(cpu.geom, cpu.instances,
+                                   torch_parity.rays8(r8),
+                                   tri_mat=cpu.tri_mat)
+    for k in ("prim_id", "inst_id", "mat_id"):
+        np.testing.assert_array_equal(getattr(hits, k).cpu().numpy(),
+                                      getattr(ref, k).numpy())
 
 
 def test_bf_wrappers_check_arguments(cuda):
@@ -82,6 +169,13 @@ def test_bf_wrappers_check_arguments(cuda):
     bad = Rays(rays.origin.double(), rays.direction, rays.tmin, rays.tmax)
     with pytest.raises(TypeError):
         pallas_bf.any_hit(geom.tri_consts, bad)
+    geom, tri_mat, rays = _mesh_and_rays(40, 64, 1, cuda)
+    with pytest.raises(ValueError):             # boxes of another group size
+        pallas_bf.closest_hit(geom.tri_consts, tri_mat, rays,
+                              boxes=fused_group_boxes(geom, 4))
+    with pytest.raises(ValueError):             # a table off 16 bytes
+        flat = torch.zeros(40 * 16 + 1, device=cuda)
+        pallas_bf.any_hit(flat[1:].view(40, 16), rays)
 
 
 def test_fused_kernel_matches_plain(cuda):

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from optix_raytracer_tpu_torch.accel.geometry import build_triangle_geometry
 from optix_raytracer_tpu_torch.core.camera import camera_params_from_numpy
+from optix_raytracer_tpu_torch.core.rays import Rays
 from optix_raytracer_tpu_torch.scene.device_scene import device_scene_from_numpy
 
 
@@ -517,3 +519,77 @@ def cull_edge_rays(aabb, seed=0, n=4096):
     tmax[1280 + 77] = 50.0                                  # ... but one
     return np.concatenate([o, d, tmin[:, None], tmax[:, None]],
                           axis=1).astype(np.float32)
+
+
+def group_box_table(boxes):
+    """Group boxes [G, 8] → the cull's [rows, 6, 128] layout, padded with
+    inverted boxes (cull_edge_rays reads the real ones)."""
+    b = boxes[:, 0:6].cpu().numpy()
+    rows = -(-b.shape[0] // 128)
+    pad = np.tile(np.array([3e38, 3e38, 3e38, -3e38, -3e38, -3e38],
+                           np.float32), (rows * 128 - b.shape[0], 1))
+    return np.concatenate([b, pad]).reshape(rows, 128, 6).transpose(0, 2, 1)
+
+
+def rays8(r8, device="cpu"):
+    """Rays [N, 8] f32 numpy (o, d, tmin, tmax) → flat Rays."""
+    r = torch.as_tensor(np.ascontiguousarray(r8, np.float32), device=device)
+    return Rays(origin=r[:, 0:3].contiguous(),
+                direction=r[:, 3:6].contiguous(), tmin=r[:, 6].contiguous(),
+                tmax=r[:, 7].contiguous())
+
+
+def bf_mesh(m, seed, dup=False, device="cpu"):
+    """The brute-force kernels' test meshes: m random triangles in
+    [-2, 2]^3 (one degenerate from 9 on); with dup, the second half repeats
+    the first (exact ties across groups) and none is degenerate →
+    (geometry, tri_mat)."""
+    rng = np.random.default_rng(seed)
+    k = -(-m // 2) if dup else m
+    v0 = rng.uniform(-2, 2, (k, 3))
+    e = rng.uniform(-0.8, 0.8, (2, k, 3))
+    tris = np.stack([v0, v0 + e[0], v0 + e[1]], axis=1)
+    if dup:
+        tris = np.concatenate([tris, tris])[:m]
+    elif m >= 9:
+        tris[m // 2, 2] = tris[m // 2, 1]
+    verts = tris.reshape(-1, 3).astype(np.float32)
+    idx = np.arange(3 * m, dtype=np.int32).reshape(m, 3)
+    geom = build_triangle_geometry(verts, idx, device)
+    tri_mat = torch.as_tensor(rng.integers(0, 5, m).astype(np.int32),
+                              device=device)
+    return geom, tri_mat
+
+
+def bf_rays(n, seed, dead=0.5, geom=None, device="cpu"):
+    """Rays from around a bf_mesh toward it (with `geom`, half of them at
+    its triangles' centroids), windows (1e-3 or 0, 2 to 1e16), a `dead`
+    share of them with tmax <= tmin."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    tgt = rng.uniform(-1.5, 1.5, (n, 3))
+    if geom is not None:
+        c = (geom.v0 + (geom.e1 + geom.e2) / 3.0).cpu().numpy()
+        half = rng.random(n) < 0.5
+        tgt[half] = c[rng.integers(0, len(c), half.sum())]
+    d = (tgt - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.where(rng.random(n) < 0.3, 0.0, 1e-3).astype(np.float32)
+    tmax = rng.choice([1e16, 6.0, 2.0], n).astype(np.float32)
+    gone = rng.random(n) < dead
+    tmax[gone] = np.where(rng.random(gone.sum()) < 0.5, 0.0, tmin[gone])
+    return rays8(np.concatenate([o, d, tmin[:, None], tmax[:, None]],
+                                axis=1), device)
+
+
+def tie_rays(geom, seed=6, device="cpu"):
+    """Rays at a bf_mesh's triangle centroids and first two vertices from
+    random points around them (exact ties on a dup mesh, edge crossings)."""
+    rng = np.random.default_rng(seed)
+    tgt = torch.cat([geom.v0 + (geom.e1 + geom.e2) / 3.0, geom.v0,
+                     geom.v0 + geom.e1]).cpu().numpy()
+    o = (tgt + rng.normal(size=tgt.shape) * 3.0).astype(np.float32)
+    d = (tgt - o) / np.linalg.norm(tgt - o, axis=1, keepdims=True)
+    return rays8(np.concatenate([o, d, np.full((len(o), 1), 1e-3),
+                                 np.full((len(o), 1), 1e16)], axis=1),
+                 device)
