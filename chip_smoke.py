@@ -31,7 +31,12 @@ groups, and phase m prints the group size and the culled tests a ray of the
 headlines it culls (through optix_raytracer_tpu_torch/tools/bench_fused.py),
 which give their bound; and phase l holds kernel 9, the texture-fetch
 study's row fetch, to its plain version and repeats the study's A/B against
-torch's row gather.
+torch's row gather. Phases w1-w3 drive the Whitted integrator through its
+apps: the Whitted headline (768x576, 16 samples, depth 6; kernels 1-2), its
+first sample again through kernels 1-2's plain versions (bit-equal), and
+the meshviewer's headlight rig on the 25k knot (768x768, 8 samples, depth
+3; kernels 4-6, the first sample's queries held against the plain
+versions), each run's launches counted on it alone.
 
     python3 chip_smoke.py
 
@@ -973,6 +978,197 @@ def knot_phases(dev, card, record):
     return {**{k: n_a[k] for k in names}, **queue_launches}
 
 
+def whitted_query_parity(cl, call, what):
+    """One recorded cluster query of the Whitted path against the plain
+    versions of its kernels: an exact-cull query's kernel 4 tn / gm
+    bit-equal, then the walk it asked for (kernel 5 rows bit-equal, or
+    kernel 6 occlusion equal), on every k-th block past PLAIN_WALK_ENTRIES
+    list entries → dict(live rays, list entries, blocks compared, max abs
+    err)."""
+    import torch
+    from optix_raytracer_tpu_torch.accel import clusters as C
+    rays, exact = call["rays"], call["exact"]
+    gate = bool(exact and call["group_walk"]
+                and cl.num_clusters <= C.MAX_CLUSTERS)
+    n = rays.tmin.shape[0]
+    packed = C._pack_rays(rays, C._padded(n))
+    n_blocks = packed.shape[0] // C.SUB
+    n_super = n_blocks // C.GROUPS
+    if exact and cl.c_pad <= C.MAX_CLUSTERS:
+        tn_k, gm_k = C.exact_cull(cl.aabb, packed, n_blocks, cl.c_pad)
+        tn_p, gm_p = C.exact_cull_plain(cl.aabb, packed, n_blocks, cl.c_pad)
+        require(torch.equal(tn_k.view(torch.int32), tn_p.view(torch.int32))
+                and torch.equal(gm_k, gm_p), f"{what}: exact cull differs")
+        culled = C._compact(cl, *C._cull_tables(tn_k, gm_k), n_super)
+    else:
+        culled = C._cull(cl, packed, n_super, cl.c_pad, exact=exact)
+    counts, lists, tnear = (t.reshape(n_blocks, -1) for t in culled)
+    blocks, (pc, pl, pt, pp) = block_subset(
+        counts, PLAIN_WALK_ENTRIES, counts, lists, tnear,
+        packed.reshape(n_blocks, C.SUB, 8))
+    part = (pc, pl, pt, cl.comp, cl.aabb, pp.reshape(-1, 8))
+    err = 0.0
+    if call["kind"] == "closest":
+        rows_k = C.walk_closest(*part, gate)
+        rows_p = C.walk_closest_plain(*part, gate)
+        err = float((rows_k - rows_p).abs().max()) if rows_k.numel() else 0.0
+        require(torch.equal(rows_k.view(torch.int32), rows_p.view(torch.int32)),
+                f"{what}: closest rows differ from the plain version")
+    else:
+        occ_k, occ_p = C.walk_any(*part, gate), C.walk_any_plain(*part, gate)
+        require(torch.equal(occ_k, occ_p), f"{what}: occlusion differs")
+    return dict(live=int((rays.tmax > rays.tmin).sum()),
+                entries=int(counts.sum()),
+                blocks=(f"{pc.shape[0]} of {n_blocks}" if blocks is not None
+                        else "all"), max_abs_err=err)
+
+
+def whitted_phases(dev, card, record):
+    """Phases w1-w3: the Whitted integrator through its apps. (w1) the
+    Whitted headline (apps/whitted.py's defaults: 768x576, 16 samples, depth
+    6; kernels 1-2) through apps.whitted.render, launches counted on that
+    run alone, with the per-sample time, queries, live rays, peak memory,
+    the image and the region checks of tests/test_primitives_whitted.py;
+    (w2) its first sample again with kernels 1-2 swapped for their plain
+    versions, bit-equal; (w3) the meshviewer's headlight rig on the 25k
+    knot (768x768, 8 samples, depth 3; kernels 4-6) through
+    apps.meshviewer.render, launches counted on that run alone, with the
+    first sample's cluster queries held against the plain versions
+    (whitted_query_parity). Adds each kernel's launches on its run to its
+    record as whitted_launches."""
+    import torch
+    from optix_raytracer_tpu_torch import kernels
+    from optix_raytracer_tpu_torch.apps import meshviewer
+    from optix_raytracer_tpu_torch.apps import whitted as whitted_app
+    from optix_raytracer_tpu_torch.scene.builtins import (knot_host_scene,
+                                                         whitted_scene)
+    from optix_raytracer_tpu_torch.tools.whitted_probe import (
+        KNOT_RIG, WHITTED, plain_queries, recorded_queries)
+    from optix_raytracer_tpu_torch.wavefront.whitted import render_whitted
+
+    def timed(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # --- w1: the Whitted headline ---
+    W, H, spl, depth = (WHITTED[k] for k in ("width", "height", "spl",
+                                             "depth"))
+    scene = whitted_scene(dev)
+    with recorded_queries() as calls:
+        (first, _, first_rays), first_s = timed(
+            whitted_app.render, W, H, samples=1, max_depth=depth,
+            scene=scene, device=dev)
+    queries = len(calls)
+    require(queries == depth * (1 + scene.lights.num)
+            and {c["route"] for c in calls} == {"bf"},
+            f"w1: {queries} queries a sample, routes "
+            f"{ {c['route'] for c in calls} }")
+    live_closest = [int((c["rays"].tmax > c["rays"].tmin).sum())
+                    for c in calls if c["kind"] == "closest"]
+    del calls
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (accum, film, rays), dt = timed(whitted_app.render, W, H, samples=spl,
+                                    max_depth=depth, scene=scene, device=dev)
+    n_w = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    for name in ("bf_closest", "bf_any"):
+        require(n_w[name] > 0, f"{name} never launched on the Whitted path")
+    img = to_np(accum)
+    require(img.shape == (H, W, 3) and np.isfinite(img).all()
+            and (img >= 0).all(), "Whitted image not finite / negative")
+    require(int(film.subframe) == spl, "Whitted film subframe")
+    # tests/test_primitives_whitted.py:90-108 at 96x72, scaled: the sky at
+    # the top is the blue miss color, the checker floor's red is high and
+    # its luminance varies (shadows and checks)
+    sy, sx = H / 72, W / 96
+    sky = img[int(2 * sy), int(48 * sx)]
+    floor_red = img[-int(6 * sy):].reshape(-1, 3)[:, 0].mean()
+    floor_std = img[-int(20 * sy):].mean(axis=-1).std()
+    require(sky[2] > sky[0], f"Whitted sky {sky} is not blue")
+    require(floor_red > 0.3, f"Whitted floor red {floor_red} <= 0.3")
+    require(floor_std > 0.05, f"Whitted floor std {floor_std} <= 0.05")
+    phase("w1 whitted headline", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, ms_per_sample=f"{1e3 * dt / spl:.2f}",
+          first_sample_ms=f"{1e3 * first_s:.2f}",
+          queries_per_sample=queries,
+          rays_per_sample=int(rays) // spl,
+          live_closest_rays_first_sample=live_closest,
+          mrays_per_s=f"{int(rays) / dt / 1e6:.1f}",
+          peak_mem_mib=f"{peak / 2**20:.0f}", image_mean=f"{img.mean():.5f}",
+          sky=np.round(sky, 4).tolist(), floor_red=f"{floor_red:.4f}",
+          floor_std=f"{floor_std:.4f}",
+          launches={k: n_w[k] for k in ("bf_closest", "bf_any")})
+
+    # --- w2: the first sample through the plain versions of kernels 1-2 ---
+    with plain_queries():
+        (plain_first, _, plain_rays), plain_s = timed(
+            whitted_app.render, W, H, samples=1, max_depth=depth,
+            scene=scene, device=dev)
+    a, b = to_np(first), to_np(plain_first)
+    require(int(first_rays) == int(plain_rays) and np.array_equal(a, b),
+            f"w2: the first Whitted sample through kernels 1-2 differs from "
+            f"the plain versions' by {np.abs(a - b).max()}")
+    phase("w2 whitted plain queries", dim=f"{W}x{H}", bit_equal=True,
+          rays=int(first_rays), plain_sample_ms=f"{1e3 * plain_s:.2f}")
+    del scene, first, plain_first, accum, film
+    torch.cuda.empty_cache()
+
+    # --- w3: the meshviewer's headlight rig on the 25k knot ---
+    W, H, spl, depth = (KNOT_RIG[k] for k in ("width", "height", "spl",
+                                              "depth"))
+    host = knot_host_scene(KNOT_RIG["segments"], KNOT_RIG["sides"])
+    cam = host.default_camera(W, H)
+    knot, build_s = timed(host.finalize, dev,
+                          lights=meshviewer.headlight_rig(cam))
+    require(knot.has_clusters and knot.geom.smooth, "w3: no cluster table")
+    cam_params = cam.params(dev)
+    with recorded_queries() as calls:
+        render_whitted(knot, cam_params, W, H, 1, max_depth=depth)
+    require(len(calls) == depth * (1 + knot.lights.num)
+            and {c["route"] for c in calls} == {"clusters"},
+            f"w3: {len(calls)} cluster queries in the first sample")
+    errs = []
+    for i, call in enumerate(calls):
+        what = f"w3 knot rig query {i} ({call['kind']})"
+        r = whitted_query_parity(knot.clusters, call, what)
+        errs.append(r["max_abs_err"])
+        phase(what, exact=call["exact"], **r)
+    del calls
+    (_, rays_r), dt_r = timed(render_whitted, knot, cam_params, W, H, spl,
+                              max_depth=depth)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (accum, film, rays), dt = timed(meshviewer.render, None, W, H,
+                                    samples=spl, max_depth=depth, scene=host,
+                                    device=dev)
+    n_k = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    names = ("cluster_cull_exact", "cluster_closest", "cluster_any")
+    for name in names:
+        require(n_k[name] > 0, f"{name} never launched on the knot rig")
+    img = to_np(accum)
+    require(img.shape == (H, W, 3) and np.isfinite(img).all()
+            and img.mean() > 0, "knot rig image not finite / empty")
+    require(int(rays) == int(rays_r), "knot rig ray counts differ")
+    phase("w3 knot rig", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, triangles=knot.num_triangles,
+          clusters=knot.clusters.num_clusters, build_s=f"{build_s:.2f}",
+          ms_per_sample=f"{1e3 * dt_r / spl:.2f}",
+          app_s=f"{dt:.3f}", rays_per_sample=int(rays) // spl,
+          mrays_per_s=f"{int(rays) / dt_r / 1e6:.1f}",
+          peak_mem_mib=f"{peak / 2**20:.0f}", image_mean=f"{img.mean():.5f}",
+          query_max_abs_err=max(errs),
+          launches={k: n_k[k] for k in names})
+    # the kernels line: each kernel's launches on the two Whitted runs
+    for name, n in (*((k, n_w[k]) for k in ("bf_closest", "bf_any")),
+                    *((k, n_k[k]) for k in names)):
+        record[name]["whitted_launches"] = n
+
+
 def sc_phases(dev, card, record):
     """Phases (e)-(g): the 4.0M-triangle knot through the supercluster tier.
     (e) the build, timed per step, and traversal_stats at supercluster
@@ -1907,6 +2103,10 @@ def main():
     # --- phases (a)-(d), (h)-(j): the large-mesh path (kernels 4-6) and
     # the queue (kernels 7-8) ---
     launches.update(knot_phases(dev, card, record))
+    torch.cuda.empty_cache()
+
+    # --- phases w1-w3: the Whitted integrator (kernels 1-2, 4-6) ---
+    whitted_phases(dev, card, record)
     torch.cuda.empty_cache()
 
     # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---

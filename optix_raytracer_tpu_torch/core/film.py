@@ -36,6 +36,19 @@ class Film:
                    sq=zeros3() if track_variance else None,
                    launches=zero_int() if track_variance else None)
 
+    def accumulate(self, radiance):
+        """One progressive step (core/film.py:52-66): accum += (radiance -
+        accum) / (subframe + 1), and with variance tracking the running
+        mean of radiance² over launches → the next Film."""
+        t = 1.0 / (self.subframe.to(torch.float32) + 1.0)
+        sq, launches = self.sq, self.launches
+        if sq is not None:
+            tl = 1.0 / (launches.to(torch.float32) + 1.0)
+            sq = sq + (radiance * radiance - sq) * tl
+            launches = launches + 1
+        return Film(accum=self.accum + (radiance - self.accum) * t,
+                    subframe=self.subframe + 1, sq=sq, launches=launches)
+
 
 def linear_to_srgb(c):
     """Exact sRGB OETF (reference `cuda/helpers.h:37-42`)."""

@@ -1,8 +1,8 @@
-"""The Cornell box (flat and instanced), the trefoil-knot scene, the bench's
-prims, PBR and textured scenes, the fused kernel's mix scenes and their
-cameras (counterpart of
-`scene/builtins.py:18-141, 196-274` and of the scenes `bench.py:153-202,
-205-246, 418-450` builds inline).
+"""The Cornell box (flat and instanced), the Whitted scene, the trefoil-knot
+scene (and the knot as a host Scene, which the meshviewer lights), the
+bench's prims, PBR and textured scenes, the fused kernel's mix scenes and
+their cameras (counterpart of `scene/builtins.py:18-274` and of the scenes
+`bench.py:153-202, 205-246, 418-450` builds inline).
 
 The data tables are a copy of the JAX package's (a CPU test holds them
 equal): the JAX module cannot be imported without JAX.
@@ -14,8 +14,9 @@ import numpy as np
 from ..accel import primitives as prim
 from ..core.camera import Camera
 from ..shade import materials as mat
-from ..shade.lights import ParallelogramLight
+from ..shade.lights import AMBIENT, POINT, ParallelogramLight
 from .device_scene import DeviceScene, make_device_scene
+from .scene import Scene
 
 # Material ids for the Cornell box
 WHITE, GREEN, RED, LIGHT = 0, 1, 2, 3
@@ -179,11 +180,10 @@ KNOT_MATERIALS = [
 ]
 
 
-def knot_scene(segments: int = 140, sides: int = 45, *,
-               device, smooth=True) -> DeviceScene:
-    """Large-mesh scene: a trefoil-knot tube (2*segments*sides smooth
-    triangles) over a two-triangle floor, lit by an overhead parallelogram
-    light. smooth=False drops the vertex normals (a flat mesh)."""
+def knot_mesh(segments: int = 140, sides: int = 45):
+    """knot_scene's geometry: the trefoil tube and a two-triangle floor under
+    it → (vertices [V, 3], indices [M, 3], normals [V, 3], tri_mat [M]:
+    material 0 on the knot, 1 on the floor, the light's (corner, v1, v2))."""
     verts, idx, normals = trefoil_mesh(segments, sides)
     lo = verts.min(axis=0)
     hi = verts.max(axis=0)
@@ -201,15 +201,82 @@ def knot_scene(segments: int = 140, sides: int = 45, *,
         [[f0, f0 + 2, f0 + 1], [f0, f0 + 3, f0 + 2]], np.int32)])
     tri_mat = np.concatenate([
         np.zeros(len(idx) - 2, np.int32), np.ones(2, np.int32)])
-
     ly = hi[1] + 1.2 * ext
-    light = ParallelogramLight.make(
-        (lo[0], ly, lo[2]), (hi[0] - lo[0], 0.0, 0.0),
-        (0.0, 0.0, hi[2] - lo[2]), (10.0, 10.0, 10.0), device)
+    light = ((lo[0], ly, lo[2]), (hi[0] - lo[0], 0.0, 0.0),
+             (0.0, 0.0, hi[2] - lo[2]))
+    return verts, idx, normals, tri_mat, light
+
+
+def knot_scene(segments: int = 140, sides: int = 45, *,
+               device, smooth=True) -> DeviceScene:
+    """Large-mesh scene: a trefoil-knot tube (2*segments*sides smooth
+    triangles) over a two-triangle floor, lit by an overhead parallelogram
+    light. smooth=False drops the vertex normals (a flat mesh)."""
+    verts, idx, normals, tri_mat, light = knot_mesh(segments, sides)
+    light = ParallelogramLight.make(*light, (10.0, 10.0, 10.0), device)
     return make_device_scene(verts, idx, tri_mat, KNOT_MATERIALS, device,
                              area_light=light,
                              normals=normals if smooth else None,
                              miss_color=(0.0, 0.0, 0.0))
+
+
+def knot_host_scene(segments: int = 140, sides: int = 45) -> Scene:
+    """knot_scene's geometry and materials with its smooth normals as a host
+    Scene (one mesh, per-triangle materials, no lights): what the
+    meshviewer renders in place of a loaded model."""
+    verts, idx, normals, tri_mat, _ = knot_mesh(segments, sides)
+    sc = Scene()
+    for m in KNOT_MATERIALS:
+        sc.add_material(m)
+    sc.add_mesh(verts, idx, normals=normals, material=tri_mat, name="knot")
+    return sc
+
+
+# The Whitted scene (scene/builtins.py:144-183): a checker parallelogram
+# floor, a glass sphere shell and a phong sphere, one point and one ambient
+# light, beside one degenerate triangle.
+WHITTED_MATERIALS = [
+    # 0: checkered phong floor
+    {"kind": mat.CHECKER, "base_color": (0.8, 0.3, 0.15),
+     "checker1": (0.9, 0.85, 0.05), "checker_scale": 16.0,
+     "specular": (0.2, 0.2, 0.2), "phong_exp": 32.0, "kr": (0.1, 0.1, 0.1)},
+    # 1: glass sphere shell
+    {"kind": mat.GLASS, "ior": 1.4, "kr": (0.9, 0.9, 0.9)},
+    # 2: blue phong sphere with a mirror-ish highlight
+    {"kind": mat.PHONG, "base_color": (0.1, 0.2, 0.7),
+     "specular": (0.5, 0.5, 0.5), "phong_exp": 64.0,
+     "kr": (0.25, 0.25, 0.25)},
+]
+WHITTED_PRIMS = [
+    {"kind": prim.PARALLELOGRAM, "mat_id": 0, "anchor": (-16.0, 0.01, -8.0),
+     "v1": (32.0, 0.0, 0.0), "v2": (0.0, 0.0, 16.0)},
+    {"kind": prim.SPHERE_SHELL, "mat_id": 1, "center": (2.0, 1.5, -2.5),
+     "radius_inner": 0.96, "radius_outer": 1.0},
+    {"kind": prim.SPHERE, "mat_id": 2, "center": (4.5, 1.0, -4.0),
+     "radius": 1.0},
+]
+WHITTED_LIGHTS = [
+    {"kind": POINT, "position": (60.0, 40.0, 0.0), "color": (1.0, 1.0, 1.0),
+     "falloff": 0},
+    {"kind": AMBIENT, "color": (0.35, 0.35, 0.35)},
+]
+WHITTED_MISS = (0.34, 0.55, 0.85)
+
+
+def whitted_scene(device) -> DeviceScene:
+    """The Whitted classic: glass sphere shell and phong sphere over a
+    checkered floor, a point and an ambient light. Its one triangle is
+    degenerate (zero area, never hit)."""
+    return make_device_scene(np.zeros((3, 3), np.float32),
+                             np.zeros((1, 3), np.int32),
+                             np.zeros(1, np.int32), WHITTED_MATERIALS, device,
+                             prims=prim.make_prims(WHITTED_PRIMS, device),
+                             lights=WHITTED_LIGHTS, miss_color=WHITTED_MISS)
+
+
+def whitted_camera(width, height) -> Camera:
+    return Camera(eye=(8.0, 2.0, 1.0), lookat=(3.0, 1.1, -3.0),
+                  up=(0.0, 1.0, 0.0), fov_y=45.0, aspect=width / height)
 
 
 def knot_camera(width, height) -> Camera:

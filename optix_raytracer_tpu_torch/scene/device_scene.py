@@ -4,13 +4,14 @@
 The port's scene holds triangle geometry (with per-corner shading normals,
 texture coordinates, tangents and uv densities), per-triangle material ids,
 the material table, the custom-prim table (kinds 0-3), the parallelogram
-area light, the miss color, the static feature tags (glass, mirror, pbr,
-computed from the material dicts as the reference does), the instance table
-of a two-level scene, for a flat mesh past the brute-force kernels' 512
-triangles the cluster table of the large-mesh traversal, and, for a scene
-given textures, the material texture bundles (`pack_bundles`). BVHs,
-per-mesh cluster tables of instanced meshes, cutouts, volumes and motion are
-not ported yet (ROADMAP.md Queue 1 items 6-9).
+area light, the Whitted integrator's light table, the miss color, the
+static feature tags (glass, mirror, pbr, computed from the material dicts
+as the reference does), the instance table of a two-level scene, for a flat
+mesh past the brute-force kernels' 512 triangles the cluster table of the
+large-mesh traversal, and, for a scene given textures, the material texture
+bundles (`pack_bundles`). BVHs, per-mesh cluster tables of instanced
+meshes, cutouts, volumes and motion are not ported yet (ROADMAP.md Queue 1
+items 6-9).
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ from ..accel.geometry import (TriangleGeometry, build_triangle_geometry,
 from ..core.vecmath import cross, dot
 from ..accel.tlas import InstanceTable, instance_ranges, slice_geometry
 from ..accel.tri_groups import bf_group_boxes
-from ..shade.lights import ParallelogramLight
-from ..shade.materials import (GLASS, PBR, TEX_KEYS, MaterialTable,
-                               make_material_table)
+from ..shade.lights import LightTable, ParallelogramLight
+from ..shade.materials import (GLASS, PBR, TEX_KEYS, WHITTED_DEFAULTS,
+                               MaterialTable, make_material_table)
 
 # Feature tags of the JAX DeviceScene that the port does not render yet,
 # with their ROADMAP.md Queue 1 item.
@@ -49,6 +50,7 @@ class DeviceScene:
     materials: MaterialTable
     area_light: ParallelogramLight      # NEE target
     miss_color: torch.Tensor            # [3] constant background
+    lights: LightTable                  # the Whitted integrator's lights
     features: tuple = ()
     clusters: Optional[cluster_mod.ClusterSet] = None
     prims: Optional[prim_mod.CustomPrims] = None
@@ -382,9 +384,10 @@ def _texture_fields(textures, materials, device) -> dict:
 def make_device_scene(vertices, indices, tri_mat, materials, device,
                       area_light=None, miss_color=(0.0, 0.0, 0.0),
                       normals=None, prims=None, instances=None, uvs=None,
-                      textures=()):
+                      textures=(), lights=()):
     """Triangle mesh + material dicts (+ a CustomPrims table, + an
-    InstanceTable over the mesh) → DeviceScene on `device`. normals / uvs:
+    InstanceTable over the mesh) → DeviceScene on `device`. lights: the
+    Whitted integrator's light dicts (LightTable.make). normals / uvs:
     optional per-vertex [V, 3] shading normals and [V, 2] texture
     coordinates; textures: images ([H, W, 3 | 4] or [H, W], uint8 or float)
     the materials' texture ids index. An instanced scene gets no cluster
@@ -413,7 +416,8 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
         features=material_features(materials),
         clusters=(None if instances is not None
                   else _build_cluster_table(geom, tri_mat)),
-        prims=prims, instances=instances, **tex)
+        prims=prims, instances=instances,
+        lights=LightTable.make(list(lights), device), **tex)
 
 
 def device_scene_from_numpy(fields, device) -> DeviceScene:
@@ -426,10 +430,13 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
       tri_mat [M]
       mat_kind, mat_base_color, mat_emission, mat_metallic, mat_roughness,
       mat_ior, mat_kr, mat_base_tex, mat_normal_tex, mat_mr_tex,
-      mat_emissive_tex, mat_bundle                      (scene.materials)
+      mat_emissive_tex, mat_bundle, mat_specular, mat_phong_exp,
+      mat_checker1, mat_checker_scale                  (scene.materials)
       bundles [B,H',W',16], bundle_mip [B,L,4], bundle_meta, mat_tex_flags
       (tuples), num_textures                 (the texture bundles; optional)
       light_corner, light_v1, light_v2, light_normal, light_emission
+      lights_kind [L], lights_position [L,3], lights_color [L,3],
+      lights_falloff [L], lights_radius [L]                (scene.lights)
       miss_color [3]
       features (tuple of str)
       prim_kind [P], prim_params [P,18], prim_mat_id [P]  (scene.prims;
@@ -446,6 +453,10 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
     """
     def f32(key):
         return torch.as_tensor(np.array(fields[key], np.float32),
+                               device=device)
+
+    def i32(key):
+        return torch.as_tensor(np.asarray(fields[key], np.int32),
                                device=device)
 
     geom = TriangleGeometry(
@@ -467,15 +478,20 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
     kind = np.asarray(fields["mat_kind"], np.int32)
 
     def ids(key):
-        return (torch.as_tensor(np.asarray(fields[key], np.int32),
-                                device=device) if key in fields else None)
+        return i32(key) if key in fields else None
 
     table = MaterialTable(
         kind=torch.as_tensor(kind, device=device),
         base_color=f32("mat_base_color"), emission=f32("mat_emission"),
         metallic=f32("mat_metallic"), roughness=f32("mat_roughness"),
         ior=f32("mat_ior"), kr=f32("mat_kr"),
+        **{k: f32(f"mat_{k}") for k in WHITTED_DEFAULTS},
         **{k: ids(f"mat_{k}") for k in (*TEX_KEYS, "bundle")})
+    lights = LightTable(kind=i32("lights_kind"),
+                        position=f32("lights_position"),
+                        color=f32("lights_color"),
+                        falloff=i32("lights_falloff"),
+                        radius=f32("lights_radius"))
     light = ParallelogramLight(
         corner=f32("light_corner"), v1=f32("light_v1"), v2=f32("light_v2"),
         normal=f32("light_normal"), emission=f32("light_emission"))
@@ -532,4 +548,4 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
                        miss_color=f32("miss_color"),
                        features=tuple(fields.get("features", ())),
                        clusters=clusters, prims=prims, instances=instances,
-                       **tex)
+                       lights=lights, **tex)

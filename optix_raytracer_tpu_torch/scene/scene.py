@@ -1,5 +1,5 @@
-"""Host-side Scene (counterpart of `scene/scene.py:28-101, 222-346`):
-meshes, materials and explicit instances added on the host, then
+"""Host-side Scene (counterpart of `scene/scene.py:28-101, 196-346`):
+meshes, materials, lights and explicit instances added on the host, then
 `finalize(device)` bakes them into the port's DeviceScene.
 
 Without instances, finalize bakes each mesh's transform into world space and
@@ -10,10 +10,12 @@ points at its mesh's static triangle range (`accel/tlas.py`).
 
 Texture images added with `add_texture` and the meshes' texture
 coordinates go to the DeviceScene (zero uvs for a mesh without them, once
-any mesh has some, or always on an instanced scene, as the reference does).
-Not ported here: the loaders (`load`, ROADMAP.md Queue 1 item 13) and point
-/ directional lights (the Whitted integrator's, Queue 1 item 7); each raises
-NotImplementedError.
+any mesh has some, or always on an instanced scene, as the reference does);
+so do the light dicts of `add_light` (the Whitted integrator's light table),
+unless finalize is given its own. `aabb` bounds the meshes in world space and
+`default_camera` frames it. Not ported here: the loaders (`load`, ROADMAP.md
+Queue 1 item 13), which raise NotImplementedError, and with them the glTF
+cameras `default_camera` would take first.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..core.camera import Camera
 from ..shade import materials as mats
 from .device_scene import DeviceScene, make_device_scene
 
@@ -49,6 +52,11 @@ def _mesh_tri_mat(m: MeshEntry) -> np.ndarray:
     return arr
 
 
+def _world(m: MeshEntry) -> np.ndarray:
+    """The mesh's vertices through its own transform."""
+    return m.positions @ m.transform[:3, :3].T + m.transform[:3, 3]
+
+
 def _object_normals(m: MeshEntry):
     """The mesh's normals through its own transform's inverse transpose,
     normalised (scene/scene.py:233-238), or None."""
@@ -71,6 +79,7 @@ class Scene:
         self.meshes: list[MeshEntry] = []
         self.materials: list[dict] = []
         self.textures: list[np.ndarray] = []
+        self.lights: list[dict] = []
         # (mesh index, 4x4 transform, sbt offset) per explicit instance
         self.instances: list[tuple] = []
         self.miss_color = (0.05, 0.05, 0.12)
@@ -87,9 +96,8 @@ class Scene:
         return len(self.textures) - 1
 
     def add_light(self, light: dict):
-        raise NotImplementedError("point and directional lights (the Whitted "
-                                  "integrator's) are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 7)")
+        """Add a light dict (shade/lights.py LightTable.make's keys)."""
+        self.lights.append(dict(light))
 
     @classmethod
     def load(cls, path: str, **kwargs) -> "Scene":
@@ -120,19 +128,42 @@ class Scene:
         self.instances.append((int(mesh_index), t, int(sbt_offset)))
         return len(self.instances) - 1
 
+    def aabb(self):
+        """(lo, hi) float64 [3] of the meshes' world-space vertices; +inf /
+        -inf without meshes."""
+        lo = np.full(3, np.inf)
+        hi = np.full(3, -np.inf)
+        for m in self.meshes:
+            world = _world(m)
+            lo = np.minimum(lo, world.min(axis=0))
+            hi = np.maximum(hi, world.max(axis=0))
+        return lo, hi
+
+    def default_camera(self, width, height) -> Camera:
+        """A camera framing the scene's bounding box (the meshviewer's
+        fallback; scene/scene.py:207-220 without the glTF cameras, which
+        come with the loader)."""
+        lo, hi = self.aabb()
+        center = 0.5 * (lo + hi)
+        extent = float(np.linalg.norm(hi - lo))
+        eye = center + np.array([0.6, 0.45, 1.5]) * extent
+        return Camera(eye=tuple(eye), lookat=tuple(center),
+                      up=(0, 1, 0), fov_y=35.0, aspect=width / height)
+
     def _materials(self):
         return self.materials or [{"kind": mats.DIFFUSE}]
 
-    def finalize(self, device, area_light=None) -> DeviceScene:
+    def finalize(self, device, lights=None, area_light=None) -> DeviceScene:
         """The DeviceScene on `device`: flat, or two-level once an instance
-        exists."""
+        exists. lights: light dicts for the scene's light table, in place of
+        those of add_light."""
+        lights = self.lights if lights is None else lights
         if self.instances:
-            return self._finalize_instanced(device, area_light)
+            return self._finalize_instanced(device, lights, area_light)
         all_pos, all_idx, all_n, all_uv, tri_mat = [], [], [], [], []
         base = 0
         for m in self.meshes:
-            world = m.positions @ m.transform[:3, :3].T + m.transform[:3, 3]
-            all_pos.append(world.astype(np.float32))
+            all_pos.append(_world(m).astype(np.float32))
             all_idx.append(m.indices + base)
             all_n.append(_object_normals(m))
             all_uv.append(m.uvs)
@@ -155,9 +186,9 @@ class Scene:
             np.concatenate(all_pos), np.concatenate(all_idx),
             np.concatenate(tri_mat), self._materials(), device,
             area_light=area_light, miss_color=self.miss_color,
-            normals=normals, uvs=uvs, textures=self.textures)
+            normals=normals, uvs=uvs, textures=self.textures, lights=lights)
 
-    def _finalize_instanced(self, device, area_light) -> DeviceScene:
+    def _finalize_instanced(self, device, lights, area_light) -> DeviceScene:
         """Meshes in object space (their own transform baked in), the shared
         geometry the concatenation of the referenced meshes, one range per
         mesh; unreferenced meshes get an identity instance."""
@@ -172,7 +203,7 @@ class Scene:
         vbase = tbase = 0
         for mi in sorted({mi for mi, _, _ in inst}):
             m = self.meshes[mi]
-            obj = m.positions @ m.transform[:3, :3].T + m.transform[:3, 3]
+            obj = _world(m)
             all_pos.append(obj.astype(np.float32))
             all_idx.append(m.indices + vbase)
             all_n.append(_object_normals(m))
@@ -194,4 +225,4 @@ class Scene:
             np.concatenate(tri_mat), self._materials(), device,
             area_light=area_light, miss_color=self.miss_color,
             normals=normals, instances=table, uvs=np.concatenate(all_uv),
-            textures=self.textures)
+            textures=self.textures, lights=lights)

@@ -1,11 +1,13 @@
 """Material table as planes of tensors (counterpart of `shade/materials.py`).
 
 The table carries the fields of the diffuse, emissive, glass and PBR
-(metallic-roughness, mirror) lanes and the texture wiring: per material the
-ids of its base-color, normal, metallic-roughness and emissive maps (-1 =
-none) and its texture bundle (`scene/device_scene.py::pack_bundles`, -1 =
-untextured). Alpha cutouts are not ported yet (ROADMAP.md Queue 1 item 8),
-and a material that asks for one raises NotImplementedError.
+(metallic-roughness, mirror) lanes, the phong and checker planes of the
+Whitted integrator (specular, phong_exp, checker1, checker_scale) and the
+texture wiring: per material the ids of its base-color, normal,
+metallic-roughness and emissive maps (-1 = none) and its texture bundle
+(`scene/device_scene.py::pack_bundles`, -1 = untextured). Alpha cutouts
+are not ported yet (ROADMAP.md Queue 1 item 8), and a material that asks
+for one raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -27,6 +29,12 @@ EMISSIVE = 5
 _UNPORTED_KEYS = {"cutout": 0, "alpha_mode": 0}
 # Texture-id keys of a material dict (shade/materials.py:53-57).
 TEX_KEYS = ("base_tex", "normal_tex", "mr_tex", "emissive_tex")
+# The Whitted planes and their defaults (shade/materials.py:47-50, 107-110).
+WHITTED_DEFAULTS = {"specular": (0.0, 0.0, 0.0), "phong_exp": 32.0,
+                    "checker1": (0.0, 0.0, 0.0), "checker_scale": 1.0}
+# The fields the path tracer's bounce reads (gather's default).
+PT_FIELDS = ("kind", "base_color", "emission", "metallic", "roughness",
+             "ior", "kr", *TEX_KEYS, "bundle")
 
 
 @dataclasses.dataclass
@@ -38,6 +46,12 @@ class MaterialTable:
     roughness: torch.Tensor    # [K]
     ior: torch.Tensor          # [K]
     kr: torch.Tensor           # [K, 3]
+    # The Whitted planes: phong Ks, phong exponent, the checker's second
+    # color and frequency.
+    specular: torch.Tensor     # [K, 3]
+    phong_exp: torch.Tensor    # [K]
+    checker1: torch.Tensor     # [K, 3]
+    checker_scale: torch.Tensor  # [K]
     # [K] int32 texture ids (-1 = none; the mr map is glTF-packed: G =
     # roughness, B = metallic) and the bundle id; None means all -1.
     base_tex: Optional[torch.Tensor] = None
@@ -94,11 +108,13 @@ def make_material_table(materials, device) -> MaterialTable:
         ior=plane("ior", 1.5),
         kr=plane("kr", (0.0, 0.0, 0.0), 3),
         **{key: ids(key) for key in TEX_KEYS},
+        **{key: plane(key, default, 3 if isinstance(default, tuple) else None)
+           for key, default in WHITTED_DEFAULTS.items()},
     )
 
 
-def gather(table: MaterialTable, mat_id):
-    """Per-hit material parameters (misses read material 0, as in JAX)."""
+def gather(table: MaterialTable, mat_id, fields=PT_FIELDS):
+    """Per-hit material parameters of `fields` (misses read material 0, as
+    in JAX)."""
     mid = torch.clamp_min(mat_id, 0).long()
-    return {f.name: getattr(table, f.name)[mid]
-            for f in dataclasses.fields(table)}
+    return {name: getattr(table, name)[mid] for name in fields}

@@ -1,4 +1,5 @@
-"""Cosine-hemisphere and GGX sampling (counterpart of `shade/sampling.py:18-73`)."""
+"""Cosine-hemisphere, GGX and uniform-sphere sampling (counterpart of
+`shade/sampling.py:18-73`)."""
 from __future__ import annotations
 
 import math
@@ -47,3 +48,11 @@ def ggx_sample_half_vector(u1, u2, normal, roughness):
     return normalize((sin_t * torch.cos(phi))[..., None] * t
                      + (sin_t * torch.sin(phi))[..., None] * b
                      + cos_t[..., None] * normal)
+
+
+def uniform_sample_sphere(u1, u2):
+    """Uniform direction on the unit sphere (`shade/sampling.py:50-55`)."""
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)

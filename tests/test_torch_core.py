@@ -181,6 +181,25 @@ def test_device_scene_from_numpy_is_bit_exact():
     assert float(ts.area_light.area) == float(js.area_light.area)
     assert ts.features == js.features
     ts.require_supported()
+    # the light table and the Whitted material planes, carried across and
+    # built by the port's own whitted_scene
+    jw = jbuiltins.whitted_scene()
+    own = tbuiltins.whitted_scene("cpu")
+    for tw in (torch_scene(jw), own):
+        for key in ("kind", "position", "color", "falloff", "radius"):
+            np.testing.assert_array_equal(
+                getattr(tw.lights, key).numpy(),
+                np.asarray(getattr(jw.lights, key)))
+        for key in ("specular", "phong_exp", "checker1", "checker_scale",
+                    "kr", "ior", "base_color"):
+            np.testing.assert_array_equal(
+                getattr(tw.materials, key).numpy(),
+                np.asarray(getattr(jw.materials, key)))
+        np.testing.assert_array_equal(tw.prims.params.numpy(),
+                                      np.asarray(jw.prims.params))
+        np.testing.assert_array_equal(tw.miss_color.numpy(),
+                                      np.asarray(jw.miss_color))
+        assert tw.lights.num == 2 and tw.features == jw.features
 
 
 def test_unported_features_raise():

@@ -856,3 +856,72 @@ def test_texfetch_matches_plain(cuda, tile_w):
     assert torch.equal(out, T.onehot_fetch_plain(atlas_bf, tile_idx, local2,
                                                  tile_w))
     assert torch.equal(out, atlas_bf[idx.long()].float())
+
+
+def _whitted_case(name, device):
+    """(scene, camera params, depth) at 64²: the Whitted scene (kernels 1-2)
+    or the meshviewer's headlight rig on the 25k knot (kernels 4-6)."""
+    from optix_raytracer_tpu_torch.apps.meshviewer import headlight_rig
+    from optix_raytracer_tpu_torch.tools.whitted_probe import KNOT_RIG
+    if name == "whitted":
+        return (B.whitted_scene(device),
+                B.whitted_camera(64, 64).params(device), 6)
+    host = B.knot_host_scene(KNOT_RIG["segments"], KNOT_RIG["sides"])
+    cam = host.default_camera(64, 64)
+    return (host.finalize(device, lights=headlight_rig(cam)),
+            cam.params(device), KNOT_RIG["depth"])
+
+
+@pytest.mark.parametrize("name", ["whitted", "knot_rig"])
+def test_whitted_kernels_bit_equal_to_plain(cuda, name):
+    """One Whitted sample at 64² through the kernels (1-2 on the Whitted
+    scene, 4-6 on the knot rig), each launched, bit-equal to the same
+    sample with every query through the plain versions."""
+    from optix_raytracer_tpu_torch.tools.whitted_probe import plain_queries
+    from optix_raytracer_tpu_torch.wavefront.whitted import (
+        render_whitted_sample)
+    scene, cam, depth = _whitted_case(name, cuda)
+    names = (("bf_closest", "bf_any") if name == "whitted" else
+             ("cluster_cull_exact", "cluster_closest", "cluster_any"))
+    kernels.reset_launches()
+    out, rays = render_whitted_sample(scene, cam, 64, 64, 0, max_depth=depth)
+    torch.cuda.synchronize()
+    assert all(kernels.LAUNCHES[k] > 0 for k in names), kernels.LAUNCHES
+    kernels.reset_launches()
+    with plain_queries():
+        ref, ref_rays = render_whitted_sample(scene, cam, 64, 64, 0,
+                                              max_depth=depth)
+    assert not any(kernels.LAUNCHES.values())
+    assert int(rays) == int(ref_rays)
+    assert float(ref.mean()) > 0.01
+    np.testing.assert_array_equal(out.cpu().numpy(), ref.cpu().numpy())
+
+
+def test_whitted_dead_lanes_reach_bf_kernels_dead(cuda):
+    """On the card, the Whitted scene's queries hand kernels 1-2 a lane that
+    has ended, or a shadow ray whose term is masked out, with tmax 0 <=
+    tmin: per bounce the live closest lanes are among the last bounce's,
+    the live shadow rays among the bounce's live lanes, and from bounce 1
+    some lanes are dead."""
+    from optix_raytracer_tpu_torch.tools.whitted_probe import recorded_queries
+    from optix_raytracer_tpu_torch.wavefront.whitted import (
+        render_whitted_sample)
+    scene, cam, depth = _whitted_case("whitted", cuda)
+    kernels.reset_launches()
+    with recorded_queries() as calls:
+        render_whitted_sample(scene, cam, 64, 64, 0, max_depth=depth)
+    per = 1 + scene.lights.num
+    assert len(calls) == depth * per
+    assert kernels.LAUNCHES["bf_closest"] == depth
+    assert kernels.LAUNCHES["bf_any"] == depth * scene.lights.num
+    prev = None
+    for b in range(depth):
+        group = calls[b * per:(b + 1) * per]
+        assert [c["route"] for c in group] == ["bf"] * per
+        live = [c["rays"].tmax > c["rays"].tmin for c in group]
+        assert bool(live[0].all()) == (b == 0)
+        if prev is not None:
+            assert not bool((live[0] & ~prev).any())
+        for sh in live[1:]:
+            assert not bool((sh & ~live[0]).any())
+        prev = live[0]

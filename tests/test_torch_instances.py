@@ -162,10 +162,12 @@ def test_scene_matches_jax():
 
 def test_unported_parts_raise():
     sc = Scene()
-    for call in (lambda: sc.add_light({"kind": 1}),
-                 lambda: Scene.load("model.gltf")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Scene.load("model.gltf")
+    # lights are ported: add_light keeps a copy of the dict
+    light = {"kind": 1, "color": (0.2, 0.2, 0.2)}
+    sc.add_light(light)
+    assert sc.lights == [light] and sc.lights[0] is not light
     # textures are ported: add_texture stores the image and returns its id
     assert sc.add_texture(np.zeros((2, 2, 3))) == 0 and len(sc.textures) == 1
     sc.textures.clear()

@@ -11,9 +11,12 @@ the instanced Cornell box through its own Scene class, instance table and
 transforms and the small smooth knot, rendering each 8x8 through the fused
 kernel's plain version (the instance loop, the shading-frame epilogue),
 renders bench.py's textured scene 8x8 through the fused kernel's plain
-version (the texture lanes) and runs kernel 9's plain version from the
-port's tools/bench_texfetch. Until then no module of the JAX package is
-loaded; the JAX package's reader then checks the PNG."""
+version (the texture lanes), runs kernel 9's plain version from the
+port's tools/bench_texfetch, and renders the Whitted scene 8x6 through the
+Whitted app and the small smooth knot 8x8 through the meshviewer's
+headlight rig (the Whitted integrator, its light table and Film.accumulate).
+Until then no module of the JAX package is loaded; the JAX package's reader
+then checks the PNG."""
 import os
 import subprocess
 import sys
@@ -107,6 +110,17 @@ _, atlas_bf = bench_texfetch.make_atlas("cpu", 1024)
 rows = bench_texfetch.onehot_fetch(atlas_bf, *bench_texfetch.tile_window(
     base, local, 128), 128)
 assert (rows == atlas_bf[idx.long()].float()).all()
+from optix_raytracer_tpu_torch.apps import meshviewer, whitted
+from optix_raytracer_tpu_torch.scene.builtins import knot_host_scene
+w_accum, w_film, w_rays = whitted.render(8, 6, samples=1, max_depth=3,
+                                         device="cpu")
+assert w_accum.shape == (6, 8, 3) and np.isfinite(w_accum.numpy()).all()
+assert int(w_film.subframe) == 1 and int(w_rays) > 8 * 6
+assert float(w_accum.mean()) > 0
+m_accum, _, m_rays = meshviewer.render(None, 8, 8, samples=1, max_depth=2,
+                                       scene=knot_host_scene(8, 6),
+                                       device="cpu")
+assert np.isfinite(m_accum.numpy()).all() and int(m_rays) > 0
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 assert not any(m == "optix_raytracer_tpu"

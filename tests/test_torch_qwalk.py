@@ -41,7 +41,13 @@ from optix_raytracer_tpu_torch.wavefront import intersect as tintersect
 
 from test_torch_clusters import assert_hits_match, jrays, ray_set, trays
 import torch_parity
-from torch_parity import one_torch_thread, torch_cam, torch_scene  # noqa: F401
+from torch_parity import (jax_native_sah, one_torch_thread,  # noqa: F401
+                         torch_cam, torch_scene)
+
+# The JAX knots here are built through the reference's SAH library, which
+# builds itself in place; the fixture builds it first, atomically, under a
+# lock (torch_parity.jax_native_sah).
+pytestmark = pytest.mark.usefixtures("jax_native_sah")
 
 ATOL, RTOL = 2e-3, 1e-3
 W = H = 16

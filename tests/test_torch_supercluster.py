@@ -32,7 +32,13 @@ from optix_raytracer_tpu_torch.scene import device_scene as tds
 
 from test_torch_clusters import assert_hits_match, jrays, ray_set, trays
 import torch_parity
-from torch_parity import one_torch_thread, torch_scene  # noqa: F401
+from torch_parity import (jax_native_sah, one_torch_thread,  # noqa: F401
+                         torch_scene)
+
+# The JAX knots here are built through the reference's SAH library, which
+# builds itself in place; the fixture builds it first, atomically, under a
+# lock (torch_parity.jax_native_sah).
+pytestmark = pytest.mark.usefixtures("jax_native_sah")
 
 # (SC_CLUSTERS, knot segments, sides): 5 clusters → 3 superclusters of 2;
 # 18 clusters → 3 superclusters of 8.

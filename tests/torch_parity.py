@@ -22,7 +22,8 @@ def scene_fields(jscene):
     """JAX DeviceScene → the numpy field dict of device_scene_from_numpy
     (the instance table too, so both packages trace with the same inverse
     transforms: jnp.linalg.inv and torch.linalg.inv may round apart; and the
-    texture bundles, uvs, tangents and uv densities)."""
+    texture bundles, uvs, tangents and uv densities, the light table and
+    the Whitted material planes)."""
     g, m, light = jscene.geom, jscene.materials, jscene.area_light
     cl, inst = jscene.clusters, jscene.instances
     arrays = dict(
@@ -44,7 +45,13 @@ def scene_fields(jscene):
         mat_base_tex=m.base_tex, mat_normal_tex=m.normal_tex,
         mat_mr_tex=m.mr_tex, mat_emissive_tex=m.emissive_tex,
         mat_bundle=m.bundle, bundles=jscene.bundles,
-        bundle_mip=jscene.bundle_mip)
+        bundle_mip=jscene.bundle_mip, mat_specular=m.specular,
+        mat_phong_exp=m.phong_exp, mat_checker1=m.checker1,
+        mat_checker_scale=m.checker_scale, lights_kind=jscene.lights.kind,
+        lights_position=jscene.lights.position,
+        lights_color=jscene.lights.color,
+        lights_falloff=jscene.lights.falloff,
+        lights_radius=jscene.lights.radius)
     fields = {k: np.array(v) for k, v in arrays.items()}
     fields["bundle_meta"] = jscene.bundle_meta
     fields["mat_tex_flags"] = jscene.mat_tex_flags
@@ -76,8 +83,11 @@ def jax_native_sah():
     under a file lock: reset the binding's state; if the library is
     missing, older than its sources or does not load, build it with the
     reference's flags into a temporary file beside it and move it into
-    place with os.replace; then require that it loads. Without g++ both
-    packages take morton order, and nothing is done."""
+    place with os.replace; then require that it loads. The loaded library
+    stays loaded after the module: a worker whose own earlier load failed
+    is repaired for its later modules (the reference's tests among them)
+    instead of having the failure put back. Without g++ both packages take
+    morton order, and nothing is done."""
     from optix_raytracer_tpu.accel import native as jnative
     so = jnative._SO_PATH
     srcs = [os.path.join(jnative._NATIVE_DIR, f)
@@ -88,26 +98,24 @@ def jax_native_sah():
         return (not os.path.exists(so) or any(
             os.path.getmtime(s) > os.path.getmtime(so) for s in srcs))
 
-    with pytest.MonkeyPatch.context() as mp:
-        if jnative._lib is None and cxx and all(map(os.path.exists, srcs)):
-            _LOCK.parent.mkdir(parents=True, exist_ok=True)
-            with open(_LOCK, "w") as lock:
-                fcntl.flock(lock, fcntl.LOCK_EX)
-                try:
-                    mp.setattr(jnative, "_lib", None)
-                    mp.setattr(jnative, "_lib_failed", False)
-                    if stale() or not jnative.available():
-                        tmp = f"{so}.{os.getpid()}.tmp"
-                        subprocess.run([cxx, "-O3", "-march=native", "-fPIC",
-                                        "-std=c++17", "-shared", "-o", tmp]
-                                       + srcs, check=True,
-                                       capture_output=True, timeout=300)
-                        os.replace(tmp, so)
-                        jnative._lib, jnative._lib_failed = None, False
-                    assert jnative.available(), "the JAX SAH library did not load"
-                finally:
-                    fcntl.flock(lock, fcntl.LOCK_UN)
-        yield
+    if jnative._lib is None and cxx and all(map(os.path.exists, srcs)):
+        _LOCK.parent.mkdir(parents=True, exist_ok=True)
+        with open(_LOCK, "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            try:
+                jnative._lib, jnative._lib_failed = None, False
+                if stale() or not jnative.available():
+                    tmp = f"{so}.{os.getpid()}.tmp"
+                    subprocess.run([cxx, "-O3", "-march=native", "-fPIC",
+                                    "-std=c++17", "-shared", "-o", tmp]
+                                   + srcs, check=True, capture_output=True,
+                                   timeout=300)
+                    os.replace(tmp, so)
+                    jnative._lib, jnative._lib_failed = None, False
+                assert jnative.available(), "the JAX SAH library did not load"
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+    yield
 
 
 def jax_prims_scene(with_glass=True):

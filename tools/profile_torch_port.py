@@ -17,7 +17,14 @@ table; default depth 3) and --scene textured (bench.py's textured scene: 4
 triangles, base, normal, metallic-roughness and emissive maps; default 4
 samples per launch, depth 3) profile one launch (default depth 4) through
 the fused kernel's instantiation for that scene (impl="fused") and through
-the wavefront (impl="wavefront"). torch.profiler prints for each: the wall time of the launch, the device
+the wavefront (impl="wavefront"). --scene whitted (apps/whitted.py's scene:
+a degenerate triangle, 3 custom prims, a point and an ambient light; default
+768x576, depth 6) and --scene knot_rig (the meshviewer's headlight rig on
+the 25,202-triangle knot; default 768x768, depth 3) profile --spl samples
+of the Whitted integrator (impl="whitted", wavefront/whitted.py
+render_whitted; default 16 and 8), with the device time of the query
+kernels (kernels 1-2, 4-6) split out (`query_kernels_ms`).
+torch.profiler prints for each: the wall time of the launch, the device
 time summed over kernels, the device's idle share of the window, and the
 kernels that take the most device time. Needs a CUDA device; with --out DIR
 it also writes the Chrome traces there.
@@ -35,8 +42,8 @@ answered overflowed queries, the walks outside the queue (bounce-0 closest
 hits), and how many queries the queue answered or handed to the walk.
 
     python tools/profile_torch_port.py [--scene cornell|knot|knot4m|prims|pbr|
-        instanced|smooth_knot|textured] [--dim 1920x1088] [--spl N]
-        [--depth N] [--qwalk] [--out DIR]
+        instanced|smooth_knot|textured|whitted|knot_rig] [--dim 1920x1088]
+        [--spl N] [--depth N] [--qwalk] [--out DIR]
 """
 from __future__ import annotations
 
@@ -76,6 +83,9 @@ _RANGES = ("qwalk.query", "clusters.query")
 # these functions of accel/clusters.py (cull_stages_ms).
 _STAGES = ("_pack_rays", "_block_cull", "_cull_tables", "_compact")
 _STAGE_RANGES = tuple(f"clusters.{n}" for n in _STAGES)
+# Kernel names of the query kernels the Whitted path runs: kernels 1-2
+# (csrc/bf.cu) and 4-6 (csrc/clusters.cu).
+_QUERY_KERNELS = ("bf_kernel", "cull_exact_kernel", "cluster_walk_kernel")
 
 
 def _label_queries():
@@ -187,17 +197,23 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
     from optix_raytracer_tpu_torch.accel import qwalk as Q
     from optix_raytracer_tpu_torch.core.film import Film
     from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
+    from optix_raytracer_tpu_torch.wavefront.whitted import render_whitted
 
     dev = scene.device
-    render_accumulate(scene, cam, Film.create(h, w, dev), w, h, spl, depth,
-                      impl=impl)                               # warm-up
+
+    def launch():
+        if impl == "whitted":
+            return render_whitted(scene, cam, w, h, spl, depth)[1]
+        return render_accumulate(scene, cam, Film.create(h, w, dev), w, h,
+                                 spl, depth, impl=impl)[1]
+
+    launch()                                                   # warm-up
     torch.cuda.synchronize()
     Q.reset_stats()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, rays = render_accumulate(scene, cam, Film.create(h, w, dev), w, h,
-                                    spl, depth, impl=impl)
+        rays = launch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if out_dir:
@@ -220,8 +236,12 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
                kernel_launches=len(kernels),
                top=[dict(name=n[:80], calls=c, ms=t / 1e3)
                     for n, (c, t) in top])
-    if tag.startswith("knot"):
+    if tag in ("knot", "knot4m"):
         out["cull_stages_ms"] = _stage_split(prof, kernels)
+    if impl == "whitted":
+        out["query_kernels_ms"] = {
+            k: sum(e.time_range.end - e.time_range.start for e in kernels
+                   if k in e.name) / 1e3 for k in _QUERY_KERNELS}
     if qwalk:
         out.update(qwalk_ms=_qwalk_split(prof, kernels, busy / 1e3),
                    qwalk_queries=dict(Q.STATS))
@@ -232,15 +252,17 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--scene", choices=("cornell", "knot", "knot4m", "prims",
                                        "pbr", "instanced", "smooth_knot",
-                                       "textured"),
+                                       "textured", "whitted", "knot_rig"),
                    default="cornell")
-    p.add_argument("--dim", default="1920x1088")
+    p.add_argument("--dim", default=None,
+                   help="frame (default 768x576 for whitted, 768x768 for "
+                        "knot_rig, else 1920x1088)")
     p.add_argument("--spl", type=int, default=None,
                    help="samples per launch (default 4 for the textured "
-                        "scene, else 16)")
+                        "scene, 8 for knot_rig, else 16)")
     p.add_argument("--depth", type=int, default=None,
-                   help="bounces (default 3 for the knot and textured "
-                        "scenes, else 4)")
+                   help="bounces (default 3 for the knot, knot_rig and "
+                        "textured scenes, 6 for whitted, else 4)")
     p.add_argument("--qwalk", action="store_true",
                    help="knot scenes: run through the cluster-major queue "
                         "(ORT_QWALK=1) and split its device time")
@@ -256,9 +278,23 @@ def main():
             raise SystemExit("profile_torch_port: --qwalk needs a knot scene")
         os.environ["ORT_QWALK"] = "1"
         _label_queries()
-    w, h = (int(v) for v in args.dim.split("x"))
+    dim = args.dim or {"whitted": "768x576",
+                       "knot_rig": "768x768"}.get(args.scene, "1920x1088")
+    w, h = (int(v) for v in dim.split("x"))
     dev = torch.device("cuda")
-    if args.scene in ("knot", "knot4m"):
+    spl = args.spl or {"textured": 4, "knot_rig": 8}.get(args.scene, 16)
+    if args.scene == "whitted":
+        scene = builtins.whitted_scene(dev)
+        cam = builtins.whitted_camera(w, h).params(dev)
+        impls, depth = ("whitted",), args.depth or 6
+    elif args.scene == "knot_rig":
+        from optix_raytracer_tpu_torch.apps.meshviewer import headlight_rig
+        host = builtins.knot_host_scene(200, 63)
+        camera = host.default_camera(w, h)
+        scene = host.finalize(dev, lights=headlight_rig(camera))
+        cam = camera.params(dev)
+        impls, depth = ("whitted",), args.depth or 3
+    elif args.scene in ("knot", "knot4m"):
         _label_cull_stages()
         mesh = (200, 63) if args.scene == "knot" else (1450, 1380)
         scene = builtins.knot_scene(*mesh, device=dev)
@@ -281,7 +317,6 @@ def main():
         cam = camera(w, h).params(dev)
         impls, depth = ("fused", "wavefront"), args.depth or 4
     for impl in impls:
-        spl = args.spl or (4 if args.scene == "textured" else 16)
         print(json.dumps(profile(args.scene, impl, scene, cam, w, h,
                                  spl, depth, args.out, args.qwalk)),
               flush=True)
