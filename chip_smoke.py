@@ -36,7 +36,15 @@ apps: the Whitted headline (768x576, 16 samples, depth 6; kernels 1-2), its
 first sample again through kernels 1-2's plain versions (bit-equal), and
 the meshviewer's headlight rig on the 25k knot (768x768, 8 samples, depth
 3; kernels 4-6, the first sample's queries held against the plain
-versions), each run's launches counted on it alone.
+versions), each run's launches counted on it alone. Phases c1-c4 drive
+alpha cutouts and opacity micromaps: the cutouts app (768x768, 32 samples,
+depth 4; kernels 1-2), bench.py's six occlusion cells at 2^21 rays
+(micromap and loop answers equal, and equal to the plain versions') and
+kernel 1 on a 2,400-row unknown split, the opacity-micromap app and the
+cutout grid's sample-major path trace (768x768, 8 samples, depth 3;
+kernels 4-6), the textured cutout Cornell, the textured Whitted scene and
+the displaced micromesh, each first sample bit-equal through the plain
+versions.
 
     python3 chip_smoke.py
 
@@ -1169,6 +1177,296 @@ def whitted_phases(dev, card, record):
         record[name]["whitted_launches"] = n
 
 
+def cutout_phases(dev, card, record):
+    """Phases c1-c4: alpha cutouts and opacity micromaps (the shapes in
+    optix_raytracer_tpu_torch/tools/cutout_probe.py). (c1) the cutouts app
+    at its defaults (768x768, 32 samples a launch, depth 4; kernels 1-2),
+    its first sample bit-equal to the same sample through kernels 1-2's
+    plain versions; (c2) bench.py's six occlusion cells at 2^21 rays
+    (bench.py:477-580), the micromap and loop answers equal to each other
+    and to the plain versions', Mrays/s under bench.py's keys, and kernel 1
+    on a 2,400-row unknown split (the circle grid); (c3) the
+    opacity-micromap app at its defaults with its classification, and the
+    cutout grid's path trace (768x768, 8 samples, depth 3, sample-major;
+    kernels 4-6), its first launch's cluster queries of the first strip
+    against the plain versions (whitted_query_parity); (c4) the textured
+    cutout Cornell and the textured Whitted scene at the cutouts and
+    Whitted apps' defaults, and the displaced micromesh app at its
+    defaults, each first sample bit-equal through the plain versions. Each
+    run's launches are counted on it alone (cutout_launches in the kernels
+    line)."""
+    import torch
+    from optix_raytracer_tpu_torch import kernels
+    from optix_raytracer_tpu_torch.accel import pallas_bf
+    from optix_raytracer_tpu_torch.apps import (cutouts, displaced_micromesh,
+                                                opacity_micromap)
+    from optix_raytracer_tpu_torch.core.film import Film
+    from optix_raytracer_tpu_torch.scene import builtins
+    from optix_raytracer_tpu_torch.tools import cutout_probe as CP
+    from optix_raytracer_tpu_torch.tools.whitted_probe import (
+        plain_queries, recorded_queries)
+    from optix_raytracer_tpu_torch.wavefront import intersect
+    from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
+    from optix_raytracer_tpu_torch.wavefront.whitted import render_whitted
+
+    names = ("bf_closest", "bf_any", "cluster_cull_exact", "cluster_closest",
+             "cluster_any")
+    for name in names:
+        record[name]["cutout_launches"] = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted(tag, fn, need):
+        """fn() with every count set to 0 just before and read just after →
+        (its output, seconds, alpha-loop counts, peak bytes); each kernel of
+        `need` must have launched."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        intersect.reset_alpha_stats()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, dt = timed(fn)
+        n = dict(kernels.LAUNCHES)
+        for name in need:
+            require(n[name] > 0, f"{tag}: {name} never launched")
+        for name in names:
+            if n[name]:
+                record[name]["cutout_launches"][tag] = n[name]
+        return (out, dt, dict(intersect.ALPHA_STATS),
+                torch.cuda.max_memory_allocated(dev),
+                {k: n[k] for k in names if n[k]})
+
+    def first_sample(tag, render_one):
+        """render_one() → (radiance, rays): its output through the kernels
+        and through their plain versions, bit-equal → phase fields."""
+        (img, rays), dt = timed(render_one)
+        with plain_queries():
+            (img_p, rays_p), dt_p = timed(render_one)
+        a, b = to_np(img), to_np(img_p)
+        require(int(rays) == int(rays_p) and np.array_equal(a, b),
+                f"{tag}: the first sample through the kernels differs from "
+                f"the plain versions' by {np.abs(a - b).max()} "
+                f"(rays {int(rays)} vs {int(rays_p)})")
+        return dict(first_sample_bit_equal=True, first_rays=int(rays),
+                    first_sample_ms=f"{1e3 * dt:.2f}",
+                    plain_first_sample_ms=f"{1e3 * dt_p:.2f}")
+
+    def check_image(tag, img, shape):
+        img = to_np(img)
+        require(img.shape == shape and np.isfinite(img).all()
+                and (img >= 0).all() and img.mean() > 0,
+                f"{tag}: image not finite / negative / empty")
+        return f"{img.mean():.5f}"
+
+    # --- c1: the cutouts app at its defaults ---
+    W, H, spl, depth = (CP.CUTOUTS[k] for k in ("width", "height", "spl",
+                                                "depth"))
+    scene = cutouts.cutout_cornell(dev)
+    fields = first_sample("c1", lambda: cutouts.render(
+        W, H, samples=1, max_depth=depth, scene=scene, device=dev)[::2])
+    (accum, film, rays), dt, alpha, peak, n = counted(
+        "c1", lambda: cutouts.render(W, H, samples=spl, max_depth=depth,
+                                     scene=scene, device=dev),
+        ("bf_closest", "bf_any"))
+    require(alpha["steps"] > 0, "c1: no alpha-loop step")
+    phase("c1 cutouts app", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, ms_per_launch=f"{1e3 * dt:.2f}", rays=int(rays),
+          mrays_per_s=f"{int(rays) / dt / 1e6:.1f}",
+          solid_tris=scene.omm_solid_geom.num_triangles,
+          unknown_tris=scene.omm_unknown_geom.num_triangles,
+          alpha_loops=alpha["loops"], alpha_steps=alpha["steps"],
+          peak_mem_mib=f"{peak / 2**20:.0f}",
+          image_mean=check_image("c1", accum, (H, W, 3)), launches=n,
+          **fields)
+    del accum, film
+    torch.cuda.empty_cache()
+
+    # --- c2: bench.py's six occlusion cells, and kernel 1 past 512 rows ---
+    n_rays = CP.OCCLUSION_RAYS
+    cells = {}
+    for sname, maker in CP.OCCLUSION_SCENES.items():
+        sc = maker(dev)
+        rays = CP.occlusion_rays(sname, n_rays, 3, dev)
+        keys = [k for k, (s_, _) in CP.OCCLUSION_CELLS.items() if s_ == sname]
+        answers = {}
+        for key in keys:
+            query = CP.OCCLUSION_CELLS[key][1]
+            occ = CP.occlusion_query(sc, query, rays)           # warm-up
+            with plain_queries():
+                occ_p = CP.occlusion_query(sc, query, rays)
+            require(torch.equal(occ, occ_p),
+                    f"c2 {key}: {int((occ != occ_p).sum())} rays differ "
+                    f"from the plain versions")
+            reps = 3
+            _, dt, alpha, _, n = counted(f"c2 {key}", lambda: [
+                CP.occlusion_query(sc, query, rays) for _ in range(reps)],
+                ())
+            cells[key] = reps * n_rays / dt / 1e6
+            answers[key] = occ
+            phase(f"c2 {key}", card=repr(card), scene=sname, query=query,
+                  rays=n_rays, mrays_per_s=f"{cells[key]:.1f}",
+                  ms_per_call=f"{1e3 * dt / reps:.2f}",
+                  occluded=f"{float(occ.float().mean()):.6f}",
+                  alpha_steps_per_call=alpha["steps"] / reps,
+                  launches_per_call={k: v // reps for k, v in n.items()},
+                  plain_bit_equal=True)
+        a, b = (answers[k] for k in keys)
+        require(torch.equal(a, b), f"c2 {sname}: the micromap and loop "
+                                   f"answers differ on {int((a != b).sum())} "
+                                   f"rays")
+        del sc, rays, answers
+    torch.cuda.empty_cache()
+    # kernel 1 on the circle grid's 2,400-triangle unknown split: the
+    # micromap query, and the split's first closest-hit step alone
+    sc = CP.circle_grid(dev)
+    rays = CP.occlusion_rays("circle_grid", n_rays, 4, dev)
+    geom, boxes = sc.omm_unknown_geom, sc.omm_boxes[1]
+    require(geom.num_triangles == 2400, "c2: circle grid split")
+    occ = CP.occlusion_query(sc, "omm", rays)
+    with plain_queries():
+        occ_p = CP.occlusion_query(sc, "omm", rays)
+    require(torch.equal(occ, occ_p), "c2 circle grid: occlusion differs "
+                                     "from the plain versions")
+    zeros = torch.zeros(geom.num_triangles, dtype=torch.int32, device=dev)
+    k1 = pallas_bf.closest_hit(geom.tri_consts, zeros, rays, boxes=boxes)
+    err, nbits = compare_hits(
+        k1, pallas_bf.closest_hit_plain(geom.tri_consts, zeros, rays),
+        "c2 circle grid kernel 1")
+    require(nbits == 0, f"c2 circle grid: kernel 1 differs in {nbits} rays")
+    k1_ms = cuda_ms(lambda: pallas_bf.closest_hit(geom.tri_consts, zeros,
+                                                  rays, boxes=boxes), 5)
+    _, dt, alpha, _, n = counted("c2 circle grid", lambda: (
+        CP.occlusion_query(sc, "omm", rays)), ("bf_closest",))
+    record["bf_closest"]["unknown_split_2400_ms"] = k1_ms
+    phase("c2 circle grid", card=repr(card), rays=n_rays,
+          unknown_tris=geom.num_triangles,
+          solid_tris=sc.omm_solid_geom.num_triangles,
+          omm_ms=f"{1e3 * dt:.2f}", alpha_steps=alpha["steps"],
+          kernel1_step0_ms=f"{k1_ms:.3f}", kernel1_max_abs_err=err,
+          launches=n, plain_bit_equal=True)
+    phase("c2 cutout cells (this run, not bench cells)", card=repr(card),
+          **{k: f"{v:.1f}" for k, v in cells.items()})
+    del sc, rays, occ, occ_p, k1
+    torch.cuda.empty_cache()
+
+    # --- c3: the opacity-micromap app, and the cutout grid's path trace ---
+    W, H, spl, depth, level = (CP.OMM[k] for k in ("width", "height", "spl",
+                                                   "depth", "level"))
+    fields = first_sample("c3 omm app", lambda: opacity_micromap.render(
+        W, H, samples=1, level=level, device=dev)[::2])
+    (accum, stats, rays), dt, alpha, _, n = counted(
+        "c3 omm app", lambda: opacity_micromap.render(
+            W, H, samples=spl, level=level, device=dev), ("bf_closest",))
+    phase("c3 omm app", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, level=level, ms_per_launch=f"{1e3 * dt:.2f}",
+          rays=int(rays), mrays_per_s=f"{int(rays) / dt / 1e6:.1f}",
+          fully_classified_fraction=stats["fully_classified_fraction"],
+          opaque_fraction=stats["opaque_fraction"],
+          transparent_fraction=stats["transparent_fraction"],
+          alpha_steps=alpha["steps"],
+          image_mean=check_image("c3 omm app", accum, (H, W, 3)),
+          launches=n, **fields)
+    W, H, spl, depth = (CP.GRID[k] for k in ("width", "height", "spl",
+                                             "depth"))
+    grid = cutouts.cutout_grid(dev)
+    require(grid.has_clusters and grid.omm_solid_clusters is not None
+            and grid.omm_all_certain, "c3: cutout grid tables")
+    cam = builtins.cutout_grid_camera(W, H).params(dev)
+    with recorded_queries() as calls:
+        first, first_rays = render_accumulate(
+            grid, cam, Film.create(H, W, dev), W, H, spl, depth)
+    tables = {id(grid.clusters): "scene", id(grid.omm_solid_clusters):
+              "solid split"}
+    require({c["route"] for c in calls} == {"clusters"}
+            and {tables.get(id(c["cl"])) for c in calls}
+            == {"scene", "solid split"},
+            "c3: the grid's queries did not take both cluster tables")
+    rows = min(H, max(1, (4 * 1024 * 1024) // (W * spl)))
+    strips = -(-H // rows)
+    errs = []
+    for i, call in enumerate(calls[:len(calls) // strips]):
+        what = (f"c3 grid query {i} ({call['kind']}, "
+                f"{tables[id(call['cl'])]})")
+        r = whitted_query_parity(call["cl"], call, what)
+        errs.append(r["max_abs_err"])
+        phase(what, exact=call["exact"], **r)
+    del calls
+    (film, rays), dt, alpha, peak, n = counted(
+        "c3 grid", lambda: render_accumulate(grid, cam, first, W, H, spl,
+                                             depth),
+        ("cluster_cull_exact", "cluster_closest", "cluster_any"))
+    phase("c3 cutout grid", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, triangles=grid.num_triangles,
+          clusters=grid.clusters.num_clusters,
+          solid_clusters=grid.omm_solid_clusters.num_clusters,
+          ms_per_launch=f"{1e3 * dt:.2f}", rays=int(rays),
+          first_rays=int(first_rays),
+          mrays_per_s=f"{int(rays) / dt / 1e6:.1f}",
+          alpha_steps=alpha["steps"], query_max_abs_err=max(errs),
+          peak_mem_mib=f"{peak / 2**20:.0f}",
+          image_mean=check_image("c3 grid", film.accum, (H, W, 3)),
+          launches=n)
+    del grid, first, film
+    torch.cuda.empty_cache()
+
+    # --- c4: the textured cutout Cornell, the textured Whitted scene, the
+    # displaced micromesh ---
+    W, H, spl, depth = (CP.CUTOUTS[k] for k in ("width", "height", "spl",
+                                                "depth"))
+    scene = cutouts.textured_cutout_cornell(dev)
+    fields = first_sample("c4 textured cutout", lambda: cutouts.render(
+        W, H, samples=1, max_depth=depth, scene=scene, device=dev)[::2])
+    (accum, _, rays), dt, alpha, _, n = counted(
+        "c4 textured cutout", lambda: cutouts.render(
+            W, H, samples=spl, max_depth=depth, scene=scene, device=dev),
+        ("bf_closest", "bf_any"))
+    phase("c4 textured cutout", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, ms_per_launch=f"{1e3 * dt:.2f}", rays=int(rays),
+          mrays_per_s=f"{int(rays) / dt / 1e6:.1f}",
+          unknown_tris=scene.omm_unknown_geom.num_triangles,
+          alpha_steps=alpha["steps"],
+          image_mean=check_image("c4 textured cutout", accum, (H, W, 3)),
+          launches=n, **fields)
+    W, H, spl, depth = (CP.TEXTURED_WHITTED[k] for k in (
+        "width", "height", "spl", "depth"))
+    scene = builtins.textured_whitted_scene(dev)
+    cam = builtins.textured_whitted_camera(W, H).params(dev)
+
+    def whitted_one():
+        film, r = render_whitted(scene, cam, W, H, 1, max_depth=depth)
+        return film.accum, r
+    fields = first_sample("c4 textured whitted", whitted_one)
+    (film, rays), dt, alpha, _, n = counted(
+        "c4 textured whitted", lambda: render_whitted(
+            scene, cam, W, H, spl, max_depth=depth), ("bf_closest", "bf_any"))
+    phase("c4 textured whitted", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, ms_per_sample=f"{1e3 * dt / spl:.2f}", rays=int(rays),
+          mrays_per_s=f"{int(rays) / dt / 1e6:.1f}",
+          alpha_steps=alpha["steps"],
+          image_mean=check_image("c4 textured whitted", film.accum,
+                                 (H, W, 3)),
+          launches=n, **fields)
+    W, H, spl, level = (CP.MICROMESH[k] for k in ("width", "height", "spl",
+                                                  "level"))
+    fields = first_sample("c4 micromesh", lambda: displaced_micromesh.render(
+        W, H, level=level, samples=1, device=dev)[::2])
+    (accum, n_tris, rays), dt, _, _, n = counted(
+        "c4 micromesh", lambda: displaced_micromesh.render(
+            W, H, level=level, samples=spl, device=dev),
+        ("bf_closest", "bf_any"))
+    require(n_tris == 2 * 4 ** level, "c4: micromesh triangles")
+    phase("c4 micromesh", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          level=level, triangles=n_tris, ms=f"{1e3 * dt:.2f}",
+          rays=int(rays), mrays_per_s=f"{int(rays) / dt / 1e6:.1f}",
+          image_mean=check_image("c4 micromesh", accum, (H, W, 3)),
+          launches=n, **fields)
+    torch.cuda.empty_cache()
+
+
 def sc_phases(dev, card, record):
     """Phases (e)-(g): the 4.0M-triangle knot through the supercluster tier.
     (e) the build, timed per step, and traversal_stats at supercluster
@@ -2108,6 +2406,10 @@ def main():
     # --- phases w1-w3: the Whitted integrator (kernels 1-2, 4-6) ---
     whitted_phases(dev, card, record)
     torch.cuda.empty_cache()
+
+    # --- phases c1-c4: alpha cutouts and opacity micromaps (kernels 1-2,
+    # 4-6) ---
+    cutout_phases(dev, card, record)
 
     # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---
     launches.update(sc_phases(dev, card, record))

@@ -5,15 +5,17 @@ It follows the JAX package's layout so each module's counterpart is easy to
 find:
 
   core/       RNG, vector math, rays, camera, film
-  shade/      materials, sampling, the parallelogram area light
+  shade/      materials, sampling, lights, texture fetches
   accel/      triangle geometry, brute-force intersection (CUDA kernels 1-2),
               the cluster-culled large-mesh traversal (kernels 4-6, and
-              5c/6c for its supercluster tier), morton codes and the
-              binding to the native SAH builder
+              5c/6c for its supercluster tier), opacity micromaps and
+              displaced micromeshes, morton codes and the binding to the
+              native SAH builder
   scene/      the torch DeviceScene, the built-in Cornell box and knot
   wavefront/  the lock-step engine and the fused path-trace kernel (kernel 3)
   io/         image output
-  apps/       the Cornell path tracer CLI
+  apps/       the path tracer, Whitted, meshviewer, cutouts,
+              opacity-micromap and displaced-micromesh CLIs
   csrc/       the hand-written CUDA C++ kernels, built on first use by
               `kernels.py`
 

@@ -92,6 +92,23 @@ def build_triangle_geometry(vertices, indices, device, normals=None,
                             tangent=tangent, uv_density=uv_density)
 
 
+def select_geometry(geom: TriangleGeometry, rows) -> TriangleGeometry:
+    """The triangles `rows` ([R] int64 indices or [M] bool) of a geometry,
+    each row as the geometry holds it: a build is row by row, so this
+    equals building the selected triangles on their own (the opacity
+    micromaps' solid and unknown splits, device_scene.py:412-470)."""
+    def pick(a):
+        return None if a is None else a[rows]
+
+    return TriangleGeometry(
+        tri_consts=geom.tri_consts[rows].contiguous(),
+        face_normal=geom.face_normal[rows], valid=geom.valid[rows],
+        v0=pick(geom.v0), e1=pick(geom.e1), e2=pick(geom.e2),
+        corner_normal=pick(geom.corner_normal), smooth=geom.smooth,
+        corner_uv=pick(geom.corner_uv), tangent=pick(geom.tangent),
+        uv_density=pick(geom.uv_density))
+
+
 def uv_frame(corner_uv, e1, e2, n_len2):
     """The uv-aligned unit tangent [M, 3] and the uv density [M] of each
     triangle (accel/geometry.py:131-142): the tangent solves the uv

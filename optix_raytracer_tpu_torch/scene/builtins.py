@@ -1,8 +1,11 @@
 """The Cornell box (flat and instanced), the Whitted scene, the trefoil-knot
 scene (and the knot as a host Scene, which the meshviewer lights), the
-bench's prims, PBR and textured scenes, the fused kernel's mix scenes and
-their cameras (counterpart of `scene/builtins.py:18-274` and of the scenes
-`bench.py:153-202, 205-246, 418-450` builds inline).
+bench's prims, PBR and textured scenes, the fused kernel's mix scenes, the
+alpha-cutout scenes and their cameras (counterpart of
+`scene/builtins.py:18-274`, of `apps/cutouts.py:24-89` and of the scenes
+`bench.py:153-202, 205-246, 418-450, 517-550` builds inline; the textured
+cutout Cornell and the textured Whitted scene are the port's own, made of
+the reference's features).
 
 The data tables are a copy of the JAX package's (a CPU test holds them
 equal): the JAX module cannot be imported without JAX.
@@ -632,3 +635,170 @@ def textured_camera(width, height, fov_y=40.0) -> Camera:
     """The textured scene's camera (bench.py:245-246; the tests' 45°)."""
     return Camera(eye=(0, 1.5, -4.5), lookat=(0, 0.6, 0), up=(0, 1, 0),
                   fov_y=fov_y, aspect=width / height)
+
+
+# The alpha-cutout scenes (apps/cutouts.py, bench.py:477-580): each returns
+# its numpy parts (vertices, indices, tri_mat, material dicts, uvs, textures,
+# the area light's (corner, v1, v2, emission)), which the CPU tests hand to
+# both packages' make_device_scene.
+CUTOUT_LIGHT = (CORNELL_LIGHT_CORNER, CORNELL_LIGHT_V1, CORNELL_LIGHT_V2,
+                CORNELL_LIGHT_EMISSION)
+
+
+def _face_uvs(n_verts):
+    """Per-face unit texture coordinates: every quad's corners get (0, 0),
+    (1, 0), (1, 1), (0, 1), so a mask varies across each face
+    (apps/cutouts.py:38-44)."""
+    return np.tile(np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+                   (n_verts // 4, 1))
+
+
+def cutout_cornell_parts():
+    """The Cornell box whose tall block is a checker cutout and short block
+    a circle cutout, both at checker_scale 4 (apps/cutouts.py:24-48)."""
+    verts, idx, tri_mat = quads_to_triangles(_CORNELL_QUADS)
+    materials = [dict(m) for m in CORNELL_MATERIALS]
+    materials.append({"kind": mat.DIFFUSE, "base_color": (0.8, 0.8, 0.8),
+                      "alpha_mode": mat.ALPHA_MASK, "cutout": mat.CUT_CHECKER,
+                      "checker_scale": 4.0})
+    materials.append({"kind": mat.DIFFUSE, "base_color": (0.8, 0.8, 0.8),
+                      "alpha_mode": mat.ALPHA_MASK, "cutout": mat.CUT_CIRCLE,
+                      "checker_scale": 4.0})
+    tri_mat = tri_mat.copy()
+    tri_mat[20:30] = 4      # tall block: checker
+    tri_mat[10:20] = 5      # short block: circle
+    return verts, idx, tri_mat, materials, _face_uvs(len(verts)), [], \
+        CUTOUT_LIGHT
+
+
+def opaque_alpha_cornell_parts():
+    """bench.py:517-550: both blocks alpha-masked by a circle at
+    checker_scale 0.2, whose uv * scale stays in [0, 0.2]² and never
+    reaches a hole; the micromaps classify every triangle opaque."""
+    verts, idx, tri_mat = quads_to_triangles(_CORNELL_QUADS)
+    materials = [dict(m) for m in CORNELL_MATERIALS]
+    materials.append({"kind": mat.DIFFUSE, "base_color": (0.8, 0.8, 0.8),
+                      "alpha_mode": mat.ALPHA_MASK, "cutout": mat.CUT_CIRCLE,
+                      "checker_scale": 0.2})
+    tri_mat = tri_mat.copy()
+    tri_mat[10:30] = 4
+    return verts, idx, tri_mat, materials, _face_uvs(len(verts)), [], \
+        CUTOUT_LIGHT
+
+
+def cutout_grid_parts(nx=40, ny=30):
+    """A cluster-scene cutout grid (apps/cutouts.py:51-89): nx x ny quads
+    in the y = 300 plane, each one checker cell (scale 1, uvs offset per
+    quad, so every triangle is certainly opaque or transparent), over a
+    solid floor; 2 nx ny + 2 triangles."""
+    verts, idx, uvs, tri_mat = [], [], [], []
+    sx, sz = 500.0 / nx, 500.0 / ny
+    for j in range(ny):
+        for i in range(nx):
+            b = len(verts)
+            x0, z0 = i * sx, j * sz
+            verts += [[x0, 300, z0], [x0 + sx, 300, z0],
+                      [x0 + sx, 300, z0 + sz], [x0, 300, z0 + sz]]
+            uvs += [[i, j], [i + 1, j], [i + 1, j + 1], [i, j + 1]]
+            idx += [[b, b + 1, b + 2], [b, b + 2, b + 3]]
+            tri_mat += [1, 1]
+    b = len(verts)
+    verts += [[0, 0, 0], [500, 0, 0], [500, 0, 500], [0, 0, 500]]
+    uvs += [[0, 0], [1, 0], [1, 1], [0, 1]]
+    idx += [[b, b + 2, b + 1], [b, b + 3, b + 2]]
+    tri_mat += [0, 0]
+    materials = [
+        {"kind": mat.DIFFUSE, "base_color": (0.7, 0.7, 0.7)},
+        {"kind": mat.DIFFUSE, "base_color": (0.8, 0.8, 0.8),
+         "alpha_mode": mat.ALPHA_MASK, "cutout": mat.CUT_CHECKER,
+         "checker_scale": 1.0},
+    ]
+    light = ((150, 640, 150), (200, 0, 0), (0, 0, 200), (15.0, 15.0, 15.0))
+    return (np.asarray(verts, np.float32), np.asarray(idx, np.int32),
+            np.asarray(tri_mat, np.int32), materials,
+            np.asarray(uvs, np.float32), [], light)
+
+
+def alpha_map(size=64, seed=11):
+    """An RGBA uint8 map whose alpha crosses 0.5 in blobs (0.5 + 0.5
+    sin(6 pi x) cos(4 pi y), x and y in [0, 1)) over a seeded random
+    color."""
+    rng = np.random.default_rng(seed)
+    x = (np.arange(size) + 0.5) / size
+    alpha = 0.5 + 0.5 * np.sin(6 * np.pi * x)[None, :] * np.cos(
+        4 * np.pi * x)[:, None]
+    img = np.empty((size, size, 4), np.uint8)
+    img[..., :3] = rng.integers(60, 250, (size, size, 3))
+    img[..., 3] = np.round(alpha * 255).astype(np.uint8)
+    return img
+
+
+def textured_cutout_cornell_parts(size=64):
+    """The cutout Cornell with its tall block a CUT_TEXTURE cutout instead:
+    the base map (alpha_map) gives its color, and its alpha under 0.5 its
+    holes; the short block keeps the circle."""
+    verts, idx, tri_mat, materials, uvs, _, light = cutout_cornell_parts()
+    materials[4] = {"kind": mat.DIFFUSE, "base_color": (0.9, 0.9, 0.9),
+                    "alpha_mode": mat.ALPHA_MASK, "cutout": mat.CUT_TEXTURE,
+                    "base_tex": 0, "alpha_cutoff": 0.5}
+    return verts, idx, tri_mat, materials, uvs, [alpha_map(size)], light
+
+
+TEXTURED_WHITTED_LIGHTS = [
+    {"kind": POINT, "position": (3.0, 5.0, 4.0), "color": (1.0, 1.0, 1.0),
+     "falloff": 0},
+    {"kind": AMBIENT, "color": (0.2, 0.2, 0.2)},
+]
+
+
+def textured_whitted_parts(size=64):
+    """A Whitted scene on textured triangles: an 8 x 8 floor whose base map
+    (alpha_map's colors, opaque) tiles 4x, behind a 2 x 2 upright phong
+    quad cut by alpha_map's alpha (CUT_TEXTURE), under a point and an
+    ambient light (TEXTURED_WHITTED_LIGHTS)."""
+    verts = np.array([[-4, 0, -4], [4, 0, -4], [4, 0, 4], [-4, 0, 4],
+                      [-1, 0.2, 0], [1, 0.2, 0], [1, 2.2, 0], [-1, 2.2, 0]],
+                     np.float32)
+    idx = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7]], np.int32)
+    uvs = np.array([[0, 0], [4, 0], [4, 4], [0, 4],
+                    [0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    floor_map = alpha_map(size, seed=12)
+    floor_map[..., 3] = 255
+    materials = [
+        {"kind": mat.DIFFUSE, "base_color": (0.9, 0.9, 0.9), "base_tex": 0,
+         "kr": (0.1, 0.1, 0.1)},
+        {"kind": mat.PHONG, "base_color": (0.8, 0.8, 0.8), "base_tex": 1,
+         "specular": (0.4, 0.4, 0.4), "phong_exp": 32.0,
+         "kr": (0.2, 0.2, 0.2), "alpha_mode": mat.ALPHA_MASK,
+         "cutout": mat.CUT_TEXTURE, "alpha_cutoff": 0.5},
+    ]
+    return (verts, idx, np.array([0, 0, 1, 1], np.int32), materials, uvs,
+            [floor_map, alpha_map(size)], None)
+
+
+def textured_whitted_camera(width, height) -> Camera:
+    return Camera(eye=(0.5, 2.0, 6.0), lookat=(0.0, 0.8, 0.0),
+                  up=(0.0, 1.0, 0.0), fov_y=45.0, aspect=width / height)
+
+
+def scene_from_parts(parts, device, **kw) -> DeviceScene:
+    """A DeviceScene from a *_parts() tuple; kw goes to make_device_scene
+    (lights, miss_color, opacity_micromaps, ...)."""
+    verts, idx, tri_mat, materials, uvs, textures, light = parts
+    if light is not None:
+        kw["area_light"] = ParallelogramLight.make(*light, device)
+    return make_device_scene(verts, idx, tri_mat, materials, device,
+                             uvs=uvs, textures=textures, **kw)
+
+
+def textured_whitted_scene(device) -> DeviceScene:
+    return scene_from_parts(textured_whitted_parts(), device,
+                            lights=TEXTURED_WHITTED_LIGHTS,
+                            miss_color=(0.3, 0.45, 0.7))
+
+
+def cutout_grid_camera(width, height) -> Camera:
+    """The cutout grid seen from above its plane, the floor through its
+    holes."""
+    return Camera(eye=(250.0, 520.0, -250.0), lookat=(250.0, 150.0, 250.0),
+                  up=(0.0, 1.0, 0.0), fov_y=50.0, aspect=width / height)

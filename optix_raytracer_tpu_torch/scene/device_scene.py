@@ -1,17 +1,20 @@
 """The torch DeviceScene (counterpart of `scene/device_scene.py:32-195,
-253-409, 474-575`).
+197-240, 253-470, 474-678`).
 
 The port's scene holds triangle geometry (with per-corner shading normals,
 texture coordinates, tangents and uv densities), per-triangle material ids,
 the material table, the custom-prim table (kinds 0-3), the parallelogram
 area light, the Whitted integrator's light table, the miss color, the
-static feature tags (glass, mirror, pbr, computed from the material dicts
-as the reference does), the instance table of a two-level scene, for a flat
-mesh past the brute-force kernels' 512 triangles the cluster table of the
-large-mesh traversal, and, for a scene given textures, the material texture
-bundles (`pack_bundles`). BVHs, per-mesh cluster tables of instanced
-meshes, cutouts, volumes and motion are not ported yet (ROADMAP.md Queue 1
-items 6-9).
+static feature tags (cutouts, glass, mirror, pbr, computed from the material
+dicts as the reference does), the instance table of a two-level scene, for a
+flat mesh past the brute-force kernels' 512 triangles the cluster table of
+the large-mesh traversal, for a scene given textures the texture atlas
+(`pack_textures`) and the material texture bundles (`pack_bundles`), and
+for a scene with alpha cutouts its opacity micromaps: per triangle the
+micro-triangle states and the summary, and the occlusion split they give (the
+certain-solid triangles, with their own cluster table past 512, and the
+unknown ones). BVHs, per-mesh cluster tables of instanced meshes, volumes
+and motion are not ported yet (ROADMAP.md Queue 1 items 6, 7 and 9).
 """
 from __future__ import annotations
 
@@ -23,20 +26,23 @@ import numpy as np
 import torch
 
 from ..accel import clusters as cluster_mod
+from ..accel import micromap as mm
 from ..accel import native
 from ..accel import primitives as prim_mod
 from ..accel.geometry import (TriangleGeometry, build_triangle_geometry,
-                              uv_frame)
+                              select_geometry, uv_frame)
 from ..core.vecmath import cross, dot
 from ..accel.tlas import InstanceTable, instance_ranges, slice_geometry
 from ..accel.tri_groups import bf_group_boxes
 from ..shade.lights import LightTable, ParallelogramLight
-from ..shade.materials import (GLASS, PBR, TEX_KEYS, WHITTED_DEFAULTS,
-                               MaterialTable, make_material_table)
+from ..shade.materials import (ALPHA_MASK, CUT_CHECKER, CUT_CIRCLE,
+                               CUT_TEXTURE, GLASS, PBR, TEX_KEYS,
+                               WHITTED_DEFAULTS, MaterialTable,
+                               make_material_table)
 
 # Feature tags of the JAX DeviceScene that the port does not render yet,
 # with their ROADMAP.md Queue 1 item.
-UNPORTED_FEATURES = {"cutouts": 8, "volume": 9}
+UNPORTED_FEATURES = {"volume": 9}
 
 # Meshes past the brute-force kernels' budget get a cluster table
 # (accel/pallas_bf.py MAX_SMEM_TRIS, scene/device_scene.py:533-542).
@@ -66,6 +72,27 @@ class DeviceScene:
     mat_tex_flags: tuple = ()
     # Images the scene was given (has_textures, device_scene.py:174-176).
     num_textures: int = 0
+    # The texture atlas (pack_textures): [T, H', W', 4] f32 texels, [T, 2]
+    # int32 level-0 (h, w) and [T, L, 4] int32 (y, x, h, w) per level; T =
+    # 0 without textures. The Whitted lane and the any-hit cutout mask
+    # read level 0 (shade/texture.py::sample_bilinear).
+    textures: Optional[torch.Tensor] = None
+    tex_size: Optional[torch.Tensor] = None
+    tex_mip: Optional[torch.Tensor] = None
+    # Opacity micromaps (device_scene.py:85-112): [M, 4^level] uint8
+    # micro-triangle states and the [M] uint8 summary (accel/micromap.py),
+    # None without cutouts or with micromaps off; the occlusion split: the
+    # certain-solid triangles (summary OPAQUE, every non-cutout triangle),
+    # with a cluster table past MAX_SMEM_TRIS of them, and the unknown ones
+    # with their scene row ids. Summary-transparent triangles are in
+    # neither: they never block light.
+    omm_micro: Optional[torch.Tensor] = None
+    omm_summary: Optional[torch.Tensor] = None
+    omm_level: int = 0
+    omm_solid_geom: Optional[TriangleGeometry] = None
+    omm_unknown_geom: Optional[TriangleGeometry] = None
+    omm_unknown_ids: Optional[torch.Tensor] = None
+    omm_solid_clusters: Optional[cluster_mod.ClusterSet] = None
 
     def __post_init__(self):
         if self.prims is None:
@@ -77,6 +104,13 @@ class DeviceScene:
                                        device=self.device)
             self.bundle_mip = torch.zeros((0, 1, 4), dtype=torch.int32,
                                           device=self.device)
+        if self.textures is None:
+            self.textures = torch.zeros((0, 1, 1, 4), dtype=torch.float32,
+                                        device=self.device)
+            self.tex_size = torch.zeros((0, 2), dtype=torch.int32,
+                                        device=self.device)
+            self.tex_mip = torch.zeros((0, 1, 4), dtype=torch.int32,
+                                       device=self.device)
 
     @property
     def num_triangles(self):
@@ -107,6 +141,30 @@ class DeviceScene:
     @property
     def has_textures(self) -> bool:
         return self.num_textures > 0
+
+    @property
+    def has_cutouts(self) -> bool:
+        """A material is an alpha cutout: hits go through the mask, on
+        radiance and occlusion rays."""
+        return "cutouts" in self.features
+
+    @property
+    def has_omm(self) -> bool:
+        return self.omm_summary is not None and self.omm_summary.shape[0] > 0
+
+    @property
+    def omm_all_certain(self) -> bool:
+        """Every triangle's summary is certain: the micromaps decide every
+        pass-through, and no mask is evaluated (device_scene.py:152-158)."""
+        return self.has_omm and self.omm_unknown_ids.shape[0] == 0
+
+    @functools.cached_property
+    def omm_boxes(self) -> tuple:
+        """Kernels 1-2's group boxes of the solid and the unknown split
+        (bf_group_boxes; None below FUSED_CULL_MIN_TRIS triangles), built
+        once, at the first occlusion query."""
+        return (bf_group_boxes(self.omm_solid_geom),
+                bf_group_boxes(self.omm_unknown_geom))
 
     @functools.cached_property
     def specular_lanes(self) -> bool:
@@ -278,6 +336,46 @@ def _mat_tex_ids(m):
     return tuple(int(m.get(k, -1)) for k in TEX_KEYS)
 
 
+def pack_textures(images):
+    """Images → the mip atlas (scene/device_scene.py:197-240): one dense
+    [T, H', W', 4] f32 atlas, each texture's level 0 at (0, 0) and its
+    levels 1+ (2x box filter down to 1x1) stacked in a strip to the right
+    of the widest level 0. → (textures, tex_size [T, 2] int32 level-0 (h,
+    w), tex_mip [T, L, 4] int32 (y, x, h, w) per level, h = w = 0 past a
+    texture's chain), numpy."""
+    if not images:
+        return (np.zeros((0, 1, 1, 4), np.float32),
+                np.zeros((0, 2), np.int32), np.zeros((0, 1, 4), np.int32))
+    chains = []
+    for im in images:
+        chain = [_rgba(im)]
+        while max(chain[-1].shape[0], chain[-1].shape[1]) > 1:
+            chain.append(_downsample2(chain[-1]))
+        chains.append(chain)
+    n_levels = max(len(c) for c in chains)
+    max_h = max(c[0].shape[0] for c in chains)
+    max_w = max(c[0].shape[1] for c in chains)
+    strip_w = max(max(lv.shape[1] for lv in c[1:]) if len(c) > 1 else 0
+                  for c in chains)
+    strip_h = max(sum(lv.shape[0] for lv in c[1:]) for c in chains)
+    out = np.zeros((len(images), max(max_h, strip_h), max_w + strip_w, 4),
+                   np.float32)
+    sizes = np.zeros((len(images), 2), np.int32)
+    mips = np.zeros((len(images), n_levels, 4), np.int32)
+    for i, chain in enumerate(chains):
+        h0, w0 = chain[0].shape[:2]
+        out[i, :h0, :w0] = chain[0]
+        sizes[i] = (h0, w0)
+        mips[i, 0] = (0, 0, h0, w0)
+        y = 0
+        for li, lv in enumerate(chain[1:], start=1):
+            hl, wl = lv.shape[:2]
+            out[i, y:y + hl, max_w:max_w + wl] = lv
+            mips[i, li] = (y, max_w, hl, wl)
+            y += hl
+    return out, sizes, mips
+
+
 def pack_bundles(images, materials):
     """Material texture bundles (scene/device_scene.py:271-409, without its
     quad rows, a TPU gather device): one 16-channel image per distinct set
@@ -366,32 +464,129 @@ def pack_bundles(images, materials):
 
 def _texture_fields(textures, materials, device) -> dict:
     """The DeviceScene's texture fields from the images and the material
-    dicts (scene/device_scene.py:489-515), and the material table's bundle
-    plane."""
+    dicts (scene/device_scene.py:484-515): the atlas, the bundles, and the
+    material table's bundle plane."""
     textures = list(textures or ())
     if not textures:
         return {}
+    atlas, sizes, tex_mips = pack_textures(textures)
     bundles, mips, mat_bundle, meta = pack_bundles(textures, materials)
     flags = tuple((int(mat_bundle[k]), *(i >= 0 for i in _mat_tex_ids(m)))
                   for k, m in enumerate(materials))
-    return dict(bundles=torch.as_tensor(bundles, device=device),
+    return dict(textures=torch.as_tensor(atlas, device=device),
+                tex_size=torch.as_tensor(sizes, device=device),
+                tex_mip=torch.as_tensor(tex_mips, device=device),
+                bundles=torch.as_tensor(bundles, device=device),
                 bundle_mip=torch.as_tensor(mips, device=device),
                 mat_bundle=torch.as_tensor(mat_bundle, device=device),
                 bundle_meta=meta, mat_tex_flags=flags,
                 num_textures=len(textures))
 
 
+def _is_cut(m) -> bool:
+    return bool(m.get("cutout", 0)) or m.get("alpha_mode", 0) == ALPHA_MASK
+
+
+def build_scene_omm(materials, tri_mat, corner_uv, textures, level):
+    """Opacity micromaps of every cutout-material triangle
+    (scene/device_scene.py:412-470): per ALPHA_MASK material its mask, the
+    checker or circle at its checker_scale, or for CUT_TEXTURE the base
+    map's level-0 alpha at the nearest texel (wrapped) against its
+    alpha_cutoff, sampled conservatively (accel/micromap.py); a mask
+    material with no mask function, and every other triangle, is OPAQUE.
+    tri_mat [M] and corner_uv [M, 3, 2] numpy, textures the raw images. →
+    (micro_states [M, 4^level] uint8, summary [M] uint8)."""
+    m_tris = int(tri_mat.shape[0])
+    states = np.full((m_tris, 4 ** level), mm.OPAQUE, np.uint8)
+    summary = np.full((m_tris,), mm.OPAQUE, np.uint8)
+
+    def tex_alpha_mask(tex_id, cutoff):
+        img = np.asarray(textures[tex_id])
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        alpha = (img[..., 3] if img.ndim == 3 and img.shape[-1] == 4
+                 else np.ones(img.shape[:2], np.float32))
+
+        def fn(uv):
+            h, w = alpha.shape
+            x = np.floor((uv[:, 0] % 1.0) * w).astype(np.int64) % w
+            y = np.floor((uv[:, 1] % 1.0) * h).astype(np.int64) % h
+            return alpha[y, x] < cutoff
+        return fn
+
+    for k, mdef in enumerate(materials):
+        if mdef.get("alpha_mode", 0) != ALPHA_MASK:
+            continue
+        kind = mdef.get("cutout", 0)
+        scale = float(mdef.get("checker_scale", 1.0))
+        if kind == CUT_CHECKER:
+            fn = mm.checker_mask(scale)
+        elif kind == CUT_CIRCLE:
+            fn = mm.circle_mask(scale)
+        elif (kind == CUT_TEXTURE and len(textures)
+                and int(mdef.get("base_tex", -1)) >= 0):
+            fn = tex_alpha_mask(int(mdef["base_tex"]),
+                                float(mdef.get("alpha_cutoff", 0.5)))
+        else:
+            continue
+        sel = np.nonzero(tri_mat == k)[0]
+        if not len(sel):
+            continue
+        st, su = mm.build_opacity_micromap(corner_uv[sel], fn, level=level)
+        states[sel] = st
+        summary[sel] = su
+    return states, summary
+
+
+def _omm_fields(geom: TriangleGeometry, tri_mat: torch.Tensor, states,
+                summary, level: int) -> dict:
+    """The DeviceScene's micromap fields from the states and summary (numpy)
+    (scene/device_scene.py:616-640): the certain-solid rows (summary
+    OPAQUE) and the unknown rows of the scene geometry, and past
+    MAX_SMEM_TRIS solid triangles, up to the supercluster tier's cap, the
+    solid split's cluster table in SAH order."""
+    dev = geom.tri_consts.device
+    solid = summary == mm.OPAQUE
+    unknown = (summary != mm.OPAQUE) & (summary != mm.TRANSPARENT)
+    solid_rows = torch.as_tensor(np.nonzero(solid)[0], dtype=torch.int64,
+                                 device=dev)
+    unknown_rows = torch.as_tensor(np.nonzero(unknown)[0], dtype=torch.int64,
+                                   device=dev)
+    solid_geom = select_geometry(geom, solid_rows)
+    n_solid = solid_geom.num_triangles
+    clusters = None
+    if (n_solid > MAX_SMEM_TRIS and -(-n_solid // cluster_mod.LANES)
+            <= cluster_mod.MAX_SUPERCLUSTERS * cluster_mod.SC_CLUSTERS):
+        clusters = cluster_mod.build_clusters(
+            solid_geom, tri_mat[solid_rows],
+            order=native.sah_leaf_order(solid_geom))
+    return dict(omm_micro=torch.as_tensor(states, device=dev),
+                omm_summary=torch.as_tensor(summary, device=dev),
+                omm_level=int(level), omm_solid_geom=solid_geom,
+                omm_unknown_geom=select_geometry(geom, unknown_rows),
+                omm_unknown_ids=unknown_rows.to(torch.int32),
+                omm_solid_clusters=clusters)
+
+
 def make_device_scene(vertices, indices, tri_mat, materials, device,
                       area_light=None, miss_color=(0.0, 0.0, 0.0),
                       normals=None, prims=None, instances=None, uvs=None,
-                      textures=(), lights=()):
+                      textures=(), lights=(), opacity_micromaps=True,
+                      omm_level=3, motion=None):
     """Triangle mesh + material dicts (+ a CustomPrims table, + an
     InstanceTable over the mesh) → DeviceScene on `device`. lights: the
     Whitted integrator's light dicts (LightTable.make). normals / uvs:
     optional per-vertex [V, 3] shading normals and [V, 2] texture
     coordinates; textures: images ([H, W, 3 | 4] or [H, W], uint8 or float)
     the materials' texture ids index. An instanced scene gets no cluster
-    table."""
+    table. A scene with cutout materials gets opacity micromaps at
+    `omm_level` unless opacity_micromaps is False, it is instanced, or a
+    custom prim's material is a cutout (the micromap occlusion answers the
+    prims with one any-hit query, device_scene.py:578-603). motion (2-key
+    moving triangles) is not ported yet."""
+    if motion is not None:
+        raise NotImplementedError("motion triangles are not ported yet "
+                                  "(ROADMAP.md Queue 1 item 9)")
     if area_light is None:
         area_light = ParallelogramLight.make(
             (0, 0, 0), (1, 0, 0), (0, 0, 1), (0.0, 0.0, 0.0), device)
@@ -409,15 +604,25 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
             int(prims.mat_id.min()) < 0
             or int(prims.mat_id.max()) >= table.num):
         raise ValueError(f"prim material ids must lie in [0, {table.num})")
+    features = material_features(materials)
+    omm = {}
+    prims_cut = prims is not None and prims.num and any(
+        _is_cut(materials[int(i)]) for i in prims.mat_id.cpu().numpy())
+    if (opacity_micromaps and "cutouts" in features and instances is None
+            and not prims_cut):
+        states, summary = build_scene_omm(
+            materials, tri_mat_np, geom.corner_uv.cpu().numpy(),
+            list(textures or ()), omm_level)
+        omm = _omm_fields(geom, tri_mat, states, summary, omm_level)
     return DeviceScene(
         geom=geom, tri_mat=tri_mat, materials=table, area_light=area_light,
         miss_color=torch.as_tensor(miss_color, dtype=torch.float32,
                                    device=device),
-        features=material_features(materials),
+        features=features,
         clusters=(None if instances is not None
                   else _build_cluster_table(geom, tri_mat)),
         prims=prims, instances=instances,
-        lights=LightTable.make(list(lights), device), **tex)
+        lights=LightTable.make(list(lights), device), **tex, **omm)
 
 
 def device_scene_from_numpy(fields, device) -> DeviceScene:
@@ -431,9 +636,13 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
       mat_kind, mat_base_color, mat_emission, mat_metallic, mat_roughness,
       mat_ior, mat_kr, mat_base_tex, mat_normal_tex, mat_mr_tex,
       mat_emissive_tex, mat_bundle, mat_specular, mat_phong_exp,
-      mat_checker1, mat_checker_scale                  (scene.materials)
+      mat_checker1, mat_checker_scale, mat_alpha_mode, mat_cutout,
+      mat_alpha_cutoff (the last three optional)       (scene.materials)
       bundles [B,H',W',16], bundle_mip [B,L,4], bundle_meta, mat_tex_flags
-      (tuples), num_textures                 (the texture bundles; optional)
+      (tuples), num_textures, textures [T,H',W',4], tex_size [T,2],
+      tex_mip [T,L,4]             (the texture bundles and atlas; optional)
+      omm_micro [M,4^level], omm_summary [M], omm_level
+                          (the opacity micromaps; optional, M may be 0)
       light_corner, light_v1, light_v2, light_normal, light_emission
       lights_kind [L], lights_position [L,3], lights_color [L,3],
       lights_falloff [L], lights_radius [L]                (scene.lights)
@@ -486,7 +695,10 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
         metallic=f32("mat_metallic"), roughness=f32("mat_roughness"),
         ior=f32("mat_ior"), kr=f32("mat_kr"),
         **{k: f32(f"mat_{k}") for k in WHITTED_DEFAULTS},
-        **{k: ids(f"mat_{k}") for k in (*TEX_KEYS, "bundle")})
+        **{k: ids(f"mat_{k}") for k in (*TEX_KEYS, "bundle", "alpha_mode",
+                                        "cutout")},
+        alpha_cutoff=(f32("mat_alpha_cutoff") if "mat_alpha_cutoff" in fields
+                      else None))
     lights = LightTable(kind=i32("lights_kind"),
                         position=f32("lights_position"),
                         color=f32("lights_color"),
@@ -542,10 +754,19 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
                    mat_tex_flags=tuple(tuple(f)
                                        for f in fields["mat_tex_flags"]),
                    num_textures=int(fields["num_textures"]))
-    return DeviceScene(geom=geom,
-                       tri_mat=torch.as_tensor(tri_mat, device=device),
+        if "textures" in fields:
+            tex.update(textures=f32("textures").contiguous(),
+                       tex_size=i32("tex_size"), tex_mip=i32("tex_mip"))
+    tri_mat = torch.as_tensor(tri_mat, device=device)
+    omm = {}
+    if len(fields.get("omm_summary", ())):
+        omm = _omm_fields(geom, tri_mat,
+                          np.asarray(fields["omm_micro"], np.uint8),
+                          np.asarray(fields["omm_summary"], np.uint8),
+                          int(fields["omm_level"]))
+    return DeviceScene(geom=geom, tri_mat=tri_mat,
                        materials=table, area_light=light,
                        miss_color=f32("miss_color"),
                        features=tuple(fields.get("features", ())),
                        clusters=clusters, prims=prims, instances=instances,
-                       lights=lights, **tex)
+                       lights=lights, **tex, **omm)

@@ -5,9 +5,10 @@ The table carries the fields of the diffuse, emissive, glass and PBR
 Whitted integrator (specular, phong_exp, checker1, checker_scale) and the
 texture wiring: per material the ids of its base-color, normal,
 metallic-roughness and emissive maps (-1 = none) and its texture bundle
-(`scene/device_scene.py::pack_bundles`, -1 = untextured). Alpha cutouts
-are not ported yet (ROADMAP.md Queue 1 item 8), and a material that asks
-for one raises NotImplementedError.
+(`scene/device_scene.py::pack_bundles`, -1 = untextured), and the alpha
+cutout planes: the alpha mode, the cutout mask style (checker, circle, or
+the base map's alpha against the alpha cutoff; the checker and circle
+masks read `checker_scale`).
 """
 from __future__ import annotations
 
@@ -25,8 +26,18 @@ PHONG = 3
 CHECKER = 4
 EMISSIVE = 5
 
-# Keys that switch on an unported feature, with their "off" value.
-_UNPORTED_KEYS = {"cutout": 0, "alpha_mode": 0}
+# Alpha modes (shade/materials.py:26-30)
+ALPHA_OPAQUE = 0
+ALPHA_MASK = 1
+ALPHA_BLEND = 2
+
+# Cutout mask styles of an ALPHA_MASK material (shade/materials.py:32-36):
+# the checker and circle anyhit masks, and the base map's alpha.
+CUT_NONE = 0
+CUT_CHECKER = 1
+CUT_CIRCLE = 2
+CUT_TEXTURE = 3
+
 # Texture-id keys of a material dict (shade/materials.py:53-57).
 TEX_KEYS = ("base_tex", "normal_tex", "mr_tex", "emissive_tex")
 # The Whitted planes and their defaults (shade/materials.py:47-50, 107-110).
@@ -35,6 +46,9 @@ WHITTED_DEFAULTS = {"specular": (0.0, 0.0, 0.0), "phong_exp": 32.0,
 # The fields the path tracer's bounce reads (gather's default).
 PT_FIELDS = ("kind", "base_color", "emission", "metallic", "roughness",
              "ior", "kr", *TEX_KEYS, "bundle")
+# The fields the alpha mask reads (wavefront/intersect.py::_eval_hole).
+CUT_FIELDS = ("alpha_mode", "cutout", "alpha_cutoff", "checker_scale",
+              "base_tex")
 
 
 @dataclasses.dataclass
@@ -59,11 +73,21 @@ class MaterialTable:
     mr_tex: Optional[torch.Tensor] = None
     emissive_tex: Optional[torch.Tensor] = None
     bundle: Optional[torch.Tensor] = None
+    # [K] int32 alpha mode and CUT_* mask style (None: 0), [K] f32 alpha
+    # cutoff (None: 0.5).
+    alpha_mode: Optional[torch.Tensor] = None
+    cutout: Optional[torch.Tensor] = None
+    alpha_cutoff: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         for name in (*TEX_KEYS, "bundle"):
             if getattr(self, name) is None:
                 setattr(self, name, torch.full_like(self.kind, -1))
+        for name in ("alpha_mode", "cutout"):
+            if getattr(self, name) is None:
+                setattr(self, name, torch.zeros_like(self.kind))
+        if self.alpha_cutoff is None:
+            self.alpha_cutoff = torch.full_like(self.metallic, 0.5)
 
     @property
     def num(self):
@@ -72,12 +96,6 @@ class MaterialTable:
 
 def make_material_table(materials, device) -> MaterialTable:
     """materials: list of dicts; unspecified fields get the JAX defaults."""
-    for i, m in enumerate(materials):
-        used = [k for k, off in _UNPORTED_KEYS.items() if m.get(k, off) != off]
-        if used:
-            raise NotImplementedError(
-                f"material {i}: {used} (alpha cutouts) are not ported "
-                "yet (ROADMAP.md Queue 1 item 8)")
     K = max(len(materials), 1)
 
     def plane(key, default, width=None):
@@ -90,17 +108,14 @@ def make_material_table(materials, device) -> MaterialTable:
                 out[i] = m[key]
         return torch.as_tensor(out, device=device)
 
-    def ids(key):
-        out = np.full(K, -1, np.int32)
+    def ids(key, default=-1):
+        out = np.full(K, default, np.int32)
         for i, m in enumerate(materials):
-            out[i] = m.get(key, -1)
+            out[i] = m.get(key, default)
         return torch.as_tensor(out, device=device)
 
-    kind = np.zeros(K, np.int32)
-    for i, m in enumerate(materials):
-        kind[i] = m.get("kind", DIFFUSE)
     return MaterialTable(
-        kind=torch.as_tensor(kind, device=device),
+        kind=ids("kind", DIFFUSE),
         base_color=plane("base_color", (0.8, 0.8, 0.8), 3),
         emission=plane("emission", (0.0, 0.0, 0.0), 3),
         metallic=plane("metallic", 0.0),
@@ -110,6 +125,9 @@ def make_material_table(materials, device) -> MaterialTable:
         **{key: ids(key) for key in TEX_KEYS},
         **{key: plane(key, default, 3 if isinstance(default, tuple) else None)
            for key, default in WHITTED_DEFAULTS.items()},
+        alpha_mode=ids("alpha_mode", ALPHA_OPAQUE),
+        cutout=ids("cutout", CUT_NONE),
+        alpha_cutoff=plane("alpha_cutoff", 0.5),
     )
 
 

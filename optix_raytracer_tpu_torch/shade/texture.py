@@ -1,5 +1,10 @@
-"""The material-bundle texture fetch (counterpart of
-`shade/texture.py:78-199`, `sample_bundle`).
+"""The texture fetches (counterpart of `shade/texture.py:16-45, 78-199`):
+`sample_bilinear` on level 0 of the texture atlas, and the material-bundle
+fetch `sample_bundle`.
+
+`sample_bilinear` reads one map of the atlas (`scene/device_scene.py::
+pack_textures`) bilinearly: the Whitted integrator's base map and the
+any-hit side of a CUT_TEXTURE cutout read it.
 
 A material's whole texture set is one 16-channel bundle image
 (`scene/device_scene.py::pack_bundles`): base RGBA (0:4), normal RGB (4:7),
@@ -20,6 +25,47 @@ import torch
 # The fetch of bundle id -1: white base, flat normal, unit emissive and
 # metallic-roughness scales (shade/texture.py:103-105).
 NEUTRAL = (1, 1, 1, 1, 0.5, 0.5, 1.0, 1, 1, 1, 1, 1, 0, 0, 0, 0)
+
+
+def sample_bilinear(textures, tex_size, tex_id, uv):
+    """Bilinear fetch from level 0 of the atlas → RGBA [..., 4].
+
+    textures [T, H', W', 4] f32; tex_size [T, 2] int32 level-0 (h, w);
+    tex_id [...] int (-1 gives white, RGBA 1); uv [..., 2]. Wrap
+    addressing with texel centres at half-integer uv, as the reference: x =
+    (u - floor(u)) w - 0.5, x0 = floor(x), fx = x - x0 (y alike); each of
+    the four taps wraps on its own, (xi mod w, yi mod h) with w and h taken
+    as at least 1; ((c00 (1 - fx) + c10 fx)(1 - fy) + (c01 (1 - fx) + c11
+    fx) fy)."""
+    if textures.shape[0] == 0:
+        return torch.ones(uv.shape[:-1] + (4,), dtype=torch.float32,
+                          device=uv.device)
+    tid = torch.clamp_min(tex_id, 0).long()
+    hw = tex_size[tid].to(torch.float32)
+    h, w = hw[..., 0], hw[..., 1]
+    u = uv[..., 0] - torch.floor(uv[..., 0])
+    v = uv[..., 1] - torch.floor(uv[..., 1])
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    wi = torch.clamp_min(w.to(torch.int64), 1)
+    hi = torch.clamp_min(h.to(torch.int64), 1)
+
+    def texel(xf, yf):
+        xi = torch.remainder(xf.to(torch.int64), wi)
+        yi = torch.remainder(yf.to(torch.int64), hi)
+        return textures[tid, yi, xi]
+
+    c00 = texel(x0, y0)
+    c10 = texel(x0 + 1, y0)
+    c01 = texel(x0, y0 + 1)
+    c11 = texel(x0 + 1, y0 + 1)
+    rgba = ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
+            + (c01 * (1 - fx) + c11 * fx) * fy)
+    return torch.where((tex_id >= 0)[..., None], rgba, 1.0)
 
 
 def sample_bundle(bundles, bundle_mip, bundle_id, uv, texel_scale=None):

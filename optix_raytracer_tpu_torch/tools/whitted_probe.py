@@ -54,7 +54,7 @@ def recorded_queries():
     cluster walks (kernels 4-6; not the queue of ORT_QWALK=1) → a list,
     filled in call order, of dicts
     (kind "closest" / "any", route "bf" / "clusters", rays, and for the
-    cluster table exact and group_walk)."""
+    cluster table the ClusterSet, exact and group_walk)."""
     calls = []
     saved = dict(bf_closest=pallas_bf.closest_hit, bf_any=pallas_bf.any_hit,
                  cl_closest=C.closest_hit, cl_any=C.any_hit)
@@ -69,13 +69,13 @@ def recorded_queries():
 
     def cl_closest(cl, rays, exact=False, group_walk=False):
         calls.append(dict(kind="closest", route="clusters", rays=rays,
-                          exact=exact, group_walk=group_walk))
+                          cl=cl, exact=exact, group_walk=group_walk))
         return saved["cl_closest"](cl, rays, exact=exact,
                                    group_walk=group_walk)
 
     def cl_any(cl, rays, exact=False, group_walk=False):
         calls.append(dict(kind="any", route="clusters", rays=rays,
-                          exact=exact, group_walk=group_walk))
+                          cl=cl, exact=exact, group_walk=group_walk))
         return saved["cl_any"](cl, rays, exact=exact, group_walk=group_walk)
 
     try:

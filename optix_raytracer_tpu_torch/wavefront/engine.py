@@ -4,7 +4,10 @@ roughness GGX) materials; NEE toward the parallelogram light (the full BRDF
 on PBR lanes), cosine, one-sample-MIS GGX and Fresnel glass bounces,
 Russian roulette; on a textured scene the texture lanes: the bundle fetch
 (`shade/texture.py`) at the ray cone's mip level, and the base-color,
-metallic-roughness, emissive and normal maps.
+metallic-roughness, emissive and normal maps; on a scene with alpha cutouts
+the cut lanes: a hit in a hole passes straight through, unshaded and never
+ended by roulette, and its shadow rays re-enter past holes
+(`intersect.scene_any`).
 
 The whole wavefront moves one bounce at a time, dead lanes masked. Its
 intersections come from kernels 1 and 2 (brute force, once per instance on
@@ -29,6 +32,7 @@ import torch
 
 from ..accel.clusters import coherence_key
 from ..accel.geometry import shading_frame
+from ..accel.micromap import TRANSPARENT, micro_index
 from ..accel.tlas import unit_world_normal
 from ..core import rng as _rng
 from ..core.camera import generate_rays
@@ -39,7 +43,7 @@ from ..scene.device_scene import DeviceScene
 from ..shade import materials as mats
 from ..shade.sampling import cosine_sample_hemisphere, ggx_sample_half_vector
 from ..shade.texture import sample_bundle
-from .intersect import scene_any, scene_closest
+from .intersect import certain_or, mask_hole, scene_any, scene_closest
 
 # Shadow / secondary-ray epsilons at Cornell scale, as in the JAX engine.
 RAY_TMIN = 1e-2
@@ -165,9 +169,11 @@ def _shading_normal(scene: DeviceScene, hits):
     follows it on an untextured flat cluster scene. On an instanced scene
     the interpolated normal is in object space: with row ids, the hit
     instance's inverse goes back to world (tlas.unit_world_normal); without
-    them the geometric normal stays."""
-    if not scene.has_textures and (not scene.geom.smooth or (
-            scene.has_clusters and not scene.has_instances)):
+    them the geometric normal stays. A scene with cutouts takes the
+    epilogue always: its mask reads the frame's uv (engine.py:320-346)."""
+    if not (scene.has_textures or scene.has_cutouts) and (
+            not scene.geom.smooth or (scene.has_clusters
+                                      and not scene.has_instances)):
         return hits.normal, None
     m = scene.num_triangles
     is_tri = hits.prim_id < m
@@ -193,7 +199,8 @@ def _texture_lanes(scene: DeviceScene, hits, hit_valid, frame, m, geom_n,
     scaling roughness (G) and metallic (B) in `m`, the emissive map scaling
     the emission in `m`, and the normal map in the tangent frame: t = tan -
     n (tan.n), divided by max(|t|, 1e-8), b = n x t, normalize(t nx + b ny
-    + n nz). Returns (albedo factor [N, 3], the shading normal)."""
+    + n nz). Returns (albedo factor [N, 3], the shading normal, the base
+    map's alpha [N]: 1 where a lane has no base map)."""
     is_tri = hits.prim_id < scene.num_triangles
     cone = spread * (path_len + torch.where(hit_valid, hits.t, 0.0))
     texel_scale = torch.where(is_tri, cone * frame["uv_density"], 0.0)
@@ -201,8 +208,9 @@ def _texture_lanes(scene: DeviceScene, hits, hit_valid, frame, m, geom_n,
                         torch.where(is_tri, m["bundle"], -1),
                         torch.where(is_tri[..., None], frame["uv"], hits.uv),
                         texel_scale=texel_scale)
-    albedo_tex = torch.where((is_tri & (m["base_tex"] >= 0))[..., None],
-                             b16[..., 0:3], 1.0)
+    has_base = is_tri & (m["base_tex"] >= 0)
+    albedo_tex = torch.where(has_base[..., None], b16[..., 0:3], 1.0)
+    tex_alpha = torch.where(has_base, b16[..., 3], 1.0)
     has_mr = is_tri & (m["mr_tex"] >= 0)
     m["roughness"] = torch.where(has_mr, m["roughness"] * b16[..., 10],
                                  m["roughness"])
@@ -219,17 +227,45 @@ def _texture_lanes(scene: DeviceScene, hits, hit_valid, frame, m, geom_n,
     b_ = cross(geom_n, t_)
     n_mapped = normalize(t_ * nm[..., 0:1] + b_ * nm[..., 1:2]
                          + geom_n * nm[..., 2:3])
-    return albedo_tex, torch.where(has_nm[..., None], n_mapped, geom_n)
+    return (albedo_tex, torch.where(has_nm[..., None], n_mapped, geom_n),
+            tex_alpha)
+
+
+def _cut_lanes(scene: DeviceScene, hits, hit_valid, m, surf_uv, tex_alpha):
+    """The hits that land in a hole (engine.py:406-466) → bool [N]. With
+    every summary certain, a triangle's summary alone decides (no mask is
+    evaluated); else the mask at the surface uv (checker, circle, or the
+    bundle fetch's base alpha against alpha_cutoff), overridden, where the
+    scene has micromaps, by a certain summary and then by a certain
+    micro-triangle state."""
+    if scene.omm_all_certain:
+        pid = torch.clamp(hits.prim_id, 0, scene.omm_summary.shape[0] - 1)
+        hole = scene.omm_summary[pid.long()] == TRANSPARENT
+    else:
+        # without a base map the alpha reads 1 (engine.py:433-435)
+        hole = mask_hole(m, surf_uv, tex_alpha if tex_alpha is not None
+                         else torch.ones_like(hits.t))
+        if scene.has_omm:
+            pid = torch.clamp(hits.prim_id, 0,
+                              scene.omm_summary.shape[0] - 1).long()
+            summ = scene.omm_summary[pid]
+            st = scene.omm_micro[pid, micro_index(
+                hits.uv[..., 0], hits.uv[..., 1], scene.omm_level)]
+            hole = certain_or(summ, certain_or(st, hole))
+    return hit_valid & (m["alpha_mode"] == mats.ALPHA_MASK) & hole
 
 
 def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
             exact: bool = False, group_walk: bool = False,
             spread=0.0) -> dict:
-    """One bounce of the whole wavefront (engine.py:241-611, without volume
-    and cutouts): closest hit, miss and emission terms, the texture lanes
-    (`spread`: pixel_spread), the material lanes (glass, mirror, PBR,
-    diffuse), NEE on the diffuse and PBR lanes, the next direction and
-    throughput, Russian roulette. Returns the next state."""
+    """One bounce of the whole wavefront (engine.py:241-611, without
+    volume): closest hit, miss and emission terms, the texture lanes
+    (`spread`: pixel_spread), the cut lanes, the material lanes (glass,
+    mirror, PBR, diffuse), NEE on the diffuse and PBR lanes, the next
+    direction and throughput, Russian roulette. A cut lane keeps its
+    direction, throughput and previous-specular flag, moves its origin
+    RAY_TMIN along d past the hit, survives roulette (q = 1) and traces no
+    shadow ray; it is neither a hit nor ended. Returns the next state."""
     rays = state["rays"]
     active = state["active"]
     throughput = state["throughput"]
@@ -244,17 +280,30 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
     radiance = radiance + torch.where((active & ~hits.valid)[..., None],
                                       throughput * scene.miss_color, 0.0)
 
-    m = mats.gather(scene.materials, hits.mat_id)
+    cutouts = scene.has_cutouts
+    m = mats.gather(scene.materials, hits.mat_id,
+                    mats.PT_FIELDS + mats.CUT_FIELDS if cutouts
+                    else mats.PT_FIELDS)
     d = rays.direction
     geom_n, frame = _shading_normal(scene, hits)
     albedo = m["base_color"]
+    tex_alpha = None
     if scene.has_textures:
-        albedo_tex, geom_n = _texture_lanes(scene, hits, hit_valid, frame, m,
-                                            geom_n, state["path_len"], spread)
+        albedo_tex, geom_n, tex_alpha = _texture_lanes(
+            scene, hits, hit_valid, frame, m, geom_n, state["path_len"],
+            spread)
         albedo = albedo * albedo_tex
     # two-sided shading normal, faceforward(N, -D, N)
     n = geom_n * torch.sign(-dot(geom_n, d))[..., None]
     hit_p = rays.at(hits.t)
+
+    if cutouts:
+        # the mask reads the shading frame's uv on triangle hits, a prim
+        # hit's own uv
+        is_tri = hits.prim_id < scene.num_triangles
+        surf_uv = torch.where(is_tri[..., None], frame["uv"], hits.uv)
+        is_cut = _cut_lanes(scene, hits, hit_valid, m, surf_uv, tex_alpha)
+        hit_valid = hit_valid & ~is_cut
 
     # Emission only on primary hits or after a specular bounce: NEE covers
     # the rest.
@@ -330,20 +379,35 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
         new_throughput = torch.where(is_specular[..., None],
                                      throughput * spec_tint, new_throughput)
 
+    if cutouts:
+        # a cut lane passes straight through
+        new_dir = torch.where(is_cut[..., None], d, new_dir)
+        new_throughput = torch.where(is_cut[..., None], throughput,
+                                     new_throughput)
     offset_n = torch.where(dot(new_dir, n)[..., None] >= 0.0, n, -n)
+    if cutouts:
+        offset_n = torch.where(is_cut[..., None], d, offset_n)
     new_origin = hit_p + offset_n * RAY_TMIN
 
-    # Russian roulette after depth 1
+    # Russian roulette after depth 1 (never on a cut lane)
     u5, _, rng = _rng.uniform2(rng)
     q = torch.clamp(new_throughput.amax(dim=-1), 0.05, 1.0)
+    if cutouts:
+        q = torch.where(is_cut, 1.0, q)
     if depth >= 1:
-        survive = u5 < q
+        survive = (u5 < q) | is_cut if cutouts else u5 < q
         new_throughput = new_throughput / q[..., None]
     else:
         survive = torch.ones_like(active)
 
     rays_traced = state["rays_traced"] + active.sum() + nee_mask.sum()
-    active = hit_valid & survive
+    prev_specular = is_specular
+    if cutouts:
+        active = (hit_valid | is_cut) & survive
+        prev_specular = torch.where(is_cut, state["prev_specular"],
+                                    is_specular)
+    else:
+        active = hit_valid & survive
     out = dict(state)
     out.update(
         # Dead lanes get an empty ray window: the cluster cull drops whole
@@ -352,7 +416,7 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
                   tmin=torch.full_like(hits.t, RAY_TMIN),
                   tmax=torch.where(active, 1e16, 0.0)),
         throughput=new_throughput, radiance=radiance, rng=rng,
-        active=active, prev_specular=is_specular,
+        active=active, prev_specular=prev_specular,
         path_len=state["path_len"] + torch.where(hit_valid, hits.t, 0.0),
         rays_traced=rays_traced)
     return out

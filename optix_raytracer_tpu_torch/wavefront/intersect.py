@@ -1,11 +1,20 @@
-"""Scene-level intersection (counterpart of `wavefront/intersect.py:78-200`):
+"""Scene-level intersection (counterpart of `wavefront/intersect.py`):
 the instance loop for a two-level scene (`accel/tlas.py`), the
 cluster-culled traversal for a scene with a cluster table, brute force
 otherwise (culled by the scene's group boxes, `DeviceScene.bf_boxes`),
 then the custom prims merged in (`accel/primitives.py`; a prim
-hit reports prim_id = num_triangles + its row). BVHs, motion and cutout
-any-hit are not ported yet (ROADMAP.md Queue 1 items 6-9); the port's
-DeviceScene has none of them.
+hit reports prim_id = num_triangles + its row). BVHs and motion are not
+ported yet (ROADMAP.md Queue 1 items 6 and 9); the port's DeviceScene has
+neither.
+
+Occlusion on a scene with alpha cutouts re-enters past the holes (the
+anyhit program's optixIgnoreIntersection): with opacity micromaps, one
+any-hit query over the certain-solid split (kernels 4 + 6 on its cluster
+table, else kernel 2) and the re-entry loop over the unknown split alone
+(kernel 1), each hit's micro-triangle state deciding before its mask;
+without them, the loop over the whole scene. Each step of a loop ends in a
+host sync (whether a ray is still unresolved), and a ray still unresolved
+after `MAX_ALPHA_STEPS` steps counts as blocked, as in the reference.
 
 In the JAX package the cluster branch runs only on a TPU; in the port a
 cluster table alone selects it, on any device (the CPU runs the kernels'
@@ -18,13 +27,33 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import torch
+
 from ..accel import bruteforce as bf
 from ..accel import clusters as cluster_mod
 from ..accel import primitives as prim_mod
 from ..accel import qwalk as qwalk_mod
 from ..accel import tlas
+from ..accel.geometry import shading_frame
+from ..accel.micromap import OPAQUE, TRANSPARENT, micro_index
 from ..core.rays import Hits, Rays
 from ..scene.device_scene import DeviceScene
+from ..shade import materials as mats
+from ..shade.texture import sample_bilinear
+
+# The alpha loops' backstop (intersect.py:254, 372): past it an unresolved
+# ray counts as blocked.
+MAX_ALPHA_STEPS = 64
+# How far a loop steps past a masked surface (intersect.py:324, 359).
+ALPHA_STEP = 1e-2
+# Host-side counts of the alpha loops: loops run and steps taken (each step
+# one closest-hit query and one host sync); reset_alpha_stats zeroes them.
+ALPHA_STATS = {"loops": 0, "steps": 0}
+
+
+def reset_alpha_stats():
+    for k in ALPHA_STATS:
+        ALPHA_STATS[k] = 0
 
 
 def _use_qwalk() -> bool:
@@ -80,7 +109,13 @@ def scene_any(scene: DeviceScene, rays: Rays,
               chunk_size: Optional[int] = None, group_walk: bool = False):
     """Occlusion. NEE shadow wavefronts are mixed-liveness even when
     tile-coherent, so the cluster path always takes the exact cull, or the
-    queue under ORT_QWALK=1."""
+    queue under ORT_QWALK=1. A scene with cutouts takes the alpha paths
+    first (intersect.py:136-146)."""
+    if scene.has_cutouts:
+        if scene.has_omm:
+            return _scene_any_alpha_omm(scene, rays, chunk_size,
+                                        group_walk=group_walk)
+        return _scene_any_alpha(scene, rays, chunk_size)
     if scene.has_instances:
         occ = _flat_call(lambda r: tlas.intersect_instances_any(
             scene.geom, scene.instances, r, chunk_size=chunk_size,
@@ -99,3 +134,143 @@ def scene_any(scene: DeviceScene, rays: Rays,
         occ = occ | _flat_call(lambda r: prim_mod.intersect_prims_any(
             scene.prims, r), rays)
     return occ
+
+
+def mask_hole(m, uv, tex_alpha=None):
+    """The cutout mask style of gathered material rows m (CUT_FIELDS) at
+    texture coordinates uv [..., 2] → bool [...], before the alpha mode
+    (intersect.py:211-231, engine.py:424-439): the checker, a hole where
+    floor(s u) + floor(s v) is even (s = checker_scale); the circle, within
+    0.25 of a cell's centre; the texture, where tex_alpha [...] is under
+    alpha_cutoff (no hole without tex_alpha)."""
+    fu = uv * m["checker_scale"][..., None]
+    cell = fu - torch.floor(fu) - 0.5
+    checker_hole = torch.remainder(torch.floor(fu[..., 0])
+                                   + torch.floor(fu[..., 1]), 2.0) < 1.0
+    c0, c1 = cell[..., 0], cell[..., 1]
+    circle_hole = (c0 * c0 + c1 * c1) < 0.25 ** 2
+    cut = m["cutout"]
+    tex_hole = cut == mats.CUT_TEXTURE
+    tex_hole = (tex_hole & (tex_alpha < m["alpha_cutoff"])
+                if tex_alpha is not None else torch.zeros_like(tex_hole))
+    return torch.where(cut == mats.CUT_CHECKER, checker_hole,
+                       torch.where(cut == mats.CUT_CIRCLE, circle_hole,
+                                   tex_hole))
+
+
+def certain_or(state, hole):
+    """A micromap state [...] overriding a mask's hole [...]: TRANSPARENT
+    is a hole, OPAQUE is none, an UNKNOWN state keeps the mask's."""
+    return torch.where(state == TRANSPARENT, True,
+                       torch.where(state == OPAQUE, False, hole))
+
+
+def _eval_hole(scene: DeviceScene, m, uv, tex_ok=True):
+    """The any-hit side's hole test (intersect.py:203-231): mask_hole with
+    the base map's alpha read from the atlas (sample_bilinear, level 0) on
+    a textured scene, for ALPHA_MASK materials. tex_ok (bool or a [...]
+    mask) switches the texture mask off where the uv is not a texture
+    coordinate."""
+    tex_alpha = None
+    if scene.has_textures and tex_ok is not False:
+        tid = m["base_tex"]
+        if tex_ok is not True:
+            tid = torch.where(tex_ok, tid, -1)
+        tex_alpha = sample_bilinear(scene.textures, scene.tex_size, tid,
+                                    uv)[..., 3]
+    return (m["alpha_mode"] == mats.ALPHA_MASK) & mask_hole(m, uv, tex_alpha)
+
+
+def cutout_hole_mask(scene: DeviceScene, hits: Hits):
+    """True where a hit lands in a hole (intersect.py:234-246): the mask at
+    the interpolated texture coordinate of a triangle hit (the shading
+    frame's uv, never the barycentrics), at a prim hit's own uv without the
+    texture mask."""
+    m = mats.gather(scene.materials, hits.mat_id, mats.CUT_FIELDS)
+    is_tri = hits.prim_id < scene.num_triangles
+    frame = shading_frame(scene.geom, torch.clamp(
+        hits.prim_id, 0, scene.num_triangles - 1), hits.uv)
+    uv = torch.where(is_tri[..., None], frame["uv"], hits.uv)
+    return hits.valid & _eval_hole(scene, m, uv, tex_ok=is_tri)
+
+
+def _alpha_loop(rays: Rays, done, step):
+    """The re-entry loop shared by both alpha paths (intersect.py:318-337,
+    352-372): while a ray is unresolved and fewer than MAX_ALPHA_STEPS
+    steps have run, step(rays) → (hits, hole); a hit outside a hole
+    occludes and resolves its ray, a miss resolves it, a hole moves its
+    tmin to ALPHA_STEP past the hit. Resolved rays reach the queries with
+    an empty window (tmax 0), which changes no result. → occluded | the
+    rays still unresolved."""
+    occluded = torch.zeros_like(done)
+    tmin = rays.tmin
+    ALPHA_STATS["loops"] += 1
+    for _ in range(MAX_ALPHA_STEPS):
+        if not bool((~done).any()):
+            break
+        ALPHA_STATS["steps"] += 1
+        hits, hole = step(Rays(origin=rays.origin, direction=rays.direction,
+                               tmin=tmin,
+                               tmax=torch.where(done, 0.0, rays.tmax)))
+        solid = hits.valid & ~hole
+        occluded = occluded | (solid & ~done)
+        done = done | solid | ~hits.valid
+        tmin = torch.where(done, tmin, hits.t + ALPHA_STEP)
+    return occluded | ~done
+
+
+def _scene_any_alpha(scene: DeviceScene, rays: Rays, chunk_size=65536):
+    """Occlusion past the holes without micromaps (intersect.py:340-377):
+    the scene's closest hit, then its mask, a step at a time."""
+    def step(cur):
+        hits = scene_closest(scene, cur, chunk_size=chunk_size)
+        return hits, cutout_hole_mask(scene, hits)
+
+    return _flat_call(lambda r: _alpha_loop(
+        r, torch.zeros_like(r.tmin, dtype=torch.bool), step), rays)
+
+
+def _scene_any_alpha_omm(scene: DeviceScene, rays: Rays, chunk_size=65536,
+                         group_walk: bool = False):
+    """Occlusion with the opacity micromaps (intersect.py:249-337): one
+    any-hit query over the certain-solid split (its cluster table's exact
+    cull and walk, kernels 4 + 6, on any device; else brute force, kernel
+    2), the custom prims folded in; then, for the rays it leaves open, the
+    re-entry loop over the unknown split alone (kernel 1), where a hit's
+    micro-triangle state (micro_index of its barycentrics) decides:
+    TRANSPARENT passes, OPAQUE blocks, UNKNOWN evaluates the mask at the
+    shading frame's uv. Summary-transparent triangles are in no query. The
+    reference's one-hot contractions of the per-hit rows are TPU gather
+    devices: here they are index gathers, with the same integer results."""
+    solid_cs = scene.omm_solid_clusters
+    solid_boxes, unknown_boxes = scene.omm_boxes
+    if solid_cs is not None:
+        occ0 = _flat_call(lambda r: cluster_mod.any_hit(
+            solid_cs, r, exact=True, group_walk=group_walk), rays)
+    elif scene.omm_solid_geom.num_triangles:
+        occ0 = bf.intersect_any(scene.omm_solid_geom, rays,
+                                chunk_size=chunk_size, boxes=solid_boxes)
+    else:
+        occ0 = torch.zeros_like(rays.tmin, dtype=torch.bool)
+    if scene.prims.num:
+        occ0 = occ0 | _flat_call(lambda r: prim_mod.intersect_prims_any(
+            scene.prims, r), rays)
+    geom = scene.omm_unknown_geom
+    if not geom.num_triangles:
+        return occ0
+    ids = scene.omm_unknown_ids.long()
+    micro = scene.omm_micro[ids]                         # [T, 4^level]
+    mat_unknown = scene.tri_mat[ids]
+
+    def step(cur):
+        hits = bf.intersect_closest(geom, cur, chunk_size=chunk_size,
+                                    boxes=unknown_boxes)
+        pid = torch.clamp_min(hits.prim_id, 0).long()
+        mid = micro_index(hits.uv[..., 0], hits.uv[..., 1], scene.omm_level)
+        st = micro[pid, mid]
+        m = mats.gather(scene.materials, mat_unknown[pid], mats.CUT_FIELDS)
+        uv = shading_frame(geom, pid, hits.uv)["uv"]
+        return hits, certain_or(st, _eval_hole(scene, m, uv))
+
+    return occ0 | _flat_call(lambda r: _alpha_loop(r, occ0.reshape(-1), step),
+                             rays)

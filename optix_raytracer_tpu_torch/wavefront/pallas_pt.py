@@ -322,6 +322,11 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
     and the argument selects nothing here."""
     del regen
     scene.require_supported()
+    if scene.has_cutouts:
+        # the kernel has no cut lane: it would draw the holes solid
+        # (engine.py:818 keeps such scenes off it)
+        raise NotImplementedError("the fused kernel renders no scene with "
+                                  "alpha cutouts: use impl='wavefront'")
     if scene.has_textures and scene.has_instances:
         # the reference's kernel drops the textures there
         # (pallas_pt.py:1430-1431); the wavefront renders such a scene

@@ -2,7 +2,12 @@
 checker, glass, mirror and metallic-roughness GGX shading under the scene's
 light table (point, ambient, directional, volumetric), a shadow query per
 light, and one continuation ray a bounce: the mirror direction, or for glass
-reflection or refraction picked by Schlick Fresnel.
+reflection or refraction picked by Schlick Fresnel. On a textured scene
+the textured lane: the shading frame's normal, and the base map read
+bilinearly at the frame's uv (`shade/texture.py::sample_bilinear`) scales
+the diffuse color. On a scene with alpha cutouts the shadow queries
+re-enter past holes (`intersect.scene_any`); radiance rays see the cut
+surfaces, as in the reference.
 
 The whole wavefront moves one bounce at a time in eager PyTorch. Its queries
 go through `intersect.scene_closest` / `scene_any`: kernels 1-2 on a flat
@@ -31,12 +36,14 @@ from ..core.vecmath import dot, normalize, reflect, refract
 from ..scene.device_scene import DeviceScene
 from ..shade import materials as mats
 from ..shade.lights import sample_light
+from ..shade.texture import sample_bilinear
 from .engine import INV_PI, RAY_TMIN, SHADOW_TMAX_SCALE, _pow5
 from .intersect import scene_any, scene_closest
 
 # The material fields the Whitted bounce reads.
 FIELDS = ("kind", "base_color", "emission", "metallic", "roughness", "ior",
-          "kr", "specular", "phong_exp", "checker1", "checker_scale")
+          "kr", "specular", "phong_exp", "checker1", "checker_scale",
+          "base_tex")
 
 
 def _checker(uv, scale):
@@ -46,21 +53,27 @@ def _checker(uv, scale):
     return torch.remainder(cu + cv, 2.0) < 1.0
 
 
-def _shading_normal(scene: DeviceScene, hits):
-    """The hit's normal, or on a smooth untextured mesh the interpolated
-    vertex normal of a triangle hit (whitted.py:67-77)."""
-    if scene.has_textures:
-        raise NotImplementedError(
-            "the textured Whitted lane (shade/texture.py::sample_bilinear) "
-            "is not ported yet (ROADMAP.md Queue 1 item 8)")
-    if not scene.geom.smooth:
-        return hits.normal
-    m = scene.num_triangles
-    is_tri = hits.prim_id < m
-    frame = shading_frame(scene.geom, torch.clamp(hits.prim_id, 0, m - 1),
+def _surface(scene: DeviceScene, hits, m):
+    """The hit's normal and its base map's color (whitted.py:67-97) → (normal
+    [N, 3], albedo factor [N, 3] or None). On a smooth or textured mesh a
+    triangle hit takes the shading frame's interpolated normal; on a
+    textured one the base map (sample_bilinear, level 0, at the frame's uv;
+    white where a material has none or the hit is a prim's) gives the
+    factor."""
+    if not (scene.geom.smooth or scene.has_textures):
+        return hits.normal, None
+    n_tri = scene.num_triangles
+    is_tri = hits.prim_id < n_tri
+    frame = shading_frame(scene.geom, torch.clamp(hits.prim_id, 0, n_tri - 1),
                           hits.uv)
-    return torch.where(is_tri[..., None], frame["shading_normal"],
-                       hits.normal)
+    normal = torch.where(is_tri[..., None], frame["shading_normal"],
+                         hits.normal)
+    if not scene.has_textures:
+        return normal, None
+    rgba = sample_bilinear(scene.textures, scene.tex_size,
+                           torch.where(is_tri, m["base_tex"], -1),
+                           frame["uv"])
+    return normal, rgba[..., :3]
 
 
 def _direct(m, kd, n, d, refl_view, wi, lrad, is_ambient, lit):
@@ -116,7 +129,7 @@ def _bounce(scene: DeviceScene, state: dict, chunk_size) -> dict:
 
     m = mats.gather(scene.materials, hits.mat_id, FIELDS)
     d = rays.direction
-    geom_n = _shading_normal(scene, hits)
+    geom_n, albedo_tex = _surface(scene, hits, m)
     n = geom_n * torch.sign(-dot(geom_n, d))[..., None]
     hit_p = rays.at(hits.t)
 
@@ -132,6 +145,8 @@ def _bounce(scene: DeviceScene, state: dict, chunk_size) -> dict:
     on_primary = _checker(hits.uv, m["checker_scale"])
     kd = torch.where(((kind == mats.CHECKER) & ~on_primary)[..., None],
                      m["checker1"], m["base_color"])
+    if albedo_tex is not None:
+        kd = kd * albedo_tex
     refl_view = normalize(reflect(d, n))
 
     # per light: its sample, a shadow query (cast for an ambient light too,

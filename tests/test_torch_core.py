@@ -204,15 +204,18 @@ def test_device_scene_from_numpy_is_bit_exact():
 
 def test_unported_features_raise():
     fields = scene_fields(jbuiltins.cornell_box())
-    fields["features"] = ("cutouts",)
+    fields["features"] = ("volume",)
     from optix_raytracer_tpu_torch.scene.device_scene import (
         device_scene_from_numpy)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         device_scene_from_numpy(fields, "cpu").require_supported()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmaterials.make_material_table([{"cutout": 1}], "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmaterials.make_material_table([{"alpha_mode": 1}], "cpu")
+    # alpha cutouts are ported: their planes build, the feature is served
+    fields["features"] = ("cutouts",)
+    device_scene_from_numpy(fields, "cpu").require_supported()
+    table = tmaterials.make_material_table([{"cutout": 1},
+                                            {"alpha_mode": 1}], "cpu")
+    assert table.cutout.tolist() == [1, 0]
+    assert table.alpha_mode.tolist() == [0, 1]
     # texture ids are ported (the bundle id comes with the scene's textures)
     table = tmaterials.make_material_table([{"base_tex": 0}], "cpu")
     assert int(table.base_tex[0]) == 0 and int(table.bundle[0]) == -1

@@ -925,3 +925,62 @@ def test_whitted_dead_lanes_reach_bf_kernels_dead(cuda):
         for sh in live[1:]:
             assert not bool((sh & ~live[0]).any())
         prev = live[0]
+
+
+@pytest.mark.parametrize("name", ["cutout_cornell", "opaque_alpha",
+                                  "cutout_grid", "circle_grid"])
+def test_cutout_occlusion_matches_plain(cuda, name):
+    """bench.py's occlusion rays (65,536) on the cutout scenes: the micromap
+    path, the loop and scene_any through the kernels (1-2, 4 + 6 on the
+    grid's solid split) equal the same queries through the plain versions,
+    and the micromap path equals the loop (on the circle grid, where the
+    micromaps are not exact, only the plain parity is held)."""
+    from optix_raytracer_tpu_torch.tools import cutout_probe as CP
+    from optix_raytracer_tpu_torch.tools.whitted_probe import plain_queries
+    scene = (CP.circle_grid(cuda) if name == "circle_grid"
+             else CP.OCCLUSION_SCENES[name](cuda))
+    rays = CP.occlusion_rays(name, 1 << 16, 5, cuda)
+    out = {}
+    for query in ("omm", "loop", "scene_any"):
+        kernels.reset_launches()
+        occ = CP.occlusion_query(scene, query, rays)
+        assert any(kernels.LAUNCHES.values())
+        with plain_queries():
+            ref = CP.occlusion_query(scene, query, rays)
+        assert torch.equal(occ, ref), query
+        out[query] = occ
+    assert 0.0 < float(out["omm"].float().mean()) < 1.0
+    if name != "circle_grid":
+        assert torch.equal(out["omm"], out["loop"])
+
+
+@pytest.mark.parametrize("name", ["cutouts", "textured_cutout", "grid"])
+def test_cutout_render_matches_plain(cuda, name):
+    """One launch of the cut lanes on the card (the cutout Cornell and its
+    textured variant at 64², 2 samples, depth 4: kernels 1-2; the cutout
+    grid at 64², 8 samples, depth 3, sample-major: kernels 4-6) bit-equal
+    to the same launch through the plain versions, rays equal."""
+    from optix_raytracer_tpu_torch.apps import cutouts
+    from optix_raytracer_tpu_torch.tools.whitted_probe import plain_queries
+    scene, cam_fn, spl, depth = {
+        "cutouts": (cutouts.cutout_cornell, B.cornell_camera, 2, 4),
+        "textured_cutout": (cutouts.textured_cutout_cornell,
+                            B.cornell_camera, 2, 4),
+        "grid": (cutouts.cutout_grid, B.cutout_grid_camera, 8, 3)}[name]
+    scene = scene(cuda)
+    cam = cam_fn(64, 64).params(cuda)
+
+    def launch():
+        return engine.render_accumulate(scene, cam, Film.create(64, 64, cuda),
+                                        64, 64, samples_per_launch=spl,
+                                        max_depth=depth)
+    kernels.reset_launches()
+    film, rays = launch()
+    need = ("cluster_closest", "cluster_any") if name == "grid" else (
+        "bf_closest", "bf_any")
+    assert all(kernels.LAUNCHES[k] > 0 for k in need)
+    with plain_queries():
+        ref, ref_rays = launch()
+    assert int(rays) == int(ref_rays)
+    np.testing.assert_array_equal(film.accum.cpu().numpy(),
+                                  ref.accum.cpu().numpy())

@@ -14,7 +14,12 @@ renders bench.py's textured scene 8x8 through the fused kernel's plain
 version (the texture lanes), runs kernel 9's plain version from the
 port's tools/bench_texfetch, and renders the Whitted scene 8x6 through the
 Whitted app and the small smooth knot 8x8 through the meshviewer's
-headlight rig (the Whitted integrator, its light table and Film.accumulate).
+headlight rig (the Whitted integrator, its light table and Film.accumulate),
+renders the cutouts app 8x8, builds a 602-triangle cutout grid (a cluster
+scene; its 302 certain-solid triangles get no table of their own) and
+holds its micromap occlusion to the alpha loop, runs the opacity-micromap
+and displaced-micromesh apps, and renders the textured Whitted scene 8x6
+(the micromaps, the alpha paths, the cut lanes and the textured lane).
 Until then no module of the JAX package is loaded; the JAX package's reader
 then checks the PNG."""
 import os
@@ -111,6 +116,8 @@ rows = bench_texfetch.onehot_fetch(atlas_bf, *bench_texfetch.tile_window(
     base, local, 128), 128)
 assert (rows == atlas_bf[idx.long()].float()).all()
 from optix_raytracer_tpu_torch.apps import meshviewer, whitted
+from optix_raytracer_tpu_torch.core.rays import Rays
+from optix_raytracer_tpu_torch.wavefront import whitted as whitted_mod
 from optix_raytracer_tpu_torch.scene.builtins import knot_host_scene
 w_accum, w_film, w_rays = whitted.render(8, 6, samples=1, max_depth=3,
                                          device="cpu")
@@ -121,6 +128,32 @@ m_accum, _, m_rays = meshviewer.render(None, 8, 8, samples=1, max_depth=2,
                                        scene=knot_host_scene(8, 6),
                                        device="cpu")
 assert np.isfinite(m_accum.numpy()).all() and int(m_rays) > 0
+from optix_raytracer_tpu_torch.accel import micromap
+from optix_raytracer_tpu_torch.apps import (cutouts, displaced_micromesh,
+                                            opacity_micromap)
+from optix_raytracer_tpu_torch.wavefront import intersect
+c_accum, c_film, c_rays = cutouts.render(8, 8, samples=2, max_depth=3,
+                                         device="cpu")
+assert np.isfinite(c_accum.numpy()).all() and int(c_rays) > 8 * 8 * 2
+grid = cutouts.cutout_grid("cpu", nx=20, ny=15)
+assert grid.has_clusters and grid.omm_solid_clusters is None
+assert grid.omm_all_certain and grid.omm_solid_geom.num_triangles == 302
+g_rays = Rays.make(grid.geom.v0[:64] + 1.0, -grid.geom.face_normal[:64],
+                   tmin=1e-3, tmax=1e4)
+assert (intersect.scene_any(grid, g_rays)
+        == intersect._scene_any_alpha(grid, g_rays)).all()
+o_accum, o_stats, _ = opacity_micromap.render(8, 8, samples=1, device="cpu")
+assert o_stats["micro_states"].shape == (4, 64)
+assert (o_stats["micro_states"] != micromap.UNKNOWN_OPAQUE).all()
+d_accum, d_tris, _ = displaced_micromesh.render(8, 8, level=2, samples=1,
+                                                device="cpu")
+assert d_tris == 32 and np.isfinite(d_accum.numpy()).all()
+from optix_raytracer_tpu_torch.scene.builtins import (textured_whitted_camera,
+                                                     textured_whitted_scene)
+tw_film, _ = whitted_mod.render_whitted(
+    textured_whitted_scene("cpu"), textured_whitted_camera(8, 6).params(
+        "cpu"), 8, 6, 1, max_depth=2)
+assert np.isfinite(tw_film.accum.numpy()).all()
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 assert not any(m == "optix_raytracer_tpu"

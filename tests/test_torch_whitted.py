@@ -19,7 +19,6 @@ cluster path) the JAX BVH traversal. About 95 s on one worker with a cold
 JAX compile cache (55 s warm), most of it the JAX compiles of
 render_whitted_sample (one per scene and frame).
 """
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -452,11 +451,24 @@ def test_whitted_app_matches_jax(one_torch_thread, tmp_path):
 
 
 def test_textured_whitted_raises():
-    """The textured lane needs shade/texture.py::sample_bilinear (Queue 1
-    item 8)."""
-    scene = tbuiltins.textured_scene("cpu", sizes=(8, 4, 4, 2))
-    scene = dataclasses.replace(scene, lights=tlights.LightTable.make(
-        MIXED_LIGHTS[:1], "cpu"))
-    cam = tbuiltins.textured_camera(8, 8).params("cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        twhitted.render_whitted_sample(scene, cam, 8, 8, 0, max_depth=1)
+    """The textured lane (shade/texture.py::sample_bilinear on the atlas's
+    level 0, the shading frame's normal), which raised until it was
+    ported, on bench.py's textured scene at small map sizes under one point
+    light: it renders the JAX package's image (8x8, depth 2, the JAX scene
+    handed over)."""
+    from optix_raytracer_tpu.core.camera import Camera as JCamera
+    from test_torch_textures import jax_textured
+    from torch_parity import torch_cam, torch_scene
+    jscene = jax_textured(1.0, 1.0, sizes=(8, 4, 4, 2)).replace(
+        lights=jlights.LightTable.make(MIXED_LIGHTS[:1]))
+    cam = tbuiltins.textured_camera(8, 8)
+    jcam = JCamera(eye=cam.eye, lookat=cam.lookat, up=cam.up,
+                   fov_y=cam.fov_y, aspect=cam.aspect).params()
+    scene = torch_scene(jscene)
+    assert scene.has_textures and scene.textures.shape[0] == 4
+    ref = np.asarray(jwhitted.render_whitted_sample(
+        jscene, jcam, 8, 8, jnp.uint32(0), max_depth=2))
+    img, _ = twhitted.render_whitted_sample(scene, torch_cam(jcam), 8, 8, 0,
+                                            max_depth=2)
+    _assert_image(img.numpy(), ref, "textured whitted")
+    assert img.numpy().max() > 0

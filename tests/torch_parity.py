@@ -22,8 +22,9 @@ def scene_fields(jscene):
     """JAX DeviceScene → the numpy field dict of device_scene_from_numpy
     (the instance table too, so both packages trace with the same inverse
     transforms: jnp.linalg.inv and torch.linalg.inv may round apart; and the
-    texture bundles, uvs, tangents and uv densities, the light table and
-    the Whitted material planes)."""
+    texture bundles and atlas, uvs, tangents and uv densities, the light
+    table, the Whitted and cutout material planes and the opacity
+    micromaps, whose split the port derives from them)."""
     g, m, light = jscene.geom, jscene.materials, jscene.area_light
     cl, inst = jscene.clusters, jscene.instances
     arrays = dict(
@@ -51,7 +52,11 @@ def scene_fields(jscene):
         lights_position=jscene.lights.position,
         lights_color=jscene.lights.color,
         lights_falloff=jscene.lights.falloff,
-        lights_radius=jscene.lights.radius)
+        lights_radius=jscene.lights.radius, textures=jscene.textures,
+        tex_size=jscene.tex_size, tex_mip=jscene.tex_mip,
+        mat_alpha_mode=m.alpha_mode, mat_cutout=m.cutout,
+        mat_alpha_cutoff=m.alpha_cutoff, omm_micro=jscene.omm_micro,
+        omm_summary=jscene.omm_summary)
     fields = {k: np.array(v) for k, v in arrays.items()}
     fields["bundle_meta"] = jscene.bundle_meta
     fields["mat_tex_flags"] = jscene.mat_tex_flags
@@ -61,6 +66,7 @@ def scene_fields(jscene):
     fields["num_clusters"] = int(cl.num_clusters)
     fields["inst_prim_ranges"] = tuple(inst.prim_ranges)
     fields["inst_row_ids"] = bool(inst.row_ids)
+    fields["omm_level"] = int(jscene.omm_level)
     return fields
 
 

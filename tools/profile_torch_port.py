@@ -23,7 +23,14 @@ a degenerate triangle, 3 custom prims, a point and an ambient light; default
 the 25,202-triangle knot; default 768x768, depth 3) profile --spl samples
 of the Whitted integrator (impl="whitted", wavefront/whitted.py
 render_whitted; default 16 and 8), with the device time of the query
-kernels (kernels 1-2, 4-6) split out (`query_kernels_ms`).
+kernels (kernels 1-2, 4-6) split out (`query_kernels_ms`). --scene
+cutouts (apps/cutouts.py's Cornell box with a checker and a circle cutout;
+default 768x768, 32 samples per launch, depth 4) profiles one launch of
+the wavefront (impl="wavefront", which "auto" takes), and --scene
+cutout_grid (the 2,402-triangle cutout grid; default 768x768, 8 samples
+per launch, depth 3) one sample-major launch (impl="spl"), each with the
+query kernels split out and the alpha loops' loops and steps
+(`alpha_stats`: each step one closest-hit query and one host sync).
 torch.profiler prints for each: the wall time of the launch, the device
 time summed over kernels, the device's idle share of the window, and the
 kernels that take the most device time. Needs a CUDA device; with --out DIR
@@ -42,7 +49,8 @@ answered overflowed queries, the walks outside the queue (bounce-0 closest
 hits), and how many queries the queue answered or handed to the walk.
 
     python tools/profile_torch_port.py [--scene cornell|knot|knot4m|prims|pbr|
-        instanced|smooth_knot|textured|whitted|knot_rig] [--dim 1920x1088]
+        instanced|smooth_knot|textured|whitted|knot_rig|cutouts|
+        cutout_grid] [--dim 1920x1088]
         [--spl N] [--depth N] [--qwalk] [--out DIR]
 """
 from __future__ import annotations
@@ -197,6 +205,7 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
     from optix_raytracer_tpu_torch.accel import qwalk as Q
     from optix_raytracer_tpu_torch.core.film import Film
     from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
+    from optix_raytracer_tpu_torch.wavefront import intersect
     from optix_raytracer_tpu_torch.wavefront.whitted import render_whitted
 
     dev = scene.device
@@ -210,6 +219,7 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
     launch()                                                   # warm-up
     torch.cuda.synchronize()
     Q.reset_stats()
+    intersect.reset_alpha_stats()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -238,7 +248,9 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
                     for n, (c, t) in top])
     if tag in ("knot", "knot4m"):
         out["cull_stages_ms"] = _stage_split(prof, kernels)
-    if impl == "whitted":
+    if scene.has_cutouts:
+        out["alpha_stats"] = dict(intersect.ALPHA_STATS)
+    if impl == "whitted" or scene.has_cutouts:
         out["query_kernels_ms"] = {
             k: sum(e.time_range.end - e.time_range.start for e in kernels
                    if k in e.name) / 1e3 for k in _QUERY_KERNELS}
@@ -252,14 +264,16 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--scene", choices=("cornell", "knot", "knot4m", "prims",
                                        "pbr", "instanced", "smooth_knot",
-                                       "textured", "whitted", "knot_rig"),
+                                       "textured", "whitted", "knot_rig",
+                                       "cutouts", "cutout_grid"),
                    default="cornell")
     p.add_argument("--dim", default=None,
                    help="frame (default 768x576 for whitted, 768x768 for "
-                        "knot_rig, else 1920x1088)")
+                        "knot_rig and the cutout scenes, else 1920x1088)")
     p.add_argument("--spl", type=int, default=None,
                    help="samples per launch (default 4 for the textured "
-                        "scene, 8 for knot_rig, else 16)")
+                        "scene, 8 for knot_rig and cutout_grid, 32 for "
+                        "cutouts, else 16)")
     p.add_argument("--depth", type=int, default=None,
                    help="bounces (default 3 for the knot, knot_rig and "
                         "textured scenes, 6 for whitted, else 4)")
@@ -278,12 +292,24 @@ def main():
             raise SystemExit("profile_torch_port: --qwalk needs a knot scene")
         os.environ["ORT_QWALK"] = "1"
         _label_queries()
-    dim = args.dim or {"whitted": "768x576",
-                       "knot_rig": "768x768"}.get(args.scene, "1920x1088")
+    dim = args.dim or {"whitted": "768x576", "knot_rig": "768x768",
+                       "cutouts": "768x768",
+                       "cutout_grid": "768x768"}.get(args.scene, "1920x1088")
     w, h = (int(v) for v in dim.split("x"))
     dev = torch.device("cuda")
-    spl = args.spl or {"textured": 4, "knot_rig": 8}.get(args.scene, 16)
-    if args.scene == "whitted":
+    spl = args.spl or {"textured": 4, "knot_rig": 8, "cutouts": 32,
+                       "cutout_grid": 8}.get(args.scene, 16)
+    if args.scene == "cutouts":
+        from optix_raytracer_tpu_torch.apps.cutouts import cutout_cornell
+        scene = cutout_cornell(dev)
+        cam = builtins.cornell_camera(w, h).params(dev)
+        impls, depth = ("wavefront",), args.depth or 4
+    elif args.scene == "cutout_grid":
+        from optix_raytracer_tpu_torch.apps.cutouts import cutout_grid
+        scene = cutout_grid(dev)
+        cam = builtins.cutout_grid_camera(w, h).params(dev)
+        impls, depth = ("spl",), args.depth or 3
+    elif args.scene == "whitted":
         scene = builtins.whitted_scene(dev)
         cam = builtins.whitted_camera(w, h).params(dev)
         impls, depth = ("whitted",), args.depth or 6
