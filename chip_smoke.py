@@ -44,7 +44,12 @@ kernel 1 on a 2,400-row unknown split, the opacity-micromap app and the
 cutout grid's sample-major path trace (768x768, 8 samples, depth 3;
 kernels 4-6), the textured cutout Cornell, the textured Whitted scene and
 the displaced micromesh, each first sample bit-equal through the plain
-versions.
+versions. Phases n1-n3 drive the denoiser: `pathtracer --denoise` at the
+headline frame (kernel 3 renders, kernel 1 answers render_aovs' camera
+query, bit-equal to its plain version; the trained net's HDR invoke, a
+256x256 crop held against the CPU), the model kinds timed at that frame
+and every invoke case held against the CPU at 128x96, and the
+reference's two quality bars on 128x128 renders.
 
     python3 chip_smoke.py
 
@@ -1467,6 +1472,199 @@ def cutout_phases(dev, card, record):
     torch.cuda.empty_cache()
 
 
+def denoise_phases(dev, card, record):
+    """Phases n1-n3: the denoiser (the shapes in
+    optix_raytracer_tpu_torch/tools/denoise_probe.py). (n1) `pathtracer
+    --denoise` at the headline frame as a user runs it (1920x1088, two
+    launches of 16 samples, depth 4: kernel 3; render_aovs: kernel 1; the
+    trained net's HDR invoke with the emission guide), its counts read on
+    that run alone (denoise_launches in the kernels line); then the same
+    stages timed one by one, the AOV layers bit-equal to the same call
+    through kernel 1's plain version, and a 256x256 crop denoised on the
+    card and on the CPU within atol / rtol 1e-3; (n2) the model kinds at
+    that frame, 3 calls after a warm-up each, and every invoke case of the
+    matrix at 128x96 on the card against the CPU, the flow equal; (n3) the
+    reference's quality bars (tests/test_denoise.py:241-310) on 128x128
+    renders with variance tracking."""
+    import tempfile
+
+    import torch
+    from optix_raytracer_tpu_torch import kernels
+    from optix_raytracer_tpu_torch.api import Denoiser
+    from optix_raytracer_tpu_torch.apps import pathtracer
+    from optix_raytracer_tpu_torch.core.film import make_color
+    from optix_raytracer_tpu_torch.io.image import load_image
+    from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
+                                                         cornell_camera)
+    from optix_raytracer_tpu_torch.tools import denoise_probe as DP
+    from optix_raytracer_tpu_torch.tools.whitted_probe import plain_queries
+    from optix_raytracer_tpu_torch.wavefront.engine import render_aovs
+
+    torch.cuda.init()        # the peak-memory reset needs the context
+    names = ("pt_fused_cornell", "bf_closest")
+    for name in names:
+        record[name]["denoise_launches"] = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted(tag, fn):
+        """fn() with every count set to 0 just before and read just after;
+        kernels 1 and 3 must have launched (denoise_launches[tag])."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out, dt = timed(fn)
+        n = dict(kernels.LAUNCHES)
+        for name in names:
+            require(n[name] > 0, f"{tag}: {name} never launched")
+            record[name]["denoise_launches"][tag] = n[name]
+        return out, dt, {k: n[k] for k in names}
+
+    def events_ms(fn, reps=3):
+        """fn() once to warm up, then `reps` calls: (mean ms by CUDA
+        events, mean ms by the host clock after a synchronize)."""
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return (start.elapsed_time(end) / reps,
+                1e3 * (time.perf_counter() - t0) / reps)
+
+    # --- n1: pathtracer --denoise at the headline frame ---
+    W, H, S, spl, depth = (DP.DENOISE[k] for k in ("width", "height",
+                                                   "samples", "spl",
+                                                   "depth"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cornell.ppm")
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, app_s, n = counted("n1", lambda: pathtracer.main(
+            ["--file", path, "--dim", f"{W}x{H}", "--samples", str(S),
+             "--launch-samples", str(spl), "--depth", str(depth),
+             "--denoise", "--device", str(dev)]))
+        app_peak = torch.cuda.max_memory_allocated(dev)
+        app_img = load_image(path)
+    scene, camera = cornell_box(dev), cornell_camera(W, H)
+    cam = camera.params(dev)
+    (accum, _, rays), render_s = timed(lambda: pathtracer.render(
+        W, H, samples=S, max_depth=depth, scene=scene, camera=camera,
+        samples_per_launch=spl, device=dev))
+    aovs, aov_s = timed(lambda: render_aovs(scene, cam, W, H))
+    with plain_queries():
+        aovs_p, aov_plain_s = timed(lambda: render_aovs(scene, cam, W, H))
+    for k in ("albedo", "normal", "emission"):
+        require(aovs[k].shape == (H, W, 3) and torch.equal(aovs[k],
+                                                           aovs_p[k]),
+                f"n1: the {k} layer through kernel 1 differs from its "
+                f"plain version's")
+    den = Denoiser(device=dev).setup(W, H)
+    g = dict(albedo=aovs["albedo"], normal=aovs["normal"],
+             emission=aovs["emission"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, den_first_s = timed(lambda: den.invoke(accum, **g))
+    den_peak = torch.cuda.max_memory_allocated(dev)
+    den_ms, den_host_ms = events_ms(lambda: den.invoke(accum, **g))
+    require(out.shape == (H, W, 3) and bool(torch.isfinite(out).all()),
+            "n1: the denoised frame is not finite")
+    want = to_np(make_color(out))[..., :3].astype(np.int16)
+    require(np.abs(app_img.astype(np.int16) - want).max() <= 1,
+            "n1: the app's frame differs from its stages' by more than one "
+            "level")
+    c = DP.CROP
+    y0, x0 = (H - c) // 2, (W - c) // 2
+
+    def crop(t):
+        return t[y0:y0 + c, x0:x0 + c]
+
+    gpu = to_np(Denoiser(device=dev).setup(c, c).invoke(
+        crop(accum), **{k: crop(v) for k, v in g.items()}))
+    cpu = to_np(Denoiser(device="cpu").setup(c, c).invoke(
+        crop(accum).cpu(), **{k: crop(v).cpu() for k, v in g.items()}))
+    crop_bad = int((np.abs(gpu - cpu) > DP.ATOL + DP.RTOL * np.abs(cpu))
+                   .sum())
+    require(crop_bad == 0, f"n1: the {c}x{c} crop's card and CPU denoise "
+            f"differ in {crop_bad} values (max {np.abs(gpu - cpu).max()})")
+    phase("n1 pathtracer --denoise", card=repr(card), dim=f"{W}x{H}",
+          samples=S, spl=spl, depth=depth, app_ms=f"{1e3 * app_s:.2f}",
+          app_peak_mem_mib=f"{app_peak / 2**20:.0f}", launches=n,
+          render_ms=f"{1e3 * render_s:.2f}", rays=int(rays),
+          aovs_ms=f"{1e3 * aov_s:.2f}",
+          aovs_plain_ms=f"{1e3 * aov_plain_s:.2f}", aovs_bit_equal=True,
+          denoise_first_ms=f"{1e3 * den_first_s:.2f}",
+          denoise_ms_events=f"{den_ms:.3f}",
+          denoise_ms_host=f"{den_host_ms:.3f}",
+          denoise_peak_mem_mib=f"{den_peak / 2**20:.0f}",
+          crop=f"{c}x{c}", crop_max_abs_err=f"{np.abs(gpu - cpu).max():.3g}",
+          image_mean=f"{float(out.mean()):.5f}",
+          noisy_mean=f"{float(accum.mean()):.5f}")
+
+    # --- n2: the model kinds at the headline frame, and the matrix ---
+    x = DP.headline_inputs(accum, aovs)
+    kinds = {}
+    for name, fn in DP.kind_calls(x, dev).items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        ev, host = events_ms(fn)
+        res = fn()
+        res = res[0] if isinstance(res, tuple) else res
+        require(bool(torch.isfinite(res).all()), f"n2 {name}: not finite")
+        kinds[name] = dict(ms_events=round(ev, 3), ms_host=round(host, 3),
+                           peak_mib=round(torch.cuda.max_memory_allocated(
+                               dev) / 2**20))
+    phase("n2 model kinds", card=repr(card), dim=f"{W}x{H}",
+          kinds=json.dumps(kinds))
+    t0 = time.perf_counter()
+    errs = DP.matrix_parity(dev)
+    phase("n2 card vs cpu", cases=len(errs), flow_equal=True,
+          max_abs_err=f"{max(errs.values()):.3g}",
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          per_case=json.dumps({k: float(f"{v:.3g}")
+                               for k, v in errs.items()}))
+    del x, accum, aovs, aovs_p, out
+    torch.cuda.empty_cache()
+
+    # --- n3: the reference's quality bars ---
+    q = DP.QUALITY
+    s, depth = q["size"], q["depth"]
+
+    def quality():
+        clean = DP.tracked_render(*q["clean"], s, depth, dev).accum
+        aq = render_aovs(cornell_box(dev), cornell_camera(s, s).params(dev),
+                         s, s)
+        out = {}
+        for key in ("open", "converged"):
+            film = DP.tracked_render(*q[key], s, depth, dev)
+            res = Denoiser(device=dev).setup(s, s).invoke(
+                film.accum, albedo=aq["albedo"], normal=aq["normal"],
+                emission=aq["emission"], variance=film.variance_of_mean())
+            out[key] = (DP.log_mse(film.accum, clean),
+                        DP.log_mse(res, clean))
+        return out
+
+    lm, q_s, n = counted("n3", quality)
+    require(lm["open"][1] < 0.8 * lm["open"][0],
+            f"n3: the gated 4-spp output's log-MSE {lm['open'][1]:.4g} is "
+            f"not below 0.8x the noisy input's {lm['open'][0]:.4g}")
+    require(lm["converged"][1] <= 1.001 * lm["converged"][0],
+            f"n3: the gated 64-spp output's log-MSE "
+            f"{lm['converged'][1]:.4g} exceeds 1.001x the noisy input's "
+            f"{lm['converged'][0]:.4g}")
+    phase("n3 quality bars", card=repr(card), dim=f"{s}x{s}",
+          seconds=f"{q_s:.2f}", launches=n,
+          spp4_log_mse=f"{lm['open'][0]:.6g}->{lm['open'][1]:.6g}",
+          spp64_log_mse=f"{lm['converged'][0]:.6g}->"
+                        f"{lm['converged'][1]:.6g}")
+    torch.cuda.empty_cache()
+
+
 def sc_phases(dev, card, record):
     """Phases (e)-(g): the 4.0M-triangle knot through the supercluster tier.
     (e) the build, timed per step, and traversal_stats at supercluster
@@ -2410,6 +2608,10 @@ def main():
     # --- phases c1-c4: alpha cutouts and opacity micromaps (kernels 1-2,
     # 4-6) ---
     cutout_phases(dev, card, record)
+    torch.cuda.empty_cache()
+
+    # --- phases n1-n3: the denoiser (kernels 1 and 3) ---
+    denoise_phases(dev, card, record)
 
     # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---
     launches.update(sc_phases(dev, card, record))

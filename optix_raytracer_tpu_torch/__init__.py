@@ -12,10 +12,17 @@ find:
               displaced micromeshes, morton codes and the binding to the
               native SAH builder
   scene/      the torch DeviceScene, the built-in Cornell box and knot
-  wavefront/  the lock-step engine and the fused path-trace kernel (kernel 3)
-  io/         image output
-  apps/       the path tracer, Whitted, meshviewer, cutouts,
-              opacity-micromap and displaced-micromesh CLIs
+  wavefront/  the lock-step engine, the fused path-trace kernel (kernel 3)
+              and the denoiser's guide layers (render_aovs)
+  denoise/    the denoiser's backends: the kernel-prediction CNN (its
+              weights in denoise/weights/), the à-trous filter and
+              block-matching optical flow
+  api/        the OptiX-shaped surface; so far the Denoiser (seven model
+              kinds, both alpha modes, tiling)
+  io/         image input and output (PPM, PNG, EXR, NPZ)
+  apps/       the path tracer (with --denoise), Whitted, meshviewer,
+              cutouts, opacity-micromap, displaced-micromesh, denoiser and
+              optical-flow CLIs
   csrc/       the hand-written CUDA C++ kernels, built on first use by
               `kernels.py`
 

@@ -3,7 +3,10 @@
     python -m optix_raytracer_tpu_torch.apps.pathtracer --file cornell.ppm \\
         --dim 1920x1088 --samples 32 --launch-samples 16 --depth 4
 
-On a CUDA device each launch is one fused-kernel launch (kernel 3). PNG
+On a CUDA device each launch is one fused-kernel launch (kernel 3). With
+`--denoise` the primary-hit guide layers (`render_aovs`: albedo, normal,
+emission; kernel 1) feed the denoiser (`api.denoiser.Denoiser`, the
+trained net) before the frame is encoded; `--ascii` prints a preview. PNG
 output needs Pillow; .ppm needs nothing beyond numpy.
 """
 from __future__ import annotations
@@ -14,7 +17,7 @@ import time
 import torch
 
 from ..core import film as film_mod
-from ..io.image import save_image
+from ..io.image import save_image, to_ascii
 from ..scene.builtins import cornell_box, cornell_camera
 from ..wavefront.engine import render_accumulate
 from ._cli import parse_dim
@@ -51,19 +54,35 @@ def main(argv=None):
     p.add_argument("--launch-samples", type=int, default=16,
                    help="samples per launch (reference default 16)")
     p.add_argument("--depth", type=int, default=4)
+    p.add_argument("--ascii", action="store_true")
+    p.add_argument("--denoise", action="store_true",
+                   help="denoise with the albedo / normal / emission guides "
+                        "(the optixDenoiser post-pass)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     w, h = parse_dim(args.dim)
     device = torch.device(args.device)
 
     t0 = time.perf_counter()
+    scene = cornell_box(device)
+    camera = cornell_camera(w, h)
     accum, film, rays = render(w, h, samples=args.samples,
-                               max_depth=args.depth,
+                               max_depth=args.depth, scene=scene,
+                               camera=camera,
                                samples_per_launch=args.launch_samples,
                                device=device)
+    if args.denoise:
+        from ..api.denoiser import Denoiser
+        from ..wavefront.engine import render_aovs
+        aovs = render_aovs(scene, camera.params(device), w, h)
+        accum = Denoiser(device=device).setup(w, h).invoke(
+            accum, albedo=aovs["albedo"], normal=aovs["normal"],
+            emission=aovs["emission"])
     img = film_mod.make_color(accum).cpu().numpy()   # synchronises
     dt = time.perf_counter() - t0
     save_image(args.file, img)
+    if args.ascii:
+        print(to_ascii(img))
     print(f"wrote {args.file} ({w}x{h}, {args.samples} spp, {dt:.2f}s, "
           f"{int(rays) / dt / 1e6:.2f} Mrays/s, "
           f"{w * h * args.samples / dt / 1e6:.2f} Msamples/s, on {device})")

@@ -49,6 +49,26 @@ class Film:
         return Film(accum=self.accum + (radiance - self.accum) * t,
                     subframe=self.subframe + 1, sq=sq, launches=launches)
 
+    def variance_of_mean(self):
+        """Per-pixel stderr² of `accum` (None when tracking is off) over L
+        equal-spp launches (core/film.py:67-78): `sq - accum²` is the
+        biased variance v_b; the unbiased sample variance is v_b L/(L-1)
+        and Var(mean) = s²/L, so the two L factors cancel to v_b/(L-1)."""
+        if self.sq is None:
+            return None
+        L = self.launches.to(torch.float32)
+        var_est = torch.clamp_min(self.sq - self.accum * self.accum, 0.0)
+        return var_est / torch.clamp_min(L - 1.0, 1.0)
+
+    def reset(self):
+        """Camera moved or resized: restart accumulation (core/film.py:
+        80-86); each field keeps its dtype and device."""
+        def zero(t):
+            return None if t is None else torch.zeros_like(t)
+
+        return Film(accum=zero(self.accum), subframe=zero(self.subframe),
+                    sq=zero(self.sq), launches=zero(self.launches))
+
 
 def linear_to_srgb(c):
     """Exact sRGB OETF (reference `cuda/helpers.h:37-42`)."""
@@ -56,6 +76,14 @@ def linear_to_srgb(c):
     lo = 12.92 * c
     hi = 1.055 * torch.pow(torch.clamp_min(c, 1e-8), 1.0 / 2.4) - 0.055
     return torch.where(c < 0.0031308, lo, hi)
+
+
+def srgb_to_linear(c):
+    """Inverse sRGB OETF (core/film.py:97-101)."""
+    c = torch.clamp(c, 0.0, 1.0)
+    lo = c / 12.92
+    hi = torch.pow((c + 0.055) / 1.055, 2.4)
+    return torch.where(c < 0.04045, lo, hi)
 
 
 def make_color(radiance):

@@ -42,7 +42,7 @@ from ..core.vecmath import cross, dot, normalize, reflect, refract
 from ..scene.device_scene import DeviceScene
 from ..shade import materials as mats
 from ..shade.sampling import cosine_sample_hemisphere, ggx_sample_half_vector
-from ..shade.texture import sample_bundle
+from ..shade.texture import sample_bilinear, sample_bundle
 from .intersect import certain_or, mask_hole, scene_any, scene_closest
 
 # Shadow / secondary-ray epsilons at Cornell scale, as in the JAX engine.
@@ -729,3 +729,46 @@ def render_sum_wavefront(scene: DeviceScene, cam_params, width: int,
         rad_sum = rad_sum + radiance
         count = count + rays_traced
     return rad_sum, count
+
+
+def render_aovs(scene: DeviceScene, cam_params, width: int, height: int,
+                chunk_size: Optional[int] = 65536):
+    """Primary-hit guide layers for the denoiser (engine.py:923-967): one
+    centred, unjittered camera ray a pixel through `scene_closest` (kernel
+    1 on a CUDA brute-force scene). albedo: the material's base colour,
+    times the base map's `sample_bilinear` at the shading frame's uv on a
+    textured scene; normal: the hit's normal, the shading frame's on a
+    smooth scene without instances; emission: the material's, the
+    engine's depth-0 emission term. A miss gives albedo 1, normal
+    -direction and emission 0. (The reference also fetches the base map
+    on a miss of a textured scene, at the barycentrics its brute force
+    leaves in a missed ray's record, and scales the miss's 1 by it; the
+    port reads no texel there.) → {"albedo", "normal", "emission"}, each
+    [H, W, 3]."""
+    rays, _ = generate_rays(cam_params, width, height, jitter=False)
+    n = width * height
+    rays = rays.reshape(n)
+    hits = scene_closest(scene, rays, chunk_size=chunk_size)
+    m = mats.gather(scene.materials, hits.mat_id,
+                    fields=("base_color", "emission", "base_tex"))
+    valid = hits.valid[:, None]
+    albedo = torch.where(valid, m["base_color"], 1.0)
+    if scene.has_textures or (scene.geom.smooth and not scene.has_instances):
+        is_tri = hits.prim_id < scene.num_triangles
+        frame = shading_frame(scene.geom, torch.clamp(
+            hits.prim_id, 0, scene.num_triangles - 1), hits.uv)
+    if scene.has_textures:
+        rgba = sample_bilinear(scene.textures, scene.tex_size,
+                               torch.where(is_tri & hits.valid,
+                                           m["base_tex"], -1),
+                               frame["uv"])
+        albedo = albedo * rgba[..., :3]
+    normal = hits.normal
+    if scene.geom.smooth and not scene.has_instances:
+        normal = torch.where(is_tri[:, None], frame["shading_normal"],
+                             normal)
+    normal = torch.where(valid, normal, -rays.direction)
+    emission = torch.where(valid, m["emission"], 0.0)
+    return {"albedo": albedo.reshape(height, width, 3),
+            "normal": normal.reshape(height, width, 3),
+            "emission": emission.reshape(height, width, 3)}

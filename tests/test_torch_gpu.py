@@ -984,3 +984,61 @@ def test_cutout_render_matches_plain(cuda, name):
     assert int(rays) == int(ref_rays)
     np.testing.assert_array_equal(film.accum.cpu().numpy(),
                                   ref.accum.cpu().numpy())
+
+
+@pytest.mark.parametrize("name", ["cornell", "smooth_knot", "textured"])
+def test_denoise_aovs_match_plain(cuda, name):
+    """render_aovs on the card (kernel 1 answers the camera query; the
+    smooth knot's shading frame, the textured scene's base map) bit-equal
+    to the same call through the plain versions, at 64x48."""
+    from optix_raytracer_tpu_torch.tools.whitted_probe import plain_queries
+    scene, camera = {
+        "cornell": (B.cornell_box, B.cornell_camera),
+        "smooth_knot": (lambda d: knot_scene(16, 15, device=d), knot_camera),
+        "textured": (B.textured_whitted_scene,
+                     B.textured_whitted_camera)}[name]
+    scene, cam = scene(cuda), camera(64, 48).params(cuda)
+    before = kernels.LAUNCHES["bf_closest"]
+    aovs = engine.render_aovs(scene, cam, 64, 48)
+    assert kernels.LAUNCHES["bf_closest"] > before
+    with plain_queries():
+        ref = engine.render_aovs(scene, cam, 64, 48)
+    for k in ("albedo", "normal", "emission"):
+        assert torch.equal(aovs[k], ref[k]), k
+
+
+def test_denoise_matches_cpu(cuda):
+    """Every invoke case of tools/denoise_probe.py (seven kinds on both
+    backends, the alpha modes, the gate, blend, AOVs, flow trust, tiling)
+    on the card against the CPU within atol / rtol 1e-3 (TF32 off in the
+    net), and the optical flow equal."""
+    from optix_raytracer_tpu_torch.tools import denoise_probe as DP
+    errs = DP.matrix_parity(cuda, h=48, w=64)
+    assert len(errs) == 2 * len(DP.CASES)
+
+
+def test_denoise_net_and_filters_match_cpu(cuda):
+    """The net (denoise_kp) and the filter (5 iterations) on the card
+    against the CPU on the same 96x128 layers within atol / rtol 1e-3, and
+    the optical flow equal."""
+    from optix_raytracer_tpu_torch.denoise import atrous, flow, kpcnn
+    from optix_raytracer_tpu_torch.tools import denoise_probe as DP
+    d = DP.layers(3, 96, 128)
+    params = kpcnn.load_params(device=cuda)
+    cpu_params = kpcnn.load_params(device="cpu")
+    beauty = torch.as_tensor(d["beauty"])
+    albedo = torch.as_tensor(d["albedo"])
+    normal = torch.as_tensor(d["normal"])
+    pairs = [
+        (kpcnn.denoise_kp(params, beauty.to(cuda), albedo.to(cuda),
+                          normal.to(cuda)),
+         kpcnn.denoise_kp(cpu_params, beauty, albedo, normal)),
+        (atrous.denoise(beauty.to(cuda), albedo.to(cuda), normal.to(cuda)),
+         atrous.denoise(beauty, albedo, normal))]
+    for a, b in pairs:
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-3,
+                                   rtol=1e-3)
+    hist = torch.as_tensor(d["history"])
+    np.testing.assert_array_equal(
+        flow.optical_flow(beauty.to(cuda), hist.to(cuda)).cpu().numpy(),
+        flow.optical_flow(beauty, hist).numpy())

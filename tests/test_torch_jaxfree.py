@@ -19,7 +19,10 @@ renders the cutouts app 8x8, builds a 602-triangle cutout grid (a cluster
 scene; its 302 certain-solid triangles get no table of their own) and
 holds its micromap occlusion to the alpha loop, runs the opacity-micromap
 and displaced-micromesh apps, and renders the textured Whitted scene 8x6
-(the micromaps, the alpha paths, the cut lanes and the textured lane).
+(the micromaps, the alpha paths, the cut lanes and the textured lane),
+runs `pathtracer --denoise` 8x8 (render_aovs and the trained net, its
+weights read from the port's own copy) and a Denoiser invoke per backend,
+and writes and reads an EXR with the port's codec.
 Until then no module of the JAX package is loaded; the JAX package's reader
 then checks the PNG."""
 import os
@@ -154,6 +157,21 @@ tw_film, _ = whitted_mod.render_whitted(
     textured_whitted_scene("cpu"), textured_whitted_camera(8, 6).params(
         "cpu"), 8, 6, 1, max_depth=2)
 assert np.isfinite(tw_film.accum.numpy()).all()
+from optix_raytracer_tpu_torch.api import Denoiser
+from optix_raytracer_tpu_torch.denoise import kpcnn
+from optix_raytracer_tpu_torch.io import exr
+pathtracer.main(["--file", sys.argv[1] + ".ppm", "--dim", "8x8", "--samples",
+                 "1", "--depth", "2", "--denoise", "--device", "cpu"])
+assert kpcnn.WEIGHTS_PATH.startswith(os.path.dirname(
+    optix_raytracer_tpu_torch.__file__) + os.sep)
+noisy = np.random.default_rng(0).gamma(1.0, 0.5, (8, 8, 3)).astype(
+    np.float32)
+for backend in ("kpcnn", "atrous"):
+    den = Denoiser(backend=backend, device="cpu").setup(8, 8)
+    out = den.invoke(noisy, albedo=np.ones_like(noisy))
+    assert out.shape == (8, 8, 3) and np.isfinite(out.numpy()).all()
+exr.write_exr(sys.argv[1] + ".exr", out.numpy())
+assert exr.read_exr(sys.argv[1] + ".exr").shape == (8, 8, 3)
 assert not any(m == "jax" or m.startswith(("jax.", "flax"))
                for m in sys.modules if sys.modules[m] is not None)
 assert not any(m == "optix_raytracer_tpu"

@@ -31,6 +31,11 @@ cutout_grid (the 2,402-triangle cutout grid; default 768x768, 8 samples
 per launch, depth 3) one sample-major launch (impl="spl"), each with the
 query kernels split out and the alpha loops' loops and steps
 (`alpha_stats`: each step one closest-hit query and one host sync).
+--scene denoise renders the frame of `pathtracer --denoise` (default
+1920x1088, two launches of 16 samples, depth 4) and its guide layers, then
+profiles one call of each model kind chip_smoke.py's n2 times (the HDR net
+and filter, the trained temporal net, UPSCALE2X, AOV, tiled, and the
+optical flow; tools/denoise_probe.py).
 torch.profiler prints for each: the wall time of the launch, the device
 time summed over kernels, the device's idle share of the window, and the
 kernels that take the most device time. Needs a CUDA device; with --out DIR
@@ -50,7 +55,7 @@ hits), and how many queries the queue answered or handed to the walk.
 
     python tools/profile_torch_port.py [--scene cornell|knot|knot4m|prims|pbr|
         instanced|smooth_knot|textured|whitted|knot_rig|cutouts|
-        cutout_grid] [--dim 1920x1088]
+        cutout_grid|denoise] [--dim 1920x1088]
         [--spl N] [--depth N] [--qwalk] [--out DIR]
 """
 from __future__ import annotations
@@ -199,6 +204,69 @@ def _qwalk_split(prof, kernels, busy_ms):
     return out
 
 
+def _summary(prof, wall):
+    """The device's kernels in a profile of `wall` seconds → (the kernel
+    events, dict(wall_ms, device_busy_ms, idle_share_of_wall,
+    kernel_launches, top: the 12 kernels of most device time))."""
+    import torch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in _RANGES + _STAGE_RANGES]
+    busy = _busy_us(kernels)
+    by_name = {}
+    for e in kernels:
+        d = by_name.setdefault(e.name, [0, 0.0])
+        d[0] += 1
+        d[1] += e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return kernels, dict(wall_ms=wall * 1e3, device_busy_ms=busy / 1e3,
+                         idle_share_of_wall=1.0 - busy / 1e3 / (wall * 1e3),
+                         kernel_launches=len(kernels),
+                         top=[dict(name=n[:80], calls=c, ms=t / 1e3)
+                              for n, (c, t) in top])
+
+
+def profile_denoise(w, h, out_dir):
+    """--scene denoise: the frame `pathtracer --denoise` renders (the
+    Cornell box, two launches of 16 samples, depth 4) and its guide
+    layers, then one profiled call of each model kind of chip_smoke.py's
+    n2 (tools/denoise_probe.py kind_calls) after a warm-up → one record
+    per kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from optix_raytracer_tpu_torch.apps import pathtracer
+    from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
+                                                         cornell_camera)
+    from optix_raytracer_tpu_torch.tools import denoise_probe as DP
+    from optix_raytracer_tpu_torch.wavefront.engine import render_aovs
+
+    dev = torch.device("cuda")
+    cfg = DP.DENOISE
+    scene, camera = cornell_box(dev), cornell_camera(w, h)
+    accum, _, _ = pathtracer.render(w, h, samples=cfg["samples"],
+                                    max_depth=cfg["depth"], scene=scene,
+                                    camera=camera,
+                                    samples_per_launch=cfg["spl"],
+                                    device=dev)
+    aovs = render_aovs(scene, camera.params(dev), w, h)
+    for name, fn in DP.kind_calls(DP.headline_inputs(accum, aovs),
+                                  dev).items():
+        fn()                                                 # warm-up
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                out_dir, f"trace_denoise_{name}.json"))
+        _, out = _summary(prof, wall)
+        yield dict(scene="denoise", kind=name, dim=f"{w}x{h}", **out)
+
+
 def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -230,22 +298,8 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir,
                                               f"trace_{tag}_{impl}.json"))
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name not in _RANGES + _STAGE_RANGES]
-    busy = _busy_us(kernels)
-    by_name = {}
-    for e in kernels:
-        d = by_name.setdefault(e.name, [0, 0.0])
-        d[0] += 1
-        d[1] += e.time_range.end - e.time_range.start
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    out = dict(scene=tag, impl=impl, wall_ms=wall * 1e3, rays=int(rays),
-               device_busy_ms=busy / 1e3,
-               idle_share_of_wall=1.0 - busy / 1e3 / (wall * 1e3),
-               kernel_launches=len(kernels),
-               top=[dict(name=n[:80], calls=c, ms=t / 1e3)
-                    for n, (c, t) in top])
+    kernels, out = _summary(prof, wall)
+    out = dict(scene=tag, impl=impl, rays=int(rays), **out)
     if tag in ("knot", "knot4m"):
         out["cull_stages_ms"] = _stage_split(prof, kernels)
     if scene.has_cutouts:
@@ -255,7 +309,8 @@ def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
             k: sum(e.time_range.end - e.time_range.start for e in kernels
                    if k in e.name) / 1e3 for k in _QUERY_KERNELS}
     if qwalk:
-        out.update(qwalk_ms=_qwalk_split(prof, kernels, busy / 1e3),
+        out.update(qwalk_ms=_qwalk_split(prof, kernels,
+                                         out["device_busy_ms"]),
                    qwalk_queries=dict(Q.STATS))
     return out
 
@@ -265,7 +320,8 @@ def main():
     p.add_argument("--scene", choices=("cornell", "knot", "knot4m", "prims",
                                        "pbr", "instanced", "smooth_knot",
                                        "textured", "whitted", "knot_rig",
-                                       "cutouts", "cutout_grid"),
+                                       "cutouts", "cutout_grid",
+                                       "denoise"),
                    default="cornell")
     p.add_argument("--dim", default=None,
                    help="frame (default 768x576 for whitted, 768x768 for "
@@ -287,6 +343,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_port: needs a CUDA device")
     from optix_raytracer_tpu_torch.scene import builtins
+    if args.scene == "denoise":
+        w, h = (int(v) for v in (args.dim or "1920x1088").split("x"))
+        for rec in profile_denoise(w, h, args.out):
+            print(json.dumps(rec), flush=True)
+        return
     if args.qwalk:
         if args.scene not in ("knot", "knot4m"):
             raise SystemExit("profile_torch_port: --qwalk needs a knot scene")
