@@ -49,7 +49,17 @@ headline frame (kernel 3 renders, kernel 1 answers render_aovs' camera
 query, bit-equal to its plain version; the trained net's HDR invoke, a
 256x256 crop held against the CPU), the model kinds timed at that frame
 and every invoke case held against the CPU at 128x96, and the
-reference's two quality bars on 128x128 renders.
+reference's two quality bars on 128x128 renders. Phases v1-v3 drive motion
+blur, curves and volumes through their six apps at the apps' default
+frames (512x512): `simple_motion_blur --engine` (kernels 1-2 under the
+moving triangle's per-path shutter times) and its standalone renderer,
+`motion_geometry` (kernel 1 on SRT-keyed object-space rays), `curves`
+(capsules and swept spans), `ribbons` and `hair` (swept cubic fur), and
+`volume_viewer` standalone, on a NanoVDB grid the phase writes, and
+`--engine` (kernels 1-2 answering the volume's scatter shadow rays too);
+each first sample's queries and image bit-equal through the plain
+versions, or a 64x64 crop held against the CPU, each run's ms a sample,
+peak memory and launches of kernels 1-2 printed.
 
     python3 chip_smoke.py
 
@@ -1665,6 +1675,283 @@ def denoise_phases(dev, card, record):
     torch.cuda.empty_cache()
 
 
+def mcv_phases(dev, card, record):
+    """Phases v1-v3: motion blur, curves and volumes through their six apps
+    at the apps' default frames (the shapes in
+    optix_raytracer_tpu_torch/tools/mcv_probe.py), each run's launches of
+    kernels 1-2 counted on it alone (v_launches in the kernels line), its
+    ms a sample by the host clock after a synchronize, and its peak memory.
+    (v1) `simple_motion_blur --engine` (512x512, 32 samples, depth 2: the
+    moving triangle through the main path tracer, the floor's queries on
+    kernels 1-2), its standalone renderer and `motion_geometry` (512x512,
+    32 samples: the SRT-keyed blades' object-space rays on kernel 1); each
+    first sample's recorded queries through the kernels bit-equal to their
+    plain versions, and its image bit-equal to the one rendered through
+    the plain versions (whitted_probe.plain_queries). (v2) `curves` (the
+    cubic B-spline strand as capsules and as swept spans) and `ribbons`
+    (512x512, 8 samples, depth 2, through the Whitted integrator: kernels
+    1-2 on the placeholder mesh, the prims by torch ops) and `hair` (the
+    procedural fur as swept cubic spans, 512x512, 4 samples); kernel 1's
+    answers on the placeholder mesh bit-equal to its plain version, and
+    each first sample's 64x64 centre crop within the bars of the port's
+    CPU output on the same rays (the card's camera rays, MP.crop_rays).
+    (v3) `volume_viewer` standalone (512x512,
+    4 samples, the puffball at res 64, 96 steps), its crop held against the
+    CPU's march; the NanoVDB path on a grid this phase writes (read back
+    equal, then marched); and `--engine` (512x512, 4 samples, res 48, depth
+    3: the cloud in the Cornell box, kernels 1-2 answering the closest, NEE
+    and scatter shadow queries), its first sample bit-equal through the
+    plain versions."""
+    import tempfile
+
+    import torch
+    from optix_raytracer_tpu_torch import kernels
+    from optix_raytracer_tpu_torch.apps import curves as curves_app
+    from optix_raytracer_tpu_torch.apps import hair as hair_app
+    from optix_raytracer_tpu_torch.apps import motion_geometry as mg_app
+    from optix_raytracer_tpu_torch.apps import ribbons as ribbons_app
+    from optix_raytracer_tpu_torch.apps import simple_motion_blur as smb
+    from optix_raytracer_tpu_torch.apps import volume_viewer as vv
+    from optix_raytracer_tpu_torch.core.film import Film
+    from optix_raytracer_tpu_torch.io import nanovdb
+    from optix_raytracer_tpu_torch.scene.builtins import cornell_camera
+    from optix_raytracer_tpu_torch.tools import mcv_probe as MP
+    from optix_raytracer_tpu_torch.tools.whitted_probe import (
+        plain_queries, recorded_queries)
+    from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
+    from optix_raytracer_tpu_torch.wavefront.whitted import trace_whitted
+
+    torch.cuda.init()
+    names = ("bf_closest", "bf_any")
+    for name in names:
+        record[name]["v_launches"] = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted(tag, fn, need=names):
+        """fn() with every count set to 0 just before and read just after,
+        and its peak memory; the kernels in `need` must have launched
+        (v_launches[tag])."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        out, dt = timed(fn)
+        n = dict(kernels.LAUNCHES)
+        for name in need:
+            require(n[name] > 0, f"{tag}: {name} never launched")
+        for name in names:
+            record[name]["v_launches"][tag] = n[name]
+        peak = torch.cuda.max_memory_allocated(dev)
+        return out, dt, {k: n[k] for k in names}, f"{peak / 2**20:.0f}"
+
+    def first_sample(tag, fn):
+        """fn() (one sample, → an [H, W, 3] tensor or a tuple led by one)
+        with its brute-force queries recorded, each held kernel against
+        plain version; then again through the plain versions, bit-equal →
+        (image numpy, queries checked)."""
+        with recorded_queries() as calls:
+            out = fn()
+        for call in calls:
+            r = MP.bf_query_parity(call)
+            require(r["bit_equal"], f"{tag}: a {r['kind']} query through "
+                    f"its kernel differs from the plain version ({r})")
+        with plain_queries():
+            ref = fn()
+        a = to_np(out[0] if isinstance(out, tuple) else out)
+        b = to_np(ref[0] if isinstance(ref, tuple) else ref)
+        require(np.array_equal(a, b), f"{tag}: the first sample through "
+                f"kernels 1-2 differs from the plain versions' by "
+                f"{np.abs(a - b).max()}")
+        require(np.isfinite(a).all(), f"{tag}: the first sample is not "
+                "finite")
+        return a, len(calls)
+
+    def check_image(tag, img, w, h):
+        img = to_np(img)
+        require(img.shape == (h, w, 3) and np.isfinite(img).all()
+                and (img >= 0).all() and img.mean() > 0,
+                f"{tag}: the image is not finite, negative or black")
+        return f"{img.mean():.5f}"
+
+    # --- v1: motion ---
+    c = MP.MOTION_BLUR
+    W, H, spl, depth = c["width"], c["height"], c["spl"], c["depth"]
+    scene = smb.engine_scene(dev)
+    cam = smb.engine_camera(W, H).params(dev)
+    first, queries = first_sample("v1 motion blur --engine", lambda: (
+        render_accumulate(scene, cam, Film.create(H, W, dev), W, H,
+                          samples_per_launch=1, max_depth=depth,
+                          chunk_size=None)[0].accum))
+    (accum, film, rays), dt, n, peak = counted(
+        "v1_motion_blur_engine", lambda: smb.render_engine(
+            W, H, spl, max_depth=depth, device=dev))
+    phase("v1 motion blur --engine", card=repr(card), dim=f"{W}x{H}",
+          spl=spl, depth=depth, ms_per_sample=f"{1e3 * dt / spl:.3f}",
+          peak_mem_mib=peak, launches=n, rays=int(rays),
+          first_sample_queries=queries, first_sample_bit_equal=True,
+          image_mean=check_image("v1 engine", accum, W, H))
+    (accum, film), dt, n, peak = counted(
+        "v1_motion_blur", lambda: smb.render(W, H, samples=spl, device=dev),
+        need=())
+    phase("v1 motion blur standalone", card=repr(card), dim=f"{W}x{H}",
+          spl=spl, ms_per_sample=f"{1e3 * dt / spl:.3f}", peak_mem_mib=peak,
+          launches=n, image_mean=check_image("v1 standalone", accum, W, H))
+    c = MP.MOTION_GEOMETRY
+    W, H, spl = c["width"], c["height"], c["spl"]
+    first, queries = first_sample("v1 motion_geometry", lambda: mg_app.render(
+        W, H, samples=1, device=dev)[0])
+    (accum, film), dt, n, peak = counted(
+        "v1_motion_geometry", lambda: mg_app.render(W, H, samples=spl,
+                                                    device=dev),
+        need=("bf_closest",))
+    phase("v1 motion_geometry", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          ms_per_sample=f"{1e3 * dt / spl:.3f}", peak_mem_mib=peak,
+          launches=n, first_sample_queries=queries,
+          first_sample_bit_equal=True,
+          image_mean=check_image("v1 motion_geometry", accum, W, H))
+    del scene, accum, film
+    torch.cuda.empty_cache()
+
+    # --- v2: curves ---
+    def whitted_crop(scene_cpu, camera, w, h, depth):
+        rays, rng = MP.crop_rays(camera.params(dev), w, h, 0)
+        rad, _, _ = trace_whitted(scene_cpu, rays, rng, max_depth=depth)
+        return to_np(rad)
+
+    c = MP.CURVES
+    W, H, spl, depth = c["width"], c["height"], c["spl"], c["depth"]
+    for swept in (False, True):
+        tag = f"v2_curves{'_swept' if swept else ''}"
+        scene = curves_app.make_curve_scene(dev, c["kind"], swept=swept)
+        first, queries = first_sample(tag, lambda: curves_app.render(
+            W, H, samples=1, scene=scene))
+        bad, err = MP.outside_bar(
+            MP.crop(first), whitted_crop(curves_app.make_curve_scene(
+                "cpu", c["kind"], swept=swept), curves_app.camera(W, H), W, H,
+                depth), MP.ATOL_PRIMS)
+        require(bad == 0, f"{tag}: {bad} pixels of the {MP.CROP}² crop "
+                f"outside the bar of the CPU's (max {err:.3g})")
+        (accum, film, rays), dt, n, peak = counted(tag, lambda: (
+            curves_app.render(W, H, samples=spl, scene=scene)))
+        phase(f"v2 curves {c['kind']}{' --swept' if swept else ''}",
+              card=repr(card), dim=f"{W}x{H}", spl=spl, depth=depth,
+              prims=scene.prims.num, ms_per_sample=f"{1e3 * dt / spl:.3f}",
+              peak_mem_mib=peak, launches=n, rays=int(rays),
+              first_sample_queries=queries, kernel1_bit_equal=True,
+              crop_outside_bar=bad, crop_max_abs_err=f"{err:.3g}",
+              image_mean=check_image(tag, accum, W, H))
+    c = MP.RIBBONS
+    W, H, spl, depth = c["width"], c["height"], c["spl"], c["depth"]
+    scene = ribbons_app.make_ribbon_scene(dev)
+    first, queries = first_sample("v2 ribbons", lambda: ribbons_app.render(
+        W, H, samples=1, scene=scene))
+    bad, err = MP.outside_bar(
+        MP.crop(first), whitted_crop(ribbons_app.make_ribbon_scene("cpu"),
+                                     ribbons_app.camera(W, H), W, H, depth),
+        MP.ATOL_PRIMS)
+    require(bad == 0, f"v2 ribbons: {bad} pixels of the crop outside the "
+            f"bar of the CPU's (max {err:.3g})")
+    (accum, film, rays), dt, n, peak = counted("v2_ribbons", lambda: (
+        ribbons_app.render(W, H, samples=spl, scene=scene)))
+    phase("v2 ribbons", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          depth=depth, prims=scene.prims.num,
+          ms_per_sample=f"{1e3 * dt / spl:.3f}", peak_mem_mib=peak,
+          launches=n, rays=int(rays), first_sample_queries=queries,
+          kernel1_bit_equal=True, crop_outside_bar=bad,
+          crop_max_abs_err=f"{err:.3g}",
+          image_mean=check_image("v2 ribbons", accum, W, H))
+    c = MP.HAIR
+    W, H, spl = c["width"], c["height"], c["spl"]
+    kw = dict(spline=c["spline"], swept=c["swept"])
+    (first, _), first_s = timed(lambda: hair_app.render(
+        W, H, samples=1, device=dev, **kw))
+    strands, radii = hair_app.procedural_fur()
+    prims, strand_of = hair_app.build_prims(strands, radii, "cpu", **kw)
+    rays, _ = MP.crop_rays(hair_app.camera(W, H).params(dev), W, H, 0)
+    bad, err = MP.outside_bar(MP.crop(to_np(first)), to_np(
+        hair_app.sample_radiance(prims, strand_of, "strand_u", rays)),
+        MP.ATOL_PRIMS)
+    require(bad == 0, f"v2 hair: {bad} pixels of the crop outside the bar "
+            f"of the CPU's (max {err:.3g})")
+    (accum, film), dt, n, peak = counted("v2_hair", lambda: hair_app.render(
+        W, H, samples=spl, device=dev, **kw), need=())
+    phase("v2 hair --swept --spline cubic_bspline", card=repr(card),
+          dim=f"{W}x{H}", spl=spl, prims=prims.num,
+          plane_elems=hair_app.prim.PLANE_ELEMS,
+          ms_per_sample=f"{1e3 * dt / spl:.3f}",
+          first_sample_ms=f"{1e3 * first_s:.3f}", peak_mem_mib=peak,
+          launches=n, crop_outside_bar=bad, crop_max_abs_err=f"{err:.3g}",
+          image_mean=check_image("v2 hair", accum, W, H))
+    del scene, accum, film, prims
+    torch.cuda.empty_cache()
+
+    # --- v3: volumes ---
+    c = MP.VOLUME
+    W, H, spl, res, steps = (c[k] for k in ("width", "height", "spl", "res",
+                                           "steps"))
+    (first, _), first_s = timed(lambda: vv.render(
+        W, H, samples=1, res=res, num_steps=steps, device=dev))
+    rays, _ = MP.crop_rays(vv.camera(W, H).params(dev), W, H, 0)
+    bad, err = MP.outside_bar(MP.crop(to_np(first)), to_np(vv.march_rays(
+        vv.load_grid(None, res=res, device="cpu"), vv.floor("cpu"), rays,
+        steps)), MP.ATOL)
+    require(bad == 0, f"v3 volume_viewer: {bad} pixels of the crop outside "
+            f"the bar of the CPU's march (max {err:.3g})")
+    (accum, film), dt, n, peak = counted("v3_volume_viewer", lambda: (
+        vv.render(W, H, samples=spl, res=res, num_steps=steps, device=dev)),
+        need=())
+    phase("v3 volume_viewer", card=repr(card), dim=f"{W}x{H}", spl=spl,
+          res=res, steps=steps, ms_per_sample=f"{1e3 * dt / spl:.3f}",
+          first_sample_ms=f"{1e3 * first_s:.3f}", peak_mem_mib=peak,
+          launches=n, crop_outside_bar=bad, crop_max_abs_err=f"{err:.3g}",
+          image_mean=check_image("v3 volume_viewer", accum, W, H))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cloud.nvdb")
+        dens = to_np(vv.load_grid(None, res=res, device="cpu").density)
+        nanovdb.write_nvdb(path, dens, ijk_min=(-32, 8, 0), voxel_size=0.05,
+                           codec=nanovdb.CODEC_ZIP)
+        g = nanovdb.read_nvdb(path)
+        o = g.ijk_min - np.array([-32, 8, 0])
+        require(np.array_equal(g.values, dens[o[2]:o[2] + g.values.shape[0],
+                                              o[1]:o[1] + g.values.shape[1],
+                                              o[0]:o[0] + g.values.shape[2]])
+                and (dens[:o[2]] == 0).all(),
+                "v3 nanovdb: the grid read back differs from the grid "
+                "written")
+        (accum, film), dt, n, peak = counted("v3_volume_viewer_nvdb", lambda: (
+            vv.render(W, H, samples=1, num_steps=steps, grid_file=path,
+                      device=dev)), need=())
+    phase("v3 volume_viewer --grid", card=repr(card), dim=f"{W}x{H}",
+          grid=list(g.values.shape), read_back_equal=True,
+          ms_per_sample=f"{1e3 * dt:.3f}", peak_mem_mib=peak, launches=n,
+          image_mean=check_image("v3 nvdb", accum, W, H))
+    c = MP.VOLUME_ENGINE
+    W, H, spl, res, depth = (c[k] for k in ("width", "height", "spl", "res",
+                                           "depth"))
+    scene = vv.engine_scene(dev, res)
+    cam = cornell_camera(W, H).params(dev)
+    first, queries = first_sample("v3 volume_viewer --engine", lambda: (
+        render_accumulate(scene, cam, Film.create(H, W, dev), W, H,
+                          samples_per_launch=1, max_depth=depth,
+                          chunk_size=None)[0].accum))
+    (accum, film, rays), dt, n, peak = counted(
+        "v3_volume_viewer_engine", lambda: vv.render_engine(
+            W, H, spl, res=res, max_depth=depth, device=dev))
+    phase("v3 volume_viewer --engine", card=repr(card), dim=f"{W}x{H}",
+          spl=spl, res=res, depth=depth,
+          ms_per_sample=f"{1e3 * dt / spl:.3f}", peak_mem_mib=peak,
+          launches=n, rays=int(rays), first_sample_queries=queries,
+          first_sample_bit_equal=True,
+          image_mean=check_image("v3 engine", accum, W, H))
+    del scene, accum, film
+    torch.cuda.empty_cache()
+
+
 def sc_phases(dev, card, record):
     """Phases (e)-(g): the 4.0M-triangle knot through the supercluster tier.
     (e) the build, timed per step, and traversal_stats at supercluster
@@ -2612,6 +2899,11 @@ def main():
 
     # --- phases n1-n3: the denoiser (kernels 1 and 3) ---
     denoise_phases(dev, card, record)
+    torch.cuda.empty_cache()
+
+    # --- phases v1-v3: motion blur, curves and volumes (kernels 1-2) ---
+    mcv_phases(dev, card, record)
+    torch.cuda.empty_cache()
 
     # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---
     launches.update(sc_phases(dev, card, record))

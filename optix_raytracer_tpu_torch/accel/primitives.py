@@ -1,14 +1,22 @@
-"""Analytic custom primitives: sphere, sphere shell, parallelogram and capsule
-(counterpart of `accel/primitives.py:22-118, 121-465`, kinds 0-3).
+"""Analytic custom primitives: sphere, sphere shell, parallelogram, capsule
+and the swept quadratic and cubic curve spans (counterpart of
+`accel/primitives.py:22-118, 121-465`, kinds 0-5).
 
 A scene's custom prims live in one table and are tested brute force: every
-ray against every prim, each kind by its closed-form solve. The fused
-kernel (`csrc/pt_fused.cu`) repeats these formulas operation for operation,
-so its hits equal the ones computed here.
+ray against every prim, each kind by its closed-form solve, the swept spans
+by the reference's lock-step solver (a coarse scan of _SWEPT_COARSE + 1
+points, _SWEPT_NEWTON Newton steps, a swept-sphere fix-point). The fused
+kernel (`csrc/pt_fused.cu`) takes kinds 0-3 and repeats their formulas
+operation for operation, so its hits equal the ones computed here. The
+swept branch runs only for a table whose `kinds_static` holds kind 4 or 5:
+a table of kinds 0-3 computes exactly what it did before the swept kinds
+were ported.
 
-The swept curve kinds (SWEPT_QUAD, SWEPT_CUBIC) are not ported yet
-(ROADMAP.md Queue 1 item 9): `make_prims` stores them as the reference does,
-and every query of a table that holds one raises NotImplementedError.
+The rays are taken in chunks so that no [chunk, P] plane holds more than
+PLANE_ELEMS elements (the swept solver keeps tens of such planes alive);
+each ray's answer does not depend on its chunk. The swept solver's Newton
+steps divide and take square roots whose last ulp may differ from XLA's,
+so a ray that grazes a strand may flip; the tests count such rays.
 """
 from __future__ import annotations
 
@@ -25,12 +33,40 @@ SPHERE = 0
 SPHERE_SHELL = 1
 PARALLELOGRAM = 2
 CAPSULE = 3        # round linear curve segment
-SWEPT_QUAD = 4     # swept quadratic curve segment (not ported)
-SWEPT_CUBIC = 5    # swept cubic curve segment (not ported)
+SWEPT_QUAD = 4     # swept quadratic curve span (round quadratic B-spline)
+SWEPT_CUBIC = 5    # swept cubic curve span (B-spline / Catmull-Rom / Bézier)
 
-PORTED_KINDS = (SPHERE, SPHERE_SHELL, PARALLELOGRAM, CAPSULE)
+PORTED_KINDS = (SPHERE, SPHERE_SHELL, PARALLELOGRAM, CAPSULE, SWEPT_QUAD,
+                SWEPT_CUBIC)
+SWEPT_KINDS = (SWEPT_QUAD, SWEPT_CUBIC)
 PARAM_COLS = 18
 _BIG = 1e30
+_SWEPT_COARSE = 16  # coarse scan points of the curve parameter (phi is of
+                    # degree 6 for a cubic: up to 3 local minima)
+_SWEPT_NEWTON = 6   # Newton steps on the scan's minimiser
+# The most elements of one [chunk, P] plane (64 MiB of f32).
+PLANE_ELEMS = 1 << 24
+
+
+def chunk_bounds(n, m):
+    """[(a, b)] row ranges of n rays such that a [b - a, m] plane holds at
+    most PLANE_ELEMS elements (one empty range for n = 0)."""
+    step = max(1, PLANE_ELEMS // max(m, 1))
+    return [(i, min(n, i + step)) for i in range(0, n, step)] or [(0, 0)]
+
+
+def ray_chunk(rays: Rays, a, b) -> Rays:
+    return Rays(origin=rays.origin[a:b], direction=rays.direction[a:b],
+                tmin=rays.tmin[a:b], tmax=rays.tmax[a:b])
+
+
+def cat_hits(parts) -> Hits:
+    """Per-chunk Hits of consecutive ray ranges → one Hits."""
+    if len(parts) == 1:
+        return parts[0]
+    return Hits(**{f: torch.cat([getattr(h, f) for h in parts])
+                   for f in ("t", "prim_id", "inst_id", "mat_id", "uv",
+                             "normal")})
 
 
 @dataclasses.dataclass
@@ -40,6 +76,10 @@ class CustomPrims:
       SPHERE_SHELL:  [cx, cy, cz, r_inner, r_outer, 0...]
       PARALLELOGRAM: [ax, ay, az, v1x, v1y, v1z, v2x, v2y, v2z, 0...]
       CAPSULE:       [p0x, p0y, p0z, p1x, p1y, p1z, r, 0...]
+      SWEPT_QUAD:    [a0(3), a1(3), a2(3), r0, r1, r2, u0, u1, 0...]
+        C(s) = a0 + a1 s + a2 s², r(s) = r0 + r1 s + r2 s² on s in [0, 1]
+      SWEPT_CUBIC:   [a0(3), a1(3), a2(3), a3(3), r0, r1, r2, r3, u0, u1]
+        the same of degree 3; (u0, u1) is the span's range of strand u
     kinds_static mirrors `kind` as Python ints (the fused kernel's
     dispatch reads it without a device sync)."""
     kind: torch.Tensor     # [P] int32
@@ -105,12 +145,10 @@ def make_prims(prims, device) -> CustomPrims:
 
 
 def require_ported(prims: CustomPrims):
-    """Raise for a table holding a kind the port cannot intersect yet."""
-    swept = sorted({k for k in prims.kinds_static if k not in PORTED_KINDS})
-    if swept:
-        raise NotImplementedError(
-            f"custom prim kinds {swept} (swept curve segments) are not "
-            "ported yet (ROADMAP.md Queue 1 item 9)")
+    """Raise for a table holding a kind outside PORTED_KINDS."""
+    unknown = sorted({k for k in prims.kinds_static if k not in PORTED_KINDS})
+    if unknown:
+        raise ValueError(f"unknown custom prim kinds {unknown}")
 
 
 def _sphere_ts(o, d, center, radius):
@@ -202,6 +240,11 @@ def _prim_candidates(prims: CustomPrims, rays: Rays):
                                 torch.where(kind == CAPSULE,
                                             pick(t_body, t_cap),
                                             pick(t_pg))))
+    swept = None
+    if any(k in SWEPT_KINDS for k in prims.kinds_static):
+        swept = _SweptSpans(prm, kind, o, d)
+        is_swq = (kind == SWEPT_QUAD) | (kind == SWEPT_CUBIC)
+        t = torch.where(is_swq, pick(swept.t), t)
 
     # normals and uv at the chosen t
     p_hit = o + t[..., None] * d
@@ -227,12 +270,162 @@ def _prim_candidates(prims: CustomPrims, rays: Rays):
                                  torch.stack([y_hit, torch.zeros_like(y_hit)],
                                              dim=-1),
                                  sphere_uv))
+    if swept is not None:
+        n_sw, uv_sw = swept.frame(p_hit)
+        normal = torch.where(is_swq[..., None], n_sw, normal)
+        uv = torch.where(is_swq[..., None], uv_sw, uv)
     return t, normal, uv
 
 
-def intersect_prims_closest(prims: CustomPrims, rays: Rays) -> Hits:
-    """Closest hit over the custom-prim table (flat rays [N]); prim_id is
-    the row of the table (the first of equal t)."""
+class _SweptSpans:
+    """The swept-span solver over [N, P] planes (primitives.py:209-335,
+    381-394): a quadratic span is a cubic with a3 = r3 = 0. phi(s) =
+    |perp(C(s) - o)|² - r(s)², degree 6 in s (perp: the part orthogonal to
+    the unit ray direction), is scanned at _SWEPT_COARSE + 1 points for
+    two candidates, its minimiser and the in-basin point of the nearest
+    sphere entry; the minimiser takes _SWEPT_NEWTON clipped Newton steps;
+    each candidate is refined by the swept-sphere fix-point (the best t of
+    every evaluation is kept) and the nearer wins. `t` [N, P] is the entry
+    (BIG where none), `frame(p_hit)` the outward normal and the uv, (the
+    strand u of the span's u range at the curve point nearest the hit, 0),
+    as the reference gives them."""
+
+    def __init__(self, prm, kind, o, d):
+        is_cub = kind == SWEPT_CUBIC
+        self.is_cub = is_cub
+        self.prm = prm
+        self.o, self.d = o, d
+        self.sa0 = prm[..., 0:3]
+        self.sa1 = prm[..., 3:6]
+        self.sa2 = prm[..., 6:9]
+        self.sa3 = torch.where(is_cub[..., None], prm[..., 9:12], 0.0)
+        sr0 = torch.where(is_cub, prm[..., 12], prm[..., 9])
+        sr1 = torch.where(is_cub, prm[..., 13], prm[..., 10])
+        sr2 = torch.where(is_cub, prm[..., 14], prm[..., 11])
+        sr3 = torch.where(is_cub, prm[..., 15], 0.0)
+        self.sr = (sr0, sr1, sr2, sr3)
+
+        def perp(v):
+            return v - dot(v, d)[..., None] * d
+
+        q0 = perp(self.sa0 - o)
+        q1 = perp(self.sa1)
+        q2 = perp(self.sa2)
+        q3 = perp(self.sa3)
+        A0 = dot(q0, q0) - sr0 * sr0
+        A1 = 2 * dot(q0, q1) - 2 * sr0 * sr1
+        A2 = dot(q1, q1) + 2 * dot(q0, q2) - (sr1 * sr1 + 2 * sr0 * sr2)
+        A3 = 2 * (dot(q0, q3) + dot(q1, q2)) - 2 * (sr0 * sr3 + sr1 * sr2)
+        A4 = (dot(q2, q2) + 2 * dot(q1, q3)
+              - (sr2 * sr2 + 2 * sr1 * sr3))
+        A5 = 2 * dot(q2, q3) - 2 * sr2 * sr3
+        A6 = dot(q3, q3) - sr3 * sr3
+        del q0, q1, q2, q3
+
+        def phi(sv):
+            return A0 + sv * (A1 + sv * (A2 + sv * (
+                A3 + sv * (A4 + sv * (A5 + sv * A6)))))
+
+        # the coarse scan: the phi minimiser, and the in-basin point with
+        # the smallest sphere entry (a ray passing a curled strand twice)
+        shape = A0.shape
+        s_best = torch.zeros(shape, dtype=torch.float32, device=o.device)
+        phi_best = torch.full_like(s_best, _BIG)
+        s_tmin = torch.zeros_like(s_best)
+        t_scan = torch.full_like(s_best, _BIG)
+        for kk in range(_SWEPT_COARSE + 1):
+            sv = torch.full_like(s_best, kk / _SWEPT_COARSE)
+            ph = phi(sv)
+            closer = ph < phi_best
+            s_best = torch.where(closer, sv, s_best)
+            phi_best = torch.where(closer, ph, phi_best)
+            te, ok = self._sphere_entry(sv)
+            tt = torch.where(ph < 0.0, torch.where(ok & (te > 0.0), te, _BIG),
+                             _BIG)
+            nearer = tt < t_scan
+            s_tmin = torch.where(nearer, sv, s_tmin)
+            t_scan = torch.where(nearer, tt, t_scan)
+        # Newton on the minimiser (phi' of degree 5, phi'' of degree 4), the
+        # step clipped so a flat phi'' cannot fling s out of its basin
+        for _ in range(_SWEPT_NEWTON):
+            dphi = A1 + s_best * (2 * A2 + s_best * (
+                3 * A3 + s_best * (4 * A4 + s_best * (
+                    5 * A5 + s_best * 6 * A6))))
+            ddphi = 2 * A2 + s_best * (6 * A3 + s_best * (
+                12 * A4 + s_best * (20 * A5 + s_best * 30 * A6)))
+            stepn = dphi / torch.where(torch.abs(ddphi) < 1e-9, 1e-9, ddphi)
+            s_best = torch.clamp(s_best - torch.clamp(stepn, -0.25, 0.25),
+                                 0.0, 1.0)
+        s_a, t_a = self._refine(s_best)
+        t_a = torch.where(phi_best < 0.0, t_a, _BIG)
+        s_b, t_b = self._refine(s_tmin)
+        t_b = torch.where(t_scan < _BIG, t_b, _BIG)
+        self.s = torch.where(t_b < t_a, s_b, s_a)
+        self.t = torch.minimum(t_a, t_b)
+
+    def _curve_pt(self, sv):
+        s1 = sv[..., None]
+        return self.sa0 + s1 * (self.sa1 + s1 * (self.sa2 + s1 * self.sa3))
+
+    def _curve_r(self, sv):
+        sr0, sr1, sr2, sr3 = self.sr
+        return torch.clamp_min(sr0 + sv * (sr1 + sv * (sr2 + sv * sr3)), 1e-6)
+
+    def _sphere_entry(self, sv):
+        """The entry t of the ray into the ball B(C(s), r(s)), and whether
+        it crosses the ball."""
+        oc = self.o - self._curve_pt(sv)
+        rr = self._curve_r(sv)
+        b = dot(oc, self.d)
+        c = dot(oc, oc) - rr * rr
+        disc = b * b - c
+        return -b - torch.sqrt(torch.clamp_min(disc, 0.0)), disc > 0.0
+
+    def _project(self, s, p):
+        """Two Newton steps on psi(s) = (C(s) - p) . C'(s): the curve
+        parameter nearest p."""
+        sa1, sa2, sa3 = self.sa1, self.sa2, self.sa3
+        for _ in range(2):
+            cc = self._curve_pt(s)
+            s1 = s[..., None]
+            cd = sa1 + s1 * (2.0 * sa2 + s1 * 3.0 * sa3)
+            cdd = 2.0 * sa2 + s1 * 6.0 * sa3
+            psi = dot(cc - p, cd)
+            dpsi = dot(cd, cd) + dot(cc - p, cdd)
+            s = torch.clamp(
+                s - psi / torch.where(torch.abs(dpsi) < 1e-9, 1e-9, dpsi),
+                0.0, 1.0)
+        return s
+
+    def _refine(self, s):
+        """The swept-sphere fix-point from s: every per-s sphere entry of
+        an outside origin bounds the true entry from above, so the smallest
+        valid t over all evaluations is kept, never the last."""
+        t, ok = self._sphere_entry(s)
+        s_out = s
+        t_out = torch.where(ok, t, _BIG)
+        for _ in range(2):
+            s = self._project(s, self.o + t[..., None] * self.d)
+            t, ok = self._sphere_entry(s)
+            tv = torch.where(ok, t, _BIG)
+            better = tv < t_out
+            s_out = torch.where(better, s, s_out)
+            t_out = torch.where(better, tv, t_out)
+        return s_out, t_out
+
+    def frame(self, p_hit):
+        """(normal [N, P, 3], uv [N, P, 2]) at the hit points."""
+        s_n = self._project(self.s, p_hit)
+        n = (p_hit - self._curve_pt(s_n)) / self._curve_r(s_n)[..., None]
+        n = n / torch.clamp_min(torch.sqrt(dot(n, n)), 1e-12)[..., None]
+        prm, is_cub = self.prm, self.is_cub
+        su0 = torch.where(is_cub, prm[..., 16], prm[..., 12])
+        su1 = torch.where(is_cub, prm[..., 17], prm[..., 13])
+        u = su0 + (su1 - su0) * s_n
+        return n, torch.stack([u, torch.zeros_like(u)], dim=-1)
+
+
+def _closest_chunk(prims: CustomPrims, rays: Rays) -> Hits:
     t, normal, uv = _prim_candidates(prims, rays)
     best = torch.argmin(t, dim=1)
     rows = torch.arange(t.shape[0], device=t.device)
@@ -247,9 +440,18 @@ def intersect_prims_closest(prims: CustomPrims, rays: Rays) -> Hits:
         normal=torch.where(hit[:, None], normal[rows, best], 0.0))
 
 
+def intersect_prims_closest(prims: CustomPrims, rays: Rays) -> Hits:
+    """Closest hit over the custom-prim table (flat rays [N]); prim_id is
+    the row of the table (the first of equal t)."""
+    return cat_hits([_closest_chunk(prims, ray_chunk(rays, a, b))
+                     for a, b in chunk_bounds(rays.tmin.shape[0], prims.num)])
+
+
 def intersect_prims_any(prims: CustomPrims, rays: Rays) -> torch.Tensor:
-    t, _, _ = _prim_candidates(prims, rays)
-    return torch.any(t < _BIG, dim=1)
+    return torch.cat([
+        torch.any(_prim_candidates(prims, ray_chunk(rays, a, b))[0] < _BIG,
+                  dim=1)
+        for a, b in chunk_bounds(rays.tmin.shape[0], prims.num)])
 
 
 def merge_hits(a: Hits, b: Hits, prim_offset: int = 0) -> Hits:

@@ -13,8 +13,11 @@ the large-mesh traversal, for a scene given textures the texture atlas
 for a scene with alpha cutouts its opacity micromaps: per triangle the
 micro-triangle states and the summary, and the occlusion split they give (the
 certain-solid triangles, with their own cluster table past 512, and the
-unknown ones). BVHs, per-mesh cluster tables of instanced meshes, volumes
-and motion are not ported yet (ROADMAP.md Queue 1 items 6, 7 and 9).
+unknown ones), for a scene given moving triangles their two vertex keys and
+materials (`accel/motion.py`, traced at per-path shutter times), and for a
+scene given a fog volume its density grid with sigma_t and albedo
+(`accel/volume.py`). BVHs and per-mesh cluster tables of instanced meshes
+are not ported yet (ROADMAP.md Queue 1 items 6 and 7).
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ import torch
 from ..accel import clusters as cluster_mod
 from ..accel import micromap as mm
 from ..accel import native
+from ..accel.motion import MotionTriangles
+from ..accel.volume import DensityGrid
 from ..accel import primitives as prim_mod
 from ..accel.geometry import (TriangleGeometry, build_triangle_geometry,
                               select_geometry, uv_frame)
@@ -40,9 +45,9 @@ from ..shade.materials import (ALPHA_MASK, CUT_CHECKER, CUT_CIRCLE,
                                WHITTED_DEFAULTS, MaterialTable,
                                make_material_table)
 
-# Feature tags of the JAX DeviceScene that the port does not render yet,
-# with their ROADMAP.md Queue 1 item.
-UNPORTED_FEATURES = {"volume": 9}
+# The feature tags of the JAX DeviceScene (device_scene.py:550-577); the
+# port renders them all.
+FEATURES = frozenset({"cutouts", "glass", "mirror", "pbr", "volume"})
 
 # Meshes past the brute-force kernels' budget get a cluster table
 # (accel/pallas_bf.py MAX_SMEM_TRIS, scene/device_scene.py:533-542).
@@ -93,6 +98,15 @@ class DeviceScene:
     omm_unknown_geom: Optional[TriangleGeometry] = None
     omm_unknown_ids: Optional[torch.Tensor] = None
     omm_solid_clusters: Optional[cluster_mod.ClusterSet] = None
+    # Moving triangles (device_scene.py:59-64): two vertex keys, traced at
+    # each path's shutter time, and their [Mm] int32 material ids; empty
+    # without motion.
+    motion_geom: Optional[MotionTriangles] = None
+    motion_tri_mat: Optional[torch.Tensor] = None
+    # A fog volume (device_scene.py:52-58): the density grid and [2] f32
+    # (sigma_t, albedo); the grid is read only with the "volume" feature.
+    volume: Optional[DensityGrid] = None
+    volume_params: Optional[torch.Tensor] = None
 
     def __post_init__(self):
         if self.prims is None:
@@ -104,6 +118,16 @@ class DeviceScene:
                                        device=self.device)
             self.bundle_mip = torch.zeros((0, 1, 4), dtype=torch.int32,
                                           device=self.device)
+        if self.motion_geom is None:
+            self.motion_geom = MotionTriangles.empty(self.device)
+            self.motion_tri_mat = torch.zeros((0,), dtype=torch.int32,
+                                              device=self.device)
+        if self.volume is None:
+            self.volume = DensityGrid.empty(self.device)
+        if self.volume_params is None:
+            self.volume_params = torch.tensor([8.0, 0.9],
+                                              dtype=torch.float32,
+                                              device=self.device)
         if self.textures is None:
             self.textures = torch.zeros((0, 1, 1, 4), dtype=torch.float32,
                                         device=self.device)
@@ -127,6 +151,18 @@ class DeviceScene:
     @property
     def device(self):
         return self.geom.tri_consts.device
+
+    @property
+    def has_motion(self) -> bool:
+        """Moving triangles: each path draws a shutter time first
+        (engine.py:212-217), and every query folds them in."""
+        return self.motion_geom.num_triangles > 0
+
+    @property
+    def has_volume(self) -> bool:
+        """A fog volume: each bounce samples a scatter point and NEE takes
+        the transmittance (engine.py:122-129, 253-294)."""
+        return "volume" in self.features
 
     @property
     def has_pbr(self) -> bool:
@@ -203,13 +239,11 @@ class DeviceScene:
             self.instances, self.num_triangles))
 
     def require_supported(self):
-        """Raise for the features the port does not render yet."""
+        """Raise for a prim kind or a feature tag the port does not know."""
         prim_mod.require_ported(self.prims)
-        for f in self.features:
-            if f in UNPORTED_FEATURES:
-                raise NotImplementedError(
-                    f"scene feature {f!r} is not ported yet (ROADMAP.md "
-                    f"Queue 1 item {UNPORTED_FEATURES[f]})")
+        unknown = sorted(set(self.features) - FEATURES)
+        if unknown:
+            raise ValueError(f"unknown scene features {unknown}")
 
 
 def _check_tri_mat(tri_mat, num_tris, num_mats):
@@ -572,7 +606,9 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
                       area_light=None, miss_color=(0.0, 0.0, 0.0),
                       normals=None, prims=None, instances=None, uvs=None,
                       textures=(), lights=(), opacity_micromaps=True,
-                      omm_level=3, motion=None):
+                      omm_level=3, motion=None,
+                      volume: Optional[DensityGrid] = None,
+                      volume_sigma: float = 8.0, volume_albedo: float = 0.9):
     """Triangle mesh + material dicts (+ a CustomPrims table, + an
     InstanceTable over the mesh) → DeviceScene on `device`. lights: the
     Whitted integrator's light dicts (LightTable.make). normals / uvs:
@@ -581,12 +617,14 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
     the materials' texture ids index. An instanced scene gets no cluster
     table. A scene with cutout materials gets opacity micromaps at
     `omm_level` unless opacity_micromaps is False, it is instanced, or a
-    custom prim's material is a cutout (the micromap occlusion answers the
-    prims with one any-hit query, device_scene.py:578-603). motion (2-key
-    moving triangles) is not ported yet."""
-    if motion is not None:
-        raise NotImplementedError("motion triangles are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 9)")
+    custom prim's or a moving triangle's material is a cutout (the
+    micromap occlusion answers prims and moving triangles with one any-hit
+    query, device_scene.py:578-603). motion: dict(verts0, verts1, indices,
+    tri_mat=0 (an int or one id per triangle)), triangles moving between
+    two vertex keys, traced at per-path shutter times. volume: a
+    DensityGrid (on `device`) of a fog volume with extinction volume_sigma
+    and single-scattering albedo volume_albedo (device_scene.py:480-485,
+    576-577, 643-656)."""
     if area_light is None:
         area_light = ParallelogramLight.make(
             (0, 0, 0), (1, 0, 0), (0, 0, 1), (0.0, 0.0, 0.0), device)
@@ -606,10 +644,30 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
         raise ValueError(f"prim material ids must lie in [0, {table.num})")
     features = material_features(materials)
     omm = {}
-    prims_cut = prims is not None and prims.num and any(
-        _is_cut(materials[int(i)]) for i in prims.mat_id.cpu().numpy())
+    if volume is not None:
+        features = features + ("volume",)
+    mgeom, mmat = None, None
+    if motion is not None:
+        mgeom = MotionTriangles.make(motion["verts0"], motion["verts1"],
+                                     motion["indices"], device)
+        mt = np.asarray(motion.get("tri_mat", 0), np.int32)
+        mmat = torch.as_tensor(np.broadcast_to(mt, (mgeom.num_triangles,))
+                               .copy(), device=device)
+        if mgeom.num_triangles and (int(mmat.min()) < 0
+                                    or int(mmat.max()) >= table.num):
+            raise ValueError(f"motion material ids must lie in "
+                             f"[0, {table.num})")
+    # The micromap occlusion answers prims and moving triangles with plain
+    # any-hit queries: exact only while none of their materials is a cutout
+    # (device_scene.py:581-603).
+    aux_mats = []
+    if prims is not None and prims.num:
+        aux_mats += prims.mat_id.cpu().tolist()
+    if mmat is not None:
+        aux_mats += mmat.cpu().tolist()
+    aux_cut = any(_is_cut(materials[int(i)]) for i in aux_mats)
     if (opacity_micromaps and "cutouts" in features and instances is None
-            and not prims_cut):
+            and not aux_cut):
         states, summary = build_scene_omm(
             materials, tri_mat_np, geom.corner_uv.cpu().numpy(),
             list(textures or ()), omm_level)
@@ -622,7 +680,11 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
         clusters=(None if instances is not None
                   else _build_cluster_table(geom, tri_mat)),
         prims=prims, instances=instances,
-        lights=LightTable.make(list(lights), device), **tex, **omm)
+        lights=LightTable.make(list(lights), device),
+        motion_geom=mgeom, motion_tri_mat=mmat, volume=volume,
+        volume_params=torch.tensor([volume_sigma, volume_albedo],
+                                   dtype=torch.float32, device=device),
+        **tex, **omm)
 
 
 def device_scene_from_numpy(fields, device) -> DeviceScene:
@@ -655,6 +717,11 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
       inst_transform, inst_inv_transform [I,3,4], inst_sbt_offset,
       inst_instance_id [I], inst_prim_ranges (tuple of (lo, hi)),
       inst_row_ids (bool)                  (scene.instances; optional)
+      motion_v0_0, motion_e1_0, motion_e2_0, motion_v0_1, motion_e1_1,
+      motion_e2_1 [Mm,3], motion_tri_mat [Mm]
+                                 (scene.motion_geom; optional, Mm may be 0)
+      volume_density [D,H,W], volume_lo [3], volume_hi [3],
+      volume_params [2]                        (scene.volume; optional)
 
     A scene without a cluster table has num_clusters 0, one without
     instances I = 0. Without the texture keys the geometry's uvs are zero
@@ -764,9 +831,21 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
                           np.asarray(fields["omm_micro"], np.uint8),
                           np.asarray(fields["omm_summary"], np.uint8),
                           int(fields["omm_level"]))
+    extra = {}
+    if len(fields.get("motion_tri_mat", ())):
+        extra.update(
+            motion_geom=MotionTriangles(**{
+                k: f32(f"motion_{k}") for k in ("v0_0", "e1_0", "e2_0",
+                                                "v0_1", "e1_1", "e2_1")}),
+            motion_tri_mat=i32("motion_tri_mat"))
+    if "volume_density" in fields:
+        extra.update(volume=DensityGrid(
+            density=f32("volume_density").contiguous(),
+            lo=f32("volume_lo"), hi=f32("volume_hi")),
+            volume_params=f32("volume_params"))
     return DeviceScene(geom=geom, tri_mat=tri_mat,
                        materials=table, area_light=light,
                        miss_color=f32("miss_color"),
                        features=tuple(fields.get("features", ())),
                        clusters=clusters, prims=prims, instances=instances,
-                       lights=lights, **tex, **omm)
+                       lights=lights, **tex, **omm, **extra)

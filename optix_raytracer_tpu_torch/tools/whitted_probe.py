@@ -53,18 +53,21 @@ def recorded_queries():
     """Record every query the scene hands brute force (kernels 1-2) and the
     cluster walks (kernels 4-6; not the queue of ORT_QWALK=1) → a list,
     filled in call order, of dicts
-    (kind "closest" / "any", route "bf" / "clusters", rays, and for the
+    (kind "closest" / "any", route "bf" / "clusters", rays, for brute force
+    the table (tri_consts, and tri_mat for a closest query), for the
     cluster table the ClusterSet, exact and group_walk)."""
     calls = []
     saved = dict(bf_closest=pallas_bf.closest_hit, bf_any=pallas_bf.any_hit,
                  cl_closest=C.closest_hit, cl_any=C.any_hit)
 
     def bf_closest(tri_consts, tri_mat, rays, **kw):
-        calls.append(dict(kind="closest", route="bf", rays=rays))
+        calls.append(dict(kind="closest", route="bf", rays=rays,
+                          tri_consts=tri_consts, tri_mat=tri_mat))
         return saved["bf_closest"](tri_consts, tri_mat, rays, **kw)
 
     def bf_any(tri_consts, rays, **kw):
-        calls.append(dict(kind="any", route="bf", rays=rays))
+        calls.append(dict(kind="any", route="bf", rays=rays,
+                          tri_consts=tri_consts))
         return saved["bf_any"](tri_consts, rays, **kw)
 
     def cl_closest(cl, rays, exact=False, group_walk=False):

@@ -7,7 +7,12 @@ Russian roulette; on a textured scene the texture lanes: the bundle fetch
 metallic-roughness, emissive and normal maps; on a scene with alpha cutouts
 the cut lanes: a hit in a hole passes straight through, unshaded and never
 ended by roulette, and its shadow rays re-enter past holes
-(`intersect.scene_any`).
+(`intersect.scene_any`); on a scene with moving triangles one shutter time a
+path, which every query of the path receives; on a scene with a fog volume
+the volume lanes: a scatter point a segment (`accel/volume.sample_scatter`)
+lit by the area light through a shadow query and the volume's
+transmittance, the segment's transmittance on the throughput, and the
+transmittance toward the light on NEE.
 
 The whole wavefront moves one bounce at a time, dead lanes masked. Its
 intersections come from kernels 1 and 2 (brute force, once per instance on
@@ -17,10 +22,13 @@ in by torch ops; smooth meshes shade with the shading-frame epilogue. It is
 the fused kernel's oracle, as the XLA wavefront is the Pallas megakernel's,
 and the fused kernel repeats its arithmetic operation for operation. On a
 cluster scene, the sequential, coherence-sorted loop is the sample-major
-launch's oracle. It draws the RNG in the JAX engine's order: per bounce the
-NEE pair, the cosine pair, two GGX pairs when the scene has PBR lanes, the
-glass pair (drawn even where no lane reads it, engine.py:536) and the
-roulette pair.
+launch's oracle. It draws the RNG in the JAX engine's order: with motion,
+first of all the path's shutter time (the first value of a pair, the second
+thrown away, engine.py:212-217); per bounce, with a volume, two pairs
+(u_s, u_l1, then u_l2; engine.py:262-263) before the surface's draws; then
+the NEE pair, the cosine pair, two GGX pairs when the scene has PBR lanes,
+the glass pair (drawn even where no lane reads it, engine.py:536) and the
+roulette pair. One draw out of place moves every later sample.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from ..accel import volume as vol
 from ..accel.clusters import coherence_key
 from ..accel.geometry import shading_frame
 from ..accel.micromap import TRANSPARENT, micro_index
@@ -110,12 +119,15 @@ def _pbr_pdf(n, wo, wi, roughness, p_spec):
 
 
 def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
-                      chunk_size, mask=None, group_walk=False, pbr=None):
+                      chunk_size, mask=None, group_walk=False, pbr=None,
+                      times=None):
     """Next-event estimation toward the parallelogram light: uniform point on
     the quad, weight nDl * LnDl * A / (pi d²) on the albedo-scaled throughput.
     With `pbr` (dict: albedo, metallic, roughness, wo, is_pbr, throughput)
     the PBR lanes take the full BRDF instead, T * f * Le * nDl * LnDl * A / d²
-    (engine.py:135-142). Returns (contribution [N, 3], rng)."""
+    (engine.py:135-142). On a volume scene both weights take the volume's
+    transmittance toward the light, exp(-tau) (engine.py:122-129). times:
+    the paths' shutter times. Returns (contribution [N, 3], rng)."""
     light = scene.area_light
     u1, u2, rng = _rng.uniform2(rng)
     lp = light.corner + u1[..., None] * light.v1 + u2[..., None] * light.v2
@@ -134,15 +146,21 @@ def _nee_direct_light(scene: DeviceScene, hit_p, n, throughput_albedo, rng,
                        tmax=torch.where(shadow_live,
                                         dist * SHADOW_TMAX_SCALE, 0.0))
     occluded = scene_any(scene, shadow_rays, chunk_size=chunk_size,
-                         group_walk=group_walk)
+                         group_walk=group_walk, times=times)
+    lead = n_dl
+    if scene.has_volume:
+        tau_l = vol.optical_depth(scene.volume, hit_p, wi,
+                                  torch.zeros_like(dist), dist,
+                                  scene.volume_params[0])
+        lead = torch.exp(-tau_l) * n_dl
     weight = torch.where(facing & ~occluded,
-                         n_dl * ln_dl * light.area / (math.pi * dist2), 0.0)
+                         lead * ln_dl * light.area / (math.pi * dist2), 0.0)
     contrib = throughput_albedo * light.emission * weight[..., None]
     if pbr is not None:
         f = _pbr_brdf(n, pbr["wo"], wi, pbr["albedo"], pbr["metallic"],
                       pbr["roughness"])
         w2 = torch.where(facing & ~occluded,
-                         n_dl * ln_dl * light.area / dist2, 0.0)
+                         lead * ln_dl * light.area / dist2, 0.0)
         contrib_pbr = pbr["throughput"] * f * light.emission * w2[..., None]
         contrib = torch.where(pbr["is_pbr"][..., None], contrib_pbr, contrib)
     return contrib, rng
@@ -255,26 +273,83 @@ def _cut_lanes(scene: DeviceScene, hits, hit_valid, m, surf_uv, tex_alpha):
     return hit_valid & (m["alpha_mode"] == mats.ALPHA_MASK) & hole
 
 
+def _volume_lanes(scene: DeviceScene, rays, hits, active, throughput,
+                  radiance, rng, chunk_size, group_walk, times):
+    """The participating medium along one segment (engine.py:253-294): a
+    scatter point distance-sampled with pdf sigma_t T (the camera-side
+    transmittance cancels), a point on the area light, a shadow query from
+    the scatter point (kernel 2 on a brute-force scene) and the volume's
+    transmittance toward the light; the in-scatter w albedo / (4 pi) Le
+    LnDl A / d² exp(-tau_l) joins the radiance where the shadow ray is
+    free, and the segment's transmittance exp(-tau) scales the throughput.
+    The shadow rays are not counted in rays_traced (engine.py:585-587).
+    Draws u_s, u_l1 and then u_l2 (the second value of that pair thrown
+    away). → (throughput, radiance, rng)."""
+    sigma_t = scene.volume_params[0]
+    v_albedo = scene.volume_params[1]
+    seg_far = torch.where(hits.valid, hits.t, rays.tmax)
+    u_s, u_l1, rng = _rng.uniform2(rng)
+    u_l2, _, rng = _rng.uniform2(rng)
+    t_s, w_s, tau = vol.sample_scatter(scene.volume, rays.origin,
+                                       rays.direction, rays.tmin, seg_far,
+                                       sigma_t, u_s)
+    light = scene.area_light
+    p_s = rays.at(t_s)
+    lp = light.corner + u_l1[..., None] * light.v1 + u_l2[..., None] * light.v2
+    delta = lp - p_s
+    dist2 = torch.clamp_min(dot(delta, delta), 1e-12)
+    dist = torch.sqrt(dist2)
+    wi_s = delta / dist[..., None]
+    ln_dl = torch.abs(dot(light.normal.expand(wi_s.shape), wi_s))
+    scatter_live = active & (w_s > 1e-6)
+    occ_s = scene_any(scene, Rays(origin=p_s, direction=wi_s,
+                                  tmin=torch.full_like(dist, RAY_TMIN),
+                                  tmax=torch.where(scatter_live,
+                                                   dist * SHADOW_TMAX_SCALE,
+                                                   0.0)),
+                      chunk_size=chunk_size, group_walk=group_walk,
+                      times=times)
+    tau_l = vol.optical_depth(scene.volume, p_s, wi_s, torch.zeros_like(dist),
+                              dist, sigma_t)
+    li = (light.emission * (ln_dl * light.area / dist2)[..., None]
+          * torch.exp(-tau_l)[..., None])
+    # a true division by 4 pi on every device (a CUDA division by a Python
+    # scalar multiplies by its f32 reciprocal)
+    four_pi = torch.full((), 4.0 * math.pi, dtype=torch.float32,
+                         device=w_s.device)
+    inscatter = (w_s * v_albedo / four_pi)[..., None] * li
+    radiance = radiance + torch.where((scatter_live & ~occ_s)[..., None],
+                                      throughput * inscatter, 0.0)
+    return throughput * torch.exp(-tau)[..., None], radiance, rng
+
+
 def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
             exact: bool = False, group_walk: bool = False,
             spread=0.0) -> dict:
-    """One bounce of the whole wavefront (engine.py:241-611, without
-    volume): closest hit, miss and emission terms, the texture lanes
-    (`spread`: pixel_spread), the cut lanes, the material lanes (glass,
-    mirror, PBR, diffuse), NEE on the diffuse and PBR lanes, the next
-    direction and throughput, Russian roulette. A cut lane keeps its
-    direction, throughput and previous-specular flag, moves its origin
-    RAY_TMIN along d past the hit, survives roulette (q = 1) and traces no
-    shadow ray; it is neither a hit nor ended. Returns the next state."""
+    """One bounce of the whole wavefront (engine.py:241-611): closest hit,
+    the volume lanes on a volume scene (`_volume_lanes`), miss and emission
+    terms, the texture lanes (`spread`: pixel_spread), the cut lanes, the
+    material lanes (glass, mirror, PBR, diffuse), NEE on the diffuse and PBR
+    lanes, the next direction and throughput, Russian roulette. A cut lane
+    keeps its direction, throughput and previous-specular flag, moves its
+    origin RAY_TMIN along d past the hit, survives roulette (q = 1) and
+    traces no shadow ray; it is neither a hit nor ended. Every query takes
+    the paths' shutter times (state["time"], on a motion scene). Returns
+    the next state."""
     rays = state["rays"]
     active = state["active"]
     throughput = state["throughput"]
     radiance = state["radiance"]
     rng = state["rng"]
+    times = state.get("time")
 
     hits = scene_closest(scene, rays, chunk_size=chunk_size, exact=exact,
-                         group_walk=group_walk)
+                         group_walk=group_walk, times=times)
     hit_valid = hits.valid & active
+    if scene.has_volume:
+        throughput, radiance, rng = _volume_lanes(
+            scene, rays, hits, active, throughput, radiance, rng, chunk_size,
+            group_walk, times)
 
     # miss program: constant background
     radiance = radiance + torch.where((active & ~hits.valid)[..., None],
@@ -325,7 +400,7 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
     nee_mask = hit_valid & is_diffuse
     contrib, rng = _nee_direct_light(
         scene, hit_p, n, t_albedo, rng, chunk_size, mask=nee_mask,
-        group_walk=group_walk,
+        group_walk=group_walk, times=times,
         pbr=(dict(albedo=albedo, metallic=m["metallic"],
                   roughness=m["roughness"], wo=-d, is_pbr=is_pbr,
                   throughput=throughput) if scene.has_pbr else None))
@@ -400,6 +475,8 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
     else:
         survive = torch.ones_like(active)
 
+    # closest-hit rays of live lanes and NEE shadow rays; the volume's
+    # scatter shadow rays are not counted, as in the reference
     rays_traced = state["rays_traced"] + active.sum() + nee_mask.sum()
     prev_specular = is_specular
     if cutouts:
@@ -455,11 +532,16 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
     (it never changes a hit, only the work); unset, the sample-major path
     reads ORT_GROUP_WALK (0 turns gating off, engine.py:622-628).
     active0 marks lanes that are live on arrival (strip padding is not).
-    spread (pixel_spread's value) sets the textured mip level.
+    spread (pixel_spread's value) sets the textured mip level. On a motion
+    scene each path first draws its shutter time (engine.py:212-217), which
+    rides in the state (sorted with it) to every query.
     """
     scene.require_supported()
     n_rays = rays.tmin.shape[0]
     dev = rays.origin.device
+    path_time = None
+    if scene.has_motion:
+        path_time, _, rng = _rng.uniform2(rng)
     if active0 is None:
         active0 = torch.ones((n_rays,), dtype=torch.bool, device=dev)
     else:
@@ -476,6 +558,8 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
         # spread times it (engine.py:233-235)
         path_len=torch.zeros((n_rays,), dtype=torch.float32, device=dev),
         rays_traced=torch.zeros((), dtype=torch.int64, device=dev))
+    if path_time is not None:
+        state["time"] = path_time
 
     if scene.has_clusters and sample_major:
         gw = (os.environ.get("ORT_GROUP_WALK", "1") != "0"
@@ -585,7 +669,8 @@ def _use_fused(scene: DeviceScene, impl: str) -> bool:
     was slower than XLA on the TPU; on the H100 the texture instantiation
     is bit-equal to the wavefront's texture lanes and far faster, so no
     option is needed, and its table-size cap is a TPU VMEM budget (the
-    port's atlas stays in device memory). Decided by the scene alone."""
+    port's atlas stays in device memory). Motion and volume scenes never
+    take it (engine.py:819-820). Decided by the scene alone."""
     from .pallas_pt import (FUSED_FEATURES, FUSED_PRIM_KINDS, MAX_FUSED_INST,
                             MAX_FUSED_MATS, MAX_FUSED_PRIMS, MAX_FUSED_TRIS,
                             fused_inst_ranges)
@@ -607,6 +692,8 @@ def _use_fused(scene: DeviceScene, impl: str) -> bool:
     return (scene.device.type == "cuda"
             and prims_ok
             and inst_ok
+            and not scene.has_motion
+            and not scene.has_volume
             and set(scene.features) <= FUSED_FEATURES
             and scene.num_triangles <= MAX_FUSED_TRIS
             and scene.materials.num <= MAX_FUSED_MATS)

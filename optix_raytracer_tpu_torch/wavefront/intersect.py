@@ -3,9 +3,12 @@ the instance loop for a two-level scene (`accel/tlas.py`), the
 cluster-culled traversal for a scene with a cluster table, brute force
 otherwise (culled by the scene's group boxes, `DeviceScene.bf_boxes`),
 then the custom prims merged in (`accel/primitives.py`; a prim
-hit reports prim_id = num_triangles + its row). BVHs and motion are not
-ported yet (ROADMAP.md Queue 1 items 6 and 9); the port's DeviceScene has
-neither.
+hit reports prim_id = num_triangles + its row), then on a scene with moving
+triangles their hits at each ray's shutter time (`accel/motion.py`; prim_id
+= num_triangles + prims.num + their row, mat_id from the scene's motion
+table). `times` None means time 0, as in the reference: the Whitted
+integrator and render_aovs pass none, so moving triangles stand at their
+first key there. BVHs are not ported yet (ROADMAP.md Queue 1 item 6).
 
 Occlusion on a scene with alpha cutouts re-enters past the holes (the
 anyhit program's optixIgnoreIntersection): with opacity micromaps, one
@@ -14,7 +17,11 @@ table, else kernel 2) and the re-entry loop over the unknown split alone
 (kernel 1), each hit's micro-triangle state deciding before its mask;
 without them, the loop over the whole scene. Each step of a loop ends in a
 host sync (whether a ray is still unresolved), and a ray still unresolved
-after `MAX_ALPHA_STEPS` steps counts as blocked, as in the reference.
+after `MAX_ALPHA_STEPS` steps counts as blocked, as in the reference. The
+micromap path folds the moving triangles into its first query at the rays'
+times (intersect.py:298-305); the loop without micromaps asks
+scene_closest without times (intersect.py:360), so there they stand at time
+0, as in the reference.
 
 In the JAX package the cluster branch runs only on a TPU; in the port a
 cluster table alone selects it, on any device (the CPU runs the kernels'
@@ -24,6 +31,7 @@ closest-hit queries and every any-hit query through the cluster-major queue
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -31,6 +39,7 @@ import torch
 
 from ..accel import bruteforce as bf
 from ..accel import clusters as cluster_mod
+from ..accel import motion as motion_mod
 from ..accel import primitives as prim_mod
 from ..accel import qwalk as qwalk_mod
 from ..accel import tlas
@@ -76,13 +85,26 @@ def _flat_call(fn, rays: Rays):
     return out.reshape(batch_shape)
 
 
+def _motion_hits(scene: DeviceScene, rays: Rays, times) -> Hits:
+    """The moving triangles' closest hits at `times` (None: 0), material
+    ids from the scene's motion table (intersect.py:58-76)."""
+    if times is None:
+        times = torch.zeros_like(rays.tmin)
+    mh = _flat_call(lambda r: motion_mod.intersect_motion_triangles(
+        scene.motion_geom, r, times.reshape(-1)), rays)
+    mat = scene.motion_tri_mat[torch.clamp_min(mh.prim_id, 0).long()]
+    return dataclasses.replace(
+        mh, mat_id=torch.where(mh.valid, mat, -1).to(torch.int32))
+
+
 def scene_closest(scene: DeviceScene, rays: Rays,
                   chunk_size: Optional[int] = None, exact: bool = False,
-                  group_walk: bool = False) -> Hits:
+                  group_walk: bool = False, times=None) -> Hits:
     """exact=True (already-sorted scattered wavefronts) takes the exact
     cull, or the queue under ORT_QWALK=1 (the reference's `exact or not
     coherent`); group_walk gates the walk per 32-ray group on the exact
-    cull's bits. Both are ignored by brute force and by the instances."""
+    cull's bits. Both are ignored by brute force and by the instances.
+    times: the rays' shutter times for the moving triangles (None: 0)."""
     if scene.has_instances:
         hits = _flat_call(lambda r: tlas.intersect_instances(
             scene.geom, scene.instances, r, tri_mat=scene.tri_mat,
@@ -102,19 +124,24 @@ def scene_closest(scene: DeviceScene, rays: Rays,
         ph = _flat_call(lambda r: prim_mod.intersect_prims_closest(
             scene.prims, r), rays)
         hits = prim_mod.merge_hits(hits, ph, prim_offset=scene.num_triangles)
+    if scene.has_motion:
+        hits = prim_mod.merge_hits(
+            hits, _motion_hits(scene, rays, times),
+            prim_offset=scene.num_triangles + scene.prims.num)
     return hits
 
 
 def scene_any(scene: DeviceScene, rays: Rays,
-              chunk_size: Optional[int] = None, group_walk: bool = False):
+              chunk_size: Optional[int] = None, group_walk: bool = False,
+              times=None):
     """Occlusion. NEE shadow wavefronts are mixed-liveness even when
     tile-coherent, so the cluster path always takes the exact cull, or the
     queue under ORT_QWALK=1. A scene with cutouts takes the alpha paths
-    first (intersect.py:136-146)."""
+    first (intersect.py:136-146). times: scene_closest's."""
     if scene.has_cutouts:
         if scene.has_omm:
             return _scene_any_alpha_omm(scene, rays, chunk_size,
-                                        group_walk=group_walk)
+                                        group_walk=group_walk, times=times)
         return _scene_any_alpha(scene, rays, chunk_size)
     if scene.has_instances:
         occ = _flat_call(lambda r: tlas.intersect_instances_any(
@@ -133,6 +160,8 @@ def scene_any(scene: DeviceScene, rays: Rays,
     if scene.prims.num:
         occ = occ | _flat_call(lambda r: prim_mod.intersect_prims_any(
             scene.prims, r), rays)
+    if scene.has_motion:
+        occ = occ | _motion_hits(scene, rays, times).valid
     return occ
 
 
@@ -231,11 +260,12 @@ def _scene_any_alpha(scene: DeviceScene, rays: Rays, chunk_size=65536):
 
 
 def _scene_any_alpha_omm(scene: DeviceScene, rays: Rays, chunk_size=65536,
-                         group_walk: bool = False):
+                         group_walk: bool = False, times=None):
     """Occlusion with the opacity micromaps (intersect.py:249-337): one
     any-hit query over the certain-solid split (its cluster table's exact
     cull and walk, kernels 4 + 6, on any device; else brute force, kernel
-    2), the custom prims folded in; then, for the rays it leaves open, the
+    2), the custom prims and the moving triangles (at `times`) folded in;
+    then, for the rays it leaves open, the
     re-entry loop over the unknown split alone (kernel 1), where a hit's
     micro-triangle state (micro_index of its barycentrics) decides:
     TRANSPARENT passes, OPAQUE blocks, UNKNOWN evaluates the mask at the
@@ -255,6 +285,8 @@ def _scene_any_alpha_omm(scene: DeviceScene, rays: Rays, chunk_size=65536,
     if scene.prims.num:
         occ0 = occ0 | _flat_call(lambda r: prim_mod.intersect_prims_any(
             scene.prims, r), rays)
+    if scene.has_motion:
+        occ0 = occ0 | _motion_hits(scene, rays, times).valid
     geom = scene.omm_unknown_geom
     if not geom.num_triangles:
         return occ0

@@ -327,6 +327,12 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
         # (engine.py:818 keeps such scenes off it)
         raise NotImplementedError("the fused kernel renders no scene with "
                                   "alpha cutouts: use impl='wavefront'")
+    if scene.has_motion or scene.has_volume:
+        # no shutter time and no volume lane in the kernel
+        # (engine.py:819-820 keeps such scenes off it)
+        raise NotImplementedError("the fused kernel renders no scene with "
+                                  "moving triangles or a volume: use "
+                                  "impl='wavefront'")
     if scene.has_textures and scene.has_instances:
         # the reference's kernel drops the textures there
         # (pallas_pt.py:1430-1431); the wavefront renders such a scene

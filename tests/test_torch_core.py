@@ -204,11 +204,17 @@ def test_device_scene_from_numpy_is_bit_exact():
 
 def test_unported_features_raise():
     fields = scene_fields(jbuiltins.cornell_box())
-    fields["features"] = ("volume",)
     from optix_raytracer_tpu_torch.scene.device_scene import (
         device_scene_from_numpy)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # a feature tag the port does not know raises; fog volumes are ported
+    # (ROADMAP.md Queue 1 item 9), so "volume" is served
+    fields["features"] = ("hair_bsdf",)
+    with pytest.raises(ValueError, match="unknown scene features"):
         device_scene_from_numpy(fields, "cpu").require_supported()
+    fields["features"] = ("volume",)
+    vscene = device_scene_from_numpy(fields, "cpu")
+    vscene.require_supported()
+    assert vscene.has_volume and vscene.volume.density.shape == (1, 1, 1)
     # alpha cutouts are ported: their planes build, the feature is served
     fields["features"] = ("cutouts",)
     device_scene_from_numpy(fields, "cpu").require_supported()

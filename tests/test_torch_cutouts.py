@@ -207,7 +207,8 @@ def test_displaced_micromesh_app_matches_jax(level):
 def test_fused_and_motion_raise():
     """impl="fused" on a cutout scene raises (the fused kernel has no cut
     lane), on the CPU as on the card; "auto" takes the wavefront. A motion
-    scene still raises (ROADMAP.md Queue 1 item 9)."""
+    scene builds now (ROADMAP.md Queue 1 item 9 is ported), and the fused
+    kernel refuses it the same way (no shutter times in the kernel)."""
     scene = tcutouts.cutout_cornell("cpu")
     cam = tb.cornell_camera(8, 8).params("cpu")
     with pytest.raises(NotImplementedError, match="cutouts"):
@@ -215,8 +216,13 @@ def test_fused_and_motion_raise():
                                  impl="fused")
     assert not engine._use_fused(dataclasses.replace(scene), "auto")
     verts, idx, tri_mat = tb.quads_to_triangles(tb._CORNELL_QUADS)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_device_scene(verts, idx, tri_mat, tb.CORNELL_MATERIALS, "cpu",
-                          motion={"verts0": verts, "verts1": verts,
-                                  "indices": idx})
+    moving = make_device_scene(verts, idx, tri_mat, tb.CORNELL_MATERIALS,
+                               "cpu", motion={"verts0": verts,
+                                              "verts1": verts,
+                                              "indices": idx})
+    assert moving.has_motion and moving.motion_tri_mat.tolist() == [0] * 32
+    with pytest.raises(NotImplementedError, match="moving triangles"):
+        engine.render_accumulate(moving, cam, Film.create(8, 8, "cpu"), 8, 8,
+                                 impl="fused")
+    assert not engine._use_fused(dataclasses.replace(moving), "auto")
     assert tmats.CUT_TEXTURE == 3

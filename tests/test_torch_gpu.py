@@ -1042,3 +1042,180 @@ def test_denoise_net_and_filters_match_cpu(cuda):
     np.testing.assert_array_equal(
         flow.optical_flow(beauty.to(cuda), hist.to(cuda)).cpu().numpy(),
         flow.optical_flow(beauty, hist).numpy())
+
+
+def _first_sample_bit_equal(fn, need):
+    """fn() through the kernels (each of `need` launched), its recorded
+    brute-force queries each bit-equal to the plain version, then again
+    through the plain versions (nothing launched), bit-equal."""
+    from optix_raytracer_tpu_torch.tools.mcv_probe import bf_query_parity
+    from optix_raytracer_tpu_torch.tools.whitted_probe import (
+        plain_queries, recorded_queries)
+    kernels.reset_launches()
+    with recorded_queries() as calls:
+        out = fn()
+    torch.cuda.synchronize()
+    assert all(kernels.LAUNCHES[k] > 0 for k in need), kernels.LAUNCHES
+    assert calls and all(bf_query_parity(c)["bit_equal"] for c in calls)
+    kernels.reset_launches()
+    with plain_queries():
+        ref = fn()
+    assert not any(kernels.LAUNCHES.values())
+    out, ref = out.cpu().numpy(), ref.cpu().numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert np.isfinite(out).all() and out.mean() > 0
+    return out
+
+
+def test_motion_engine_matches_plain_and_cpu(cuda):
+    """The motion-blur engine scene at 64², 4 samples, depth 2: through
+    kernels 1-2 bit-equal to the plain versions, and within the bars of
+    the CPU's render (same ray count)."""
+    from optix_raytracer_tpu_torch.apps import simple_motion_blur as smb
+    runs = {}
+    for dev in (cuda, "cpu"):
+        scene = smb.engine_scene(dev)
+        cam = smb.engine_camera(64, 64).params(dev)
+
+        def launch():
+            return engine.render_accumulate(
+                scene, cam, Film.create(64, 64, dev), 64, 64,
+                samples_per_launch=4, max_depth=2, chunk_size=None)
+
+        if dev == cuda:
+            _first_sample_bit_equal(lambda: launch()[0].accum,
+                                    ("bf_closest", "bf_any"))
+        film, rays = launch()
+        runs[str(dev)] = (film.accum.cpu().numpy(), int(rays))
+    assert runs["cuda"][1] == runs["cpu"][1]
+    torch_parity.assert_image_close(runs["cuda"][0], runs["cpu"][0],
+                                    "motion engine")
+
+
+def test_motion_geometry_matches_plain_and_cpu(cuda):
+    """motion_geometry at 64², 2 samples: kernel 1 on the object-space
+    rays bit-equal to its plain version, the image within the bars of the
+    CPU's."""
+    from optix_raytracer_tpu_torch.apps import motion_geometry as mg
+    out = _first_sample_bit_equal(
+        lambda: mg.render(64, 64, samples=2, device=cuda)[0],
+        ("bf_closest",))
+    ref = mg.render(64, 64, samples=2, device="cpu")[0].numpy()
+    torch_parity.assert_image_close(out, ref, "motion_geometry")
+
+
+@pytest.mark.parametrize("kind", ["quad", "cubic_bspline", "catmullrom",
+                                  "bezier"])
+def test_swept_prims_card_matches_cpu(cuda, kind):
+    """Swept spans of a random strand: hits on the card against the CPU's
+    on the same rays (masks equal, t within rtol 1e-4, normals and uv
+    within 1e-3), and in ray chunks of any size."""
+    from optix_raytracer_tpu_torch.accel import curves as cv
+    from optix_raytracer_tpu_torch.accel import primitives as prim
+    rng = np.random.default_rng(len(kind))
+    control = np.cumsum(rng.normal(size=(7, 3)) * 0.3 + [0, 0.35, 0],
+                        axis=0).astype(np.float32)
+    control -= control.mean(axis=0)
+    widths = np.linspace(0.12, 0.04, 7).astype(np.float32)
+    descs = (cv.strand_to_swept_quads(control, widths) if kind == "quad"
+             else cv.strand_to_swept_cubics(control, widths, kind=kind))
+    n = 1 << 16
+    o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    tgt = control[rng.integers(0, 7, n)] + rng.normal(size=(n, 3)) * 0.08
+    d = (tgt - o) / np.linalg.norm(tgt - o, axis=1, keepdims=True)
+    out = {}
+    for dev in (cuda, "cpu"):
+        rays = Rays.make(torch.as_tensor(o, device=dev),
+                         torch.as_tensor(d.astype(np.float32), device=dev),
+                         tmin=1e-3, tmax=50.0)
+        h = prim.intersect_prims_closest(prim.make_prims(descs, dev), rays)
+        out[str(dev)] = {f: getattr(h, f).cpu().numpy()
+                         for f in ("prim_id", "t", "normal", "uv")}
+    a, b = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(a["prim_id"], b["prim_id"])
+    hit = b["prim_id"] >= 0
+    assert 0.05 < hit.mean() < 0.95
+    np.testing.assert_allclose(a["t"][hit], b["t"][hit], rtol=1e-4)
+    np.testing.assert_allclose(a["normal"], b["normal"], atol=1e-3)
+    np.testing.assert_allclose(a["uv"], b["uv"], atol=1e-3)
+
+
+@pytest.mark.parametrize("app", ["curves", "curves_swept", "ribbons",
+                                 "hair"])
+def test_swept_curve_apps_card_matches_cpu(cuda, app):
+    """The curve apps at 64², one sample: the placeholder mesh's queries
+    bit-equal through kernels 1-2 and their plain versions, the image
+    within the bars (3e-3 for shaded prims) of the CPU's (the hair's from
+    the card's camera rays)."""
+    from optix_raytracer_tpu_torch.apps import curves, hair, ribbons
+
+    def render(dev):
+        if app == "hair":
+            return hair.render(64, 64, samples=1, spline="cubic_bspline",
+                               swept=True, device=dev)[0]
+        if app == "ribbons":
+            return ribbons.render(64, 64, samples=1, device=dev)[0]
+        return curves.render(64, 64, samples=1, swept=app == "curves_swept",
+                             device=dev)[0]
+
+    if app != "hair":
+        out = _first_sample_bit_equal(lambda: render(cuda),
+                                      ("bf_closest", "bf_any"))
+        torch_parity.assert_image_close(out, render("cpu").numpy(), app,
+                                        atol=3e-3)
+        return
+    # the hair on the CPU from the card's camera rays (mcv_probe.crop_rays)
+    from optix_raytracer_tpu_torch.tools.mcv_probe import crop_rays
+    out = render(cuda).cpu().numpy()
+    rays, _ = crop_rays(hair.camera(64, 64).params(cuda), 64, 64, 0, size=64)
+    prims, strand_of = hair.build_prims(*hair.procedural_fur(), "cpu",
+                                        "cubic_bspline", swept=True)
+    ref = hair.sample_radiance(prims, strand_of, "strand_u", rays)
+    torch_parity.assert_image_close(out, ref.numpy(), app, atol=3e-3)
+
+
+def test_volume_engine_matches_plain_and_cpu(cuda):
+    """The Cornell cloud at 64², 2 samples, depth 3: the closest, NEE and
+    scatter shadow queries through kernels 1-2 bit-equal to the plain
+    versions, the image within the bars of the CPU's (same ray count)."""
+    from optix_raytracer_tpu_torch.apps import volume_viewer as vv
+    runs = {}
+    for dev in (cuda, "cpu"):
+        scene = vv.engine_scene(dev, res=24)
+        cam = cornell_camera(64, 64).params(dev)
+
+        def launch():
+            return engine.render_accumulate(
+                scene, cam, Film.create(64, 64, dev), 64, 64,
+                samples_per_launch=2, max_depth=3, chunk_size=None)
+
+        if dev == cuda:
+            _first_sample_bit_equal(lambda: launch()[0].accum,
+                                    ("bf_closest", "bf_any"))
+        film, rays = launch()
+        runs[str(dev)] = (film.accum.cpu().numpy(), int(rays))
+    assert runs["cuda"][1] == runs["cpu"][1]
+    torch_parity.assert_image_close(runs["cuda"][0], runs["cpu"][0],
+                                    "volume engine")
+
+
+def test_volume_march_and_nanovdb_on_card(cuda, tmp_path):
+    """The standalone march at 64² (res 32, 48 steps) on the card within
+    the bars of the CPU's, and a .nvdb grid written here loaded onto the
+    card equal to the CPU's load."""
+    from optix_raytracer_tpu_torch.apps import volume_viewer as vv
+    from optix_raytracer_tpu_torch.io import nanovdb
+    out = vv.render(64, 64, samples=1, res=32, num_steps=48,
+                    device=cuda)[0].cpu().numpy()
+    ref = vv.render(64, 64, samples=1, res=32, num_steps=48,
+                    device="cpu")[0].numpy()
+    torch_parity.assert_image_close(out, ref, "volume march")
+    path = str(tmp_path / "g.nvdb")
+    dens = vv.load_grid(None, res=32, device="cpu").density.numpy()
+    nanovdb.write_nvdb(path, dens, ijk_min=(8, -16, 0),
+                       codec=nanovdb.CODEC_ZIP)
+    g_card = nanovdb.load_density_grid(path, device=cuda)
+    g_cpu = nanovdb.load_density_grid(path, device="cpu")
+    assert g_card.density.device.type == "cuda"
+    for f in ("density", "lo", "hi"):
+        assert torch.equal(getattr(g_card, f).cpu(), getattr(g_cpu, f))

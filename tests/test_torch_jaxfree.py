@@ -192,3 +192,80 @@ def test_port_runs_without_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+_SCRIPT_ITEM9 = r"""
+import struct
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import numpy as np
+from optix_raytracer_tpu_torch.accel import curves as cv
+from optix_raytracer_tpu_torch.apps import (curves, hair, motion_geometry,
+                                            ribbons, simple_motion_blur,
+                                            volume_viewer)
+from optix_raytracer_tpu_torch.io import nanovdb
+out = sys.argv[1]
+for accum in (simple_motion_blur.render(8, 8, samples=2, device="cpu")[0],
+              simple_motion_blur.render_engine(8, 8, 2, device="cpu")[0],
+              motion_geometry.render(8, 8, samples=2, device="cpu")[0],
+              curves.render(8, 8, samples=1, device="cpu")[0],
+              curves.render(8, 8, samples=1, kind=cv.QUADRATIC_BSPLINE,
+                            swept=True, device="cpu")[0],
+              ribbons.render(8, 8, samples=1, device="cpu")[0],
+              hair.render(8, 8, samples=1, spline=cv.CUBIC_BSPLINE,
+                          swept=True, device="cpu")[0],
+              volume_viewer.render(8, 8, samples=1, res=16, num_steps=8,
+                                   device="cpu")[0],
+              volume_viewer.render_engine(8, 8, 2, res=16, max_depth=2,
+                                          device="cpu")[0]):
+    a = accum.numpy()
+    assert a.shape == (8, 8, 3) and np.isfinite(a).all() and a.max() > 0
+vals = np.zeros((16, 16, 16), np.float32)
+vals[4:12, 2:10, 5:14] = np.random.default_rng(0).uniform(0.1, 1, (8, 8, 9))
+nanovdb.write_nvdb(out + ".nvdb", vals, ijk_min=(8, 0, -8),
+                   codec=nanovdb.CODEC_ZIP)
+g = nanovdb.read_nvdb(out + ".nvdb")
+assert (g.values == vals[4:12, 2:10, 5:14]).all()
+grid = nanovdb.load_density_grid(out + ".nvdb", device="cpu")
+assert grid.density.shape == (8, 8, 9)
+pts = np.random.default_rng(1).normal(size=(9, 3)).astype(np.float32)
+header = struct.pack("<4sIIIIIII", b"HAIR", 2, 9, 1 | 2, 0, 0, 0, 0)
+header += b"\x00" * (128 - len(header))
+with open(out + ".hair", "wb") as f:
+    f.write(header + np.array([3, 4], np.uint16).tobytes() + pts.tobytes())
+strands, radii = cv.load_hair_file(out + ".hair")
+assert [len(s) for s in strands] == [4, 5]
+assert (np.concatenate(strands) == pts).all()
+volume_viewer.main(["--file", out + ".ppm", "--dim", "8x8", "--samples", "1",
+                    "--steps", "8", "--grid", out + ".nvdb", "--engine",
+                    "--device", "cpu"])
+hair.main(["--file", out + "h.ppm", "--dim", "8x8", "--samples", "1",
+           "--hair", out + ".hair", "--device", "cpu"])
+assert not any(m == "jax" or m.startswith(("jax.", "flax"))
+               for m in sys.modules if sys.modules[m] is not None)
+assert not any(m == "optix_raytracer_tpu"
+               or m.startswith("optix_raytracer_tpu.") for m in sys.modules)
+from optix_raytracer_tpu.io import nanovdb as jnanovdb
+assert (jnanovdb.read_nvdb(out + ".nvdb").values == g.values).all()
+print("OK")
+"""
+
+
+def test_motion_curves_volumes_run_without_jax(tmp_path):
+    """With `import jax` and `import flax` failing, the six apps of motion
+    blur, curves and volumes render 8x8 on the CPU (the standalone and
+    engine modes of the motion-blur and volume viewer apps, capsule and
+    swept curves, swept hair), a .nvdb (ZIP, non-zero origin) and a .hair
+    file written here read back through the port's codec and reader, and
+    the volume viewer and hair CLIs read them. Until then no module of the
+    JAX package is loaded; the JAX package's reader then reads the .nvdb
+    the port wrote."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", _SCRIPT_ITEM9,
+                          str(tmp_path / "v")],
+                         capture_output=True, text=True, env=env, cwd=root,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")

@@ -40,7 +40,8 @@ def _table(kind, rng):
     """Three prims of `kind` (or one of each kind for kind None) with
     random placements, material ids 0-4."""
     out = []
-    kinds = [kind] * 3 if kind is not None else list(prim.PORTED_KINDS)
+    kinds = [kind] * 3 if kind is not None else [
+        prim.SPHERE, prim.SPHERE_SHELL, prim.PARALLELOGRAM, prim.CAPSULE]
     for k in kinds:
         c = tuple(rng.uniform(-1.5, 1.5, 3))
         mid = int(rng.integers(0, 5))
@@ -191,24 +192,29 @@ def test_merge_hits_matches_jax():
 
 
 def test_swept_prims_raise():
-    """A table holding a swept curve segment raises NotImplementedError
-    naming its ROADMAP item, in every query and in the engine; it is never
-    dropped quietly, and the fused kernel does not take it."""
+    """A table holding a swept curve span is served now (kinds 4-5 are
+    ported): its queries answer and the engine renders it, but the fused
+    kernel never takes it (its kinds are 0-3), so impl "auto" takes the
+    wavefront. A kind outside the six still raises."""
     table = tb.prims_list() + [
         {"kind": prim.SWEPT_QUAD, "a0": (0, 0, 0), "a1": (1, 0, 0),
          "a2": (0, 1, 0), "r": (0.1, 0.0, 0.0), "mat_id": 1}]
     tp = prim.make_prims(table, "cpu")
     rays = Rays.make(torch.zeros((4, 3)), torch.tensor([[0.0, 0, 1]] * 4))
-    for fn in (prim.intersect_prims_closest, prim.intersect_prims_any):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            fn(tp, rays)
+    hits = prim.intersect_prims_closest(tp, rays)
+    assert torch.equal(prim.intersect_prims_any(tp, rays), hits.prim_id >= 0)
     verts, idx = tb.prims_floor()
     scene = make_device_scene(verts, idx, np.zeros(2, np.int32),
                               tb.PRIMS_MATERIALS, "cpu", prims=tp)
     assert not engine._use_fused(dataclasses.replace(scene), "auto")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        engine.render_sample(scene, tb.prims_camera(4, 4).params("cpu"), 4,
-                             4, 0, max_depth=1)
+    img, _ = engine.render_sample(scene, tb.prims_camera(4, 4).params("cpu"),
+                                  4, 4, 0, max_depth=1)
+    assert img.shape == (4, 4, 3) and bool(torch.isfinite(img).all())
+    bad = dataclasses.replace(tp, kinds_static=tp.kinds_static[:-1] + (6,))
+    with pytest.raises(ValueError, match="unknown custom prim kinds"):
+        prim.intersect_prims_closest(bad, rays)
+    with pytest.raises(ValueError, match="unknown custom prim kinds"):
+        dataclasses.replace(scene, prims=bad).require_supported()
 
 
 _MATERIAL_CASES = {

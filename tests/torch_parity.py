@@ -5,6 +5,7 @@ loaded before a test compares a knot build of the two packages."""
 import fcntl
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 
@@ -23,8 +24,9 @@ def scene_fields(jscene):
     (the instance table too, so both packages trace with the same inverse
     transforms: jnp.linalg.inv and torch.linalg.inv may round apart; and the
     texture bundles and atlas, uvs, tangents and uv densities, the light
-    table, the Whitted and cutout material planes and the opacity
-    micromaps, whose split the port derives from them)."""
+    table, the Whitted and cutout material planes, the opacity
+    micromaps, whose split the port derives from them, the moving
+    triangles and the fog volume)."""
     g, m, light = jscene.geom, jscene.materials, jscene.area_light
     cl, inst = jscene.clusters, jscene.instances
     arrays = dict(
@@ -56,7 +58,12 @@ def scene_fields(jscene):
         tex_size=jscene.tex_size, tex_mip=jscene.tex_mip,
         mat_alpha_mode=m.alpha_mode, mat_cutout=m.cutout,
         mat_alpha_cutoff=m.alpha_cutoff, omm_micro=jscene.omm_micro,
-        omm_summary=jscene.omm_summary)
+        omm_summary=jscene.omm_summary,
+        **{f"motion_{k}": getattr(jscene.motion_geom, k)
+           for k in ("v0_0", "e1_0", "e2_0", "v0_1", "e1_1", "e2_1")},
+        motion_tri_mat=jscene.motion_tri_mat,
+        volume_density=jscene.volume.density, volume_lo=jscene.volume.lo,
+        volume_hi=jscene.volume.hi, volume_params=jscene.volume_params)
     fields = {k: np.array(v) for k, v in arrays.items()}
     fields["bundle_meta"] = jscene.bundle_meta
     fields["mat_tex_flags"] = jscene.mat_tex_flags
@@ -607,3 +614,34 @@ def tie_rays(geom, seed=6, device="cpu"):
     return rays8(np.concatenate([o, d, np.full((len(o), 1), 1e-3),
                                  np.full((len(o), 1), 1e16)], axis=1),
                  device)
+
+
+def hair_bytes(points, segments=None, thickness=None, default=0.02):
+    """A .hair file (cem-yuksel format): flags 1 segments, 2 points, 4
+    thickness; the 128-byte header. Both packages' readers take the default
+    thickness at byte 40 (curves.py:145), not at the format's byte 20: the
+    default goes there (ROADMAP.md Queue 3)."""
+    flags = 2 | (1 if segments is not None else 0) | (
+        4 if thickness is not None else 0)
+    n_strands = len(segments) if segments is not None else 2
+    header = struct.pack("<4sIIIIIII", b"HAIR", n_strands, len(points), flags,
+                         len(points) // n_strands - 1, 0, 0, 0)
+    header += b"\x00" * (40 - len(header)) + struct.pack("<f", default)
+    header += b"\x00" * (128 - len(header))
+    blob = header
+    if segments is not None:
+        blob += np.asarray(segments, np.uint16).tobytes()
+    blob += np.asarray(points, np.float32).tobytes()
+    if thickness is not None:
+        blob += np.asarray(thickness, np.float32).tobytes()
+    return blob
+
+
+def assert_image_close(out, ref, what, atol=2e-3, rtol=1e-3):
+    """Images (any [..., 3]) within atol / rtol: the pixels outside the bar
+    are counted, and none may be (the count and the largest difference in
+    the message)."""
+    from optix_raytracer_tpu_torch.tools.mcv_probe import outside_bar
+    bad, worst = outside_bar(out, ref, atol, rtol)
+    assert bad == 0, (f"{what}: {bad} pixels outside atol {atol} / rtol "
+                      f"{rtol} (max {worst:.3g})")

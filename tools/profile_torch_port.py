@@ -36,6 +36,13 @@ query kernels split out and the alpha loops' loops and steps
 profiles one call of each model kind chip_smoke.py's n2 times (the HDR net
 and filter, the trained temporal net, UPSCALE2X, AOV, tiled, and the
 optical flow; tools/denoise_probe.py).
+--scene motion (`simple_motion_blur --engine`, its standalone renderer and
+`motion_geometry`), --scene hair (`curves` as capsules and as swept spans,
+`ribbons` and `hair` as swept cubic spans) and --scene volume
+(`volume_viewer` standalone and `--engine`) profile each app's default run
+(tools/mcv_probe.py: 512x512 and the app's samples), after a one-sample
+warm-up, with its ms a sample, torch kernels a sample, and the query
+kernels (1-2) split out.
 torch.profiler prints for each: the wall time of the launch, the device
 time summed over kernels, the device's idle share of the window, and the
 kernels that take the most device time. Needs a CUDA device; with --out DIR
@@ -55,7 +62,7 @@ hits), and how many queries the queue answered or handed to the walk.
 
     python tools/profile_torch_port.py [--scene cornell|knot|knot4m|prims|pbr|
         instanced|smooth_knot|textured|whitted|knot_rig|cutouts|
-        cutout_grid|denoise] [--dim 1920x1088]
+        cutout_grid|denoise|motion|hair|volume] [--dim 1920x1088]
         [--spl N] [--depth N] [--qwalk] [--out DIR]
 """
 from __future__ import annotations
@@ -267,6 +274,82 @@ def profile_denoise(w, h, out_dir):
         yield dict(scene="denoise", kind=name, dim=f"{w}x{h}", **out)
 
 
+def mcv_runs(scene):
+    """--scene motion / hair / volume: {app: (samples, run(samples))}, each
+    run an app's default render on the card (tools/mcv_probe.py)."""
+    import torch
+    from optix_raytracer_tpu_torch.apps import (curves, hair,
+                                                motion_geometry, ribbons,
+                                                simple_motion_blur,
+                                                volume_viewer)
+    from optix_raytracer_tpu_torch.tools import mcv_probe as MP
+    dev = torch.device("cuda")
+    if scene == "motion":
+        c, g = MP.MOTION_BLUR, MP.MOTION_GEOMETRY
+        w, h = c["width"], c["height"]
+        return {
+            "simple_motion_blur --engine": (c["spl"], lambda n: (
+                simple_motion_blur.render_engine(w, h, n, c["depth"],
+                                                 device=dev))),
+            "simple_motion_blur": (c["spl"], lambda n: (
+                simple_motion_blur.render(w, h, samples=n, device=dev))),
+            "motion_geometry": (g["spl"], lambda n: motion_geometry.render(
+                g["width"], g["height"], samples=n, device=dev))}
+    if scene == "hair":
+        c, r, hc = MP.CURVES, MP.RIBBONS, MP.HAIR
+        cs = curves.make_curve_scene(dev, c["kind"])
+        css = curves.make_curve_scene(dev, c["kind"], swept=True)
+        rs = ribbons.make_ribbon_scene(dev)
+        return {
+            "curves": (c["spl"], lambda n: curves.render(
+                c["width"], c["height"], samples=n, scene=cs)),
+            "curves --swept": (c["spl"], lambda n: curves.render(
+                c["width"], c["height"], samples=n, scene=css)),
+            "ribbons": (r["spl"], lambda n: ribbons.render(
+                r["width"], r["height"], samples=n, scene=rs)),
+            "hair --swept": (hc["spl"], lambda n: hair.render(
+                hc["width"], hc["height"], samples=n, spline=hc["spline"],
+                swept=hc["swept"], device=dev))}
+    v, e = MP.VOLUME, MP.VOLUME_ENGINE
+    return {
+        "volume_viewer": (v["spl"], lambda n: volume_viewer.render(
+            v["width"], v["height"], samples=n, res=v["res"],
+            num_steps=v["steps"], device=dev)),
+        "volume_viewer --engine": (e["spl"], lambda n: (
+            volume_viewer.render_engine(e["width"], e["height"], n,
+                                        res=e["res"], max_depth=e["depth"],
+                                        device=dev)))}
+
+
+def profile_mcv(scene, out_dir):
+    """Each app of mcv_runs(scene): a one-sample warm-up, then its default
+    run profiled → one record per app."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    for app, (spl, run) in mcv_runs(scene).items():
+        run(1)                                                 # warm-up
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(spl)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                out_dir, f"trace_{scene}_{app.split()[0]}.json"))
+        kernels, out = _summary(prof, wall)
+        yield dict(scene=scene, app=app, spl=spl,
+                   ms_per_sample=out["wall_ms"] / spl,
+                   kernels_per_sample=out["kernel_launches"] / spl,
+                   query_kernels_ms={
+                       k: sum(e.time_range.end - e.time_range.start
+                              for e in kernels if k in e.name) / 1e3
+                       for k in _QUERY_KERNELS[:1]},
+                   **out)
+
+
 def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -321,7 +404,8 @@ def main():
                                        "pbr", "instanced", "smooth_knot",
                                        "textured", "whitted", "knot_rig",
                                        "cutouts", "cutout_grid",
-                                       "denoise"),
+                                       "denoise", "motion", "hair",
+                                       "volume"),
                    default="cornell")
     p.add_argument("--dim", default=None,
                    help="frame (default 768x576 for whitted, 768x768 for "
@@ -346,6 +430,10 @@ def main():
     if args.scene == "denoise":
         w, h = (int(v) for v in (args.dim or "1920x1088").split("x"))
         for rec in profile_denoise(w, h, args.out):
+            print(json.dumps(rec), flush=True)
+        return
+    if args.scene in ("motion", "hair", "volume"):
+        for rec in profile_mcv(args.scene, args.out):
             print(json.dumps(rec), flush=True)
         return
     if args.qwalk:
