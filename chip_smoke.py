@@ -59,7 +59,14 @@ moving triangle's per-path shutter times) and its standalone renderer,
 `--engine` (kernels 1-2 answering the volume's scatter shadow rays too);
 each first sample's queries and image bit-equal through the plain
 versions, or a 64x64 crop held against the CPU, each run's ms a sample,
-peak memory and launches of kernels 1-2 printed.
+peak memory and launches of kernels 1-2 printed. Phases a1-a3 drive the
+host API (optix_raytracer_tpu_torch/tools/api_probe.py): validation-mode
+Pipeline.launch of the Cornell headline, the Whitted scene and the 25k knot
+from GAS builds and SBT records, each bit-equal to the direct render on the
+assembled scene; the 4,260,002-triangle knot past the cluster cap, its
+LBVH built on the card and walked by the walk kernel (bvh_walk_kernel,
+timed on camera and shadow rays and held bit for bit against the lock-step
+loop on the same rays); and the API's six apps at their defaults.
 
     python3 chip_smoke.py
 
@@ -1952,6 +1959,46 @@ def mcv_phases(dev, card, record):
     torch.cuda.empty_cache()
 
 
+def api_phases(dev, card, record):
+    """Phases a1-a3 (optix_raytracer_tpu_torch/tools/api_probe.py): (a1) the
+    host API's validation-mode Pipeline.launch of the Cornell box at the
+    headline (the fused kernel), the Whitted scene (768x576, 4 samples a
+    launch, depth 6; kernels 1-2) and the 25k knot at the knot headline
+    (kernels 4-6), each assembled from a GAS and SBT records, bit-equal to
+    the direct render on the assembled scene with equal ray counts and zero
+    exception counters, ms a launch; (a2) the knot past the cluster cap
+    (4,260,002 triangles): build_gas's LBVH on the card timed beside the
+    native SAH build, one launch at 1920x1088, depth 3, through the walk
+    kernel and no cluster kernel, and the walk kernel timed on the camera
+    and shadow rays, bit-equal to the lock-step loop on the same rays;
+    (a3) the six apps at their defaults through main(), writing into the
+    git-ignored _build/apps → the walk kernels' launch counts on a2's
+    launch."""
+    import torch
+    from optix_raytracer_tpu_torch.tools import api_probe as AP
+    t_start = time.perf_counter()
+    # --- a1: three launches through the API ---
+    for name, case in AP.api_cases(dev).items():
+        r = AP.pipeline_case(case, dev)
+        phase(f"a1 pipeline {name}", card=repr(card), **fmt(r))
+        torch.cuda.empty_cache()
+    # --- a2: the knot past the cluster cap through the walk kernel ---
+    r = AP.past_cap_case(dev, record)
+    phase("a2 knot past the cap", card=repr(card), **fmt(r))
+    for name in ("bvh_walk_closest", "bvh_walk_any"):
+        phase(f"a2 {name}", card=repr(card), **fmt(record[name]))
+    counts = {n: r["launches"].get(n, 0) for n in ("bvh_walk_closest",
+                                                   "bvh_walk_any")}
+    torch.cuda.empty_cache()
+    # --- a3: the six apps at their default sizes ---
+    for row in AP.run_apps(os.path.join(ROOT, "optix_raytracer_tpu_torch",
+                                        "_build", "apps"), dev):
+        phase(f"a3 {row['app']} {row['args']}".strip(), card=repr(card),
+              **fmt(row))
+    phase("a total", seconds=f"{time.perf_counter() - t_start:.1f}")
+    return counts
+
+
 def sc_phases(dev, card, record):
     """Phases (e)-(g): the 4.0M-triangle knot through the supercluster tier.
     (e) the build, timed per step, and traversal_stats at supercluster
@@ -2905,6 +2952,11 @@ def main():
     mcv_phases(dev, card, record)
     torch.cuda.empty_cache()
 
+    # --- phases a1-a3: the host API, the BVH walk past the cluster cap
+    # and the API's apps ---
+    launches.update(api_phases(dev, card, record))
+    torch.cuda.empty_cache()
+
     # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---
     launches.update(sc_phases(dev, card, record))
 
@@ -2942,10 +2994,14 @@ def main():
         qwalk_any=("optix_raytracer_tpu_torch/csrc/clusters.cu",
                    "optix_raytracer_tpu/accel/qwalk.py:283"),
         texfetch=("optix_raytracer_tpu_torch/csrc/texfetch.cu",
-                  "tools/bench_texfetch.py:97"))
-    # No single PyTorch call computes a Woop closest hit, a slab cull or a
-    # path: library_ms is null for every kernel but kernel 9 (torch's row
-    # gather).
+                  "tools/bench_texfetch.py:97"),
+        bvh_walk_closest=("optix_raytracer_tpu_torch/csrc/bvh.cu",
+                          "optix_raytracer_tpu/accel/traverse.py:51"),
+        bvh_walk_any=("optix_raytracer_tpu_torch/csrc/bvh.cu",
+                      "optix_raytracer_tpu/accel/traverse.py:51"))
+    # No single PyTorch call computes a Woop closest hit, a slab cull, a BVH
+    # walk or a path: library_ms is null for every kernel but kernel 9
+    # (torch's row gather).
     print(json.dumps({"kernels": [
         dict(name=n, route="cuda", source=meta[n][0], replaces=meta[n][1],
              launches=launches[n], **{"library_ms": None, **record[n]})

@@ -713,8 +713,8 @@ def _sc_tables(cl: ClusterSet):
         raise NotImplementedError(
             f"{n_sc} superclusters: the cluster path stops at "
             f"{MAX_SUPERCLUSTERS} ({MAX_SUPERCLUSTERS * sc * LANES} "
-            f"triangles); the LBVH fallback past it is not ported yet "
-            f"(ROADMAP.md Queue 1 item 6)")
+            f"triangles); a scene past it builds no cluster table and "
+            f"walks its BVH (accel/traverse.py)")
     dev = cl.aabb.device
     mem = _aabb_rows(cl)[:n_sc * sc].reshape(n_sc, sc, 6)
     sc_rows = -(-n_sc // LANES)

@@ -226,10 +226,10 @@ def march(grid: DensityGrid, rays: Rays, light_dir, light_color,
     return rad, trans
 
 
-def pyroclastic_ball(res: int = 64, seed: int = 0, device="cpu"):
+def pyroclastic_ball(res: int = 64, seed: int = 0, *, device):
     """The demo puffball (the viewer's default volume): a radial falloff
     warped by trilinear value noise from default_rng(seed), built in numpy
-    bit for bit as the reference builds it, in [-1, 1]³."""
+    bit for bit as the reference builds it, in [-1, 1]³, on `device`."""
     rng = np.random.default_rng(seed)
     coarse = rng.uniform(0, 1, (9, 9, 9)).astype(np.float32)
     zoom = res / 8.0

@@ -380,7 +380,7 @@ def read_nvdb(path: str, grid_name: str | None = None) -> NvdbGrid:
 
 
 def load_density_grid(path: str, grid_name: str | None = None,
-                      max_voxels: int = 192 ** 3, device="cpu"):
+                      max_voxels: int = 192 ** 3, *, device):
     """Read a .nvdb fog volume into the port's `DensityGrid` on `device`,
     mean-pooling when the dense grid would pass `max_voxels`."""
     from ..accel.volume import DensityGrid

@@ -24,6 +24,7 @@ import torch
 
 _CSRC = Path(__file__).parent / "csrc"
 _BUILD = Path(__file__).parent / "_build"
+_REUSE = True
 
 # No --use_fast_math. -fmad=false keeps every product and sum rounded on
 # its own, as PyTorch's elementwise ops round them, so the kernels and their
@@ -63,7 +64,7 @@ LAUNCHES = {"bf_closest": 0, "bf_any": 0,
             "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0,
             "cluster_sc_closest": 0, "cluster_sc_any": 0,
             "qwalk_oct_cull": 0, "qwalk_closest": 0, "qwalk_any": 0,
-            "texfetch": 0}
+            "texfetch": 0, "bvh_walk_closest": 0, "bvh_walk_any": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,12 +101,35 @@ _SIGNATURES = {
     "ort_qwalk_any": (_P, _I, _P, _L, _P, _I, _P, _P, _P),
     # atlas, tile_idx, local, tile_w, n_blocks, out, stream
     "ort_texfetch": (_P, _P, _P, _I, _I, _P, _P),
+    # nodes, num_nodes, tri, tri_mat, org, dir, tmin, tmax, n, t, prim, mat,
+    # uv, normal, stream
+    "ort_bvh_closest": (_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                        _P, _P),
+    # nodes, num_nodes, tri, org, dir, tmin, tmax, n, occ, stream
+    "ort_bvh_any": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P),
 }
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def build_dir() -> Path:
+    """The directory the library is built into and reused from (the port's
+    one compile cache; `api/context.py` reads and sets it)."""
+    return _BUILD
+
+
+def set_build_dir(path, reuse: bool = True) -> bool:
+    """Build into `path` from now on; with reuse False, build anew even
+    where a library of this source hash exists. Returns False when this
+    changes the setting after the library was loaded in this process: the
+    change then applies to the next process only."""
+    global _BUILD, _REUSE
+    changed = (Path(path), reuse) != (_BUILD, _REUSE)
+    _BUILD, _REUSE = Path(path), reuse
+    return not changed or lib.cache_info().currsize == 0
 
 
 def _nvcc() -> str:
@@ -133,7 +157,7 @@ def build() -> tuple[Path, float]:
         h.update(src.read_bytes())
     out_dir = _BUILD / h.hexdigest()[:16]
     lib_path = out_dir / "libort_kernels.so"
-    if lib_path.exists():
+    if lib_path.exists() and _REUSE:
         return lib_path, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = os.getpid()

@@ -16,8 +16,10 @@ certain-solid triangles, with their own cluster table past 512, and the
 unknown ones), for a scene given moving triangles their two vertex keys and
 materials (`accel/motion.py`, traced at per-path shutter times), and for a
 scene given a fog volume its density grid with sigma_t and albedo
-(`accel/volume.py`). BVHs and per-mesh cluster tables of instanced meshes
-are not ported yet (ROADMAP.md Queue 1 items 6 and 7).
+(`accel/volume.py`), and with `with_bvh` (or a `bvh` handed in, as
+`api/pipeline.py` hands a GAS's) the threaded BVH that a mesh past the
+cluster tier's cap walks (`accel/traverse.py`). Per-mesh cluster tables of
+instanced meshes are not ported yet (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import torch
 from ..accel import clusters as cluster_mod
 from ..accel import micromap as mm
 from ..accel import native
+from ..accel.lbvh import LBVH, build_lbvh
 from ..accel.motion import MotionTriangles
 from ..accel.volume import DensityGrid
 from ..accel import primitives as prim_mod
@@ -48,6 +51,10 @@ from ..shade.materials import (ALPHA_MASK, CUT_CHECKER, CUT_CIRCLE,
 # The feature tags of the JAX DeviceScene (device_scene.py:550-577); the
 # port renders them all.
 FEATURES = frozenset({"cutouts", "glass", "mirror", "pbr", "volume"})
+# A scene given a pre-built MaterialTable (the pipeline's SBT) assumes
+# every material family is possible, as the reference's does
+# (device_scene.py:578-580): its engine then draws every lane's RNG pairs.
+PREBUILT_FEATURES = ("glass", "mirror", "pbr")
 
 # Meshes past the brute-force kernels' budget get a cluster table
 # (accel/pallas_bf.py MAX_SMEM_TRIS, scene/device_scene.py:533-542).
@@ -107,6 +114,9 @@ class DeviceScene:
     # (sigma_t, albedo); the grid is read only with the "volume" feature.
     volume: Optional[DensityGrid] = None
     volume_params: Optional[torch.Tensor] = None
+    # The threaded BVH (device_scene.py:44, 519-526), None without one: a
+    # mesh past MAX_SMEM_TRIS triangles with no cluster table walks it.
+    bvh: Optional[LBVH] = None
 
     def __post_init__(self):
         if self.prims is None:
@@ -143,6 +153,10 @@ class DeviceScene:
     @property
     def has_clusters(self) -> bool:
         return self.clusters is not None and self.clusters.num_clusters > 0
+
+    @property
+    def has_bvh(self) -> bool:
+        return self.bvh is not None and self.bvh.num_nodes > 0
 
     @property
     def has_instances(self) -> bool:
@@ -281,18 +295,25 @@ def _build_cluster_table(geom: TriangleGeometry, tri_mat: torch.Tensor):
     """The cluster table of a mesh past MAX_SMEM_TRIS triangles, up to the
     supercluster tier's MAX_SUPERCLUSTERS * SC_CLUSTERS clusters (4.19M
     triangles), in SAH leaf order, or morton order without the native
-    builder (scene/device_scene.py:533-542); None for a smaller mesh."""
+    builder (scene/device_scene.py:533-542); None for a smaller mesh and
+    past the cap, where a scene with a BVH walks it and one without takes
+    brute force (intersect.py:129-131)."""
     n = geom.num_triangles
-    if n <= MAX_SMEM_TRIS:
-        return None
     cap = cluster_mod.MAX_SUPERCLUSTERS * cluster_mod.SC_CLUSTERS
-    if -(-n // cluster_mod.LANES) > cap:
-        raise NotImplementedError(
-            f"{n} triangles: the cluster path stops at "
-            f"{cap * cluster_mod.LANES} triangles, and the LBVH fallback "
-            f"past it is not ported yet (ROADMAP.md Queue 1 item 6)")
+    if n <= MAX_SMEM_TRIS or -(-n // cluster_mod.LANES) > cap:
+        return None
     return cluster_mod.build_clusters(geom, tri_mat,
                                       order=native.sah_leaf_order(geom))
+
+
+def build_scene_bvh(geom: TriangleGeometry) -> LBVH:
+    """The scene's BVH (device_scene.py:519-526): the native SAH build
+    (better trees for static scenes) where the builder is available, else
+    the LBVH built on the geometry's device."""
+    arrays = native.build_bvh_sah(geom)
+    if arrays is None:
+        return build_lbvh(geom)
+    return LBVH.from_numpy(arrays, geom.tri_consts.device)
 
 
 def _is_mirror(m) -> bool:
@@ -499,11 +520,17 @@ def pack_bundles(images, materials):
 def _texture_fields(textures, materials, device) -> dict:
     """The DeviceScene's texture fields from the images and the material
     dicts (scene/device_scene.py:484-515): the atlas, the bundles, and the
-    material table's bundle plane."""
+    material table's bundle plane; the atlas alone without the dicts (a
+    pre-built MaterialTable, device_scene.py:488-489)."""
     textures = list(textures or ())
     if not textures:
         return {}
     atlas, sizes, tex_mips = pack_textures(textures)
+    if materials is None:
+        return dict(textures=torch.as_tensor(atlas, device=device),
+                    tex_size=torch.as_tensor(sizes, device=device),
+                    tex_mip=torch.as_tensor(tex_mips, device=device),
+                    num_textures=len(textures))
     bundles, mips, mat_bundle, meta = pack_bundles(textures, materials)
     flags = tuple((int(mat_bundle[k]), *(i >= 0 for i in _mat_tex_ids(m)))
                   for k, m in enumerate(materials))
@@ -608,9 +635,13 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
                       textures=(), lights=(), opacity_micromaps=True,
                       omm_level=3, motion=None,
                       volume: Optional[DensityGrid] = None,
-                      volume_sigma: float = 8.0, volume_albedo: float = 0.9):
+                      volume_sigma: float = 8.0, volume_albedo: float = 0.9,
+                      with_bvh: bool = False):
     """Triangle mesh + material dicts (+ a CustomPrims table, + an
-    InstanceTable over the mesh) → DeviceScene on `device`. lights: the
+    InstanceTable over the mesh) → DeviceScene on `device`. materials may
+    also be a pre-built MaterialTable on `device`: the scene then takes
+    PREBUILT_FEATURES, packs no texture bundles and builds no micromaps,
+    as the reference does. lights: the
     Whitted integrator's light dicts (LightTable.make). normals / uvs:
     optional per-vertex [V, 3] shading normals and [V, 2] texture
     coordinates; textures: images ([H, W, 3 | 4] or [H, W], uint8 or float)
@@ -624,13 +655,17 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
     two vertex keys, traced at per-path shutter times. volume: a
     DensityGrid (on `device`) of a fog volume with extinction volume_sigma
     and single-scattering albedo volume_albedo (device_scene.py:480-485,
-    576-577, 643-656)."""
+    576-577, 643-656). with_bvh: build the scene's BVH (build_scene_bvh),
+    which a mesh past MAX_SMEM_TRIS triangles walks where it has no cluster
+    table (past the cluster tier's cap)."""
     if area_light is None:
         area_light = ParallelogramLight.make(
             (0, 0, 0), (1, 0, 0), (0, 0, 1), (0.0, 0.0, 0.0), device)
-    table = make_material_table(materials, device)
-    tex = _texture_fields(textures, materials, device)
-    if tex:
+    prebuilt = isinstance(materials, MaterialTable)
+    table = (materials if prebuilt
+             else make_material_table(materials, device))
+    tex = _texture_fields(textures, None if prebuilt else materials, device)
+    if "mat_bundle" in tex:
         table.bundle = tex.pop("mat_bundle")
     geom = build_triangle_geometry(vertices, indices, device, normals=normals,
                                    uvs=uvs)
@@ -642,7 +677,7 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
             int(prims.mat_id.min()) < 0
             or int(prims.mat_id.max()) >= table.num):
         raise ValueError(f"prim material ids must lie in [0, {table.num})")
-    features = material_features(materials)
+    features = PREBUILT_FEATURES if prebuilt else material_features(materials)
     omm = {}
     if volume is not None:
         features = features + ("volume",)
@@ -665,7 +700,8 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
         aux_mats += prims.mat_id.cpu().tolist()
     if mmat is not None:
         aux_mats += mmat.cpu().tolist()
-    aux_cut = any(_is_cut(materials[int(i)]) for i in aux_mats)
+    aux_cut = not prebuilt and any(_is_cut(materials[int(i)])
+                                   for i in aux_mats)
     if (opacity_micromaps and "cutouts" in features and instances is None
             and not aux_cut):
         states, summary = build_scene_omm(
@@ -684,6 +720,7 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
         motion_geom=mgeom, motion_tri_mat=mmat, volume=volume,
         volume_params=torch.tensor([volume_sigma, volume_albedo],
                                    dtype=torch.float32, device=device),
+        bvh=build_scene_bvh(geom) if with_bvh else None,
         **tex, **omm)
 
 

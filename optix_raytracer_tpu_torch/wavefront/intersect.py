@@ -1,14 +1,17 @@
 """Scene-level intersection (counterpart of `wavefront/intersect.py`):
 the instance loop for a two-level scene (`accel/tlas.py`), the
-cluster-culled traversal for a scene with a cluster table, brute force
-otherwise (culled by the scene's group boxes, `DeviceScene.bf_boxes`),
+cluster-culled traversal for a scene with a cluster table, the threaded-BVH
+walk for a scene with a BVH past MAX_SMEM_TRIS triangles and no cluster
+table (a mesh past the cluster tier's cap; `accel/traverse.py`, the walk
+kernel on CUDA, which raises rather than fall back), brute force otherwise
+(culled by the scene's group boxes, `DeviceScene.bf_boxes`),
 then the custom prims merged in (`accel/primitives.py`; a prim
 hit reports prim_id = num_triangles + its row), then on a scene with moving
 triangles their hits at each ray's shutter time (`accel/motion.py`; prim_id
 = num_triangles + prims.num + their row, mat_id from the scene's motion
 table). `times` None means time 0, as in the reference: the Whitted
 integrator and render_aovs pass none, so moving triangles stand at their
-first key there. BVHs are not ported yet (ROADMAP.md Queue 1 item 6).
+first key there.
 
 Occlusion on a scene with alpha cutouts re-enters past the holes (the
 anyhit program's optixIgnoreIntersection): with opacity micromaps, one
@@ -43,10 +46,11 @@ from ..accel import motion as motion_mod
 from ..accel import primitives as prim_mod
 from ..accel import qwalk as qwalk_mod
 from ..accel import tlas
+from ..accel import traverse as trav
 from ..accel.geometry import shading_frame
 from ..accel.micromap import OPAQUE, TRANSPARENT, micro_index
 from ..core.rays import Hits, Rays
-from ..scene.device_scene import DeviceScene
+from ..scene.device_scene import MAX_SMEM_TRIS, DeviceScene
 from ..shade import materials as mats
 from ..shade.texture import sample_bilinear
 
@@ -69,6 +73,13 @@ def _use_qwalk() -> bool:
     """The opt-in queue traversal (intersect.py:30-36): ORT_QWALK=1, read at
     call time."""
     return os.environ.get("ORT_QWALK", "0") == "1"
+
+
+def _use_bvh(scene: DeviceScene) -> bool:
+    """The BVH walk (intersect.py:39-42): a scene with a BVH past
+    MAX_SMEM_TRIS triangles; the dispatch tries it after the instances and
+    the cluster table."""
+    return scene.has_bvh and scene.num_triangles > MAX_SMEM_TRIS
 
 
 def _flat_call(fn, rays: Rays):
@@ -103,7 +114,8 @@ def scene_closest(scene: DeviceScene, rays: Rays,
     """exact=True (already-sorted scattered wavefronts) takes the exact
     cull, or the queue under ORT_QWALK=1 (the reference's `exact or not
     coherent`); group_walk gates the walk per 32-ray group on the exact
-    cull's bits. Both are ignored by brute force and by the instances.
+    cull's bits. Both are ignored by brute force, the BVH walk and the
+    instances.
     times: the rays' shutter times for the moving triangles (None: 0)."""
     if scene.has_instances:
         hits = _flat_call(lambda r: tlas.intersect_instances(
@@ -116,6 +128,9 @@ def scene_closest(scene: DeviceScene, rays: Rays,
         else:
             hits = _flat_call(lambda r: cluster_mod.closest_hit(
                 scene.clusters, r, exact=exact, group_walk=group_walk), rays)
+    elif _use_bvh(scene):
+        hits = _flat_call(lambda r: trav.traverse(
+            scene.bvh, scene.geom, scene.tri_mat, r), rays)
     else:
         hits = bf.intersect_closest(scene.geom, rays, tri_mat=scene.tri_mat,
                                     chunk_size=chunk_size,
@@ -154,6 +169,9 @@ def scene_any(scene: DeviceScene, rays: Rays,
         else:
             occ = _flat_call(lambda r: cluster_mod.any_hit(
                 scene.clusters, r, exact=True, group_walk=group_walk), rays)
+    elif _use_bvh(scene):
+        occ = _flat_call(lambda r: trav.traverse(
+            scene.bvh, scene.geom, None, r, any_hit=True), rays)
     else:
         occ = bf.intersect_any(scene.geom, rays, chunk_size=chunk_size,
                                boxes=scene.bf_boxes[0])

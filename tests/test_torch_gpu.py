@@ -1219,3 +1219,125 @@ def test_volume_march_and_nanovdb_on_card(cuda, tmp_path):
     assert g_card.density.device.type == "cuda"
     for f in ("density", "lo", "hi"):
         assert torch.equal(getattr(g_card, f).cpu(), getattr(g_cpu, f))
+
+
+def _bvh_rays(geom, bvh, seed, device):
+    """The walk's ray sets on a mesh: bf_rays (a quarter of them dead),
+    tie_rays (centroids and vertices: exact ties on a dup mesh, edges) and
+    axis-aligned rays starting exactly on node bounds (a zero direction
+    component against an origin on a slab plane)."""
+    rng = np.random.default_rng(seed)
+    lo = bvh.node_lo.cpu().numpy()
+    hi = bvh.node_hi.cpu().numpy()
+    pick = rng.integers(0, len(lo), 256)
+    o = 0.5 * (lo[pick] + hi[pick])
+    axis = rng.integers(0, 3, 256)
+    o[np.arange(256), axis] = np.where(rng.random(256) < 0.5, lo[pick, axis],
+                                       hi[pick, axis])
+    d = np.zeros((256, 3), np.float32)
+    d[np.arange(256), (axis + 1) % 3] = np.where(rng.random(256) < 0.5, 1.0,
+                                                 -1.0)
+    o = o - 10.0 * d
+    planes = np.concatenate([o, d, np.full((256, 1), 1e-3),
+                             np.full((256, 1), 1e16)], axis=1)
+    sets = [torch_parity.bf_rays(4099, seed, dead=0.25, geom=geom,
+                                 device=device),
+            torch_parity.tie_rays(geom, seed, device=device),
+            torch_parity.rays8(planes.astype(np.float32), device)]
+    return sets
+
+
+def _walk_equal(bvh, geom, tri_mat, rays):
+    """bvh_walk_kernel<true / false> against walk_plain on the card, bit
+    for bit, each wrapper counting one launch."""
+    from optix_raytracer_tpu_torch.accel import traverse as trav
+    before = dict(kernels.LAUNCHES)
+    out = trav.walk_closest(bvh, geom.tri_consts, tri_mat, rays)
+    occ = trav.walk_any(bvh, geom.tri_consts, rays)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bvh_walk_closest"] == (
+        before["bvh_walk_closest"] + 1)
+    assert kernels.LAUNCHES["bvh_walk_any"] == before["bvh_walk_any"] + 1
+    ref = trav.traverse_plain(bvh, geom, tri_mat, rays)
+    for k, r in (("t", ref.t), ("prim_id", ref.prim_id),
+                 ("mat_id", ref.mat_id), ("uv", ref.uv),
+                 ("normal", ref.normal)):
+        assert torch.equal(_bits(out[k]), _bits(r)), k
+    assert torch.equal(occ, trav.traverse_plain(bvh, geom, None, rays,
+                                                any_hit=True))
+    return ref, occ
+
+
+@pytest.mark.parametrize("tree", ["lbvh", "sah"])
+def test_bvh_walk_matches_plain(cuda, tree):
+    """The walk kernel (closest and any-hit) against the lock-step loop on
+    the card, bit for bit: a 700-triangle random mesh, a duplicated one
+    (exact ties) and the knot of 2,402 triangles, on the LBVH built on the
+    card and on the native SAH tree."""
+    from optix_raytracer_tpu_torch.accel import native
+    from optix_raytracer_tpu_torch.accel.lbvh import LBVH, build_lbvh
+    verts, idx, _, knot_mat, _ = B.knot_mesh(40, 30)
+    meshes = [torch_parity.bf_mesh(700, 3, device=cuda),
+              torch_parity.bf_mesh(600, 4, dup=True, device=cuda),
+              (build_triangle_geometry(verts, idx, cuda),
+               torch.as_tensor(knot_mat, device=cuda))]
+    hits = 0
+    for seed, (geom, tri_mat) in enumerate(meshes):
+        if tree == "lbvh":
+            bvh = build_lbvh(geom)
+        else:
+            arrays = native.build_bvh_sah(geom)
+            if arrays is None:
+                pytest.skip("no native SAH builder (g++) on this machine")
+            bvh = LBVH.from_numpy(arrays, cuda)
+        for rays in _bvh_rays(geom, bvh, seed, cuda):
+            ref, occ = _walk_equal(bvh, geom, tri_mat, rays)
+            hits += int(ref.valid.sum()) + int(occ.sum())
+    assert hits > 0
+
+
+def test_bvh_build_card_equals_cpu(cuda):
+    """build_lbvh on the card gives the CPU build's node arrays bit for bit
+    (a random mesh and the knot)."""
+    from optix_raytracer_tpu_torch.accel.lbvh import build_lbvh
+    verts, idx, _, _, _ = B.knot_mesh(40, 30)
+    for make in (lambda d: torch_parity.bf_mesh(900, 8, device=d)[0],
+                 lambda d: build_triangle_geometry(verts, idx, d)):
+        a, b = build_lbvh(make(cuda)), build_lbvh(make("cpu"))
+        for f in ("node_lo", "node_hi", "node_skip", "node_prim"):
+            assert torch.equal(_bits(getattr(a, f)).cpu(),
+                               _bits(getattr(b, f))), f
+
+
+def test_bvh_walk_dispatch_on_card(cuda, monkeypatch):
+    """Past the (lowered) cluster cap a scene with a BVH walks it through
+    the kernel, launching no cluster kernel, with the plain loop's hits;
+    a BVH that does not fit the geometry raises on the card instead of
+    falling back."""
+    from optix_raytracer_tpu_torch.accel import traverse as trav
+    from optix_raytracer_tpu_torch.accel.lbvh import LBVH
+    from optix_raytracer_tpu_torch.scene.device_scene import make_device_scene
+    from optix_raytracer_tpu_torch.wavefront import intersect
+    monkeypatch.setattr(C, "MAX_SUPERCLUSTERS", 1)
+    monkeypatch.setattr(C, "SC_CLUSTERS", 2)
+    verts, idx, _, tri_mat, _ = B.knot_mesh(40, 30)
+    scene = make_device_scene(verts, idx, tri_mat, B.KNOT_MATERIALS, cuda,
+                              with_bvh=True)
+    assert scene.has_bvh and not scene.has_clusters
+    rays = _bvh_rays(scene.geom, scene.bvh, 5, cuda)[0]
+    kernels.reset_launches()
+    hits = intersect.scene_closest(scene, rays)
+    occ = intersect.scene_any(scene, rays)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["bvh_walk_closest"] == 1
+    assert kernels.LAUNCHES["bvh_walk_any"] == 1
+    assert not any(v for k, v in kernels.LAUNCHES.items()
+                   if k.startswith(("cluster", "qwalk", "bf")))
+    ref = trav.traverse_plain(scene.bvh, scene.geom, scene.tri_mat, rays)
+    assert torch.equal(hits.prim_id, ref.prim_id)
+    assert torch.equal(_bits(hits.t), _bits(ref.t))
+    assert torch.equal(occ, trav.traverse_plain(scene.bvh, scene.geom, None,
+                                                rays, any_hit=True))
+    half = LBVH(nodes=scene.bvh.nodes[:-2])
+    with pytest.raises(ValueError):
+        trav.traverse(half, scene.geom, scene.tri_mat, rays)

@@ -269,3 +269,103 @@ def test_motion_curves_volumes_run_without_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+_SCRIPT_API = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import numpy as np
+import torch
+from optix_raytracer_tpu_torch import api
+from optix_raytracer_tpu_torch.accel import clusters, lbvh, traverse
+from optix_raytracer_tpu_torch.apps import (bound_values, callable_programs,
+                                            compile_with_tasks,
+                                            dynamic_geometry,
+                                            module_create_abort, sphere)
+from optix_raytracer_tpu_torch.core import checkpoint, threefry
+from optix_raytracer_tpu_torch.core.film import Film
+from optix_raytracer_tpu_torch.scene import builtins as B
+from optix_raytracer_tpu_torch.shade.lights import ParallelogramLight
+from optix_raytracer_tpu_torch.wavefront import exceptions
+from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
+out = sys.argv[1]
+logged = []
+ctx = api.DeviceContext(log_callback=lambda *m: logged.append(m),
+                        log_level=4, validation_mode=True, device="cpu")
+verts, idx, tri_mat = B.quads_to_triangles(B._CORNELL_QUADS)
+handle = api.build_gas(verts, idx, device="cpu")
+mod = api.Module({}, name="pt")
+groups = [api.ProgramGroup(api.ProgramGroupKind.RAYGEN, "__raygen__rg", mod),
+          api.ProgramGroup(api.ProgramGroupKind.HITGROUP, "__closesthit__", mod)]
+sbt = api.ShaderBindingTable(
+    raygen_record=api.SbtRecord(groups[0]),
+    hitgroup_records=[api.SbtRecord(groups[1], m) for m in B.CORNELL_MATERIALS])
+light = ParallelogramLight.make(B.CORNELL_LIGHT_CORNER, B.CORNELL_LIGHT_V1,
+                                B.CORNELL_LIGHT_V2, B.CORNELL_LIGHT_EMISSION,
+                                "cpu")
+pipe = api.Pipeline(context=ctx, program_groups=groups, max_trace_depth=2,
+                    samples_per_launch=2)
+film, rays = pipe.launch(sbt, handle, B.cornell_camera(8, 8).params("cpu"),
+                         8, 8, tri_sbt_index=tri_mat, area_light=light)
+assert int(rays) > 8 * 8 * 2 and pipe.last_exceptions["invalid_ray"] == 0
+assert exceptions.format_exceptions(pipe.last_exceptions) == ""
+checkpoint.save_checkpoint(out + ".npz", film, B.cornell_camera(8, 8),
+                           {"spp": 2})
+back, cam, cfg = checkpoint.load_checkpoint(out + ".npz", "cpu")
+assert torch.equal(back.accum, film.accum) and cfg == {"spp": 2}
+assert len(threefry.uniform(threefry.prng_key(7, "cpu"), (2, 5)).reshape(-1)) == 10
+clusters.MAX_SUPERCLUSTERS, clusters.SC_CLUSTERS = 1, 2
+knot = B.knot_scene(20, 14, device="cpu")
+assert not knot.has_clusters and not knot.has_bvh
+verts, idx, normals, tm, lgt = B.knot_mesh(20, 14)
+gas = api.build_gas(verts, idx, device="cpu")
+assert gas.bvh.num_nodes == 2 * 562 - 1
+scene = api.Pipeline()._assemble_scene(
+    sbt, gas, np.zeros(562, np.int32),
+    area_light=ParallelogramLight.make(*lgt, (10, 10, 10), "cpu"))
+assert scene.has_bvh and not scene.has_clusters
+k_film, k_rays = render_accumulate(scene, B.knot_camera(8, 8).params("cpu"),
+                                   Film.create(8, 8, "cpu"), 8, 8,
+                                   samples_per_launch=1, max_depth=2)
+assert np.isfinite(k_film.accum.numpy()).all() and int(k_rays) > 8 * 8
+for app, args in ((sphere, []), (callable_programs, ["--shade", "all"]),
+                  (bound_values, ["--compare"]),
+                  (dynamic_geometry, ["--frames", "1"]),
+                  (dynamic_geometry, ["--frames", "1", "--ias"])):
+    app.main(["--dim", "8x8", "--file", out + ".ppm", "--device", "cpu"]
+             + args)
+compile_with_tasks.main(["--jobs", "1", "--workers", "1", "--device", "cpu"])
+module_create_abort.main(["--dim", "8x8", "--file", out + ".ppm",
+                          "--device", "cpu"])
+assert not any(m == "jax" or m.startswith(("jax.", "flax"))
+               for m in sys.modules if sys.modules[m] is not None)
+assert not any(m == "optix_raytracer_tpu"
+               or m.startswith("optix_raytracer_tpu.") for m in sys.modules)
+del sys.modules["jax"], sys.modules["flax"]
+from optix_raytracer_tpu.core import checkpoint as jcheckpoint
+jfilm, jcam, jcfg = jcheckpoint.load_checkpoint(out + ".npz")
+assert (np.asarray(jfilm.accum) == film.accum.numpy()).all()
+assert int(jfilm.subframe) == 2 and jcfg == {"spp": 2}
+print("OK")
+"""
+
+
+def test_api_lbvh_and_api_apps_run_without_jax(tmp_path):
+    """With `import jax` and `import flax` failing: a validation-mode
+    pipeline launch of the Cornell box through build_gas and SBT records,
+    its film checkpointed and read back, threefry draws, a knot past the
+    (lowered) cluster cap through build_gas's LBVH and the engine's BVH
+    walk, and the six apps of the API 8x8 through their main() (sphere,
+    callable programs, bound values, dynamic geometry and its IAS mode,
+    compile with tasks, module create abort). Until then no module of the
+    JAX package is loaded; then JAX is let in and the JAX package's loader
+    reads the port's checkpoint."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", _SCRIPT_API,
+                          str(tmp_path / "a")],
+                         capture_output=True, text=True, env=env, cwd=root,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")

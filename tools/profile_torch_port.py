@@ -43,6 +43,12 @@ optical flow; tools/denoise_probe.py).
 (tools/mcv_probe.py: 512x512 and the app's samples), after a one-sample
 warm-up, with its ms a sample, torch kernels a sample, and the query
 kernels (1-2) split out.
+--scene api profiles one validation-mode Pipeline.launch of each of
+chip_smoke.py's a1 cases (the Cornell headline, the Whitted scene, the 25k
+knot; optix_raytracer_tpu_torch/tools/api_probe.py) and of its a2 knot past
+the cluster cap (4,260,002 triangles, 1920x1088, one sample, depth 3: the
+BVH walk kernel), each after a warm-up launch, with the walk kernel's
+device time split out (`walk_kernels_ms`).
 torch.profiler prints for each: the wall time of the launch, the device
 time summed over kernels, the device's idle share of the window, and the
 kernels that take the most device time. Needs a CUDA device; with --out DIR
@@ -62,7 +68,7 @@ hits), and how many queries the queue answered or handed to the walk.
 
     python tools/profile_torch_port.py [--scene cornell|knot|knot4m|prims|pbr|
         instanced|smooth_knot|textured|whitted|knot_rig|cutouts|
-        cutout_grid|denoise|motion|hair|volume] [--dim 1920x1088]
+        cutout_grid|denoise|motion|hair|volume|api] [--dim 1920x1088]
         [--spl N] [--depth N] [--qwalk] [--out DIR]
 """
 from __future__ import annotations
@@ -350,6 +356,54 @@ def profile_mcv(scene, out_dir):
                    **out)
 
 
+def profile_api(out_dir):
+    """--scene api: a warm-up launch, then one profiled launch of each
+    pipeline → one record each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from optix_raytracer_tpu_torch import api
+    from optix_raytracer_tpu_torch.scene import builtins as B
+    from optix_raytracer_tpu_torch.shade.lights import ParallelogramLight
+    from optix_raytracer_tpu_torch.tools import api_probe as AP
+    dev = torch.device("cuda", 0)
+    cases = AP.api_cases(dev)
+    c = AP.PAST_CAP
+    verts, idx, _, tri_mat, light = B.knot_mesh(c["segments"], c["sides"])
+    groups, sbt = AP._records(B.KNOT_MATERIALS)
+    cases["knot_past_cap"] = dict(
+        integrator="pathtrace", groups=groups, sbt=sbt,
+        handle=api.build_gas(verts, idx, device=dev), tri_mat=tri_mat,
+        lights=(), area_light=ParallelogramLight.make(
+            *light, (10.0, 10.0, 10.0), dev),
+        camera=B.knot_camera, width=c["width"], height=c["height"], spl=1,
+        depth=c["depth"])
+    for name, case in cases.items():
+        pipe = api.Pipeline(
+            context=api.DeviceContext(validation_mode=True, device=dev),
+            program_groups=case["groups"], integrator=case["integrator"],
+            max_trace_depth=case["depth"], samples_per_launch=case["spl"])
+        cam = case["camera"](case["width"], case["height"]).params(dev)
+        AP._launch(pipe, case, cam)                            # warm-up
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            AP._launch(pipe, case, cam)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(out_dir,
+                                                  f"trace_api_{name}.json"))
+        kernels, out = _summary(prof, wall)
+        yield dict(scene="api", pipeline=name,
+                   dim=f"{case['width']}x{case['height']}", spl=case["spl"],
+                   depth=case["depth"], walk_kernels_ms=sum(
+                       e.time_range.end - e.time_range.start
+                       for e in kernels if "bvh_walk_kernel" in e.name) / 1e3,
+                   **out)
+
+
 def profile(tag, impl, scene, cam, w, h, spl, depth, out_dir, qwalk=False):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -405,7 +459,7 @@ def main():
                                        "textured", "whitted", "knot_rig",
                                        "cutouts", "cutout_grid",
                                        "denoise", "motion", "hair",
-                                       "volume"),
+                                       "volume", "api"),
                    default="cornell")
     p.add_argument("--dim", default=None,
                    help="frame (default 768x576 for whitted, 768x768 for "
@@ -434,6 +488,10 @@ def main():
         return
     if args.scene in ("motion", "hair", "volume"):
         for rec in profile_mcv(args.scene, args.out):
+            print(json.dumps(rec), flush=True)
+        return
+    if args.scene == "api":
+        for rec in profile_api(args.out):
             print(json.dumps(rec), flush=True)
         return
     if args.qwalk:
