@@ -66,7 +66,20 @@ from GAS builds and SBT records, each bit-equal to the direct render on the
 assembled scene; the 4,260,002-triangle knot past the cluster cap, its
 LBVH built on the card and walked by the walk kernel (bvh_walk_kernel,
 timed on camera and shadow rays and held bit for bit against the lock-step
-loop on the same rays); and the API's six apps at their defaults.
+loop on the same rays); and the API's six apps at their defaults. Phases
+s1-s4 drive model loading and the last apps
+(optix_raytracer_tpu_torch/tools/model_probe.py): a .glb of the 25k knot
+(a KTX2 map, a glTF camera and light, a spin) through `meshviewer --model`
+(768x768, 8 samples, depth 3; kernels 4-6, the first sample's queries held
+against the plain versions, the image bit-equal to the same arrays added
+through Scene.add_mesh), the same knot as OBJ through the native parser,
+and `--animate 3`; the headless viewer at its defaults (the Cornell box
+on kernel 3, bit-equal to the same launches and to a --checkpoint /
+--resume split) and its --model frames; four instances of the 25k knot
+walking their per-mesh cluster table (each instance's first-bounce sets
+held against the plain versions; the image against the same meshes baked
+flat); and the hello, triangle, console, custom-primitive,
+dynamic-materials and raycasting apps at their CLI defaults.
 
     python3 chip_smoke.py
 
@@ -170,9 +183,14 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
+# Seconds since the script started, printed on each phase line (t=), so a
+# run shows where its time goes.
+T0 = time.perf_counter()
+
+
 def phase(name, **fields):
-    print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
-          flush=True)
+    print(f"[{name}] t={time.perf_counter() - T0:.1f} "
+          + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
 def to_np(t):
@@ -1999,13 +2017,102 @@ def api_phases(dev, card, record):
     return counts
 
 
+def model_phases(dev, card, record):
+    """Phases s1-s4 (optix_raytracer_tpu_torch/tools/model_probe.py), each
+    row with ms a sample or frame, torch kernels a sample or frame and the
+    device's idle share: (s1) the knot model written as .glb and OBJ, the
+    OBJ through the native parser, the .glb through the meshviewer's render
+    (its first sample's nine cluster queries against the plain versions,
+    the image bit-equal to the arrays added through Scene.add_mesh /
+    add_texture), `--model` and `--animate 3` through main(); (s2) the
+    viewer's headless defaults (8 frames of the Cornell box, kernel 3) with
+    its film bit-equal to the same render_accumulate launches and to a
+    --checkpoint / --resume split, then 4 --model frames of the .glb; (s3)
+    four instances of the 25k knot through the meshviewer's rig and one
+    path-traced launch of 16 spp, against the same meshes baked flat; (s4)
+    the six small apps at their CLI defaults → each kernel's launches on
+    the phases' main runs (also kept per phase in the record as
+    s_launches)."""
+    import torch
+    from optix_raytracer_tpu_torch.tools import model_probe as MP
+    out_dir = os.path.join(ROOT, "optix_raytracer_tpu_torch", "_build",
+                           "models")
+    t_start = time.perf_counter()
+    per_phase = {}
+    # --- s1: a loaded model through the meshviewer ---
+    row, per_phase["s1"] = MP.loaded_model_case(
+        dev, out_dir, query_check=whitted_query_parity)
+    phase("s1 meshviewer --model", card=repr(card),
+          launches=per_phase["s1"], **fmt(row))
+    for name in ("cluster_cull_exact", "cluster_closest", "cluster_any"):
+        require(per_phase["s1"].get(name, 0) > 0,
+                f"s1: {name} never launched on the loaded model")
+    torch.cuda.empty_cache()
+    glb = os.path.join(out_dir, "knot.glb")
+    # --- s2: the viewer ---
+    row, per_phase["s2"], per_phase["s2 model"] = MP.viewer_case(dev,
+                                                                 out_dir, glb)
+    phase("s2 viewer", card=repr(card), launches=per_phase["s2"],
+          model_launches=per_phase["s2 model"], **fmt(row))
+    require(per_phase["s2"].get("pt_fused_cornell", 0) > 0,
+            "s2: the viewer's Cornell frames never launched kernel 3")
+    require(per_phase["s2 model"].get("cluster_closest", 0) > 0,
+            "s2: the viewer's --model frames never launched kernel 5")
+    torch.cuda.empty_cache()
+    # --- s3: instanced meshes past 512 triangles ---
+    row, per_phase["s3"], per_phase["s3 pt"] = MP.instanced_case(
+        dev, query_check=whitted_query_parity)
+    phase("s3 instanced knots", card=repr(card), launches=per_phase["s3"],
+          pt_launches=per_phase["s3 pt"], **fmt(row))
+    for key in ("s3", "s3 pt"):
+        for name in ("cluster_cull_exact", "cluster_closest",
+                     "cluster_any"):
+            require(per_phase[key].get(name, 0) > 0,
+                    f"{key}: {name} never launched on the instances")
+        require(not any(k.startswith("pt_fused") for k in per_phase[key]),
+                f"{key}: the fused kernel ran on a range past its budget")
+    # The walk is not bit-equal to the flat bake's: object-space rays (the
+    # instance's inverse applied) round apart from world-space ones, so a
+    # ray grazing a silhouette edge can hit on one side and miss on the
+    # other. A pixel it passes through leaves the bars; at most 0.1% may,
+    # and the ray counts agree to 1e-4.
+    pixels = 768 * 768
+    require(row["pixels_outside_bars"] <= 1e-3 * pixels
+            and row["pt_pixels_outside_bars"] <= 1e-3 * pixels
+            and abs(row["rays"] - row["flat_rays"]) <= 1e-4 * row["rays"]
+            and abs(row["pt_rays"] - row["pt_flat_rays"])
+            <= 1e-4 * row["pt_rays"],
+            f"s3: the instanced images leave the parity bars of the flat "
+            f"bake on {row['pixels_outside_bars']} / "
+            f"{row['pt_pixels_outside_bars']} pixels, or the ray counts "
+            f"differ")
+    torch.cuda.empty_cache()
+    # --- s4: the small apps ---
+    for r in MP.small_apps_case(dev, out_dir, glb):
+        per_phase[f"s4 {r['app']}"] = r.pop("launches")
+        phase(f"s4 {r['app']}", card=repr(card),
+              launches=per_phase[f"s4 {r['app']}"], **fmt(r))
+    require(per_phase["s4 triangle"].get("bf_closest", 0) > 0
+            and per_phase["s4 console"].get("pt_fused_cornell", 0) > 0
+            and per_phase["s4 raycasting --model"].get("cluster_closest", 0)
+            > 0, "s4: an app never launched its kernel")
+    totals = {}
+    for key, counts in per_phase.items():
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+            record.setdefault(name, {}).setdefault("s_launches", {})[key] = n
+    phase("s total", seconds=f"{time.perf_counter() - t_start:.1f}",
+          launches=totals)
+    return totals
+
+
 def sc_phases(dev, card, record):
     """Phases (e)-(g): the 4.0M-triangle knot through the supercluster tier.
     (e) the build, timed per step, and traversal_stats at supercluster
     granularity; (f) kernels 5c/6c (and kernel 4 on the supercluster facade)
     against their plain versions on tile-ordered primaries (interval cull),
-    NEE shadow rays (exact cull) and the six cluster queries of one
-    sample-major strip of the main path (rows and occlusion bit-equal on
+    NEE shadow rays (exact cull) and the four cluster queries of one
+    sample-major strip of the main path to depth 2 (rows and occlusion bit-equal on
     the plain walks' block subset; both kernels timed on all blocks; the
     set's pair tests at the block, warp and ray granularity, under the
     admission rule and needed; the dropped-pair audit, sc_audit), plus the
@@ -2068,8 +2175,12 @@ def sc_phases(dev, card, record):
           closest_mrays_per_s=f"{W * H / query_ms / 1e3:.1f}")
     del prim, shadow
     cam = knot_camera(W, H).params(dev)
+    # The strip is recorded to depth 2 (bounces 0-1, whose bounce-1 sets
+    # give the record's times), not the launch's 3: its bounce-2 sets took
+    # ~41 s of the run on the 4M tier and held the same kernels to the
+    # same plain walks as bounce 1 (phase g still launches at depth 3).
     closest_calls, any_calls = main_path_strip_sets(scene, cam, W, H, spl,
-                                                    depth)
+                                                    min(depth, 2))
     for bounce, ((rc, ec, _), (ra, ea, _)) in enumerate(
             zip(closest_calls, any_calls)):
         require(ec == (bounce > 0) and ea,
@@ -2955,6 +3066,13 @@ def main():
     # --- phases a1-a3: the host API, the BVH walk past the cluster cap
     # and the API's apps ---
     launches.update(api_phases(dev, card, record))
+    torch.cuda.empty_cache()
+
+    # --- phases s1-s4: model loading, the viewer, instanced meshes past
+    # 512 triangles and the small apps (kernels 1-6); their launches are
+    # added to each kernel's count ---
+    for name, n in model_phases(dev, card, record).items():
+        launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
 
     # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---

@@ -13,6 +13,7 @@ load that fails raises: it would silently change the cluster order.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -28,24 +29,46 @@ _BUILD = Path(__file__).resolve().parents[1] / "_build"
 _FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 
+def build_shared_library(source: Path, prefix: str,
+                         name: str) -> Optional[Path]:
+    """Build `source` with g++ into `_build/<prefix>-<hash of the flags and
+    the source>/<name>` once, or None without g++ or without the source.
+    Processes building at once (test workers) take turns on a file lock in
+    the directory, and the library moves into place from a per-pid temp
+    file with os.replace, so none loads half a file; a failed build
+    raises."""
+    cxx = shutil.which("g++")
+    if cxx is None or not source.exists():
+        return None
+    src = source.read_bytes()
+    h = hashlib.sha256(" ".join(_FLAGS).encode() + src).hexdigest()[:16]
+    out_dir = _BUILD / f"{prefix}-{h}"
+    so_path = out_dir / name
+    if so_path.exists():
+        return so_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not so_path.exists():
+                tmp = out_dir / f"{so_path.stem}.{os.getpid()}.tmp.so"
+                proc = subprocess.run(
+                    [cxx, *_FLAGS, "-o", str(tmp), str(source)],
+                    capture_output=True, text=True, timeout=300)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"building {source.name} failed:\n"
+                                       f"{proc.stderr}")
+                os.replace(tmp, so_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return so_path
+
+
 @functools.lru_cache(maxsize=None)
 def _load() -> Optional[ctypes.CDLL]:
-    cxx = shutil.which("g++")
-    if cxx is None or not _SOURCE.exists():
+    so_path = build_shared_library(_SOURCE, "native", "libort_bvh.so")
+    if so_path is None:
         return None
-    src = _SOURCE.read_bytes()
-    h = hashlib.sha256(" ".join(_FLAGS).encode() + src).hexdigest()[:16]
-    out_dir = _BUILD / f"native-{h}"
-    so_path = out_dir / "libort_bvh.so"
-    if not so_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libort_bvh.{os.getpid()}.tmp.so"
-        proc = subprocess.run([cxx, *_FLAGS, "-o", str(tmp), str(_SOURCE)],
-                              capture_output=True, text=True, timeout=300)
-        if proc.returncode != 0:
-            raise RuntimeError(f"building {_SOURCE.name} failed:\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, so_path)    # atomic, so concurrent builds agree
     lib = ctypes.CDLL(str(so_path))
     fp = ctypes.POINTER(ctypes.c_float)
     ip = ctypes.POINTER(ctypes.c_int32)

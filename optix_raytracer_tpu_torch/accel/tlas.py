@@ -13,10 +13,11 @@ given them, their plain versions on the CPU) and keeps the per-ray
 minimum. The winner's object-space normal goes back to world by the
 inverse-transpose row rule and is normalised.
 
-The reference can give an instanced mesh past 512 triangles its own
-object-space cluster table (`mesh_clusters`); the port does not, and
-`scene.device_scene.make_device_scene` refuses such a scene (ROADMAP.md
-Queue 1 item 7).
+An instance whose range has its own object-space cluster table
+(`mesh_clusters`, `scene/device_scene.py::_build_instance_clusters`; the
+reference's `tlas.py:109-196`) walks it instead: kernels 4 + 5 for the
+closest hit, 4 + 6 for occlusion, on its object-space rays (their plain
+versions on the CPU).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from ..core import transforms as xf
 from ..core.rays import Hits, Rays
 from ..core.vecmath import dot
 from . import bruteforce as bf
+from . import clusters as cluster_mod
 from .geometry import TriangleGeometry
 
 
@@ -111,21 +113,54 @@ def unit_world_normal(inv, n):
     return w / torch.clamp_min(torch.sqrt(dot(w, w)), 1e-12)[..., None]
 
 
+def world_shading_normal(instances: InstanceTable, hits: Hits, is_tri, sn):
+    """An instanced scene's interpolated normal `sn` (the shading frame's,
+    in the hit instance's object space) back to world by the instance's
+    inverse (unit_world_normal) where a triangle was hit; with ids that are
+    not rows of the table, or off the triangles, the hit's geometric
+    normal."""
+    if not instances.row_ids:
+        return hits.normal
+    inv = instances.inv_transform[torch.clamp_min(hits.inst_id, 0).long()]
+    return torch.where((is_tri & (hits.inst_id >= 0))[..., None],
+                       unit_world_normal(inv, sn), hits.normal)
+
+
 def _object_rays(inv, rays: Rays, tmax) -> Rays:
     return Rays(origin=xf.apply_point(inv, rays.origin),
                 direction=xf.apply_vector(inv, rays.direction),
                 tmin=rays.tmin, tmax=tmax)
 
 
+def _closest_in(geom, lo, hi, obj_rays, tri_mat, chunk_size, boxes,
+                mesh_clusters, exact):
+    """One instance's closest hit on its object-space rays, with
+    slice-local triangle ids: its cluster table where it has one, else
+    brute force on its slice."""
+    if mesh_clusters and (lo, hi) in mesh_clusters:
+        return cluster_mod.closest_hit(mesh_clusters[(lo, hi)], obj_rays,
+                                       exact=exact)
+    return bf.intersect_closest(
+        slice_geometry(geom, lo, hi), obj_rays,
+        tri_mat=None if tri_mat is None else tri_mat[lo:hi],
+        chunk_size=chunk_size, boxes=boxes)
+
+
 def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
                         rays: Rays, tri_mat=None,
                         chunk_size: Optional[int] = 65536,
-                        boxes: Optional[Sequence] = None) -> Hits:
+                        boxes: Optional[Sequence] = None,
+                        mesh_clusters: Optional[dict] = None,
+                        exact: bool = False) -> Hits:
     """Closest hit through the instances (flat rays [N]). Each instance's
     query gets the current best t as its tmax; a hit reports its global
     triangle id, the instance id and tri_mat + sbt_offset; a miss has
     prim / inst / mat -1 and t = tmax. boxes: per instance its slice's
-    group boxes or None (`DeviceScene.bf_boxes`)."""
+    group boxes or None (`DeviceScene.bf_boxes`). mesh_clusters:
+    {(lo, hi): ClusterSet}, the object-space cluster tables of the ranges
+    that have one (`DeviceScene.instance_clusters`); exact: their walks
+    take the exact cull (kernel 4), as the scene's table does for scattered
+    wavefronts. The cull changes the work, never a hit."""
     n = rays.tmin.shape[0]
     dev = rays.origin.device
     t = rays.tmax
@@ -137,10 +172,9 @@ def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
     ranges = instance_ranges(instances, geom.num_triangles)
     for i, (lo, hi) in enumerate(ranges):
         inv = instances.inv_transform[i]
-        h = bf.intersect_closest(
-            slice_geometry(geom, lo, hi), _object_rays(inv, rays, t),
-            tri_mat=None if tri_mat is None else tri_mat[lo:hi],
-            chunk_size=chunk_size, boxes=None if boxes is None else boxes[i])
+        h = _closest_in(geom, lo, hi, _object_rays(inv, rays, t), tri_mat,
+                        chunk_size, None if boxes is None else boxes[i],
+                        mesh_clusters, exact)
         closer = h.valid & (h.t < t)
         t = torch.where(closer, h.t, t)
         prim = torch.where(closer, h.prim_id + lo, prim)
@@ -156,17 +190,24 @@ def intersect_instances(geom: TriangleGeometry, instances: InstanceTable,
 def intersect_instances_any(geom: TriangleGeometry,
                             instances: InstanceTable, rays: Rays,
                             chunk_size: Optional[int] = 65536,
-                            boxes: Optional[Sequence] = None):
+                            boxes: Optional[Sequence] = None,
+                            mesh_clusters: Optional[dict] = None):
     """Occlusion through the instances → bool [N]; a ray already occluded
-    gets an empty window in the later instances. boxes as
-    intersect_instances."""
+    gets an empty window in the later instances (on a cluster table, the
+    walks then skip its blocks). boxes and mesh_clusters as
+    intersect_instances; a table's walk takes the exact cull (kernels 4 +
+    6), as the scene's occlusion queries do (mixed liveness)."""
     occ = torch.zeros(rays.tmin.shape, dtype=torch.bool,
                       device=rays.origin.device)
     ranges = instance_ranges(instances, geom.num_triangles)
     for i, (lo, hi) in enumerate(ranges):
         obj = _object_rays(instances.inv_transform[i], rays,
                            torch.where(occ, 0.0, rays.tmax))
-        occ = occ | bf.intersect_any(
-            slice_geometry(geom, lo, hi), obj, chunk_size=chunk_size,
-            boxes=None if boxes is None else boxes[i])
+        if mesh_clusters and (lo, hi) in mesh_clusters:
+            occ = occ | cluster_mod.any_hit(mesh_clusters[(lo, hi)], obj,
+                                            exact=True)
+        else:
+            occ = occ | bf.intersect_any(
+                slice_geometry(geom, lo, hi), obj, chunk_size=chunk_size,
+                boxes=None if boxes is None else boxes[i])
     return occ

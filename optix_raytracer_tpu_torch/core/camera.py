@@ -2,7 +2,8 @@
 
 `Camera` is the host-side description; `params(device)` gives the launch
 block as tensors; `generate_rays` is the batched `__raygen__pinhole` with
-jittered progressive sampling.
+jittered progressive sampling; `Trackball` moves a Camera from mouse and
+key input (the viewer's).
 """
 from __future__ import annotations
 
@@ -129,3 +130,77 @@ def generate_rays(cam_params, width, height, rng_state=None, jitter=True,
         direction = torch.where(use_dof, dof_direction, direction)
 
     return Rays.make(origin, direction), rng_state
+
+
+class Trackball:
+    """Mouse-orbit / pan / zoom / WASDQE camera controller (counterpart of
+    `core/camera.py:136-207`, the behaviour of `SDK/sutil/Trackball.{h,cpp}`):
+    spherical-coordinate orbit about the look-at point with gimbal-lock
+    clamping, wheel zoom toward the look-at point, pan in the image plane and
+    the WASDQE moves (`Trackball.h:54-66`). Host-side numpy; drives a
+    `Camera` in place.
+    """
+
+    def __init__(self, camera: Camera, move_speed: float = 1.0):
+        self.camera = camera
+        self.move_speed = move_speed
+        self._latitude = 0.0
+        self._longitude = 0.0
+        self.reinitialize_orientation()
+
+    def reinitialize_orientation(self):
+        eye = np.asarray(self.camera.eye, np.float64)
+        lookat = np.asarray(self.camera.lookat, np.float64)
+        d = eye - lookat
+        r = np.linalg.norm(d)
+        if r < 1e-12:
+            self._latitude = self._longitude = 0.0
+            return
+        self._latitude = math.asin(np.clip(d[1] / r, -1.0, 1.0))
+        self._longitude = math.atan2(d[0], d[2])
+
+    def _apply(self):
+        eye = np.asarray(self.camera.eye, np.float64)
+        lookat = np.asarray(self.camera.lookat, np.float64)
+        r = np.linalg.norm(eye - lookat)
+        lat, lon = self._latitude, self._longitude
+        d = np.array([math.cos(lat) * math.sin(lon),
+                      math.sin(lat),
+                      math.cos(lat) * math.cos(lon)])
+        self.camera.eye = tuple(lookat + r * d)
+
+    def orbit(self, dx_pixels: float, dy_pixels: float, per_pixel=0.005):
+        """Rotate the eye about the lookat point (Trackball.cpp updateCamera)."""
+        self._longitude = (self._longitude - dx_pixels * per_pixel) % (2 * math.pi)
+        self._latitude = float(np.clip(self._latitude + dy_pixels * per_pixel,
+                                       -0.5 * math.pi + 0.001, 0.5 * math.pi - 0.001))
+        self._apply()
+
+    def zoom(self, direction: int, factor: float = 0.9):
+        """Wheel zoom: move the eye toward/away from the lookat."""
+        eye = np.asarray(self.camera.eye, np.float64)
+        lookat = np.asarray(self.camera.lookat, np.float64)
+        scale = factor if direction > 0 else 1.0 / factor
+        self.camera.eye = tuple(lookat + (eye - lookat) * scale)
+
+    def pan(self, dx: float, dy: float):
+        """Translate eye and lookat in the image plane."""
+        u, v, _ = self.camera.uvw_frame()
+        u = u / max(np.linalg.norm(u), 1e-20)
+        v = v / max(np.linalg.norm(v), 1e-20)
+        delta = (-dx * u + dy * v) * self.move_speed
+        self.camera.eye = tuple(np.asarray(self.camera.eye) + delta)
+        self.camera.lookat = tuple(np.asarray(self.camera.lookat) + delta)
+
+    def move(self, key: str, dt: float = 0.1):
+        """WASDQE flythrough moves (Trackball.h:54-66 keyEvent mapping)."""
+        u, v, w = self.camera.uvw_frame()
+        u = u / max(np.linalg.norm(u), 1e-20)
+        v = v / max(np.linalg.norm(v), 1e-20)
+        w = w / max(np.linalg.norm(w), 1e-20)
+        step = {"w": w, "s": -w, "a": -u, "d": u, "q": -v, "e": v}.get(key.lower())
+        if step is None:
+            return
+        delta = step * self.move_speed * dt
+        self.camera.eye = tuple(np.asarray(self.camera.eye) + delta)
+        self.camera.lookat = tuple(np.asarray(self.camera.lookat) + delta)

@@ -1,10 +1,11 @@
-"""Film: progressive accumulation buffer and sRGB output (counterpart of
-`core/film.py`)."""
+"""Film: progressive accumulation buffer, sRGB output and the host-facing
+framebuffer `OutputBuffer` (counterpart of `core/film.py`)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -94,3 +95,33 @@ def make_color(radiance):
     alpha = torch.full(rgb.shape[:-1] + (1,), 255, dtype=torch.uint8,
                        device=rgb.device)
     return torch.cat([rgb, alpha], dim=-1)
+
+
+class OutputBuffer:
+    """Host-facing framebuffer (counterpart of `core/film.py:122-150`, the
+    `CUDAOutputBuffer<uchar4>` role, `sutil/CUDAOutputBuffer.h:45-94`): a
+    uint8 RGBA [H, W, 4] tensor on `device`, copied to the host by
+    `get_host`. `map` / `unmap` stay as the sample code's access points."""
+
+    def __init__(self, width: int, height: int, device="cpu"):
+        self.width = int(width)
+        self.height = int(height)
+        self.device = torch.device(device)
+        self._device = torch.zeros((self.height, self.width, 4),
+                                   dtype=torch.uint8, device=self.device)
+
+    def map(self):
+        return self._device
+
+    def unmap(self):
+        pass
+
+    def set(self, device_rgba):
+        self._device = device_rgba
+
+    def get_host(self) -> np.ndarray:
+        return self._device.cpu().numpy()
+
+    def resize(self, width: int, height: int):
+        if (width, height) != (self.width, self.height):
+            self.__init__(width, height, self.device)

@@ -18,8 +18,9 @@ materials (`accel/motion.py`, traced at per-path shutter times), and for a
 scene given a fog volume its density grid with sigma_t and albedo
 (`accel/volume.py`), and with `with_bvh` (or a `bvh` handed in, as
 `api/pipeline.py` hands a GAS's) the threaded BVH that a mesh past the
-cluster tier's cap walks (`accel/traverse.py`). Per-mesh cluster tables of
-instanced meshes are not ported yet (ROADMAP.md Queue 1 item 7).
+cluster tier's cap walks (`accel/traverse.py`), and for an instanced mesh past 512 triangles its
+own object-space cluster table (`instance_clusters`,
+device_scene.py:543-556).
 """
 from __future__ import annotations
 
@@ -117,12 +118,20 @@ class DeviceScene:
     # The threaded BVH (device_scene.py:44, 519-526), None without one: a
     # mesh past MAX_SMEM_TRIS triangles with no cluster table walks it.
     bvh: Optional[LBVH] = None
+    # Per-mesh object-space cluster tables of a two-level scene
+    # (device_scene.py:543-556): {(lo, hi): ClusterSet} for each distinct
+    # instance range past MAX_SMEM_TRIS triangles and within
+    # MAX_STREAM_CLUSTERS clusters; its instances walk it (kernels 4-6),
+    # the others take kernels 1-2 on their slice.
+    instance_clusters: Optional[dict] = None
 
     def __post_init__(self):
         if self.prims is None:
             self.prims = prim_mod.CustomPrims.empty(self.device)
         if self.instances is None:
             self.instances = InstanceTable.empty(self.device)
+        if self.instance_clusters is None:
+            self.instance_clusters = {}
         if self.bundles is None:
             self.bundles = torch.zeros((0, 1, 1, 16), dtype=torch.float32,
                                        device=self.device)
@@ -240,7 +249,8 @@ class DeviceScene:
     def bf_boxes(self) -> tuple:
         """Kernels 1-2's group boxes (accel/tri_groups.bf_group_boxes), one
         entry per instance range (one for the whole table without
-        instances), None for a range below FUSED_CULL_MIN_TRIS triangles:
+        instances), None for a range below FUSED_CULL_MIN_TRIS triangles
+        or with its own cluster table:
         built once, at the first brute-force query or fused launch (the
         fused kernel's box cache holds the flat entry, scene_tables)."""
         if not self.has_instances:
@@ -248,7 +258,9 @@ class DeviceScene:
         made = {}
         for rng in instance_ranges(self.instances, self.num_triangles):
             if rng not in made:
-                made[rng] = bf_group_boxes(slice_geometry(self.geom, *rng))
+                made[rng] = (None if rng in self.instance_clusters
+                             else bf_group_boxes(
+                                 slice_geometry(self.geom, *rng)))
         return tuple(made[rng] for rng in instance_ranges(
             self.instances, self.num_triangles))
 
@@ -271,24 +283,39 @@ def _check_tri_mat(tri_mat, num_tris, num_mats):
 
 
 def _check_instances(instances: InstanceTable, tri_mat, num_tris, num_mats):
-    """Each range inside the geometry and within the brute-force budget
-    (the reference gives a larger instanced mesh its own cluster table,
-    scene/device_scene.py:543-556, which is not ported), and each hit's
-    material id, tri_mat + sbt_offset, inside the table."""
+    """Each range inside the geometry, and each hit's material id, tri_mat +
+    sbt_offset, inside the table."""
     sbt = instances.sbt_offset.cpu().numpy()
     for i, (lo, hi) in enumerate(instance_ranges(instances, num_tris)):
         if not 0 <= lo <= hi <= num_tris:
             raise ValueError(f"instance {i}: range ({lo}, {hi}) outside the "
                              f"{num_tris} triangles")
-        if hi - lo > MAX_SMEM_TRIS:
-            raise NotImplementedError(
-                f"instance {i}: a mesh of {hi - lo} triangles needs a "
-                f"per-mesh cluster table, which is not ported yet "
-                f"(ROADMAP.md Queue 1 item 7)")
         ids = tri_mat[lo:hi] + sbt[i]
         if ids.size and (ids.min() < 0 or ids.max() >= num_mats):
             raise ValueError(f"instance {i}: material ids with its sbt "
                              f"offset must lie in [0, {num_mats})")
+
+
+def _build_instance_clusters(geom: TriangleGeometry, tri_mat: torch.Tensor,
+                             instances: Optional[InstanceTable]) -> dict:
+    """{(lo, hi): ClusterSet} of a two-level scene (device_scene.py:
+    543-556): for each distinct instance range of more than MAX_SMEM_TRIS
+    triangles and at most MAX_STREAM_CLUSTERS clusters, the cluster table
+    of its slice in object space, in SAH leaf order (morton without the
+    native builder). Its hits report slice-local triangle ids and tri_mat
+    rows; a larger range stays on brute force, as in the reference."""
+    if instances is None:
+        return {}
+    out = {}
+    for lo, hi in sorted(set(instance_ranges(instances,
+                                             geom.num_triangles))):
+        m = hi - lo
+        if m > MAX_SMEM_TRIS and (-(-m // cluster_mod.LANES)
+                                  <= cluster_mod.MAX_STREAM_CLUSTERS):
+            sub = slice_geometry(geom, lo, hi)
+            out[(lo, hi)] = cluster_mod.build_clusters(
+                sub, tri_mat[lo:hi], order=native.sah_leaf_order(sub))
+    return out
 
 
 def _build_cluster_table(geom: TriangleGeometry, tri_mat: torch.Tensor):
@@ -645,8 +672,9 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
     Whitted integrator's light dicts (LightTable.make). normals / uvs:
     optional per-vertex [V, 3] shading normals and [V, 2] texture
     coordinates; textures: images ([H, W, 3 | 4] or [H, W], uint8 or float)
-    the materials' texture ids index. An instanced scene gets no cluster
-    table. A scene with cutout materials gets opacity micromaps at
+    the materials' texture ids index. An instanced scene gets no scene
+    cluster table; each of its ranges past MAX_SMEM_TRIS triangles gets
+    its own (`_build_instance_clusters`). A scene with cutout materials gets opacity micromaps at
     `omm_level` unless opacity_micromaps is False, it is instanced, or a
     custom prim's or a moving triangle's material is a cutout (the
     micromap occlusion answers prims and moving triangles with one any-hit
@@ -715,6 +743,8 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
         features=features,
         clusters=(None if instances is not None
                   else _build_cluster_table(geom, tri_mat)),
+        instance_clusters=_build_instance_clusters(geom, tri_mat,
+                                                   instances),
         prims=prims, instances=instances,
         lights=LightTable.make(list(lights), device),
         motion_geom=mgeom, motion_tri_mat=mmat, volume=volume,
@@ -885,4 +915,6 @@ def device_scene_from_numpy(fields, device) -> DeviceScene:
                        miss_color=f32("miss_color"),
                        features=tuple(fields.get("features", ())),
                        clusters=clusters, prims=prims, instances=instances,
+                       instance_clusters=_build_instance_clusters(
+                           geom, tri_mat, instances),
                        lights=lights, **tex, **omm, **extra)

@@ -1,32 +1,47 @@
-"""Host-side Scene (counterpart of `scene/scene.py:28-101, 196-346`):
-meshes, materials, lights and explicit instances added on the host, then
-`finalize(device)` bakes them into the port's DeviceScene.
+"""Host-side Scene (counterpart of `scene/scene.py`): meshes, materials,
+textures, cameras, lights and explicit instances added on the host or
+loaded from a model file, then `finalize(device)` bakes them into the
+port's DeviceScene.
+
+`load` (scene/scene.py:105-199) reads an OBJ or PLY model into one diffuse
+mesh (`io/meshio.py`), or a glTF / GLB model (`scene/gltf.py`) into its
+materials (DIFFUSE or PBR, with textures, alpha modes and the CUT_TEXTURE
+cutout for MASK), textures, meshes with their node transforms (or, given a
+time, posed in world space by its animations, skins and morph targets),
+point and directional lights and cameras. `default_camera` takes the first
+glTF camera with the frame's aspect, else frames the bounding box.
 
 Without instances, finalize bakes each mesh's transform into world space and
-concatenates the meshes. With instances, meshes stay in object space, the
-shared geometry is the concatenation of the meshes instances reference (a
-mesh no instance references gets an identity instance), and each instance
-points at its mesh's static triangle range (`accel/tlas.py`).
+concatenates the meshes; past BVH_THRESHOLD_TRIS triangles it also builds the
+scene's BVH (`with_bvh`, scene/scene.py:276-277). With instances, meshes stay
+in object space, the shared geometry is the concatenation of the meshes
+instances reference (a mesh no instance references gets an identity
+instance), and each instance points at its mesh's static triangle range
+(`accel/tlas.py`); a range past 512 triangles gets its own cluster table.
 
-Texture images added with `add_texture` and the meshes' texture
-coordinates go to the DeviceScene (zero uvs for a mesh without them, once
-any mesh has some, or always on an instanced scene, as the reference does);
-so do the light dicts of `add_light` (the Whitted integrator's light table),
-unless finalize is given its own. `aabb` bounds the meshes in world space and
-`default_camera` frames it. Not ported here: the loaders (`load`, ROADMAP.md
-Queue 1 item 13), which raise NotImplementedError, and with them the glTF
-cameras `default_camera` would take first.
+Texture images and the meshes' texture coordinates go to the DeviceScene
+(zero uvs for a mesh without them, once any mesh has some, or always on an
+instanced scene, as the reference does); so do the light dicts of
+`add_light` or of the model (the Whitted integrator's light table), unless
+finalize is given its own.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
 
 from ..core.camera import Camera
 from ..shade import materials as mats
+from ..shade.lights import DIRECTIONAL, POINT
 from .device_scene import DeviceScene, make_device_scene
+from .gltf import load_gltf, pose_meshes
+
+# Past this many triangles finalize builds the scene's BVH
+# (scene/scene.py:26, 276-277).
+BVH_THRESHOLD_TRIS = 512
 
 
 @dataclasses.dataclass
@@ -79,6 +94,7 @@ class Scene:
         self.meshes: list[MeshEntry] = []
         self.materials: list[dict] = []
         self.textures: list[np.ndarray] = []
+        self.cameras: list[Camera] = []
         self.lights: list[dict] = []
         # (mesh index, 4x4 transform, sbt offset) per explicit instance
         self.instances: list[tuple] = []
@@ -99,10 +115,90 @@ class Scene:
         """Add a light dict (shade/lights.py LightTable.make's keys)."""
         self.lights.append(dict(light))
 
+    def add_camera(self, camera: Camera):
+        self.cameras.append(camera)
+
     @classmethod
-    def load(cls, path: str, **kwargs) -> "Scene":
-        raise NotImplementedError("the glTF / OBJ / PLY loaders are not "
-                                  "ported yet (ROADMAP.md Queue 1 item 13)")
+    def load(cls, path: str, time: Optional[float] = None,
+             animation: int = 0) -> "Scene":
+        """Load a .gltf / .glb / .obj / .ply model. time: pose the glTF
+        model's animation `animation` (and its skins and morph targets) at
+        this second, its meshes then in world space; None keeps the bind
+        pose."""
+        path = os.fspath(path)
+        if os.path.splitext(path)[1].lower() in (".obj", ".ply"):
+            from ..io.meshio import load_mesh
+            v, f, n, uv = load_mesh(path)
+            scene = cls()
+            scene.add_material({"kind": mats.DIFFUSE,
+                                "base_color": (0.75, 0.75, 0.75)})
+            scene.add_mesh(v, f, normals=n, uvs=uv, material=0)
+            return scene
+        g = load_gltf(path)
+        scene = cls()
+        for m in g.materials:
+            kind = (mats.PBR if (m.metallic > 0.0 or m.base_color_texture >= 0)
+                    else mats.DIFFUSE)
+            scene.add_material({
+                "kind": kind,
+                "base_color": tuple(m.base_color[:3]),
+                "metallic": m.metallic,
+                "roughness": m.roughness,
+                "emission": tuple(m.emissive),
+                "base_tex": m.base_color_texture,
+                "normal_tex": m.normal_texture,
+                "mr_tex": m.mr_texture,
+                "emissive_tex": m.emissive_texture,
+                "alpha_mode": (mats.ALPHA_MASK if m.alpha_mode == "MASK"
+                               else mats.ALPHA_BLEND if m.alpha_mode == "BLEND"
+                               else mats.ALPHA_OPAQUE),
+                "alpha_cutoff": m.alpha_cutoff,
+                # MASK cuts against the base-color texture's alpha
+                "cutout": (mats.CUT_TEXTURE if m.alpha_mode == "MASK"
+                           else mats.CUT_NONE),
+            })
+        if not scene.materials:
+            scene.add_material({"kind": mats.DIFFUSE,
+                                "base_color": (0.7, 0.7, 0.7)})
+        for t in g.textures:
+            scene.add_texture(t)
+        posed = None
+        if time is not None and (g.animations or g.skins):
+            posed = {mi: (p, n) for mi, p, n in
+                     pose_meshes(g, time, animation=animation)}
+        for i, mesh in enumerate(g.meshes):
+            if posed is not None and i in posed:
+                p, n = posed[i]            # already in world space
+                scene.add_mesh(p, mesh.indices, n, mesh.uvs,
+                               material=max(mesh.material, 0),
+                               name=mesh.name)
+            else:
+                scene.add_mesh(mesh.positions, mesh.indices, mesh.normals,
+                               mesh.uvs, material=max(mesh.material, 0),
+                               transform=mesh.transform, name=mesh.name)
+        for li in g.lights:
+            # KHR_lights_punctual: a point light at its node's origin, a
+            # directional light down its node's -Z
+            if li.kind == "point":
+                scene.lights.append({
+                    "kind": POINT,
+                    "position": tuple(float(x) for x in li.transform[:3, 3]),
+                    "color": tuple(c * li.intensity for c in li.color)})
+            elif li.kind == "directional":
+                d = -li.transform[:3, 2]
+                scene.lights.append({
+                    "kind": DIRECTIONAL,
+                    "direction": tuple(float(x) for x in d),
+                    "color": tuple(c * li.intensity for c in li.color)})
+        for cam in g.cameras:
+            # a glTF camera looks down its node's -Z
+            eye = cam.transform[:3, 3]
+            fwd = -cam.transform[:3, 2]
+            up = cam.transform[:3, 1]
+            scene.cameras.append(Camera(
+                eye=tuple(eye), lookat=tuple(eye + fwd), up=tuple(up),
+                fov_y=float(np.degrees(cam.yfov)), aspect=cam.aspect))
+        return scene
 
     def add_mesh(self, positions, indices, normals=None, uvs=None,
                  material=0, transform=None, name="") -> int:
@@ -140,9 +236,13 @@ class Scene:
         return lo, hi
 
     def default_camera(self, width, height) -> Camera:
-        """A camera framing the scene's bounding box (the meshviewer's
-        fallback; scene/scene.py:207-220 without the glTF cameras, which
-        come with the loader)."""
+        """The first camera (a glTF camera), given the frame's aspect, else
+        a camera framing the scene's bounding box (scene/scene.py:
+        207-220)."""
+        if self.cameras:
+            cam = dataclasses.replace(self.cameras[0])
+            cam.aspect = width / height
+            return cam
         lo, hi = self.aabb()
         center = 0.5 * (lo + hi)
         extent = float(np.linalg.norm(hi - lo))
@@ -153,10 +253,13 @@ class Scene:
     def _materials(self):
         return self.materials or [{"kind": mats.DIFFUSE}]
 
-    def finalize(self, device, lights=None, area_light=None) -> DeviceScene:
+    def finalize(self, device, lights=None, area_light=None,
+                 with_bvh: Optional[bool] = None) -> DeviceScene:
         """The DeviceScene on `device`: flat, or two-level once an instance
         exists. lights: light dicts for the scene's light table, in place of
-        those of add_light."""
+        those of add_light. with_bvh: build the flat scene's BVH; None
+        builds it past BVH_THRESHOLD_TRIS triangles (scene/scene.py:
+        276-277). A two-level scene builds none."""
         lights = self.lights if lights is None else lights
         if self.instances:
             return self._finalize_instanced(device, lights, area_light)
@@ -182,11 +285,15 @@ class Scene:
                    if any(n is not None for n in all_n) else None)
         uvs = (np.concatenate([_uvs(p, u) for p, u in zip(all_pos, all_uv)])
                if any(u is not None for u in all_uv) else None)
+        indices = np.concatenate(all_idx)
+        if with_bvh is None:
+            with_bvh = len(indices) > BVH_THRESHOLD_TRIS
         return make_device_scene(
-            np.concatenate(all_pos), np.concatenate(all_idx),
+            np.concatenate(all_pos), indices,
             np.concatenate(tri_mat), self._materials(), device,
             area_light=area_light, miss_color=self.miss_color,
-            normals=normals, uvs=uvs, textures=self.textures, lights=lights)
+            normals=normals, uvs=uvs, textures=self.textures, lights=lights,
+            with_bvh=with_bvh)
 
     def _finalize_instanced(self, device, lights, area_light) -> DeviceScene:
         """Meshes in object space (their own transform baked in), the shared

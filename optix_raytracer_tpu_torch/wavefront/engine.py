@@ -42,7 +42,7 @@ from ..accel import volume as vol
 from ..accel.clusters import coherence_key
 from ..accel.geometry import shading_frame
 from ..accel.micromap import TRANSPARENT, micro_index
-from ..accel.tlas import unit_world_normal
+from ..accel.tlas import world_shading_normal
 from ..core import rng as _rng
 from ..core.camera import generate_rays
 from ..core.film import Film
@@ -186,7 +186,7 @@ def _shading_normal(scene: DeviceScene, hits):
     cluster walk interpolates smooth normals in its kernel, so no epilogue
     follows it on an untextured flat cluster scene. On an instanced scene
     the interpolated normal is in object space: with row ids, the hit
-    instance's inverse goes back to world (tlas.unit_world_normal); without
+    instance's inverse goes back to world (tlas.world_shading_normal); without
     them the geometric normal stays. A scene with cutouts takes the
     epilogue always: its mask reads the frame's uv (engine.py:320-346)."""
     if not (scene.has_textures or scene.has_cutouts) and (
@@ -200,12 +200,7 @@ def _shading_normal(scene: DeviceScene, hits):
     sn = frame["shading_normal"]
     if not scene.has_instances:
         return torch.where(is_tri[..., None], sn, hits.normal), frame
-    if not scene.instances.row_ids:
-        return hits.normal, frame
-    inv = scene.instances.inv_transform[torch.clamp_min(hits.inst_id,
-                                                        0).long()]
-    return torch.where((is_tri & (hits.inst_id >= 0))[..., None],
-                       unit_world_normal(inv, sn), hits.normal), frame
+    return world_shading_normal(scene.instances, hits, is_tri, sn), frame
 
 
 def _texture_lanes(scene: DeviceScene, hits, hit_valid, frame, m, geom_n,

@@ -26,9 +26,10 @@ times (intersect.py:298-305); the loop without micromaps asks
 scene_closest without times (intersect.py:360), so there they stand at time
 0, as in the reference.
 
-In the JAX package the cluster branch runs only on a TPU; in the port a
-cluster table alone selects it, on any device (the CPU runs the kernels'
-plain versions). With ORT_QWALK=1 the cluster branch sends exact-cull
+In the JAX package the cluster branch, and an instance's walk of its own
+cluster table, run only on a TPU (intersect.py:95-96, 155-156); in the
+port a cluster table alone selects them, on any device (the CPU runs the
+kernels' plain versions). With ORT_QWALK=1 the cluster branch sends exact-cull
 closest-hit queries and every any-hit query through the cluster-major queue
 (`accel/qwalk.py`), as the reference does.
 """
@@ -114,13 +115,14 @@ def scene_closest(scene: DeviceScene, rays: Rays,
     """exact=True (already-sorted scattered wavefronts) takes the exact
     cull, or the queue under ORT_QWALK=1 (the reference's `exact or not
     coherent`); group_walk gates the walk per 32-ray group on the exact
-    cull's bits. Both are ignored by brute force, the BVH walk and the
-    instances.
+    cull's bits. Brute force and the BVH walk ignore both; an instance's
+    cluster table takes exact, never the queue or the gate.
     times: the rays' shutter times for the moving triangles (None: 0)."""
     if scene.has_instances:
         hits = _flat_call(lambda r: tlas.intersect_instances(
             scene.geom, scene.instances, r, tri_mat=scene.tri_mat,
-            chunk_size=chunk_size, boxes=scene.bf_boxes), rays)
+            chunk_size=chunk_size, boxes=scene.bf_boxes,
+            mesh_clusters=scene.instance_clusters, exact=exact), rays)
     elif scene.has_clusters:
         if exact and _use_qwalk():
             hits = _flat_call(lambda r: qwalk_mod.closest_hit(
@@ -161,7 +163,8 @@ def scene_any(scene: DeviceScene, rays: Rays,
     if scene.has_instances:
         occ = _flat_call(lambda r: tlas.intersect_instances_any(
             scene.geom, scene.instances, r, chunk_size=chunk_size,
-            boxes=scene.bf_boxes), rays)
+            boxes=scene.bf_boxes, mesh_clusters=scene.instance_clusters),
+            rays)
     elif scene.has_clusters:
         if _use_qwalk():
             occ = _flat_call(lambda r: qwalk_mod.any_hit(scene.clusters, r),

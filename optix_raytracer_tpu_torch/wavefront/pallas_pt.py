@@ -338,6 +338,15 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
         # (pallas_pt.py:1430-1431); the wavefront renders such a scene
         raise ValueError("the fused kernel renders no textured scene with "
                          "instances: use impl='wavefront'")
+    big = [hi - lo for lo, hi in fused_inst_ranges(scene)
+           if hi - lo > MAX_FUSED_TRIS]
+    if big:
+        # kInst tests each range whole; a mesh past the budget walks its
+        # own cluster table in the wavefront (engine._use_fused keeps such
+        # scenes off the kernel)
+        raise ValueError(f"the fused kernel renders no instance range of "
+                         f"{big[0]} triangles (past {MAX_FUSED_TRIS}): use "
+                         f"impl='wavefront'")
     dev = scene.device
     if dev.type == "cpu":
         return render_sum_plain(scene, cam_params, width, height, subframe,

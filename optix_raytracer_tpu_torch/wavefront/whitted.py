@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from ..accel.geometry import shading_frame
+from ..accel.tlas import world_shading_normal
 from ..core import rng as _rng
 from ..core.camera import generate_rays
 from ..core.film import Film
@@ -59,15 +60,23 @@ def _surface(scene: DeviceScene, hits, m):
     triangle hit takes the shading frame's interpolated normal; on a
     textured one the base map (sample_bilinear, level 0, at the frame's uv;
     white where a material has none or the hit is a prim's) gives the
-    factor."""
+    factor. On an instanced scene the interpolated normal goes back to
+    world by the hit instance's inverse, as the path engine's does
+    (tlas.world_shading_normal); the reference's Whitted integrator shades
+    with the object-space normal there (whitted.py:71-94), which the
+    render of the same meshes baked into world space does not."""
     if not (scene.geom.smooth or scene.has_textures):
         return hits.normal, None
     n_tri = scene.num_triangles
     is_tri = hits.prim_id < n_tri
     frame = shading_frame(scene.geom, torch.clamp(hits.prim_id, 0, n_tri - 1),
                           hits.uv)
-    normal = torch.where(is_tri[..., None], frame["shading_normal"],
-                         hits.normal)
+    if scene.has_instances:
+        normal = world_shading_normal(scene.instances, hits, is_tri,
+                                      frame["shading_normal"])
+    else:
+        normal = torch.where(is_tri[..., None], frame["shading_normal"],
+                             hits.normal)
     if not scene.has_textures:
         return normal, None
     rgba = sample_bilinear(scene.textures, scene.tex_size,

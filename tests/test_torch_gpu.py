@@ -1341,3 +1341,113 @@ def test_bvh_walk_dispatch_on_card(cuda, monkeypatch):
     half = LBVH(nodes=scene.bvh.nodes[:-2])
     with pytest.raises(ValueError):
         trav.traverse(half, scene.geom, scene.tri_mat, rays)
+
+
+def _plain_vs_kernels(fn, names):
+    """fn() through the kernels (each of `names` launched) and again with
+    every query through the plain versions → (kernel output, plain
+    output)."""
+    from optix_raytracer_tpu_torch.tools.whitted_probe import plain_queries
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    assert all(kernels.LAUNCHES[k] > 0 for k in names), kernels.LAUNCHES
+    with plain_queries():
+        ref = fn()
+    return out, ref
+
+
+def test_loaded_model_on_card(cuda, tmp_path):
+    """s1 at 64²: the knot model's .glb through the meshviewer (kernels
+    4-6) bit-equal to the plain versions and to the same arrays added
+    through Scene.add_mesh / add_texture; the OBJ through the native
+    parser; --animate 3 writes three frames that differ."""
+    from optix_raytracer_tpu_torch.apps import meshviewer
+    from optix_raytracer_tpu_torch.io.image import load_image
+    from optix_raytracer_tpu_torch.scene.scene import Scene
+    from optix_raytracer_tpu_torch.tools import model_probe as MP
+    glb, obj, meshes, materials, images = MP.knot_files(str(tmp_path))
+    assert MP.obj_case(obj, meshes)["triangles"] == 25202
+    out, ref = _plain_vs_kernels(
+        lambda: meshviewer.render(glb, 64, 64, samples=2, max_depth=3,
+                                  device=cuda),
+        ("cluster_cull_exact", "cluster_closest", "cluster_any"))
+    assert torch.equal(out[0], ref[0]) and int(out[2]) == int(ref[2])
+    added = MP.added_scene(meshes, materials, images,
+                           Scene.load(glb).cameras[0])
+    again = meshviewer.render(None, 64, 64, samples=2, max_depth=3,
+                              scene=added, device=cuda)
+    assert torch.equal(out[0], again[0]) and float(out[0].mean()) > 0.01
+    meshviewer.main(["--model", glb, "--animate", "3", "--samples", "1",
+                     "--dim", "64x64", "--file", str(tmp_path / "a.ppm"),
+                     "--device", "cuda"])
+    frames = [load_image(str(tmp_path / f"a_{i:03d}.ppm")) for i in range(3)]
+    assert all(not np.array_equal(a, b) for i, a in enumerate(frames)
+               for b in frames[i + 1:])
+
+
+def test_viewer_on_card(cuda, tmp_path):
+    """s2 at 64²: the viewer's film bit-equal to the same render_accumulate
+    launches (kernel 3) and to a --checkpoint / --resume split."""
+    from optix_raytracer_tpu_torch.apps import viewer
+    common = ["--dim", "64x64", "--spf", "2", "--depth", "4", "--device",
+              "cuda", "--file", str(tmp_path / "v.ppm")]
+    kernels.reset_launches()
+    v, _ = viewer.main(common + ["--frames", "4"])
+    assert kernels.LAUNCHES["pt_fused_cornell"] == 4
+    film = Film.create(64, 64, cuda)
+    cam = v.camera.params(cuda)
+    for _ in range(4):
+        film, _ = engine.render_accumulate(v.scene, cam, film, 64, 64,
+                                           samples_per_launch=4, max_depth=4)
+    assert torch.equal(film.accum, v.film.accum)
+    ck = str(tmp_path / "v.npz")
+    viewer.main(common + ["--frames", "2", "--checkpoint", ck])
+    v2, _ = viewer.main(common + ["--frames", "2", "--resume", ck])
+    assert torch.equal(v2.film.accum, v.film.accum)
+
+
+def test_instanced_knots_on_card(cuda):
+    """s3 at 64²: four instances of the 25k knot walking their per-mesh
+    cluster table (kernels 4-6, never the fused kernel), bit-equal to the
+    plain versions, and within the parity bars of the same meshes baked
+    flat, Whitted and path-traced, with equal ray counts."""
+    from optix_raytracer_tpu_torch.apps import meshviewer
+    from optix_raytracer_tpu_torch.shade.lights import ParallelogramLight
+    from optix_raytracer_tpu_torch.tools import model_probe as MP
+    inst, flat = MP.instanced_knot_hosts()
+    names = ("cluster_cull_exact", "cluster_closest", "cluster_any")
+    out, ref = _plain_vs_kernels(
+        lambda: meshviewer.render(None, 64, 64, samples=2, max_depth=3,
+                                  scene=inst, device=cuda), names)
+    assert not any(k.startswith("pt_fused") and n for k, n in
+                   kernels.LAUNCHES.items())
+    assert torch.equal(out[0], ref[0]) and int(out[2]) == int(ref[2])
+    base = meshviewer.render(None, 64, 64, samples=2, max_depth=3,
+                             scene=flat, device=cuda)
+    torch_parity.assert_image_close(out[0].cpu().numpy(),
+                                    base[0].cpu().numpy(), "s3 whitted")
+    assert int(out[2]) == int(base[2])
+    light = ParallelogramLight.make(*MP.S3_LIGHT, cuda)
+    cam = inst.default_camera(64, 64).params(cuda)
+    films = [engine.render_accumulate(
+        sc.finalize(cuda, area_light=light), cam, Film.create(64, 64, cuda),
+        64, 64, samples_per_launch=4, max_depth=4) for sc in (inst, flat)]
+    a, b = (f.accum.cpu().numpy() for f, _ in films)
+    bad = ~np.isclose(a, b, atol=2e-3, rtol=1e-3).all(axis=-1)
+    assert int(bad.sum()) <= 4 and a.mean() > 0
+
+
+def test_small_apps_on_card(cuda, tmp_path):
+    """s4 at reduced sizes: each app through main() on the card, and the
+    kernel-launching ones held against their plain versions."""
+    from optix_raytracer_tpu_torch.tools import model_probe as MP
+    glb = MP.write_knot_model(str(tmp_path / "k.glb"), 20, 14, 16)[0]
+    rows = MP.small_apps_case(cuda, str(tmp_path), glb,
+                              dims={k: (64, 48) for k in MP.S4})
+    by = {r["app"]: r for r in rows}
+    assert by["triangle"]["plain_bit_equal"]
+    assert by["raycasting"]["plain_bit_equal"]
+    assert by["raycasting --model"]["launches"].get("cluster_closest", 0)
+    assert by["console"]["plain_rays_equal"]
+    assert by["dynamic_materials"]["launches"].get("pt_fused_cornell", 0)

@@ -162,8 +162,9 @@ def test_scene_matches_jax():
 
 def test_unported_parts_raise():
     sc = Scene()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Scene.load("model.gltf")
+    # the loaders are ported: a missing model raises FileNotFoundError
+    with pytest.raises(FileNotFoundError):
+        Scene.load("no-such-model.gltf")
     # lights are ported: add_light keeps a copy of the dict
     light = {"kind": 1, "color": (0.2, 0.2, 0.2)}
     sc.add_light(light)
@@ -171,13 +172,15 @@ def test_unported_parts_raise():
     # textures are ported: add_texture stores the image and returns its id
     assert sc.add_texture(np.zeros((2, 2, 3))) == 0 and len(sc.textures) == 1
     sc.textures.clear()
-    # an instanced mesh past 512 triangles needs a per-mesh cluster table
+    # an instanced mesh past 512 triangles gets its own cluster table
+    # (tests/test_torch_instanced_clusters.py holds its queries)
     verts, idx, normals = tb.trefoil_mesh(20, 14)      # 560 triangles
     sc.add_material({"kind": 0})
     sc.add_mesh(verts, idx, normals=normals)
     sc.add_instance(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sc.finalize("cpu")
+    scene = sc.finalize("cpu")
+    assert list(scene.instance_clusters) == [(0, 560)]
+    assert scene.bf_boxes == (None,)
     # an sbt offset past the material table
     v, f = tb.prims_floor()
     table = tlas.make_instances([np.eye(4)], "cpu", sbt_offsets=[1],

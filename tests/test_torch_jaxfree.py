@@ -369,3 +369,90 @@ def test_api_lbvh_and_api_apps_run_without_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+_SCRIPT_LOAD = r"""
+import os
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import numpy as np
+import torch
+from optix_raytracer_tpu_torch.apps import (console, custom_primitive,
+                                            dynamic_materials, hello,
+                                            meshviewer, raycasting, triangle,
+                                            viewer)
+from optix_raytracer_tpu_torch.core.camera import Trackball
+from optix_raytracer_tpu_torch.core.film import OutputBuffer
+from optix_raytracer_tpu_torch.io import ktx2, meshio
+from optix_raytracer_tpu_torch.io.image import load_image
+from optix_raytracer_tpu_torch.scene import gltf
+from optix_raytracer_tpu_torch.scene.scene import Scene
+from optix_raytracer_tpu_torch.tools import model_probe as mp
+out = sys.argv[1]
+glb, meshes, mats, imgs = mp.write_knot_model(out + ".glb", 6, 5, 16)
+g = gltf.load_gltf(glb)
+assert len(g.meshes) == 2 and g.cameras and g.lights and g.animations
+assert (g.textures[0] == imgs[0]).all()
+assert len(gltf.pose_meshes(g, 0.5)) == 2
+host = Scene.load(glb)
+assert host.cameras and host.default_camera(16, 8).aspect == 2.0
+v = np.concatenate([m["positions"] for m in meshes])
+f = np.concatenate([meshes[0]["indices"],
+                    meshes[1]["indices"] + len(meshes[0]["positions"])])
+for path in (mp.write_obj(out + ".obj", v, f), mp.write_ply(out + ".ply",
+                                                            v, f)):
+    a = meshio.load_mesh(path)
+    b = meshio.load_mesh(path, prefer_native=False)
+    assert all((x == y).all() for x, y in zip(a[:2], b[:2]))
+    assert Scene.load(path).finalize("cpu").num_triangles == 62
+ktx2.write_ktx2(out + ".ktx2", imgs[0], supercompression="ZLIB")
+assert (ktx2.read_ktx2_rgba(out + ".ktx2") == imgs[0]).all()
+meshviewer.main(["--model", glb, "--dim", "8x8", "--samples", "1",
+                 "--file", out + "_m.ppm", "--device", "cpu"])
+meshviewer.main(["--model", glb, "--animate", "2", "--dim", "8x8",
+                 "--samples", "1", "--file", out + "_a.ppm", "--device",
+                 "cpu"])
+assert not (load_image(out + "_a_000.ppm") == load_image(out + "_a_001.ppm")
+            ).all()
+for app, args in ((hello, []), (triangle, []), (custom_primitive, []),
+                  (dynamic_materials, []), (raycasting, []),
+                  (raycasting, ["--model", glb])):
+    app.main(["--dim", "8x8", "--file", out + ".ppm", "--device", "cpu"]
+             + args)
+console.main(["--samples", "1", "--device", "cpu"])
+viewer.main(["--dim", "8x8", "--frames", "1", "--spf", "0", "--depth", "2",
+             "--file", out + "_v.ppm", "--device", "cpu", "--checkpoint",
+             out + "_v.npz"])
+vw, img = viewer.main(["--dim", "8x8", "--frames", "1", "--model", glb,
+                       "--file", out + "_v.ppm", "--device", "cpu"])
+assert vw.integrator == "whitted" and img.shape == (8, 8, 4)
+Trackball(vw.camera).orbit(5, 5)
+assert OutputBuffer(4, 2).get_host().shape == (2, 4, 4)
+assert not any(m == "jax" or m.startswith(("jax.", "flax"))
+               for m in sys.modules if sys.modules[m] is not None)
+assert not any(m == "optix_raytracer_tpu"
+               or m.startswith("optix_raytracer_tpu.") for m in sys.modules)
+assert "PIL" not in sys.modules
+print("OK")
+"""
+
+
+def test_loaders_and_last_apps_run_without_jax(tmp_path):
+    """With `import jax` and `import flax` failing: a glTF model written
+    in-process (the small knot with a KTX2 map, camera, light, spin) loads
+    through the port's glTF loader and `Scene.load`, the same mesh as OBJ
+    and PLY through both parsers, a KTX2 file round-trips, and the
+    meshviewer (`--model`, `--animate 2`), hello, triangle, custom
+    primitive, dynamic materials, raycasting (Cornell and `--model`),
+    console and viewer (`--checkpoint`, `--model`) apps run 8x8 on the CPU
+    through their main(); neither JAX, nor the JAX package, nor PIL (the
+    images are KTX2 and the outputs .ppm) is loaded."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", _SCRIPT_LOAD,
+                          str(tmp_path / "l")],
+                         capture_output=True, text=True, env=env, cwd=root,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")

@@ -228,13 +228,17 @@ def test_scene_lights_bounds_camera_match_jax():
                                       np.asarray(j.tri_mat))
     assert t.lights.num == 2 and ts.finalize("cpu").lights.num == 2
     assert Scene().finalize("cpu").lights.num == 1
-    # the loaders are Queue 1 item 13
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Scene.load("model.gltf")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmeshviewer.render("model.gltf", 8, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tmeshviewer.main(["--model", "model.gltf", "--animate", "2"])
+    # the loaders are ported: a missing model raises as the reference's
+    # load does (tests/test_torch_scene_load.py renders loaded models)
+    from optix_raytracer_tpu.scene.scene import Scene as JScene
+    for load in (Scene.load, JScene.load):
+        with pytest.raises(FileNotFoundError):
+            load("no-such-model.gltf")
+    with pytest.raises(FileNotFoundError):
+        tmeshviewer.render("no-such-model.gltf", 8, 8, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        tmeshviewer.main(["--model", "no-such-model.gltf", "--animate", "2",
+                          "--device", "cpu"])
 
 
 def _mixed_scene(package, lights):
