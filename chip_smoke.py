@@ -79,7 +79,18 @@ on kernel 3, bit-equal to the same launches and to a --checkpoint /
 walking their per-mesh cluster table (each instance's first-bounce sets
 held against the plain versions; the image against the same meshes baked
 flat); and the hello, triangle, console, custom-primitive,
-dynamic-materials and raycasting apps at their CLI defaults.
+dynamic-materials and raycasting apps at their CLI defaults. Phases p1-p4
+drive the multichip layer and the training tool
+(optix_raytracer_tpu_torch/tools/multichip_probe.py): four ranks started
+by `multichip.distributed.launch_local` share the card over gloo (with
+four cards NCCL gives each its own) and render the Cornell headline as 2
+rows x 2 samples, 4 interleaved rows and 2 slices x 2 rows (kernels 1-2 in
+every rank), each gathered frame within 1e-5 of the single-process launch
+with equal rays; the nvlink app's --check with its textures sharded over
+the ranks (kernel 3's texture variant); a sharded checkpoint written by
+the ranks, loaded whole and by two ranks, resumed bit-equal; and
+train_denoiser's dataset (kernels 3 and 1) and 10 Adam steps, the first
+against the CPU's.
 
     python3 chip_smoke.py
 
@@ -172,6 +183,15 @@ TEXTURED_SMALL = (32, 16, 16, 8)
 # of 12 channels (4 taps, 9 operations a channel, and the texel's setup)
 # 244, the blend 37, the base, mr and emissive maps 8, the normal map 60.
 TEX_OPS = 375
+
+
+# Phases p1-p4: the tiles at the headline, nvlink --check at a budget that
+# shards its stacks over the 4 ranks, the checkpointed film, and the
+# training tool's dataset (RES 256, clean 1024 spp) and steps.
+P_TILES = HEADLINE
+P_NVLINK = dict(w=256, h=256, samples=4, tex_px=256, budget=1 << 20)
+P_CKPT = dict(w=512, h=512, spl=4)
+P_TRAIN = dict(res=256, patch=128, batch=8, steps=10, clean_spp=1024)
 
 
 class SmokeFailure(RuntimeError):
@@ -2106,6 +2126,199 @@ def model_phases(dev, card, record):
     return totals
 
 
+def multichip_phases(dev, card, record):
+    """Phases p1-p4 (optix_raytracer_tpu_torch/tools/multichip_probe.py):
+    (p1) four ranks on this card (gloo: they share it; with four cards
+    NCCL, one each) render the Cornell headline (1920x1088, 16 samples a
+    launch, depth 4) as 2 rows x 2 samples (twice: progressive), 4
+    interleaved rows and 2 slices x 2 rows, each gathered frame within
+    rtol and atol 1e-5 of the single-process wavefront launch (kernels 1-2,
+    as in the ranks) with the same rays, every rank's frame equal and every
+    rank launching kernels 1-2, no collective crossing the slice axis
+    before the gather; ms a launch on one rank (a 1 x 1 mesh here) and on
+    four, and the gather's ms; four ranks sharing one card measure the
+    layer's overhead, not its scaling. (p2) the nvlink app's rank body
+    with --check at a 1 MB budget: shard_island over the 4 ranks, bytes at
+    rest a quarter of the stacks' (plus row padding), the placed render
+    bit-equal to the whole stacks' on every rank; the same scene
+    shard_global over 2 slices x 2 rows and its atlas alone over rows,
+    bit-equal too. (p3) a sharded checkpoint of a 512x512 film written by
+    the 4 ranks, loaded whole here and by 2 ranks of a 2-row split, each
+    resume bit-equal to the straight run. (p4) train_denoiser's dataset
+    (two scenes at RES 256, clean 1024 spp; kernel 3 renders, kernel 1
+    answers render_aovs) and 10 Adam steps at batch 8 on 128^2 patches:
+    finite losses, the first step's loss, gradients and parameters against
+    the CPU's from the same parameters and batch within the denoiser's bars
+    (TF32 off). → each kernel's launches on these paths."""
+    import torch
+    from optix_raytracer_tpu_torch.core import checkpoint
+    from optix_raytracer_tpu_torch.multichip import distributed, tiles
+    from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
+                                                         cornell_camera)
+    from optix_raytracer_tpu_torch.tools import multichip_probe as MC
+    from optix_raytracer_tpu_torch.wavefront.engine import render_accumulate
+    W, H, spl, depth = (P_TILES[k] for k in ("width", "height", "spl",
+                                             "depth"))
+    t_start = time.perf_counter()
+    work = os.path.join(ROOT, "optix_raytracer_tpu_torch", "_build",
+                        "multichip")
+    os.makedirs(work, exist_ok=True)
+    ck = dict(P_CKPT, depth=depth, path=os.path.join(work, "film_ckpt"))
+    cfg = dict(tiles=dict(w=W, h=H, spl=spl, depth=depth, shapes=dict(
+                   sharded=(2, 2), interleaved=4, multislice=(2, 2, 1))),
+               nvlink=P_NVLINK, checkpoint=ck)
+    # single-process references: the wavefront launch (kernels 1-2, as in
+    # the ranks) and its continuation, and one rank's launch (a 1 x 1 mesh)
+    scene = cornell_box(dev)
+    cam = cornell_camera(W, H).params(dev)
+    from optix_raytracer_tpu_torch.core.film import Film
+    ref1, ref_rays = render_accumulate(scene, cam, Film.create(H, W, dev), W,
+                                       H, spl, depth, impl="wavefront")
+    ref2, ref2_rays = render_accumulate(scene, cam, ref1, W, H, spl, depth,
+                                        impl="wavefront")
+    ref1_np, ref2_np = to_np(ref1.accum), to_np(ref2.accum)
+    one = tiles.make_mesh(1, 1, device=dev)
+    (_, one_rays), one_ms, _ = MC._timed(one, lambda: (
+        tiles.render_accumulate_sharded(
+            scene, cam, tiles.shard_film(Film.create(H, W, dev), one), one,
+            W, H, samples_per_launch=spl, max_depth=depth)))
+    require(int(one_rays) == int(ref_rays),
+            "p1: the 1 x 1 mesh's rays differ from the single launch's")
+    t0 = time.perf_counter()
+    ranks = distributed.launch_local(MC.rank_phases, 4, cfg,
+                                     device=dev.type, timeout=900)
+    ranks_s = time.perf_counter() - t0
+    totals = {}
+
+    def add(counts):
+        for name, n in counts.items():
+            totals[name] = totals.get(name, 0) + n
+
+    # --- p1: tiles ---
+    for layout in ("sharded", "sharded_2", "interleaved", "multislice"):
+        rows = [r["p1"][layout] for r in ranks]
+        r0 = rows[0]
+        require(len({(r["digest"], r["subframe"], r["rays"]) for r in rows})
+                == 1, f"p1 {layout}: the ranks' gathered frames differ")
+        ref, want_rays = ((ref2_np, int(ref2_rays)) if layout == "sharded_2"
+                          else (ref1_np, int(ref_rays)))
+        accum = r0["accum"]
+        if layout == "interleaved":
+            accum = tiles.deinterleave_rows(accum, 4)
+        err = float(np.abs(accum - ref).max())
+        require(np.allclose(accum, ref, rtol=1e-5, atol=1e-5),
+                f"p1 {layout}: {err} from the single-process frame")
+        require(r0["subframe"] == spl * (2 if layout == "sharded_2" else 1),
+                f"p1 {layout}: subframe {r0['subframe']}")
+        require(r0["rays"] == want_rays,
+                f"p1 {layout}: rays {r0['rays']} != {want_rays}")
+        for i, r in enumerate(rows):
+            require(r["launches"].get("bf_closest", 0) > 0
+                    and r["launches"].get("bf_any", 0) > 0,
+                    f"p1 {layout}: rank {i} never launched kernels 1-2")
+            add(r["launches"])
+        phase(f"p1 tiles {layout}", card=repr(card), dim=f"{W}x{H}",
+              spl=spl, depth=depth, ranks=4, backend="gloo (one card)",
+              max_abs_err=err, rays=r0["rays"],
+              ms_per_launch_4_ranks=f"{max(r['wall_ms'] for r in rows):.2f}",
+              rank_ms=[round(r["ms"], 2) for r in rows],
+              gather_ms=f"{max(r['gather_ms'] for r in rows):.2f}",
+              launches=[r["launches"] for r in rows])
+    render_log, after, grid = ranks[0]["p1"]["multislice_log"]
+    slices = [set(np.ravel(g).tolist()) for g in grid]
+    require(all(any(set(m) <= sl for sl in slices)
+                for _, _, m in render_log),
+            f"p1: a render-time collective crossed the slice axis: "
+            f"{render_log}")
+    phase("p1 one rank", card=repr(card), ms_per_launch=f"{one_ms:.2f}",
+          rays=int(one_rays), ranks_wall_s=f"{ranks_s:.1f}",
+          note="four ranks share one card: the layer's overhead, not "
+               "scaling")
+    # --- p2: nvlink --check ---
+    for key, mode in (("rows", "shard_island"), ("slices", "shard_global"),
+                      ("atlas_rows", None)):
+        for i, r in enumerate(ranks):
+            rep = r["p2"][key]
+            require(rep["bit_equal"], f"p2 {key}: rank {i}'s placed render "
+                                      f"differs from the whole stacks'")
+            require(mode is None or rep["mode"] == mode,
+                    f"p2 {key}: mode {rep.get('mode')} != {mode}")
+        rep = ranks[0]["p2"][key]
+        phase(f"p2 nvlink {key}", card=repr(card), mode=rep.get("mode"),
+              per_rank_bytes=rep["per_chip_bytes_measured"],
+              stacks_bytes=rep.get("total_bytes"), bit_equal=True)
+    rep = ranks[0]["p2"]["rows"]
+    per, whole = rep["per_chip_bytes_measured"], rep["replicated_bytes"]
+    require(whole <= 4 * per <= 1.01 * whole,
+            f"p2: {per} bytes at rest a rank, not a quarter of {whole}")
+    for r in ranks:
+        add(r["p2"]["rows"]["launches"])
+    require(any(k.startswith("pt_fused_tex") for k in
+                ranks[0]["p2"]["rows"]["launches"]),
+            "p2: the placed render never launched the fused texture kernel")
+    phase("p2 bytes at rest", card=repr(card), per_rank=per,
+          replicated=whole, drop=f"{whole / per:.3f}x",
+          launches=ranks[0]["p2"]["rows"]["launches"])
+    # --- p3: checkpoint ---
+    first, _, first_sub = ranks[0]["p3"]["first"]
+    film, _, config = checkpoint.load_checkpoint_sharded(ck["path"], dev)
+    require(np.array_equal(to_np(film.accum), first)
+            and int(film.subframe) == first_sub
+            and config == {"spl": ck["spl"]},
+            "p3: the checkpoint loaded in one process is not the film")
+    half = ck["h"] // 2
+    for i in (0, 1):
+        band, sub = ranks[i]["p3"]["loaded_band"]
+        require(np.array_equal(band, first[i * half:(i + 1) * half])
+                and sub == first_sub, f"p3: rank {i}'s loaded rows differ")
+        require(ranks[i]["p3"]["resumed"][1:] == ranks[i]["p3"]["straight"][
+            1:], f"p3: rank {i}'s resume differs from the straight run")
+    cw, ch = ck["w"], ck["h"]
+    ck_cam = cornell_camera(cw, ch).params(dev)
+    resumed, _ = tiles.render_accumulate_sharded(
+        scene, ck_cam, film, one, cw, ch, samples_per_launch=ck["spl"],
+        max_depth=depth)
+    straight, _ = tiles.render_accumulate_sharded(
+        scene, ck_cam, Film(accum=torch.as_tensor(first, device=dev),
+                            subframe=torch.tensor(first_sub, device=dev)),
+        one, cw, ch, samples_per_launch=ck["spl"], max_depth=depth)
+    require(torch.equal(resumed.accum, straight.accum),
+            "p3: the one-process resume differs from the straight run")
+    phase("p3 checkpoint", card=repr(card), dim=f"{cw}x{ch}",
+          save_ms=f"{max(r['p3']['save_ms'] for r in ranks):.1f}",
+          load_ms_2_ranks=f"{ranks[0]['p3']['load_ms']:.1f}",
+          resume_bit_equal=True)
+    # --- p4: training ---
+    data = os.path.join(work, "denoiser_data")
+    import shutil
+    shutil.rmtree(data, ignore_errors=True)
+    tr = MC.training_case(dev, data, **P_TRAIN)
+    require(np.isfinite(tr["losses"]).all(), f"p4: losses {tr['losses']}")
+    require(abs(tr["losses"][0] - tr["loss_cpu"])
+            <= 1e-4 + 1e-3 * abs(tr["loss_cpu"]),
+            f"p4: first loss {tr['losses'][0]} vs the CPU's "
+            f"{tr['loss_cpu']}")
+    require(tr["grad_outside_bars"] == 0 and tr["params_outside_bars"] == 0,
+            f"p4: {tr['grad_outside_bars']} gradient and "
+            f"{tr['params_outside_bars']} parameter elements outside the "
+            f"bars of the CPU's first step")
+    require(any(k.startswith("pt_fused") for k in tr["launches"])
+            and tr["launches"].get("bf_closest", 0) > 0,
+            f"p4: the dataset renders launched {tr['launches']}")
+    add(tr["launches"])
+    phase("p4 training", card=repr(card), scenes=2, **P_TRAIN,
+          ms_per_scene=f"{tr['scene_ms']:.1f}",
+          ms_per_step=f"{tr['step_ms']:.2f}",
+          losses=[round(x, 5) for x in tr["losses"]],
+          loss_cpu=tr["loss_cpu"], open_sign_params=tr["open_sign_params"],
+          launches=tr["launches"])
+    for name, n in totals.items():
+        record.setdefault(name, {})["p_launches"] = n
+    phase("p total", seconds=f"{time.perf_counter() - t_start:.1f}",
+          launches=totals)
+    return totals
+
+
 def sc_phases(dev, card, record):
     """Phases (e)-(g): the 4.0M-triangle knot through the supercluster tier.
     (e) the build, timed per step, and traversal_stats at supercluster
@@ -3075,6 +3288,14 @@ def main():
         launches[name] = launches.get(name, 0) + n
     torch.cuda.empty_cache()
 
+    # --- phases p1-p4: the multichip layer over four ranks on this card,
+    # texture placement, sharded checkpoints and denoiser training (kernels
+    # 1-3); their launches are added to each kernel's count ---
+    p_launches = multichip_phases(dev, card, record)
+    for name, n in p_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
+
     # --- phases (e)-(g): the supercluster tier (kernels 5c/6c) ---
     launches.update(sc_phases(dev, card, record))
 
@@ -3117,6 +3338,9 @@ def main():
                           "optix_raytracer_tpu/accel/traverse.py:51"),
         bvh_walk_any=("optix_raytracer_tpu_torch/csrc/bvh.cu",
                       "optix_raytracer_tpu/accel/traverse.py:51"))
+    require(set(p_launches) <= set(meta),
+            f"phases p1-p4 launched kernels outside the record: "
+            f"{set(p_launches) - set(meta)}")
     # No single PyTorch call computes a Woop closest hit, a slab cull, a BVH
     # walk or a path: library_ms is null for every kernel but kernel 9
     # (torch's row gather).

@@ -34,7 +34,7 @@ from ..core.film import Film
 from ..scene.device_scene import DeviceScene, make_device_scene
 from ..shade.lights import ParallelogramLight
 from ..shade.materials import make_material_table
-from ..wavefront.engine import render_accumulate
+from ..wavefront.engine import _merge_launch, render_sum
 from ..wavefront.whitted import render_whitted_sample
 from .accel import TraversableHandle
 from .context import LogLevel
@@ -161,42 +161,38 @@ class Pipeline:
                                      area_light, textures)
         if film is None:
             film = Film.create(height, width, scene.device)
-        film_before = film
         if self.integrator == "pathtrace":
-            film, rays = render_accumulate(
-                scene, cam_params, film, width, height,
-                samples_per_launch=self.samples_per_launch,
-                max_depth=self.max_trace_depth)
+            rad_sum, rays = render_sum(
+                scene, cam_params, width, height, film.subframe,
+                self.samples_per_launch, max_depth=self.max_trace_depth)
+            film = _merge_launch(film, rad_sum, self.samples_per_launch)
         else:
             rays = torch.zeros((), dtype=torch.int64, device=scene.device)
+            rad_sum = torch.zeros_like(film.accum)
             for _ in range(self.samples_per_launch):
                 radiance, r = render_whitted_sample(
                     scene, cam_params, width, height, film.subframe,
                     max_depth=self.max_trace_depth)
                 film = film.accumulate(radiance)
+                rad_sum = rad_sum + radiance
                 rays = rays + r
         if self.context is not None and self.context.validation_mode:
-            self._check_launch(cam_params, film_before, film, width, height)
+            self._check_launch(cam_params, rad_sum, width, height)
         return film, rays
 
-    def _check_launch(self, cam_params, film_before, film, width, height):
+    def _check_launch(self, cam_params, rad_sum, width, height):
         """Validation mode's exception surface (pipeline.py:161-177): the
-        launch's counters to `last_exceptions` and, where one fired, an
-        ERROR line "EXCEPTION" through the context's log callback; with
-        the context's debug_nans, FloatingPointError on a NaN in the
-        launch's radiance."""
+        counters of the launch's own radiance sum to `last_exceptions` and,
+        where one fired, an ERROR line "EXCEPTION" through the context's
+        log callback; with the context's debug_nans, FloatingPointError on
+        a NaN in that sum."""
         from ..wavefront.exceptions import (format_exceptions,
                                             launch_diagnostics)
         diag = {k: int(v) for k, v in launch_diagnostics(
-            cam_params, film_before, film, width, height).items()}
+            cam_params, rad_sum, width, height).items()}
         self.last_exceptions = diag
         msg = format_exceptions(diag)
         if msg:
             self.context.log(LogLevel.ERROR, "EXCEPTION", msg)
-        if self.context.debug_nans:
-            n0 = film_before.subframe.to(torch.float32)
-            n1 = film.subframe.to(torch.float32)
-            if bool(torch.isnan(film.accum * n1
-                                - film_before.accum * n0).any()):
-                raise FloatingPointError(
-                    f"NaN in the launch's radiance ({msg})")
+        if self.context.debug_nans and bool(torch.isnan(rad_sum).any()):
+            raise FloatingPointError(f"NaN in the launch's radiance ({msg})")

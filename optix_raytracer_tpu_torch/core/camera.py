@@ -69,19 +69,22 @@ def camera_params_from_numpy(params, device):
 
 
 def generate_rays(cam_params, width, height, rng_state=None, jitter=True,
-                  y0=0, full_width=None, full_height=None):
+                  y0=0, full_width=None, full_height=None, y_stride=1):
     """Camera rays for a [height, width] pixel grid → (Rays, next_rng_state).
 
     NDC d = 2*(idx + jitter)/dim - 1, direction = d.x*U + d.y*V + W. The
     thin-lens pair is drawn whenever an RNG state is given, even for a
     pinhole, so the stream stays in step with the engine and the kernel.
-    (y0, full_*) select a row tile of a larger frame.
+    (y0, full_*) select a row tile of a larger frame; y_stride > 1 takes
+    every y_stride-th row from y0 (the multichip layer's interleaved rows,
+    camera.py:81-82).
     """
     device = cam_params["eye"].device
     full_w = width if full_width is None else full_width
     full_h = height if full_height is None else full_height
     ix = torch.arange(width, dtype=torch.float32, device=device)[None, :]
-    iy = torch.arange(height, dtype=torch.float32, device=device)[:, None] + y0
+    iy = (torch.arange(height, dtype=torch.float32, device=device)[:, None]
+          * y_stride + y0)
     ix = ix.expand(height, width)
     iy = iy.expand(height, width)
 

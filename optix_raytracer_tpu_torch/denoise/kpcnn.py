@@ -37,8 +37,11 @@ UPSCALE_WEIGHTS_PATH = os.path.join(_WEIGHTS, "kpcnn_up2x.npz")
 # the predicted history blend (the TEMPORAL model kind)
 TEMPORAL_WEIGHTS_PATH = os.path.join(_WEIGHTS, "kpcnn_temporal.npz")
 
-_ENC = ("e0", "e1", "e2")
-_DEC = ("d1", "d0")
+# (name, output channels): a three-scale encoder and its decoder, whose
+# levels take the nearest x2 of the level below beside the matching skip
+# (kpcnn.py:64-66).
+_ENC = (("e0", 32), ("e1", 48), ("e2", 64))
+_DEC = (("d1", 48), ("d0", 32))
 
 
 def upsample2x_bilinear(img):
@@ -76,6 +79,48 @@ def params_from_numpy(params, device) -> dict:
     return out
 
 
+def params_to_numpy(params) -> dict:
+    """The inverse of `params_from_numpy`: each OIHW kernel back to the
+    checkpoint's HWIO (w.permute(2, 3, 1, 0)), as float32 arrays."""
+    out = {}
+    for k, v in params.items():
+        v = v.detach()
+        if k.endswith("_w"):
+            v = v.permute(2, 3, 1, 0)
+        out[k] = np.ascontiguousarray(v.cpu().numpy(), np.float32)
+    return out
+
+
+def init_params(generator: torch.Generator, cin: int = 10,
+                out_alpha: bool = False, device="cpu") -> dict:
+    """He-initialised parameters in the port's layout (kpcnn.py:88-120):
+    the reference's layer names and shapes, each kernel drawn from a
+    standard normal by `generator` (on the CPU) in HWIO order and scaled by
+    sqrt(2 / (k k cin)), each bias zero. cin: 10 spatial features, 13 with
+    the temporal net's history; out_alpha adds the predicted history-blend
+    channel."""
+    params = {}
+
+    def add(name, c_in, c_out, k=3):
+        w = torch.randn((k, k, c_in, c_out), generator=generator,
+                        dtype=torch.float32) * float(np.sqrt(2.0
+                                                             / (k * k * c_in)))
+        params[name + "_w"] = w.permute(3, 2, 0, 1).contiguous().to(device)
+        params[name + "_b"] = torch.zeros(c_out, dtype=torch.float32,
+                                          device=device)
+
+    add("in0", cin, _ENC[0][1])
+    prev = _ENC[0][1]
+    for name, ch in _ENC:
+        add(name, prev, ch)
+        prev = ch
+    for (name, ch), (_, skip) in zip(_DEC, _ENC[-2::-1]):
+        add(name, prev + skip, ch)
+        prev = ch
+    add("out", prev, _KK + int(out_alpha))
+    return params
+
+
 def _conv(params, name, x, relu=True):
     y = F.conv2d(x, params[name + "_w"], params[name + "_b"], padding=1)
     return F.relu(y) if relu else y
@@ -99,12 +144,12 @@ def apply_net(params, feats):
                      deterministic=cudnn.deterministic, allow_tf32=False):
         x = _conv(params, "in0", feats.permute(0, 3, 1, 2).contiguous())
         skips = []
-        for i, name in enumerate(_ENC):
+        for i, (name, _) in enumerate(_ENC):
             x = _conv(params, name, x)
             if i < len(_ENC) - 1:
                 skips.append(x)
                 x = F.avg_pool2d(x, 2)
-        for name, skip in zip(_DEC, skips[::-1]):
+        for (name, _), skip in zip(_DEC, skips[::-1]):
             x = _conv(params, name, torch.cat([_up(x), skip], dim=1))
         x = _conv(params, "out", x, relu=False)
     return x.permute(0, 2, 3, 1)
@@ -226,6 +271,17 @@ def load_params(path: str = WEIGHTS_PATH, device="cuda"):
     """A shipped checkpoint on `device` (None where the file is missing),
     loaded once per (path, device); callers must not modify it."""
     return _load(path, str(torch.device(device)))
+
+
+def save_params(params, path: str):
+    """Write `params` (the port's layout) as the .npz of HWIO arrays that
+    either package's `load_params` reads (kpcnn.py:261-264), and forget the
+    loaded copies. The shipped checkpoints in `weights/` are the JAX
+    package's, byte for byte; a training run writes elsewhere."""
+    if os.path.dirname(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, **params_to_numpy(params))
+    _load.cache_clear()
 
 
 def has_weights() -> bool:

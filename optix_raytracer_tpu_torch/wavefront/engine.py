@@ -587,15 +587,18 @@ def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
 def render_sample(scene: DeviceScene, cam_params, width: int, height: int,
                   subframe, max_depth: int = 4,
                   chunk_size: Optional[int] = 65536,
-                  y0=0, full_width=None, full_height=None, group_walk=None):
+                  y0=0, full_width=None, full_height=None, y_stride=1,
+                  group_walk=None):
     """One progressive sample of a [height, width] row tile → (radiance
     [H, W, 3], rays_traced). The RNG is seeded from the global pixel index
-    and `subframe` (an int or an integer tensor on the device). group_walk:
-    trace_paths'."""
+    (row gy = i * y_stride + y0, engine.py:665-689) and `subframe` (an int
+    or an integer tensor on the device), so a tiled frame draws the
+    single-process frame's paths. group_walk: trace_paths'."""
     dev = scene.device
     n = width * height
     full_w = width if full_width is None else full_width
-    gy = torch.arange(height, dtype=torch.int64, device=dev)[:, None] + y0
+    gy = (torch.arange(height, dtype=torch.int64, device=dev)[:, None]
+          * y_stride + y0)
     gx = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
     pixel_idx = (gy * full_w + gx).reshape(n)
     if isinstance(subframe, torch.Tensor):
@@ -603,7 +606,8 @@ def render_sample(scene: DeviceScene, cam_params, width: int, height: int,
     rng = _rng.seed(pixel_idx, subframe)
     rays, rng = generate_rays(cam_params, width, height,
                               rng_state=rng.reshape(height, width), y0=y0,
-                              full_width=full_width, full_height=full_height)
+                              full_width=full_width, full_height=full_height,
+                              y_stride=y_stride)
     full_h = height if full_height is None else full_height
     radiance, _, rays_traced = trace_paths(
         scene, rays.reshape(n), rng.reshape(n), max_depth=max_depth,
@@ -740,28 +744,41 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
     sets it on both (engine.py:846-852). Gating changes only the work,
     never a hit.
     """
+    rad_sum, rays = render_sum(
+        scene, cam_params, width, height, film.subframe, samples_per_launch,
+        max_depth=max_depth, chunk_size=chunk_size, y0=y0,
+        full_width=full_width, full_height=full_height, impl=impl,
+        group_walk=group_walk)
+    return _merge_launch(film, rad_sum, samples_per_launch), rays
+
+
+def render_sum(scene: DeviceScene, cam_params, width: int, height: int,
+               subframe, samples_per_launch: int, max_depth: int = 4,
+               chunk_size: Optional[int] = 65536, y0=0, full_width=None,
+               full_height=None, impl: str = "auto", group_walk=None):
+    """One launch's radiance SUM [H, W, 3] over `samples_per_launch`
+    samples from `subframe`, and its rays_traced, by render_accumulate's
+    `impl` rule; render_accumulate merges it into the film. The pipeline's
+    validation counters read this sum, not one recovered from the films."""
     if _use_fused(scene, impl):
         from . import pallas_pt
-        rad_sum, rays = pallas_pt.render_sum_fused(
-            scene, cam_params, width, height, film.subframe,
+        return pallas_pt.render_sum_fused(
+            scene, cam_params, width, height, subframe,
             samples_per_launch=samples_per_launch, max_depth=max_depth,
             y0=y0, full_width=full_width, full_height=full_height)
-        return _merge_launch(film, rad_sum, samples_per_launch), rays
     if impl == "spl" or (impl == "auto" and scene.has_clusters
                          and samples_per_launch >= 8
                          and _spl_major_default()):
-        rad_sum, count = render_sum_sample_major(
-            scene, cam_params, width, height, film.subframe,
+        return render_sum_sample_major(
+            scene, cam_params, width, height, subframe,
             samples_per_launch, max_depth=max_depth, chunk_size=chunk_size,
             y0=y0, full_width=full_width, full_height=full_height,
             group_walk=group_walk)
-    else:
-        rad_sum, count = render_sum_wavefront(
-            scene, cam_params, width, height, film.subframe,
-            samples_per_launch, max_depth=max_depth, chunk_size=chunk_size,
-            y0=y0, full_width=full_width, full_height=full_height,
-            group_walk=group_walk)
-    return _merge_launch(film, rad_sum, samples_per_launch), count
+    return render_sum_wavefront(
+        scene, cam_params, width, height, subframe,
+        samples_per_launch, max_depth=max_depth, chunk_size=chunk_size,
+        y0=y0, full_width=full_width, full_height=full_height,
+        group_walk=group_walk)
 
 
 def render_sum_sample_major(scene: DeviceScene, cam_params, width: int,

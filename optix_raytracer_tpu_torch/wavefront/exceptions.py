@@ -42,13 +42,17 @@ def check_radiance(rad_sum):
             "negative_radiance": negative.sum()}
 
 
-def launch_diagnostics(cam_params, film_before, film_after, width, height):
-    """The counters of one progressive launch (exceptions.py:54-66): raygen
-    validity and the launch's radiance sum recovered from the films' running
-    means, (n1 accum1 - n0 accum0) with n the subframe counts."""
-    n0 = film_before.subframe.to(torch.float32)
-    n1 = film_after.subframe.to(torch.float32)
-    rad_sum = film_after.accum * n1 - film_before.accum * n0
+def launch_diagnostics(cam_params, rad_sum, width, height):
+    """The counters of one launch: raygen validity and the launch's own
+    radiance sum [H, W, 3] (the engine's `render_sum`).
+
+    The reference recovers that sum from the films' running means,
+    n1 accum1 - n0 accum0 (exceptions.py:56-66). On a continued film that
+    difference rounds below zero where the launch added about 0, and
+    negative_radiance counts the pixel though no sample was negative; a
+    NaN the film carried in counts again at every launch. The port counts
+    on the sum itself: on a new film both agree, on a continued one the
+    port counts only what this launch made."""
     diag = {"invalid_ray": check_raygen(cam_params, width, height)}
     diag.update(check_radiance(rad_sum))
     return diag

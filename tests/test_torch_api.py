@@ -100,8 +100,12 @@ PORT, JAX = _Pkg(True), _Pkg(False)
 
 
 def launch(pkg, integrator="pathtrace", film=None, cam=None, context=None,
-           lights=()):
+           lights=(), emission=None):
     groups, sbt, handle, tri_mat, light = pkg.cornell()
+    if emission is not None:
+        light = pkg.Light.make(pkg.B.CORNELL_LIGHT_CORNER,
+                               pkg.B.CORNELL_LIGHT_V1, pkg.B.CORNELL_LIGHT_V2,
+                               emission, **pkg.dev)
     pipe = pkg.pipeline(integrator, context)
     film, rays = pipe.launch(sbt, handle, pkg.cam() if cam is None else cam,
                              W, H, film=film, tri_sbt_index=tri_mat,
@@ -395,8 +399,9 @@ def test_pipeline_mesh_past_512_matches_jax():
 
 def test_exception_counters_match_jax():
     """check_radiance on injected NaN / inf / negative values, check_raygen
-    on a clean and a NaN camera, launch_diagnostics on films whose running
-    means hide a NaN launch: the JAX counters."""
+    on a clean and a NaN camera, launch_diagnostics on a launch's sum (the
+    JAX package's on the films whose running means hide it): the JAX
+    counters."""
     rad = np.zeros((4, 4, 3), np.float32)
     rad[0, 0, 1] = np.nan
     rad[1, 2, 0] = np.inf
@@ -413,12 +418,10 @@ def test_exception_counters_match_jax():
         jcam["eye"] = jnp.asarray(eye, jnp.float32)
         assert int(exc.check_raygen(cam, W, H)) == int(
             jexc.check_raygen(jcam, W, H))
-    f0 = Film(accum=torch.full((4, 4, 3), 0.25), subframe=torch.tensor(4))
     jf0 = JFilm.create(4, 4).replace(accum=jnp.full((4, 4, 3), 0.25),
                                      subframe=jnp.asarray(4, jnp.int32))
-    f1 = f0.accumulate(torch.as_tensor(rad))
     jf1 = jf0.accumulate(jnp.asarray(rad))
-    d = exc.launch_diagnostics(PORT.cam(4, 4), f0, f1, 4, 4)
+    d = exc.launch_diagnostics(PORT.cam(4, 4), torch.as_tensor(rad), 4, 4)
     jd = jexc.launch_diagnostics(JAX.cam(4, 4), jf0, jf1, 4, 4)
     assert {k: int(v) for k, v in d.items()} == {
         k: int(v) for k, v in jd.items()}
@@ -428,8 +431,11 @@ def test_exception_counters_match_jax():
 def test_validation_launch_matches_jax():
     """A validation-mode launch through the context: a NaN camera fires
     invalid_ray on every pixel with the JAX log line; a clean launch counts
-    zeros and logs none; without validation nothing is counted; a film
-    carrying a NaN gives the JAX counters, and with debug_nans raises."""
+    zeros and logs none; without validation nothing is counted; a launch
+    whose light is NaN gives the JAX counters, and with debug_nans raises.
+    A film carrying a NaN into a clean launch: the reference counts it
+    again (its sum is recovered from the films), the port counts the
+    launch's own sum and reads 0."""
     for eye in ((np.nan, 273.0, -900.0), None):
         logs, jlogs, cams = [], [], []
         for pkg, sink in ((PORT, logs), (JAX, jlogs)):
@@ -459,17 +465,46 @@ def test_validation_launch_matches_jax():
     nan[3, 4, 1] = np.nan
     films = (Film(accum=torch.as_tensor(nan), subframe=torch.tensor(2)),
              JFilm(accum=jnp.asarray(nan), subframe=jnp.asarray(2, jnp.int32)))
-    found = []
+    found, lit = [], []
     for pkg, f in zip((PORT, JAX), films):
         ctx = pkg.api.DeviceContext(validation_mode=True, **(
             {"device": "cpu"} if pkg.port else {"cache_enabled": False}))
         pipe, _, _ = launch(pkg, film=f, context=ctx)
         found.append(pipe.last_exceptions)
-    assert found[0] == found[1] and found[0]["nonfinite_radiance"] == 1
+        pipe, _, _ = launch(pkg, context=ctx, emission=(np.nan,) * 3)
+        lit.append(pipe.last_exceptions)
+    assert found[0]["nonfinite_radiance"] == 0
+    assert found[1]["nonfinite_radiance"] == 1
+    assert lit[0] == lit[1] and lit[0]["nonfinite_radiance"] > 0
     ctx = api.DeviceContext(validation_mode=True, debug_nans=True,
                             device="cpu")
+    launch(PORT, film=films[0], context=ctx)
     with pytest.raises(FloatingPointError):
-        launch(PORT, film=films[0], context=ctx)
+        launch(PORT, context=ctx, emission=(np.nan,) * 3)
+
+
+def test_continued_film_counts_the_launch_sum():
+    """Three validation launches on one film, the third under a black
+    light, so most pixels gain exactly 0. Each launch on a new or clean
+    film counts alike in both packages; on the third the reference's sum,
+    recovered as n1 accum1 - n0 accum0 from the films, rounds below zero on
+    some pixels and counts them as negative_radiance, while the port counts
+    its launch's own sum and reads 0 (ROADMAP.md Queue 3: a deliberate
+    divergence)."""
+    counts = {}
+    for pkg in (PORT, JAX):
+        ctx = pkg.api.DeviceContext(validation_mode=True, **(
+            {"device": "cpu"} if pkg.port else {"cache_enabled": False}))
+        film, counts[pkg.port] = None, []
+        for i in range(3):
+            pipe, film, _ = launch(pkg, film=film, context=ctx,
+                                   emission=(0.0,) * 3 if i == 2 else None)
+            counts[pkg.port].append(pipe.last_exceptions)
+    assert counts[True][:2] == counts[False][:2]
+    assert counts[True][2]["negative_radiance"] == 0
+    assert counts[False][2]["negative_radiance"] > 0
+    assert all(c["nonfinite_radiance"] == 0 and c["invalid_ray"] == 0
+               for c in counts[True] + counts[False])
 
 
 # --- checkpoints --------------------------------------------------------------

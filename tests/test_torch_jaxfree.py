@@ -456,3 +456,81 @@ def test_loaders_and_last_apps_run_without_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+_SCRIPT_MULTI = r"""
+import os
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import numpy as np
+import torch
+from optix_raytracer_tpu_torch.apps import multigpu, nvlink
+from optix_raytracer_tpu_torch.core import checkpoint
+from optix_raytracer_tpu_torch.core.film import Film
+from optix_raytracer_tpu_torch.denoise import kpcnn
+from optix_raytracer_tpu_torch.io.image import load_image
+from optix_raytracer_tpu_torch.multichip import (distributed, memory,
+                                                 multislice, tiles)
+from optix_raytracer_tpu_torch.scene.builtins import cornell_camera
+from optix_raytracer_tpu_torch.shade import texture
+from optix_raytracer_tpu_torch.tools import train_denoiser
+out = sys.argv[1]
+multigpu.main(["--file", out + "_m.ppm", "--dim", "8x8", "--samples", "2",
+               "--rows", "2", "--sample-shards", "1", "--tint", "--device",
+               "cpu"])
+assert load_image(out + "_m.ppm").shape == (8, 8, 3)
+reports = nvlink.main(["--file", out + "_n.ppm", "--dim", "8x8",
+                       "--samples", "1", "--tex-size", "16", "--budget-mb",
+                       "0.001", "--ranks", "2", "--check", "--device", "cpu"])
+assert reports[0]["mode"] == "shard_island" and all(
+    r["bit_equal"] for r in reports)
+mesh = multislice.make_multislice_mesh(1, 1, 1, device="cpu")
+film = Film.create(8, 8, "cpu")
+checkpoint.save_checkpoint_sharded(out + "_ck", film, mesh,
+                                   cornell_camera(8, 8), {"a": 1})
+back, cam, cfg = checkpoint.load_checkpoint_sharded(out + "_ck", "cpu")
+assert torch.equal(back.accum, film.accum) and cfg == {"a": 1}
+assert distributed.detect_config("h:1", 2, 1) == ("h:1", 2, 1)
+assert memory.plan_texture_placement(1 << 30, mesh)["mode"] == "shard_island"
+mips = torch.tensor([[[0, 0, 4, 4], [0, 4, 2, 2], [0, 6, 1, 1]]],
+                    dtype=torch.int32)
+fp = texture.tex_footprint_2d(mips, torch.tensor([0]),
+                              torch.tensor([[0.5, 0.5]]))
+assert fp["level"].tolist() == [0]
+atlas = torch.rand(1, 4, 7, 4)
+assert texture.sample_trilinear(atlas, mips, torch.tensor([0]),
+                                torch.tensor([[0.5, 0.5]]),
+                                torch.tensor([0.3])).shape == (1, 4)
+train_denoiser.main(["--data", out + "_d", "--scenes", "2", "--res", "8",
+                     "--clean-spp", "64", "--render-only", "--device",
+                     "cpu"])
+train_denoiser.main(["--data", out + "_d", "--out", out + "_w.npz",
+                     "--steps", "1", "--batch", "1", "--patch", "8",
+                     "--train-only", "--device", "cpu"])
+assert set(kpcnn.load_params(out + "_w.npz", "cpu")) == set(
+    kpcnn.load_params(kpcnn.WEIGHTS_PATH, "cpu"))
+assert not any(m == "jax" or m.startswith(("jax.", "flax"))
+               for m in sys.modules if sys.modules[m] is not None)
+assert not any(m == "optix_raytracer_tpu"
+               or m.startswith("optix_raytracer_tpu.") for m in sys.modules)
+print("OK")
+"""
+
+
+def test_multichip_and_training_run_without_jax(tmp_path):
+    """With `import jax` and `import flax` failing: the multigpu app on two
+    local ranks (gloo, --tint), the nvlink app on two ranks with --check
+    at a budget that shards the textures, a sharded checkpoint written and
+    read, the bring-up's config and the placement plan, sample_trilinear
+    and a footprint query, and train_denoiser's --render-only and
+    --train-only (two 8x8 scenes, one step, the weights to --out), all on
+    the CPU; neither JAX nor the JAX package is loaded."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    res = subprocess.run([sys.executable, "-c", _SCRIPT_MULTI,
+                          str(tmp_path / "m")],
+                         capture_output=True, text=True, env=env, cwd=root,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
