@@ -325,12 +325,11 @@ def exact_cull(aabb, packed, n_blocks: int, c_pad: int):
     gm = torch.empty((n_blocks, c_pad), dtype=torch.int32, device=dev)
     if n_blocks == 0:
         return tn, gm
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("cluster_cull_exact"):
         err = kernels.lib().ort_cluster_cull_exact(
             aabb.data_ptr(), c_pad, packed.data_ptr(), n_blocks,
             tn.data_ptr(), gm.data_ptr(), cull_group(c_pad),
             kernels.stream_ptr(dev))
-        kernels.LAUNCHES["cluster_cull_exact"] += 1
     kernels.check(err, "cluster_cull_exact")
     return tn, gm
 
@@ -646,12 +645,11 @@ def _resident_walk(name, counts, lists, tnear, comp, aabb, packed, gate,
     if nb == 0:
         return out
     entry = getattr(kernels.lib(), f"ort_{name}")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch(name):
         err = entry(counts.data_ptr(), lists.data_ptr(), comp.data_ptr(),
                     comp.shape[0], aabb.data_ptr(), packed.data_ptr(), nb,
                     c_pad, int(gate), win, out.data_ptr(),
                     kernels.stream_ptr(dev))
-        kernels.LAUNCHES[name] += 1
     kernels.check(err, name)
     return out
 
@@ -964,13 +962,12 @@ def walk_sc_closest(counts, lists, tnear, comp, member_aabb, packed):
     rows = torch.empty((nb * SUB, 8), dtype=torch.float32, device=dev)
     if nb == 0:
         return rows
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("cluster_sc_closest"):
         err = kernels.lib().ort_cluster_sc_closest(
             counts.data_ptr(), lists.data_ptr(),
             comp.data_ptr(), comp.shape[0], member_aabb.data_ptr(),
             member_aabb.shape[0], sc, packed.data_ptr(), nb, c_pad,
             rows.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["cluster_sc_closest"] += 1
     kernels.check(err, "cluster_sc_closest")
     return rows
 
@@ -989,13 +986,12 @@ def walk_sc_any(counts, lists, tnear, comp, member_aabb, packed):
     occ = torch.empty((nb * SUB,), dtype=torch.int32, device=dev)
     if nb == 0:
         return occ
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("cluster_sc_any"):
         err = kernels.lib().ort_cluster_sc_any(
             counts.data_ptr(), lists.data_ptr(),
             comp.data_ptr(), comp.shape[0], member_aabb.data_ptr(),
             member_aabb.shape[0], sc, packed.data_ptr(), nb, c_pad,
             occ.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["cluster_sc_any"] += 1
     kernels.check(err, "cluster_sc_any")
     return occ
 

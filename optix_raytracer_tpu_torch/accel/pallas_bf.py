@@ -230,7 +230,7 @@ def closest_hit(tri_consts, tri_mat, rays: Rays, chunk_size=65536,
                normal=torch.empty((n, 3), dtype=torch.float32, device=dev))
     if n == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("bf_closest"):
         err = kernels.lib().ort_bf_closest(
             tri_consts.data_ptr(), tri_mat.data_ptr(), m,
             0 if boxes is None else boxes.data_ptr(), group, org.data_ptr(),
@@ -238,7 +238,6 @@ def closest_hit(tri_consts, tri_mat, rays: Rays, chunk_size=65536,
             out["t"].data_ptr(), out["prim_id"].data_ptr(),
             out["mat_id"].data_ptr(), out["uv"].data_ptr(),
             out["normal"].data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["bf_closest"] += 1
     kernels.check(err, "bf_closest")
     return out
 
@@ -256,11 +255,10 @@ def any_hit(tri_consts, rays: Rays, chunk_size=65536, boxes=None):
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return occ
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("bf_any"):
         err = kernels.lib().ort_bf_any(
             tri_consts.data_ptr(), m, 0 if boxes is None else boxes.data_ptr(),
             group, org.data_ptr(), dirs.data_ptr(), tmin.data_ptr(),
             tmax.data_ptr(), n, occ.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["bf_any"] += 1
     kernels.check(err, "bf_any")
     return occ

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, telemetry
 from ..core.rays import Hits, Rays
 from . import clusters as C
 
@@ -50,13 +50,12 @@ ITEMS = 32       # work items per step
 ROWS = ITEMS * OCT               # 256 marshalled rays per step
 
 # Queries answered by the queue and by the overflow walk, per kind.
-STATS = {"closest_queue": 0, "closest_overflow": 0, "any_queue": 0,
-         "any_overflow": 0}
+STATS = telemetry.counters("qwalk.queries", (
+    "closest_queue", "closest_overflow", "any_queue", "any_overflow"))
 
 
 def reset_stats():
-    for k in STATS:
-        STATS[k] = 0
+    telemetry.reset_counters("qwalk.queries")
 
 
 # ---------------------------------------------------------------------------
@@ -109,11 +108,10 @@ def _oct_cull(cl: C.ClusterSet, packed, n_blocks: int, c_pad: int):
     om = torch.empty((n_blocks, c_pad), dtype=torch.int32, device=dev)
     if n_blocks == 0:
         return om
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("qwalk_oct_cull"):
         err = kernels.lib().ort_qwalk_oct_cull(
             cl.aabb.data_ptr(), c_pad, packed.data_ptr(), n_blocks,
             om.data_ptr(), C.cull_group(c_pad), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["qwalk_oct_cull"] += 1
     kernels.check(err, "qwalk_oct_cull")
     return om
 
@@ -294,12 +292,11 @@ def _run_queue(closest: bool, comp, steps, qrays, aabb=None):
     if n_steps == 0:
         return out
     name = "qwalk_closest" if closest else "qwalk_any"
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch(name):
         err = getattr(kernels.lib(), f"ort_{name}")(
             steps.data_ptr(), n_steps, qrays.data_ptr(), qrays.shape[1],
             comp.data_ptr(), comp.shape[0], aabb.data_ptr(), out.data_ptr(),
             kernels.stream_ptr(dev))
-        kernels.LAUNCHES[name] += 1
     kernels.check(err, name)
     return out
 

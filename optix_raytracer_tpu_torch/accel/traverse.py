@@ -198,7 +198,7 @@ def walk_closest(bvh: LBVH, tri_consts, tri_mat, rays: Rays) -> dict:
                normal=torch.empty((n, 3), dtype=torch.float32, device=dev))
     if n == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("bvh_walk_closest"):
         err = kernels.lib().ort_bvh_closest(
             nodes.data_ptr(), bvh.num_nodes, tri_consts.data_ptr(),
             tri_mat.data_ptr(), org.data_ptr(), dirs.data_ptr(),
@@ -206,7 +206,6 @@ def walk_closest(bvh: LBVH, tri_consts, tri_mat, rays: Rays) -> dict:
             out["prim_id"].data_ptr(), out["mat_id"].data_ptr(),
             out["uv"].data_ptr(), out["normal"].data_ptr(),
             kernels.stream_ptr(dev))
-        kernels.LAUNCHES["bvh_walk_closest"] += 1
     kernels.check(err, "bvh_walk_closest")
     return out
 
@@ -220,12 +219,11 @@ def walk_any(bvh: LBVH, tri_consts, rays: Rays) -> torch.Tensor:
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return occ
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("bvh_walk_any"):
         err = kernels.lib().ort_bvh_any(
             nodes.data_ptr(), bvh.num_nodes, tri_consts.data_ptr(),
             org.data_ptr(), dirs.data_ptr(), tmin.data_ptr(),
             tmax.data_ptr(), n, occ.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["bvh_walk_any"] += 1
     kernels.check(err, "bvh_walk_any")
     return occ
 

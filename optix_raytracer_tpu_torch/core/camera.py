@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from .. import telemetry
 from . import rng as _rng
 from .rays import Rays
 from .vecmath import normalize
@@ -59,12 +60,15 @@ class Camera:
 
 def camera_params_from_numpy(params, device):
     """Camera params dict of arrays (e.g. the JAX `Camera.params()` converted
-    with numpy) → the same dict of tensors on `device`."""
-    out = {k: torch.as_tensor(np.asarray(params[k], np.float32), device=device)
-           for k in ("eye", "U", "V", "W", "aperture", "focal_distance",
-                     "ortho_half")}
-    out["ortho"] = torch.as_tensor(np.asarray(params["ortho"], np.int32),
-                                   device=device)
+    with numpy) → the same dict of tensors on `device` (the `camera.params`
+    span)."""
+    with telemetry.span("camera.params"):
+        out = {k: torch.as_tensor(np.asarray(params[k], np.float32),
+                                  device=device)
+               for k in ("eye", "U", "V", "W", "aperture", "focal_distance",
+                         "ortho_half")}
+        out["ortho"] = torch.as_tensor(np.asarray(params["ortho"], np.int32),
+                                       device=device)
     return out
 
 

@@ -8,6 +8,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import telemetry
+
 
 @dataclasses.dataclass
 class Film:
@@ -63,12 +65,14 @@ class Film:
 
     def reset(self):
         """Camera moved or resized: restart accumulation (core/film.py:
-        80-86); each field keeps its dtype and device."""
+        80-86); each field keeps its dtype and device (the `film.reset`
+        span)."""
         def zero(t):
             return None if t is None else torch.zeros_like(t)
 
-        return Film(accum=zero(self.accum), subframe=zero(self.subframe),
-                    sq=zero(self.sq), launches=zero(self.launches))
+        with telemetry.span("film.reset"):
+            return Film(accum=zero(self.accum), subframe=zero(self.subframe),
+                        sq=zero(self.sq), launches=zero(self.launches))
 
 
 def linear_to_srgb(c):

@@ -5,8 +5,10 @@ The kernels are CUDA C++ for `sm_90a` with a plain C interface. On first use
 keyed by a hash of the sources and flags, and `ctypes` loads it. Nothing is
 built or loaded at import time, so the CPU tests import this module freely.
 
-`LAUNCHES` counts launches per kernel: each wrapper adds one where it
-launches its kernel and nowhere else.
+`LAUNCHES` counts launches per kernel: each wrapper starts its kernel inside
+`launch(name)`, which adds one and opens the `kernels.launch` span
+(`telemetry.py`); `BUILDS` counts the libraries compiled in this process.
+The compile and the load are the `kernels.build` and `kernels.load` spans.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from . import telemetry
 
 _CSRC = Path(__file__).parent / "csrc"
 _BUILD = Path(__file__).parent / "_build"
@@ -59,12 +63,12 @@ FUSED_INSTANTIATIONS = tuple(pt_fused_name(*v, g) for g in GEOMETRY
                              for v in itertools.product((False, True),
                                                         repeat=3))
 
-LAUNCHES = {"bf_closest": 0, "bf_any": 0,
-            **{name: 0 for name in FUSED_INSTANTIATIONS},
-            "cluster_cull_exact": 0, "cluster_closest": 0, "cluster_any": 0,
-            "cluster_sc_closest": 0, "cluster_sc_any": 0,
-            "qwalk_oct_cull": 0, "qwalk_closest": 0, "qwalk_any": 0,
-            "texfetch": 0, "bvh_walk_closest": 0, "bvh_walk_any": 0}
+LAUNCHES = telemetry.counters("kernels.launches", (
+    "bf_closest", "bf_any", *FUSED_INSTANTIATIONS, "cluster_cull_exact",
+    "cluster_closest", "cluster_any", "cluster_sc_closest", "cluster_sc_any",
+    "qwalk_oct_cull", "qwalk_closest", "qwalk_any", "texfetch",
+    "bvh_walk_closest", "bvh_walk_any"))
+BUILDS = telemetry.counters("kernels.builds", ("libraries",))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,8 +115,15 @@ _SIGNATURES = {
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    telemetry.reset_counters("kernels.launches")
+
+
+def launch(name: str):
+    """`with launch(name):` around the library call that starts kernel
+    `name`: counts the launch in LAUNCHES and records the call as a
+    `kernels.launch` span tagged with the name."""
+    LAUNCHES[name] += 1
+    return telemetry.span("kernels.launch", name)
 
 
 def build_dir() -> Path:
@@ -149,8 +160,14 @@ def _sources():
 
 def build() -> tuple[Path, float]:
     """Compile the library if this source hash has not been built yet: one
-    `nvcc` per source, all started together, then one link. Returns (path,
-    seconds spent compiling in this call)."""
+    `nvcc` per source, all started together, then one link (the
+    `kernels.build` span; BUILDS counts a compile). Returns (path, seconds
+    spent compiling in this call)."""
+    with telemetry.span("kernels.build"):
+        return _build()
+
+
+def _build() -> tuple[Path, float]:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
@@ -190,19 +207,21 @@ def build() -> tuple[Path, float]:
     os.replace(tmp, lib_path)   # atomic, so concurrent builds agree
     for obj, _ in jobs:
         obj.unlink(missing_ok=True)
+    BUILDS["libraries"] += 1
     return lib_path, time.perf_counter() - t0
 
 
 @functools.lru_cache(maxsize=None)
 def lib() -> ctypes.CDLL:
     path, _ = build()
-    so = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(so, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    so.ort_error_string.argtypes = [ctypes.c_int]
-    so.ort_error_string.restype = ctypes.c_char_p
+    with telemetry.span("kernels.load"):
+        so = ctypes.CDLL(str(path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(so, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        so.ort_error_string.argtypes = [ctypes.c_int]
+        so.ort_error_string.restype = ctypes.c_char_p
     return so
 
 

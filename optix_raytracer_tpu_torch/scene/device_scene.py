@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..accel import clusters as cluster_mod
 from ..accel import micromap as mm
 from ..accel import native
@@ -241,9 +242,11 @@ class DeviceScene:
         """The fused kernel's packed and checked scene inputs
         (wavefront/pallas_pt.scene_tables), built at the first launch and
         kept: a scene's tensors do not change between launches (a changed
-        scene is a new DeviceScene, as dataclasses.replace makes one)."""
+        scene is a new DeviceScene, as dataclasses.replace makes one); the
+        build is the `scene.fused_tables` span."""
         from ..wavefront.pallas_pt import scene_tables
-        return scene_tables(self)
+        with telemetry.span("scene.fused_tables"):
+            return scene_tables(self)
 
     @functools.cached_property
     def bf_boxes(self) -> tuple:
@@ -685,73 +688,78 @@ def make_device_scene(vertices, indices, tri_mat, materials, device,
     and single-scattering albedo volume_albedo (device_scene.py:480-485,
     576-577, 643-656). with_bvh: build the scene's BVH (build_scene_bvh),
     which a mesh past MAX_SMEM_TRIS triangles walks where it has no cluster
-    table (past the cluster tier's cap)."""
-    if area_light is None:
-        area_light = ParallelogramLight.make(
-            (0, 0, 0), (1, 0, 0), (0, 0, 1), (0.0, 0.0, 0.0), device)
-    prebuilt = isinstance(materials, MaterialTable)
-    table = (materials if prebuilt
-             else make_material_table(materials, device))
-    tex = _texture_fields(textures, None if prebuilt else materials, device)
-    if "mat_bundle" in tex:
-        table.bundle = tex.pop("mat_bundle")
-    geom = build_triangle_geometry(vertices, indices, device, normals=normals,
-                                   uvs=uvs)
-    tri_mat_np = _check_tri_mat(tri_mat, geom.num_triangles, table.num)
-    tri_mat = torch.as_tensor(tri_mat_np, device=device)
-    if instances is not None:
-        _check_instances(instances, tri_mat_np, geom.num_triangles, table.num)
-    if prims is not None and prims.num and (
-            int(prims.mat_id.min()) < 0
-            or int(prims.mat_id.max()) >= table.num):
-        raise ValueError(f"prim material ids must lie in [0, {table.num})")
-    features = PREBUILT_FEATURES if prebuilt else material_features(materials)
-    omm = {}
-    if volume is not None:
-        features = features + ("volume",)
-    mgeom, mmat = None, None
-    if motion is not None:
-        mgeom = MotionTriangles.make(motion["verts0"], motion["verts1"],
-                                     motion["indices"], device)
-        mt = np.asarray(motion.get("tri_mat", 0), np.int32)
-        mmat = torch.as_tensor(np.broadcast_to(mt, (mgeom.num_triangles,))
-                               .copy(), device=device)
-        if mgeom.num_triangles and (int(mmat.min()) < 0
-                                    or int(mmat.max()) >= table.num):
-            raise ValueError(f"motion material ids must lie in "
-                             f"[0, {table.num})")
-    # The micromap occlusion answers prims and moving triangles with plain
-    # any-hit queries: exact only while none of their materials is a cutout
-    # (device_scene.py:581-603).
-    aux_mats = []
-    if prims is not None and prims.num:
-        aux_mats += prims.mat_id.cpu().tolist()
-    if mmat is not None:
-        aux_mats += mmat.cpu().tolist()
-    aux_cut = not prebuilt and any(_is_cut(materials[int(i)])
-                                   for i in aux_mats)
-    if (opacity_micromaps and "cutouts" in features and instances is None
-            and not aux_cut):
-        states, summary = build_scene_omm(
-            materials, tri_mat_np, geom.corner_uv.cpu().numpy(),
-            list(textures or ()), omm_level)
-        omm = _omm_fields(geom, tri_mat, states, summary, omm_level)
-    return DeviceScene(
-        geom=geom, tri_mat=tri_mat, materials=table, area_light=area_light,
-        miss_color=torch.as_tensor(miss_color, dtype=torch.float32,
-                                   device=device),
-        features=features,
-        clusters=(None if instances is not None
-                  else _build_cluster_table(geom, tri_mat)),
-        instance_clusters=_build_instance_clusters(geom, tri_mat,
-                                                   instances),
-        prims=prims, instances=instances,
-        lights=LightTable.make(list(lights), device),
-        motion_geom=mgeom, motion_tri_mat=mmat, volume=volume,
-        volume_params=torch.tensor([volume_sigma, volume_albedo],
-                                   dtype=torch.float32, device=device),
-        bvh=build_scene_bvh(geom) if with_bvh else None,
-        **tex, **omm)
+    table (past the cluster tier's cap). The call is the `scene.upload`
+    span."""
+    with telemetry.span("scene.upload"):
+        if area_light is None:
+            area_light = ParallelogramLight.make(
+                (0, 0, 0), (1, 0, 0), (0, 0, 1), (0.0, 0.0, 0.0), device)
+        prebuilt = isinstance(materials, MaterialTable)
+        table = (materials if prebuilt
+                 else make_material_table(materials, device))
+        tex = _texture_fields(textures, None if prebuilt else materials,
+                              device)
+        if "mat_bundle" in tex:
+            table.bundle = tex.pop("mat_bundle")
+        geom = build_triangle_geometry(vertices, indices, device,
+                                       normals=normals, uvs=uvs)
+        tri_mat_np = _check_tri_mat(tri_mat, geom.num_triangles, table.num)
+        tri_mat = torch.as_tensor(tri_mat_np, device=device)
+        if instances is not None:
+            _check_instances(instances, tri_mat_np, geom.num_triangles,
+                             table.num)
+        if prims is not None and prims.num and (
+                int(prims.mat_id.min()) < 0
+                or int(prims.mat_id.max()) >= table.num):
+            raise ValueError(f"prim material ids must lie in [0, {table.num})")
+        features = (PREBUILT_FEATURES if prebuilt
+                    else material_features(materials))
+        omm = {}
+        if volume is not None:
+            features = features + ("volume",)
+        mgeom, mmat = None, None
+        if motion is not None:
+            mgeom = MotionTriangles.make(motion["verts0"], motion["verts1"],
+                                         motion["indices"], device)
+            mt = np.asarray(motion.get("tri_mat", 0), np.int32)
+            mmat = torch.as_tensor(np.broadcast_to(mt, (mgeom.num_triangles,))
+                                   .copy(), device=device)
+            if mgeom.num_triangles and (int(mmat.min()) < 0
+                                        or int(mmat.max()) >= table.num):
+                raise ValueError(f"motion material ids must lie in "
+                                 f"[0, {table.num})")
+        # The micromap occlusion answers prims and moving triangles with plain
+        # any-hit queries: exact only while none of their materials is a cutout
+        # (device_scene.py:581-603).
+        aux_mats = []
+        if prims is not None and prims.num:
+            aux_mats += prims.mat_id.cpu().tolist()
+        if mmat is not None:
+            aux_mats += mmat.cpu().tolist()
+        aux_cut = not prebuilt and any(_is_cut(materials[int(i)])
+                                       for i in aux_mats)
+        if (opacity_micromaps and "cutouts" in features and instances is None
+                and not aux_cut):
+            states, summary = build_scene_omm(
+                materials, tri_mat_np, geom.corner_uv.cpu().numpy(),
+                list(textures or ()), omm_level)
+            omm = _omm_fields(geom, tri_mat, states, summary, omm_level)
+        return DeviceScene(
+            geom=geom, tri_mat=tri_mat, materials=table, area_light=area_light,
+            miss_color=torch.as_tensor(miss_color, dtype=torch.float32,
+                                       device=device),
+            features=features,
+            clusters=(None if instances is not None
+                      else _build_cluster_table(geom, tri_mat)),
+            instance_clusters=_build_instance_clusters(geom, tri_mat,
+                                                       instances),
+            prims=prims, instances=instances,
+            lights=LightTable.make(list(lights), device),
+            motion_geom=mgeom, motion_tri_mat=mmat, volume=volume,
+            volume_params=torch.tensor([volume_sigma, volume_albedo],
+                                       dtype=torch.float32, device=device),
+            bvh=build_scene_bvh(geom) if with_bvh else None,
+            **tex, **omm)
 
 
 def device_scene_from_numpy(fields, device) -> DeviceScene:

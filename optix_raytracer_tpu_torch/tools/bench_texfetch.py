@@ -89,11 +89,10 @@ def onehot_fetch(atlas_bf16, tile_idx, local, tile_w):
     kernels.require(local, "local", torch.int32, (n_blocks, BLOCK), dev)
     out = torch.empty((n_blocks * BLOCK, ROW_W), dtype=torch.float32,
                       device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), kernels.launch("texfetch"):
         err = kernels.lib().ort_texfetch(
             atlas_bf16.data_ptr(), tile_idx.data_ptr(), local.data_ptr(),
             tile_w, n_blocks, out.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES["texfetch"] += 1
     kernels.check(err, "texfetch")
     return out
 

@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from .. import telemetry
 from ..accel import volume as vol
 from ..accel.clusters import coherence_key
 from ..accel.geometry import shading_frame
@@ -700,18 +701,20 @@ def _use_fused(scene: DeviceScene, impl: str) -> bool:
 
 def _merge_launch(film: Film, rad_sum, samples_per_launch: int) -> Film:
     """Merge one launch's radiance SUM into the film: progressive mean plus
-    one variance-tracker estimate per launch, the same for both paths."""
-    prev_n = film.subframe.to(torch.float32)
-    new_n = float(samples_per_launch)
-    accum = (film.accum * prev_n + rad_sum) / (prev_n + new_n)
-    sq, launches = film.sq, film.launches
-    if sq is not None:
-        est = rad_sum / new_n
-        tl = 1.0 / (launches.to(torch.float32) + 1.0)
-        sq = sq + (est * est - sq) * tl
-        launches = launches + 1
-    return Film(accum=accum, subframe=film.subframe + samples_per_launch,
-                sq=sq, launches=launches)
+    one variance-tracker estimate per launch, the same for both paths (the
+    `engine.merge` span)."""
+    with telemetry.span("engine.merge"):
+        prev_n = film.subframe.to(torch.float32)
+        new_n = float(samples_per_launch)
+        accum = (film.accum * prev_n + rad_sum) / (prev_n + new_n)
+        sq, launches = film.sq, film.launches
+        if sq is not None:
+            est = rad_sum / new_n
+            tl = 1.0 / (launches.to(torch.float32) + 1.0)
+            sq = sq + (est * est - sq) * tl
+            launches = launches + 1
+        return Film(accum=accum, subframe=film.subframe + samples_per_launch,
+                    sq=sq, launches=launches)
 
 
 def _spl_major_default() -> bool:
@@ -742,14 +745,16 @@ def render_accumulate(scene: DeviceScene, cam_params, film: Film, width: int,
     RNG streams. On a cluster scene the walk's group gating is on for
     "spl" and off for "wavefront" (trace_paths); group_walk=True or False
     sets it on both (engine.py:846-852). Gating changes only the work,
-    never a hit.
+    never a hit. The call is the `engine.render_accumulate` span, the root
+    of one launch's spans (telemetry.launch).
     """
-    rad_sum, rays = render_sum(
-        scene, cam_params, width, height, film.subframe, samples_per_launch,
-        max_depth=max_depth, chunk_size=chunk_size, y0=y0,
-        full_width=full_width, full_height=full_height, impl=impl,
-        group_walk=group_walk)
-    return _merge_launch(film, rad_sum, samples_per_launch), rays
+    with telemetry.launch("engine.render_accumulate"):
+        rad_sum, rays = render_sum(
+            scene, cam_params, width, height, film.subframe,
+            samples_per_launch, max_depth=max_depth, chunk_size=chunk_size,
+            y0=y0, full_width=full_width, full_height=full_height,
+            impl=impl, group_walk=group_walk)
+        return _merge_launch(film, rad_sum, samples_per_launch), rays
 
 
 def render_sum(scene: DeviceScene, cam_params, width: int, height: int,
@@ -790,22 +795,24 @@ def render_sum_sample_major(scene: DeviceScene, cam_params, width: int,
     """`samples_per_launch` samples as sample-major strips of `rows` rows,
     each about _SPL_TILE_RAYS rays (engine.py:872-904) → (radiance SUM
     [H, W, 3], rays_traced). group_walk: trace_paths'."""
-    rows = min(height, max(1, _SPL_TILE_RAYS
-                           // max(width * samples_per_launch, 1)))
-    n_strips = -(-height // rows)
-    rad_sum = torch.zeros((n_strips * rows, width, 3), dtype=torch.float32,
-                          device=scene.device)
-    count = torch.zeros((), dtype=torch.int64, device=scene.device)
-    for i in range(n_strips):
-        r, c = render_sample_group(
-            scene, cam_params, width, rows, subframe, samples_per_launch,
-            max_depth=max_depth, chunk_size=chunk_size, y0=y0 + i * rows,
-            full_width=full_width if full_width is not None else width,
-            full_height=full_height if full_height is not None else height,
-            group_walk=group_walk)
-        rad_sum[i * rows:(i + 1) * rows] = r
-        count = count + c
-    return rad_sum[:height], count
+    with telemetry.span("engine.render_sum_sample_major"):
+        rows = min(height, max(1, _SPL_TILE_RAYS
+                               // max(width * samples_per_launch, 1)))
+        n_strips = -(-height // rows)
+        rad_sum = torch.zeros((n_strips * rows, width, 3),
+                              dtype=torch.float32, device=scene.device)
+        count = torch.zeros((), dtype=torch.int64, device=scene.device)
+        for i in range(n_strips):
+            r, c = render_sample_group(
+                scene, cam_params, width, rows, subframe, samples_per_launch,
+                max_depth=max_depth, chunk_size=chunk_size,
+                y0=y0 + i * rows,
+                full_width=width if full_width is None else full_width,
+                full_height=height if full_height is None else full_height,
+                group_walk=group_walk)
+            rad_sum[i * rows:(i + 1) * rows] = r
+            count = count + c
+        return rad_sum[:height], count
 
 
 def render_sum_wavefront(scene: DeviceScene, cam_params, width: int,
@@ -816,18 +823,19 @@ def render_sum_wavefront(scene: DeviceScene, cam_params, width: int,
                          group_walk=None):
     """`samples_per_launch` sequential `render_sample`s from `subframe` →
     (radiance SUM [H, W, 3], rays_traced). group_walk: trace_paths'."""
-    rad_sum = torch.zeros((height, width, 3), dtype=torch.float32,
-                          device=scene.device)
-    count = torch.zeros((), dtype=torch.int64, device=scene.device)
-    for i in range(samples_per_launch):
-        radiance, rays_traced = render_sample(
-            scene, cam_params, width, height, subframe + i,
-            max_depth=max_depth, chunk_size=chunk_size, y0=y0,
-            full_width=full_width, full_height=full_height,
-            group_walk=group_walk)
-        rad_sum = rad_sum + radiance
-        count = count + rays_traced
-    return rad_sum, count
+    with telemetry.span("engine.render_sum_wavefront"):
+        rad_sum = torch.zeros((height, width, 3), dtype=torch.float32,
+                              device=scene.device)
+        count = torch.zeros((), dtype=torch.int64, device=scene.device)
+        for i in range(samples_per_launch):
+            radiance, rays_traced = render_sample(
+                scene, cam_params, width, height, subframe + i,
+                max_depth=max_depth, chunk_size=chunk_size, y0=y0,
+                full_width=full_width, full_height=full_height,
+                group_walk=group_walk)
+            rad_sum = rad_sum + radiance
+            count = count + rays_traced
+        return rad_sum, count
 
 
 def render_aovs(scene: DeviceScene, cam_params, width: int, height: int,

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from .. import telemetry
 from ..accel import bruteforce as bf
 from ..accel import clusters as cluster_mod
 from ..accel import motion as motion_mod
@@ -62,12 +63,11 @@ MAX_ALPHA_STEPS = 64
 ALPHA_STEP = 1e-2
 # Host-side counts of the alpha loops: loops run and steps taken (each step
 # one closest-hit query and one host sync); reset_alpha_stats zeroes them.
-ALPHA_STATS = {"loops": 0, "steps": 0}
+ALPHA_STATS = telemetry.counters("intersect.alpha", ("loops", "steps"))
 
 
 def reset_alpha_stats():
-    for k in ALPHA_STATS:
-        ALPHA_STATS[k] = 0
+    telemetry.reset_counters("intersect.alpha")
 
 
 def _use_qwalk() -> bool:

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, telemetry
 from ..accel.pallas_bf import _group_walk
 from ..accel.tlas import instance_ranges
 # Group culling (fused_group_size), outside instances: a table of at least
@@ -225,21 +225,22 @@ def pack_light(light) -> torch.Tensor:
 def pack_camera(cam_params, miss_color, spread=0.0) -> torch.Tensor:
     """Camera dict → [2, 16] f32: eye U V W aperture focal ortho | ortho_half
     miss_color spread (the TPU layout; row 1 col 5 the ray cone's pixel
-    spread, engine.pixel_spread)."""
-    dev = cam_params["eye"].device
-    row0 = torch.cat([
-        cam_params["eye"], cam_params["U"], cam_params["V"], cam_params["W"],
-        cam_params["aperture"].reshape(1),
-        cam_params["focal_distance"].reshape(1),
-        cam_params["ortho"].to(torch.float32).reshape(1),
-        torch.zeros((1,), dtype=torch.float32, device=dev)])
-    row1 = torch.cat([cam_params["ortho_half"],
-                      torch.as_tensor(miss_color, dtype=torch.float32,
-                                      device=dev),
-                      torch.as_tensor(spread, dtype=torch.float32,
-                                      device=dev).reshape(1),
-                      torch.zeros((10,), dtype=torch.float32, device=dev)])
-    return torch.stack([row0, row1]).to(torch.float32)
+    spread, engine.pixel_spread); the `engine.pack_camera` span."""
+    with telemetry.span("engine.pack_camera"):
+        dev = cam_params["eye"].device
+        row0 = torch.cat([
+            cam_params["eye"], cam_params["U"], cam_params["V"],
+            cam_params["W"], cam_params["aperture"].reshape(1),
+            cam_params["focal_distance"].reshape(1),
+            cam_params["ortho"].to(torch.float32).reshape(1),
+            torch.zeros((1,), dtype=torch.float32, device=dev)])
+        row1 = torch.cat([cam_params["ortho_half"],
+                          torch.as_tensor(miss_color, dtype=torch.float32,
+                                          device=dev),
+                          torch.as_tensor(spread, dtype=torch.float32,
+                                          device=dev).reshape(1),
+                          torch.zeros((10,), dtype=torch.float32, device=dev)])
+        return torch.stack([row0, row1]).to(torch.float32)
 
 
 def scene_tables(scene: DeviceScene) -> dict:
@@ -319,87 +320,91 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
     same values. The CUDA kernel runs the regenerating one only: each lane
     traces one segment a step and starts its next sample where a path
     ends, each lane's samples in order, so its values are those of both
-    and the argument selects nothing here."""
-    del regen
-    scene.require_supported()
-    if scene.has_cutouts:
-        # the kernel has no cut lane: it would draw the holes solid
-        # (engine.py:818 keeps such scenes off it)
-        raise NotImplementedError("the fused kernel renders no scene with "
-                                  "alpha cutouts: use impl='wavefront'")
-    if scene.has_motion or scene.has_volume:
-        # no shutter time and no volume lane in the kernel
-        # (engine.py:819-820 keeps such scenes off it)
-        raise NotImplementedError("the fused kernel renders no scene with "
-                                  "moving triangles or a volume: use "
-                                  "impl='wavefront'")
-    if scene.has_textures and scene.has_instances:
-        # the reference's kernel drops the textures there
-        # (pallas_pt.py:1430-1431); the wavefront renders such a scene
-        raise ValueError("the fused kernel renders no textured scene with "
-                         "instances: use impl='wavefront'")
-    big = [hi - lo for lo, hi in fused_inst_ranges(scene)
-           if hi - lo > MAX_FUSED_TRIS]
-    if big:
-        # kInst tests each range whole; a mesh past the budget walks its
-        # own cluster table in the wavefront (engine._use_fused keeps such
-        # scenes off the kernel)
-        raise ValueError(f"the fused kernel renders no instance range of "
-                         f"{big[0]} triangles (past {MAX_FUSED_TRIS}): use "
-                         f"impl='wavefront'")
-    dev = scene.device
-    if dev.type == "cpu":
-        return render_sum_plain(scene, cam_params, width, height, subframe,
-                                samples_per_launch, max_depth=max_depth,
-                                y0=y0, full_width=full_width,
-                                full_height=full_height)
-    if dev.type != "cuda":
-        raise ValueError(f"render_sum_fused: unsupported device {dev}")
-    tables = scene.fused_tables
-    full_w = width if full_width is None else full_width
-    full_h = height if full_height is None else full_height
-    n = width * height
-    if n >= 2 ** 31 or full_w * full_h >= 2 ** 32:
-        raise ValueError("frame too large for the kernel's 32-bit indices")
+    and the argument selects nothing here. The call is the
+    `engine.render_sum_fused` span."""
+    with telemetry.span("engine.render_sum_fused"):
+        del regen
+        scene.require_supported()
+        if scene.has_cutouts:
+            # the kernel has no cut lane: it would draw the holes solid
+            # (engine.py:818 keeps such scenes off it)
+            raise NotImplementedError("the fused kernel renders no scene with "
+                                      "alpha cutouts: use impl='wavefront'")
+        if scene.has_motion or scene.has_volume:
+            # no shutter time and no volume lane in the kernel
+            # (engine.py:819-820 keeps such scenes off it)
+            raise NotImplementedError("the fused kernel renders no scene with "
+                                      "moving triangles or a volume: use "
+                                      "impl='wavefront'")
+        if scene.has_textures and scene.has_instances:
+            # the reference's kernel drops the textures there
+            # (pallas_pt.py:1430-1431); the wavefront renders such a scene
+            raise ValueError("the fused kernel renders no textured scene with "
+                             "instances: use impl='wavefront'")
+        big = [hi - lo for lo, hi in fused_inst_ranges(scene)
+               if hi - lo > MAX_FUSED_TRIS]
+        if big:
+            # kInst tests each range whole; a mesh past the budget walks its
+            # own cluster table in the wavefront (engine._use_fused keeps such
+            # scenes off the kernel)
+            raise ValueError(f"the fused kernel renders no instance range "
+                             f"of {big[0]} triangles (past "
+                             f"{MAX_FUSED_TRIS}): use impl='wavefront'")
+        dev = scene.device
+        if dev.type == "cpu":
+            return render_sum_plain(scene, cam_params, width, height, subframe,
+                                    samples_per_launch, max_depth=max_depth,
+                                    y0=y0, full_width=full_width,
+                                    full_height=full_height)
+        if dev.type != "cuda":
+            raise ValueError(f"render_sum_fused: unsupported device {dev}")
+        tables = scene.fused_tables
+        full_w = width if full_width is None else full_width
+        full_h = height if full_height is None else full_height
+        n = width * height
+        if n >= 2 ** 31 or full_w * full_h >= 2 ** 32:
+            raise ValueError("frame too large for the kernel's 32-bit indices")
 
-    specular, pbr, has_prims, geometry = tables["variant"]
-    cam = pack_camera(cam_params, scene.miss_color,
-                      pixel_spread(cam_params, full_h) if geometry == TEX
-                      else 0.0)
-    sub = torch.as_tensor(subframe, device=dev).to(torch.int64).reshape(())
-    kernels.require(cam, "cam", torch.float32, (2, 16), dev)
-    kernels.require(sub, "subframe", torch.int64, (), dev)
+        specular, pbr, has_prims, geometry = tables["variant"]
+        cam = pack_camera(cam_params, scene.miss_color,
+                          pixel_spread(cam_params, full_h) if geometry == TEX
+                          else 0.0)
+        sub = torch.as_tensor(subframe, device=dev).to(torch.int64).reshape(())
+        kernels.require(cam, "cam", torch.float32, (2, 16), dev)
+        kernels.require(sub, "subframe", torch.int64, (), dev)
 
-    rad = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    count = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:
-        return rad, torch.zeros((), dtype=torch.int64, device=dev)
-    name = kernels.pt_fused_name(specular, pbr, has_prims, geometry)
-    bundles, bundle_mip = scene.bundles, scene.bundle_mip
-    group = (fused_group_size(scene) if group is None or scene.has_instances
-             else min(int(group), max(scene.num_triangles, 1)))
-    if group < 1:
-        raise ValueError(f"render_sum_fused: group size {group} < 1")
-    boxes = tables["boxes"].get(group)
-    if boxes is None:
-        boxes = (fused_group_boxes(scene.geom, group)
-                 if group < scene.num_triangles
-                 else torch.zeros((1, BOX_COLS), dtype=torch.float32,
-                                  device=dev))
-        tables["boxes"][group] = boxes
-    with torch.cuda.device(dev):
-        err = kernels.lib().ort_pt_fused(
-            tables["tri"].data_ptr(), scene.num_triangles,
-            tables["prims"].data_ptr(), scene.prims.num,
-            tables["mats"].data_ptr(), scene.materials.num,
-            tables["light"].data_ptr(), cam.data_ptr(), sub.data_ptr(), width,
-            height, full_w, full_h, y0, samples_per_launch, max_depth,
-            int(specular), int(pbr), kernels.GEOMETRY[geometry],
-            tables["inst"].data_ptr(), tables["inst_rng"].data_ptr(),
-            len(fused_inst_ranges(scene)), tables["corner"].data_ptr(),
-            bundles.data_ptr(), bundle_mip.data_ptr(), bundle_mip.shape[1],
-            bundles.shape[1], bundles.shape[2], boxes.data_ptr(), group,
-            rad.data_ptr(), count.data_ptr(), kernels.stream_ptr(dev))
-        kernels.LAUNCHES[name] += 1
-    kernels.check(err, name)
-    return rad, count.sum(dtype=torch.int64)
+        rad = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+        count = torch.empty((n,), dtype=torch.int32, device=dev)
+        if n == 0:
+            return rad, torch.zeros((), dtype=torch.int64, device=dev)
+        name = kernels.pt_fused_name(specular, pbr, has_prims, geometry)
+        bundles, bundle_mip = scene.bundles, scene.bundle_mip
+        group = (fused_group_size(scene)
+                 if group is None or scene.has_instances
+                 else min(int(group), max(scene.num_triangles, 1)))
+        if group < 1:
+            raise ValueError(f"render_sum_fused: group size {group} < 1")
+        boxes = tables["boxes"].get(group)
+        if boxes is None:
+            with telemetry.span("scene.fused_tables"):
+                boxes = (fused_group_boxes(scene.geom, group)
+                         if group < scene.num_triangles
+                         else torch.zeros((1, BOX_COLS), dtype=torch.float32,
+                                          device=dev))
+            tables["boxes"][group] = boxes
+        with torch.cuda.device(dev), kernels.launch(name):
+            err = kernels.lib().ort_pt_fused(
+                tables["tri"].data_ptr(), scene.num_triangles,
+                tables["prims"].data_ptr(), scene.prims.num,
+                tables["mats"].data_ptr(), scene.materials.num,
+                tables["light"].data_ptr(), cam.data_ptr(), sub.data_ptr(),
+                width, height, full_w, full_h, y0, samples_per_launch,
+                max_depth,
+                int(specular), int(pbr), kernels.GEOMETRY[geometry],
+                tables["inst"].data_ptr(), tables["inst_rng"].data_ptr(),
+                len(fused_inst_ranges(scene)), tables["corner"].data_ptr(),
+                bundles.data_ptr(), bundle_mip.data_ptr(), bundle_mip.shape[1],
+                bundles.shape[1], bundles.shape[2], boxes.data_ptr(), group,
+                rad.data_ptr(), count.data_ptr(), kernels.stream_ptr(dev))
+        kernels.check(err, name)
+        return rad, count.sum(dtype=torch.int64)

@@ -211,6 +211,45 @@ def test_fused_kernel_row_tiles(cuda):
     assert sum(int(p[1]) for p in parts) == int(c_full)
 
 
+def test_kernels_launch_span_holds_the_fused_launch(cuda):
+    """Mapped onto the profiler's clock (telemetry.clock_offset_ns), each
+    `kernels.launch` span of a Cornell launch holds the `cudaLaunchKernel`
+    call of the `pt_fused_kernel` it started, and carries its LAUNCHES
+    key."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from optix_raytracer_tpu_torch import telemetry
+    scene = cornell_box(cuda)
+    w, h = 64, 48
+    cam = cornell_camera(w, h).params(cuda)
+    film = engine.render_accumulate(scene, cam, Film.create(h, w, cuda), w,
+                                    h, samples_per_launch=2)[0]
+    torch.cuda.synchronize()
+    telemetry.reset_spans()
+    telemetry.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                film = engine.render_accumulate(scene, cam, film, w, h,
+                                                samples_per_launch=2)[0]
+            torch.cuda.synchronize()
+            offset = telemetry.clock_offset_ns()
+    finally:
+        telemetry.disable()
+    spans = [s for s in telemetry.drain() if s.name == "kernels.launch"]
+    events = prof.profiler.kineto_results.events()
+    fused = {e.correlation_id() for e in events
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and "pt_fused_kernel" in e.name()}
+    calls = [e for e in events if e.name() == "cudaLaunchKernel"
+             and e.correlation_id() in fused]
+    assert len(spans) == len(calls) == 3
+    for s, c in zip(spans, sorted(calls, key=lambda c: c.start_ns())):
+        assert s.tag == "pt_fused_cornell"
+        assert s.start <= c.start_ns() - offset
+        assert c.end_ns() - offset <= s.end
+
+
 def _knot_rays(n, seed, device):
     """Rays toward the small knot with mixed windows, some dead."""
     rng = np.random.default_rng(seed)
