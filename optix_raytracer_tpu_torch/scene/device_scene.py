@@ -249,6 +249,21 @@ class DeviceScene:
             return scene_tables(self)
 
     @functools.cached_property
+    def fused_plans(self) -> dict:
+        """The fused kernel's launch plans by launch shape
+        (wavefront/pallas_pt.fused_plan fills it, at most MAX_FUSED_PLANS):
+        built at a shape's first launch and kept, as fused_tables is."""
+        return {}
+
+    @functools.cached_property
+    def fused_fits(self) -> bool:
+        """Whether the scene's content lets "auto" take the fused kernel
+        (wavefront/engine._fused_fits), read once; engine._use_fused adds
+        the device test."""
+        from ..wavefront.engine import _fused_fits
+        return _fused_fits(self)
+
+    @functools.cached_property
     def bf_boxes(self) -> tuple:
         """Kernels 1-2's group boxes (accel/tri_groups.bf_group_boxes), one
         entry per instance range (one for the whole table without

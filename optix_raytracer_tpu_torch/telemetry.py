@@ -3,7 +3,9 @@
 Counters are families of named counts, plain dicts that the code adds to in
 place and that are always on: `kernels.LAUNCHES` (family
 "kernels.launches"), `kernels.BUILDS` ("kernels.builds"), `qwalk.STATS`
-("qwalk.queries"), `intersect.ALPHA_STATS` ("intersect.alpha").
+("qwalk.queries"), `intersect.ALPHA_STATS` ("intersect.alpha"),
+`pallas_pt.PLANS` ("fused.plans": fused launches that built their launch
+plan, and that reused one).
 `counters(family, keys)` makes a family, `reset_counters(family)` zeroes
 one, and `COUNTERS` holds them all by family name.
 

@@ -670,14 +670,20 @@ def _use_fused(scene: DeviceScene, impl: str) -> bool:
     is bit-equal to the wavefront's texture lanes and far faster, so no
     option is needed, and its table-size cap is a TPU VMEM budget (the
     port's atlas stays in device memory). Motion and volume scenes never
-    take it (engine.py:819-820). Decided by the scene alone."""
-    from .pallas_pt import (FUSED_FEATURES, FUSED_PRIM_KINDS, MAX_FUSED_INST,
-                            MAX_FUSED_MATS, MAX_FUSED_PRIMS, MAX_FUSED_TRIS,
-                            fused_inst_ranges)
+    take it (engine.py:819-820). Decided by the scene alone: its content
+    once (DeviceScene.fused_fits, `_fused_fits`), its device every call."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl != "auto":
         return impl == "fused"
+    return scene.device.type == "cuda" and scene.fused_fits
+
+
+def _fused_fits(scene: DeviceScene) -> bool:
+    """`_use_fused`'s rule for "auto" without the device test."""
+    from .pallas_pt import (FUSED_FEATURES, FUSED_PRIM_KINDS, MAX_FUSED_INST,
+                            MAX_FUSED_MATS, MAX_FUSED_PRIMS, MAX_FUSED_TRIS,
+                            fused_inst_ranges)
     prims_ok = (scene.prims.num <= MAX_FUSED_PRIMS
                 and all(k in FUSED_PRIM_KINDS
                         for k in scene.prims.kinds_static))
@@ -689,8 +695,7 @@ def _use_fused(scene: DeviceScene, impl: str) -> bool:
         len(ranges) <= MAX_FUSED_INST
         and sum(hi - lo for lo, hi in ranges) <= MAX_FUSED_TRIS
         and not scene.geom.smooth)
-    return (scene.device.type == "cuda"
-            and prims_ok
+    return (prims_ok
             and inst_ok
             and not scene.has_motion
             and not scene.has_volume

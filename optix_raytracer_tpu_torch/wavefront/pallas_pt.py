@@ -35,8 +35,16 @@ slab test crosses the group's box widened by the walks' admission margin
 emulations of the culled loops (`fused_group_closest_plain`,
 `fused_group_any_plain`) give brute force's ids and occlusion and count the
 tests.
+
+A launch on the card takes the plan of its scene and launch shape
+(`fused_plan`, kept on the DeviceScene): whatever depends on those alone
+is worked out at the shape's first launch, so a launch packs its camera
+block on the device (the ortho flag's cast and one `cat`) and makes the
+library call, with no host-to-device copy and no sync.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -78,6 +86,13 @@ FLAT, INST, SMOOTH, TEX = "flat", "inst", "smooth", "tex"
 TEX_BASE, TEX_NORMAL, TEX_MR, TEX_EMISSIVE, TEX_CHAIN_SHIFT = 1, 2, 4, 8, 4
 # Columns of the texture variant's per-triangle plane (pack_tex_attrs).
 TEX_ATTR_COLS = 20
+# Launch plans a scene keeps (DeviceScene.fused_plans, fused_plan): one a
+# launch shape, such as a viewer's sizes or a frame's row tiles.
+MAX_FUSED_PLANS = 8
+# Fused launches that built their plan and that reused one.
+PLANS = telemetry.counters("fused.plans", ("built", "reused"))
+
+
 def pack_materials(mt, bundle_mip=None) -> torch.Tensor:
     """MaterialTable → [K, 16] f32 rows. With `bundle_mip` (a textured
     scene) columns 13-15 carry the material's bundle id (-1 = none), its
@@ -222,25 +237,24 @@ def pack_light(light) -> torch.Tensor:
                      ).reshape(1, 16).to(torch.float32)
 
 
-def pack_camera(cam_params, miss_color, spread=0.0) -> torch.Tensor:
+def pack_camera(cam_params, plan: "FusedPlan") -> torch.Tensor:
     """Camera dict → [2, 16] f32: eye U V W aperture focal ortho | ortho_half
     miss_color spread (the TPU layout; row 1 col 5 the ray cone's pixel
-    spread, engine.pixel_spread); the `engine.pack_camera` span."""
+    spread, engine.pixel_spread, on a textured scene, else 0). One cat on
+    the device of the camera's tensors, the ortho flag cast to f32, and the
+    plan's miss colour and zero columns: no host-to-device copy. The
+    `engine.pack_camera` span."""
     with telemetry.span("engine.pack_camera"):
-        dev = cam_params["eye"].device
-        row0 = torch.cat([
-            cam_params["eye"], cam_params["U"], cam_params["V"],
-            cam_params["W"], cam_params["aperture"].reshape(1),
-            cam_params["focal_distance"].reshape(1),
-            cam_params["ortho"].to(torch.float32).reshape(1),
-            torch.zeros((1,), dtype=torch.float32, device=dev)])
-        row1 = torch.cat([cam_params["ortho_half"],
-                          torch.as_tensor(miss_color, dtype=torch.float32,
-                                          device=dev),
-                          torch.as_tensor(spread, dtype=torch.float32,
-                                          device=dev).reshape(1),
-                          torch.zeros((10,), dtype=torch.float32, device=dev)])
-        return torch.stack([row0, row1]).to(torch.float32)
+        parts = [cam_params["eye"], cam_params["U"], cam_params["V"],
+                 cam_params["W"], cam_params["aperture"].reshape(1),
+                 cam_params["focal_distance"].reshape(1),
+                 cam_params["ortho"].to(torch.float32).reshape(1), plan.zero,
+                 cam_params["ortho_half"], plan.miss_color]
+        if plan.textured:
+            parts.append(pixel_spread(cam_params, plan.full_height)
+                         .reshape(1))
+        parts.append(plan.pad)
+        return torch.cat(parts).view(2, 16).to(torch.float32)
 
 
 def scene_tables(scene: DeviceScene) -> dict:
@@ -304,6 +318,119 @@ def scene_tables(scene: DeviceScene) -> dict:
     return out
 
 
+class FusedPlan(NamedTuple):
+    """The host prelude of a fused launch of one scene at one launch shape,
+    worked out once (fused_plan): the LAUNCHES key, the camera block's
+    constant columns (pack_camera) and the library call's arguments other
+    than the camera, the subframe, the outputs and the stream."""
+    name: str
+    textured: bool            # the spread column is engine.pixel_spread's
+    full_height: int
+    miss_color: torch.Tensor  # [3] f32
+    zero: torch.Tensor        # [1] f32 zero: row 0 col 15
+    pad: torch.Tensor         # row 1 after the spread ([10]) or from it ([11])
+    head: tuple               # tri, m, prims, p, mats, k, light
+    tail: tuple               # width, height, ..., boxes, group
+
+
+def _refuse_unsupported(scene: DeviceScene):
+    """Raise for a scene the fused kernel does not render."""
+    scene.require_supported()
+    if scene.has_cutouts:
+        # the kernel has no cut lane: it would draw the holes solid
+        # (engine.py:818 keeps such scenes off it)
+        raise NotImplementedError("the fused kernel renders no scene with "
+                                  "alpha cutouts: use impl='wavefront'")
+    if scene.has_motion or scene.has_volume:
+        # no shutter time and no volume lane in the kernel
+        # (engine.py:819-820 keeps such scenes off it)
+        raise NotImplementedError("the fused kernel renders no scene with "
+                                  "moving triangles or a volume: use "
+                                  "impl='wavefront'")
+    if scene.has_textures and scene.has_instances:
+        # the reference's kernel drops the textures there
+        # (pallas_pt.py:1430-1431); the wavefront renders such a scene
+        raise ValueError("the fused kernel renders no textured scene with "
+                         "instances: use impl='wavefront'")
+    big = [hi - lo for lo, hi in fused_inst_ranges(scene)
+           if hi - lo > MAX_FUSED_TRIS]
+    if big:
+        # kInst tests each range whole; a mesh past the budget walks its
+        # own cluster table in the wavefront (engine._use_fused keeps such
+        # scenes off the kernel)
+        raise ValueError(f"the fused kernel renders no instance range "
+                         f"of {big[0]} triangles (past "
+                         f"{MAX_FUSED_TRIS}): use impl='wavefront'")
+
+
+def fused_plan(scene: DeviceScene, width: int, height: int,
+               samples_per_launch: int = 1, max_depth: int = 4, y0=0,
+               full_width=None, full_height=None, group=None) -> FusedPlan:
+    """The launch plan of `scene` at a launch shape (render_sum_fused's
+    arguments): DeviceScene.fused_plans' entry, else built and kept there,
+    the oldest dropped past MAX_FUSED_PLANS; PLANS counts both. A scene the
+    kernel does not render raises and keeps no plan, so it raises on every
+    call. Needs no card."""
+    full_w = width if full_width is None else full_width
+    full_h = height if full_height is None else full_height
+    key = (width, height, full_w, full_h, y0, samples_per_launch, max_depth,
+           group)
+    plans = scene.fused_plans
+    plan = plans.get(key)
+    if plan is not None:
+        PLANS["reused"] += 1
+        return plan
+    _refuse_unsupported(scene)
+    plan = _build_plan(scene, *key)
+    if len(plans) >= MAX_FUSED_PLANS:
+        del plans[next(iter(plans))]
+    plans[key] = plan
+    PLANS["built"] += 1
+    return plan
+
+
+def _build_plan(scene: DeviceScene, width, height, full_w, full_h, y0,
+                samples_per_launch, max_depth, group) -> FusedPlan:
+    if width * height >= 2 ** 31 or full_w * full_h >= 2 ** 32:
+        raise ValueError("frame too large for the kernel's 32-bit indices")
+    dev = scene.device
+    tables = scene.fused_tables
+    specular, pbr, has_prims, geometry = tables["variant"]
+    group = (fused_group_size(scene)
+             if group is None or scene.has_instances
+             else min(int(group), max(scene.num_triangles, 1)))
+    if group < 1:
+        raise ValueError(f"render_sum_fused: group size {group} < 1")
+    boxes = tables["boxes"].get(group)
+    if boxes is None:
+        with telemetry.span("scene.fused_tables"):
+            boxes = (fused_group_boxes(scene.geom, group)
+                     if group < scene.num_triangles
+                     else torch.zeros((1, BOX_COLS), dtype=torch.float32,
+                                      device=dev))
+        tables["boxes"][group] = boxes
+    textured = geometry == TEX
+    bundles, bundle_mip = scene.bundles, scene.bundle_mip
+    return FusedPlan(
+        name=kernels.pt_fused_name(specular, pbr, has_prims, geometry),
+        textured=textured, full_height=full_h,
+        miss_color=torch.as_tensor(scene.miss_color, dtype=torch.float32,
+                                   device=dev),
+        zero=torch.zeros((1,), dtype=torch.float32, device=dev),
+        pad=torch.zeros((10 if textured else 11,), dtype=torch.float32,
+                        device=dev),
+        head=(tables["tri"].data_ptr(), scene.num_triangles,
+              tables["prims"].data_ptr(), scene.prims.num,
+              tables["mats"].data_ptr(), scene.materials.num,
+              tables["light"].data_ptr()),
+        tail=(width, height, full_w, full_h, y0, samples_per_launch,
+              max_depth, int(specular), int(pbr), kernels.GEOMETRY[geometry],
+              tables["inst"].data_ptr(), tables["inst_rng"].data_ptr(),
+              len(fused_inst_ranges(scene)), tables["corner"].data_ptr(),
+              bundles.data_ptr(), bundle_mip.data_ptr(), bundle_mip.shape[1],
+              bundles.shape[1], bundles.shape[2], boxes.data_ptr(), group))
+
+
 def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
                      subframe, samples_per_launch: int = 1,
                      max_depth: int = 4, y0=0, full_width=None,
@@ -320,91 +447,38 @@ def render_sum_fused(scene: DeviceScene, cam_params, width: int, height: int,
     same values. The CUDA kernel runs the regenerating one only: each lane
     traces one segment a step and starts its next sample where a path
     ends, each lane's samples in order, so its values are those of both
-    and the argument selects nothing here. The call is the
-    `engine.render_sum_fused` span."""
+    and the argument selects nothing here.
+
+    On the card a launch takes its plan (fused_plan), packs the camera
+    (pack_camera) and makes the library call: no host-to-device copy and
+    no sync where `subframe` is the device's int64 scalar (Film.subframe).
+    The call is the `engine.render_sum_fused` span."""
     with telemetry.span("engine.render_sum_fused"):
         del regen
-        scene.require_supported()
-        if scene.has_cutouts:
-            # the kernel has no cut lane: it would draw the holes solid
-            # (engine.py:818 keeps such scenes off it)
-            raise NotImplementedError("the fused kernel renders no scene with "
-                                      "alpha cutouts: use impl='wavefront'")
-        if scene.has_motion or scene.has_volume:
-            # no shutter time and no volume lane in the kernel
-            # (engine.py:819-820 keeps such scenes off it)
-            raise NotImplementedError("the fused kernel renders no scene with "
-                                      "moving triangles or a volume: use "
-                                      "impl='wavefront'")
-        if scene.has_textures and scene.has_instances:
-            # the reference's kernel drops the textures there
-            # (pallas_pt.py:1430-1431); the wavefront renders such a scene
-            raise ValueError("the fused kernel renders no textured scene with "
-                             "instances: use impl='wavefront'")
-        big = [hi - lo for lo, hi in fused_inst_ranges(scene)
-               if hi - lo > MAX_FUSED_TRIS]
-        if big:
-            # kInst tests each range whole; a mesh past the budget walks its
-            # own cluster table in the wavefront (engine._use_fused keeps such
-            # scenes off the kernel)
-            raise ValueError(f"the fused kernel renders no instance range "
-                             f"of {big[0]} triangles (past "
-                             f"{MAX_FUSED_TRIS}): use impl='wavefront'")
         dev = scene.device
-        if dev.type == "cpu":
+        if dev.type != "cuda":
+            _refuse_unsupported(scene)
+            if dev.type != "cpu":
+                raise ValueError(f"render_sum_fused: unsupported device {dev}")
             return render_sum_plain(scene, cam_params, width, height, subframe,
                                     samples_per_launch, max_depth=max_depth,
                                     y0=y0, full_width=full_width,
                                     full_height=full_height)
-        if dev.type != "cuda":
-            raise ValueError(f"render_sum_fused: unsupported device {dev}")
-        tables = scene.fused_tables
-        full_w = width if full_width is None else full_width
-        full_h = height if full_height is None else full_height
-        n = width * height
-        if n >= 2 ** 31 or full_w * full_h >= 2 ** 32:
-            raise ValueError("frame too large for the kernel's 32-bit indices")
-
-        specular, pbr, has_prims, geometry = tables["variant"]
-        cam = pack_camera(cam_params, scene.miss_color,
-                          pixel_spread(cam_params, full_h) if geometry == TEX
-                          else 0.0)
-        sub = torch.as_tensor(subframe, device=dev).to(torch.int64).reshape(())
-        kernels.require(cam, "cam", torch.float32, (2, 16), dev)
-        kernels.require(sub, "subframe", torch.int64, (), dev)
-
+        plan = fused_plan(scene, width, height, samples_per_launch, max_depth,
+                          y0, full_width, full_height, group)
+        cam = pack_camera(cam_params, plan)
+        sub = subframe
+        if not (isinstance(sub, torch.Tensor) and sub.dtype == torch.int64
+                and sub.dim() == 0 and sub.device == dev):
+            sub = torch.as_tensor(subframe, device=dev).to(
+                torch.int64).reshape(())
         rad = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-        count = torch.empty((n,), dtype=torch.int32, device=dev)
-        if n == 0:
+        count = torch.empty((width * height,), dtype=torch.int32, device=dev)
+        if width * height == 0:
             return rad, torch.zeros((), dtype=torch.int64, device=dev)
-        name = kernels.pt_fused_name(specular, pbr, has_prims, geometry)
-        bundles, bundle_mip = scene.bundles, scene.bundle_mip
-        group = (fused_group_size(scene)
-                 if group is None or scene.has_instances
-                 else min(int(group), max(scene.num_triangles, 1)))
-        if group < 1:
-            raise ValueError(f"render_sum_fused: group size {group} < 1")
-        boxes = tables["boxes"].get(group)
-        if boxes is None:
-            with telemetry.span("scene.fused_tables"):
-                boxes = (fused_group_boxes(scene.geom, group)
-                         if group < scene.num_triangles
-                         else torch.zeros((1, BOX_COLS), dtype=torch.float32,
-                                          device=dev))
-            tables["boxes"][group] = boxes
-        with torch.cuda.device(dev), kernels.launch(name):
+        with torch.cuda.device(dev), kernels.launch(plan.name):
             err = kernels.lib().ort_pt_fused(
-                tables["tri"].data_ptr(), scene.num_triangles,
-                tables["prims"].data_ptr(), scene.prims.num,
-                tables["mats"].data_ptr(), scene.materials.num,
-                tables["light"].data_ptr(), cam.data_ptr(), sub.data_ptr(),
-                width, height, full_w, full_h, y0, samples_per_launch,
-                max_depth,
-                int(specular), int(pbr), kernels.GEOMETRY[geometry],
-                tables["inst"].data_ptr(), tables["inst_rng"].data_ptr(),
-                len(fused_inst_ranges(scene)), tables["corner"].data_ptr(),
-                bundles.data_ptr(), bundle_mip.data_ptr(), bundle_mip.shape[1],
-                bundles.shape[1], bundles.shape[2], boxes.data_ptr(), group,
+                *plan.head, cam.data_ptr(), sub.data_ptr(), *plan.tail,
                 rad.data_ptr(), count.data_ptr(), kernels.stream_ptr(dev))
-        kernels.check(err, name)
+        kernels.check(err, plan.name)
         return rad, count.sum(dtype=torch.int64)

@@ -250,6 +250,36 @@ def test_kernels_launch_span_holds_the_fused_launch(cuda):
         assert c.end_ns() - offset <= s.end
 
 
+@pytest.mark.parametrize("name", ["cornell", "textured"])
+def test_fused_launch_makes_no_sync(cuda, name):
+    """After one warm-up launch, which builds the launch plan, a fused
+    `engine.render_accumulate` with the film's device subframe makes no
+    host-device sync (torch.cuda.set_sync_debug_mode("error")) and reuses
+    its plan; the textured scene packs its spread column on the device."""
+    w, h = 40, 32
+    if name == "cornell":
+        scene, cam = cornell_box(cuda), cornell_camera(w, h).params(cuda)
+    else:
+        scene = B.textured_scene(cuda, (32, 16, 16, 8), 0.6, 0.8)
+        cam = B.textured_camera(w, h).params(cuda)
+    assert engine._use_fused(scene, "auto")
+    film = engine.render_accumulate(scene, cam, Film.create(h, w, cuda), w,
+                                    h, samples_per_launch=2, max_depth=3)[0]
+    torch.cuda.synchronize()
+    before = dict(pallas_pt.PLANS)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            film, rays = engine.render_accumulate(scene, cam, film, w, h,
+                                                  samples_per_launch=2,
+                                                  max_depth=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pallas_pt.PLANS["built"] == before["built"]
+    assert pallas_pt.PLANS["reused"] == before["reused"] + 3
+    assert int(film.subframe) == 8 and int(rays) > 0
+
+
 def _knot_rays(n, seed, device):
     """Rays toward the small knot with mixed windows, some dead."""
     rng = np.random.default_rng(seed)
