@@ -55,7 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, telemetry
 from ..core.rays import Hits, Rays
 from ..core.vecmath import dot
 from .geometry import TriangleGeometry
@@ -78,6 +78,19 @@ CULL_WIDE = 512             # past this many columns, groups of 16 (not 8)
 
 _DEGEN_EPS = 1e-12
 _BIG = 3.0e38
+
+# Host-side counts of the cluster path, from shapes alone (no sync): the
+# engine's cluster launches (`launches`, bumped by engine.render_sum_sample_
+# major / render_sum_wavefront on a cluster scene), the closest-hit and
+# any-hit queries, and their rays and 256-ray blocks (padding included).
+QUERIES = telemetry.counters("clusters.queries", ("launches", "closest",
+                                                  "any", "rays", "blocks"))
+
+
+def _count_query(kind: str, n: int, n_padded: int):
+    QUERIES[kind] += 1
+    QUERIES["rays"] += n
+    QUERIES["blocks"] += n_padded // SUB
 
 
 @dataclasses.dataclass
@@ -181,13 +194,14 @@ def _aabb_rows(cl: ClusterSet) -> torch.Tensor:
 
 def _pack_rays(rays: Rays, n_padded: int) -> torch.Tensor:
     """Rays → dense [n_padded, 8] (ox oy oz dx dy dz tmin tmax). Padding rays
-    are all zero: an empty window, never hit."""
-    packed = torch.cat([rays.origin, rays.direction, rays.tmin[:, None],
-                        rays.tmax[:, None]], dim=1).to(torch.float32)
-    pad = n_padded - packed.shape[0]
-    if pad:
-        packed = torch.cat([packed, packed.new_zeros((pad, 8))])
-    return packed.contiguous()
+    are all zero: an empty window, never hit. The `clusters.pack` span."""
+    with telemetry.span("clusters.pack"):
+        packed = torch.cat([rays.origin, rays.direction, rays.tmin[:, None],
+                            rays.tmax[:, None]], dim=1).to(torch.float32)
+        pad = n_padded - packed.shape[0]
+        if pad:
+            packed = torch.cat([packed, packed.new_zeros((pad, 8))])
+        return packed.contiguous()
 
 
 def _block_chunks(n_blocks: int, per_block: int, budget: int = 1 << 25):
@@ -405,14 +419,20 @@ def _cull(cl: ClusterSet, packed, n_super: int, c_pad: int,
     lists [S, G, c_pad] int32, tnear_sorted [S, G, c_pad] f32). A list entry
     packs the cluster id in bits 0-15 and the walk's 8 group bits in bits
     16-23 (0xFF when the cull gives none). The exact cull runs only when
-    `exact` and c_pad <= MAX_CLUSTERS; otherwise the interval cull."""
+    `exact` and c_pad <= MAX_CLUSTERS; otherwise the interval cull. The
+    cull is the `clusters.cull` span, tagged "exact" or "interval", the
+    compaction the `clusters.compact` span."""
     n_blocks = n_super * GROUPS
     if exact and c_pad <= MAX_CLUSTERS:
-        mask, tnear, gmask = _exact_block_cull(cl, packed, n_blocks, c_pad)
+        with telemetry.span("clusters.cull", "exact"):
+            mask, tnear, gmask = _exact_block_cull(cl, packed, n_blocks,
+                                                   c_pad)
     else:
-        mask, tnear = _block_cull(cl, packed, n_blocks, c_pad)
+        with telemetry.span("clusters.cull", "interval"):
+            mask, tnear = _block_cull(cl, packed, n_blocks, c_pad)
         gmask = None
-    return _compact(cl, mask, tnear, gmask, n_super)
+    with telemetry.span("clusters.compact"):
+        return _compact(cl, mask, tnear, gmask, n_super)
 
 
 def _compact(cl: ClusterSet, mask, tnear, gmask, n_super: int):
@@ -1024,23 +1044,27 @@ def _closest_core(cl: ClusterSet, packed, exact=False, group_walk=False):
     counts [n_super, GROUPS, 1]). The walk is gated only on the exact cull
     of the resident tier, as `_closest_core` (clusters.py:1095-1164)."""
     counts, lists, tnear, member = _tier_cull(cl, packed, exact)
-    if member is not None:
-        return walk_sc_closest(counts, lists, tnear, cl.comp, member,
-                               packed), counts
-    gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
-    return walk_closest(counts, lists, tnear, cl.comp, cl.aabb, packed,
-                        gate), counts
+    with telemetry.span("clusters.walk", "closest"):
+        if member is not None:
+            return walk_sc_closest(counts, lists, tnear, cl.comp, member,
+                                   packed), counts
+        gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
+        return walk_closest(counts, lists, tnear, cl.comp, cl.aabb, packed,
+                            gate), counts
 
 
 def _any_core(cl: ClusterSet, packed, exact=False, group_walk=False):
     """Cull + occlusion walk → int32 [n_padded], empty blocks cleared
     (clusters.py:1329-1388)."""
     counts, lists, tnear, member = _tier_cull(cl, packed, exact)
-    if member is not None:
-        occ = walk_sc_any(counts, lists, tnear, cl.comp, member, packed)
-    else:
-        gate = bool(exact and group_walk and cl.num_clusters <= MAX_CLUSTERS)
-        occ = walk_any(counts, lists, tnear, cl.comp, cl.aabb, packed, gate)
+    with telemetry.span("clusters.walk", "any"):
+        if member is not None:
+            occ = walk_sc_any(counts, lists, tnear, cl.comp, member, packed)
+        else:
+            gate = bool(exact and group_walk
+                        and cl.num_clusters <= MAX_CLUSTERS)
+            occ = walk_any(counts, lists, tnear, cl.comp, cl.aabb, packed,
+                           gate)
     live = torch.repeat_interleave(counts.reshape(-1) > 0, SUB)
     return torch.where(live, occ, 0)
 
@@ -1069,6 +1093,7 @@ def closest_hit(cl: ClusterSet, rays: Rays, exact: bool = False,
     """Closest hit of a flat [N] ray batch. exact=True for scattered
     wavefronts; group_walk gates the walk per 32-ray group (exact only)."""
     n = rays.tmin.shape[0]
+    _count_query("closest", n, _padded(n))
     packed = _pack_rays(rays, _padded(n))
     rows, counts = _closest_core(cl, packed, exact=exact,
                                  group_walk=group_walk)
@@ -1080,6 +1105,7 @@ def any_hit(cl: ClusterSet, rays: Rays, exact: bool = False,
             group_walk: bool = False) -> torch.Tensor:
     """Occlusion of a flat [N] ray batch → bool [N]."""
     n = rays.tmin.shape[0]
+    _count_query("any", n, _padded(n))
     packed = _pack_rays(rays, _padded(n))
     return _any_core(cl, packed, exact=exact, group_walk=group_walk)[:n] != 0
 
@@ -1115,6 +1141,7 @@ def closest_hit_sorted(cl: ClusterSet, rays: Rays,
     scattered back (clusters.py:1262-1283)."""
     n = rays.tmin.shape[0]
     n_padded = _padded(n)
+    _count_query("closest", n, n_padded)
     packed = _pack_rays(rays, n_padded)
     perm = _sorted_perm(cl, rays, n_padded)
     rows, counts = _closest_core(cl, packed[perm], exact=True,
@@ -1131,6 +1158,7 @@ def any_hit_sorted(cl: ClusterSet, rays: Rays,
     """any_hit of scattered rays with the coherence pre-sort."""
     n = rays.tmin.shape[0]
     n_padded = _padded(n)
+    _count_query("any", n, n_padded)
     packed = _pack_rays(rays, n_padded)
     perm = _sorted_perm(cl, rays, n_padded)
     occ = _any_core(cl, packed[perm], exact=True, group_walk=group_walk)

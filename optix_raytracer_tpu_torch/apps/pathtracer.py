@@ -2,8 +2,13 @@
 
     python -m optix_raytracer_tpu_torch.apps.pathtracer --file cornell.ppm \\
         --dim 1920x1088 --samples 32 --launch-samples 16 --depth 4
+    python -m optix_raytracer_tpu_torch.apps.pathtracer --scene spd-tetra \\
+        --file tetra.ppm --dim 1920x1088 --samples 32 --launch-samples 16
 
-On a CUDA device each launch is one fused-kernel launch (kernel 3). With
+On a CUDA device each launch of the Cornell box is one fused-kernel launch
+(kernel 3); `--scene spd-tetra`, the SPD `tetra` pyramid of 7 levels
+(65,538 triangles), takes the cluster path (kernels 4-6), in sample-major
+strips from 8 samples a launch, else the sorted sequential loop. With
 `--denoise` the primary-hit guide layers (`render_aovs`: albedo, normal,
 emission; kernel 1) feed the denoiser (`api.denoiser.Denoiser`, the
 trained net) before the frame is encoded; `--ascii` prints a preview. PNG
@@ -18,7 +23,8 @@ import torch
 
 from ..core import film as film_mod
 from ..io.image import save_image, to_ascii
-from ..scene.builtins import cornell_box, cornell_camera
+from ..scene.builtins import (cornell_box, cornell_camera, spd_tetra_camera,
+                              spd_tetra_scene)
 from ..wavefront.engine import render_accumulate
 from ._cli import parse_dim
 
@@ -46,8 +52,13 @@ def render(width=768, height=768, samples=16, max_depth=4, chunk_size=65536,
     return film.accum, film, rays
 
 
+SCENES = {"cornell": (cornell_box, cornell_camera),
+          "spd-tetra": (spd_tetra_scene, spd_tetra_camera)}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Cornell-box path tracer")
+    p.add_argument("--scene", default="cornell", choices=sorted(SCENES))
     p.add_argument("--file", default="cornell.png")
     p.add_argument("--dim", default="768x768")
     p.add_argument("--samples", type=int, default=64)
@@ -64,8 +75,9 @@ def main(argv=None):
     device = torch.device(args.device)
 
     t0 = time.perf_counter()
-    scene = cornell_box(device)
-    camera = cornell_camera(w, h)
+    make_scene, make_camera = SCENES[args.scene]
+    scene = make_scene(device)
+    camera = make_camera(w, h)
     accum, film, rays = render(w, h, samples=args.samples,
                                max_depth=args.depth, scene=scene,
                                camera=camera,

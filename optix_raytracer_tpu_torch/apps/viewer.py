@@ -14,7 +14,8 @@ a launch per frame and save on space (`tracer_window.cpp:64-183`,
 Headless by default: N progressive frames, then the image and the stage
 times (`api/context.StageTimers`, the displayStats overlay). The Cornell box
 is path-traced by `render_accumulate` (the fused kernel 3 on a CUDA
-device), the Whitted scene and a `--model` (`Scene.load`) by the Whitted
+device), and so is `--scene spd-tetra`, the SPD `tetra` pyramid (the
+cluster path, kernels 4-6), the Whitted scene and a `--model` (`Scene.load`) by the Whitted
 integrator (kernels 1-2, or 4-6 past 512 triangles). `--checkpoint` /
 `--resume` write and read the film and camera as one .npz
 (`core/checkpoint.py`). The live loops are host code: `--ansi` draws
@@ -35,8 +36,8 @@ from ..core import checkpoint as ckpt
 from ..core import film as film_mod
 from ..core.camera import Camera, Trackball
 from ..io.image import save_image
-from ..scene.builtins import (cornell_box, cornell_camera, whitted_camera,
-                              whitted_scene)
+from ..scene.builtins import (cornell_box, cornell_camera, spd_tetra_camera,
+                              spd_tetra_scene, whitted_camera, whitted_scene)
 from ..wavefront.engine import render_accumulate
 from ..wavefront.whitted import render_whitted_sample
 from ._cli import parse_dim
@@ -155,7 +156,8 @@ def model_lights():
 
 def build(model, scene_name, width, height, device):
     """→ (DeviceScene, Camera, integrator): the model through the Whitted
-    integrator, or the Whitted scene, or the path-traced Cornell box."""
+    integrator, or the Whitted scene, or the path-traced Cornell box or
+    SPD `tetra` pyramid (`spd-tetra`: the cluster path)."""
     if model:
         from ..scene.scene import Scene
         host = Scene.load(model)
@@ -164,6 +166,9 @@ def build(model, scene_name, width, height, device):
     if scene_name == "whitted":
         return (whitted_scene(device), whitted_camera(width, height),
                 "whitted")
+    if scene_name == "spd-tetra":
+        return (spd_tetra_scene(device), spd_tetra_camera(width, height),
+                "pathtrace")
     return cornell_box(device), cornell_camera(width, height), "pathtrace"
 
 
@@ -501,7 +506,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="interactive viewer (imgui_test)")
     p.add_argument("--model", "-m", default=None,
                    help=".gltf/.glb/.obj/.ply model")
-    p.add_argument("--scene", default="cornell", choices=["cornell", "whitted"])
+    p.add_argument("--scene", default="cornell",
+                   choices=["cornell", "whitted", "spd-tetra"])
     p.add_argument("--file", "-o", default="viewer.png")
     p.add_argument("--dim", default="768x768")
     p.add_argument("--frames", type=int, default=8,

@@ -26,6 +26,11 @@ class Rays:
         bs = origin.shape[:-1]
 
         def plane(v):
+            if isinstance(v, (int, float)):
+                # filled on the device: a Python number through as_tensor
+                # is a host-to-device copy, which waits for the device
+                v = torch.full((), v, dtype=torch.float32,
+                               device=origin.device)
             return torch.as_tensor(v, dtype=torch.float32,
                                    device=origin.device).expand(bs)
 

@@ -5,12 +5,15 @@ alpha-cutout scenes and their cameras (counterpart of
 `scene/builtins.py:18-274`, of `apps/cutouts.py:24-89` and of the scenes
 `bench.py:153-202, 205-246, 418-450, 517-550` builds inline; the textured
 cutout Cornell and the textured Whitted scene are the port's own, made of
-the reference's features).
+the reference's features), and the SPD `tetra` pyramid, the port's own
+large-mesh scene from a public benchmark.
 
 The data tables are a copy of the JAX package's (a CPU test holds them
 equal): the JAX module cannot be imported without JAX.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -802,3 +805,82 @@ def cutout_grid_camera(width, height) -> Camera:
     holes."""
     return Camera(eye=(250.0, 520.0, -250.0), lookat=(250.0, 150.0, 250.0),
                   up=(0.0, 1.0, 0.0), fov_y=50.0, aspect=width / height)
+
+
+# The SPD `tetra` (E. Haines, "A Proposal for Standard Graphics
+# Environments", IEEE CG&A 7(11), 1987, the Standard Procedural Databases):
+# a regular tetrahedron replaced, level by level, by the four half-size
+# tetrahedra at its corners. Here of edge 2, y up, its base on y = 0 centred
+# on the y axis, one face toward -z. The SPD lights it with points; the
+# port's path tracer takes one parallelogram light, so the light (a square
+# over the apex, with its emissive quad as the Cornell box has one), the
+# camera, the albedo and the background are the port's own.
+# `benchmark/scenes/sierpinski.py` builds the same arrays without the port.
+SPD_TETRA_LEVEL = 7
+SPD_TETRA_EDGE = 2.0
+SPD_TETRA_MATERIALS = [
+    {"kind": mat.DIFFUSE, "base_color": (0.70, 0.70, 0.70)},              # pyramid
+    {"kind": mat.DIFFUSE, "base_color": (0.78, 0.78, 0.78),
+     "emission": (15.0, 15.0, 15.0)},                                     # lamp
+]
+SPD_TETRA_LIGHT = ((-0.5, 2.4, -0.5), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0),
+                   (15.0, 15.0, 15.0))
+SPD_TETRA_MISS = (0.25, 0.3, 0.4)
+# A tetrahedron's four faces by corner, wound outward.
+_TETRA_FACES = np.array([[1, 3, 2], [0, 2, 3], [0, 3, 1], [0, 1, 2]],
+                        np.int32)
+
+
+def spd_tetra_corners(edge=SPD_TETRA_EDGE):
+    """The level-0 tetrahedron's corners [4, 3] (float64): three on y = 0
+    around the y axis (the back one on +z), the apex above them."""
+    r = edge / math.sqrt(3.0)
+    h = edge * math.sqrt(2.0 / 3.0)
+    return np.array([[0.0, 0.0, r], [-0.5 * edge, 0.0, -0.5 * r],
+                     [0.5 * edge, 0.0, -0.5 * r], [0.0, h, 0.0]], np.float64)
+
+
+def spd_tetra_mesh(level=SPD_TETRA_LEVEL, edge=SPD_TETRA_EDGE):
+    """The pyramid of `level` levels → (vertices [4^(level+1), 3] f32,
+    indices [4^(level+1), 3] int32): 4^level tetrahedra, four corners and
+    four flat faces each. Level L is level L-1 halved toward each corner in
+    turn, p → (p + corner) / 2, worked in float64."""
+    corners = spd_tetra_corners(edge)
+    tets = corners[None]
+    for _ in range(level):
+        tets = ((tets[None] + corners[:, None, None]) * 0.5).reshape(-1, 4, 3)
+    n = tets.shape[0]
+    idx = (np.arange(n, dtype=np.int32)[:, None, None] * 4
+           + _TETRA_FACES[None]).reshape(-1, 3)
+    return tets.reshape(-1, 3).astype(np.float32), idx
+
+
+def spd_tetra_parts(level=SPD_TETRA_LEVEL):
+    """The pyramid (material 0) and the lamp quad over it (material 1, two
+    triangles where the light lies) as a *_parts() tuple."""
+    verts, idx = spd_tetra_mesh(level)
+    corner, v1, v2 = (np.asarray(v, np.float64) for v in SPD_TETRA_LIGHT[:3])
+    lamp = np.stack([corner, corner + v1, corner + v1 + v2,
+                     corner + v2]).astype(np.float32)
+    n0 = len(verts)
+    verts = np.concatenate([verts, lamp])
+    idx = np.concatenate([idx, np.array([[n0, n0 + 1, n0 + 2],
+                                         [n0, n0 + 2, n0 + 3]], np.int32)])
+    tri_mat = np.concatenate([np.zeros(len(idx) - 2, np.int32),
+                              np.ones(2, np.int32)])
+    return (verts, idx, tri_mat, [dict(m) for m in SPD_TETRA_MATERIALS],
+            None, [], SPD_TETRA_LIGHT)
+
+
+def spd_tetra_scene(device, level=SPD_TETRA_LEVEL) -> DeviceScene:
+    """The SPD `tetra` at `level` (7: 65,536 triangles and the lamp's two,
+    a cluster scene) under its light, on a constant background."""
+    return scene_from_parts(spd_tetra_parts(level), device,
+                            miss_color=SPD_TETRA_MISS)
+
+
+def spd_tetra_camera(width, height) -> Camera:
+    """A three-quarter view from the front left and above: the pyramid fills
+    the frame's height, the light lies above it."""
+    return Camera(eye=(-1.4, 1.85, -3.0), lookat=(0.0, 0.66, 0.0),
+                  up=(0.0, 1.0, 0.0), fov_y=40.0, aspect=width / height)

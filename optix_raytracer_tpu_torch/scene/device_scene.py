@@ -256,6 +256,13 @@ class DeviceScene:
         return {}
 
     @functools.cached_property
+    def launch_graphs(self) -> dict:
+        """The sequential cluster loop's launches as CUDA graphs, by launch
+        shape (wavefront/launch_graph.run fills it, at most
+        MAX_LAUNCH_GRAPHS), kept as fused_plans are."""
+        return {}
+
+    @functools.cached_property
     def fused_fits(self) -> bool:
         """Whether the scene's content lets "auto" take the fused kernel
         (wavefront/engine._fused_fits), read once; engine._use_fused adds

@@ -5,7 +5,8 @@ place and that are always on: `kernels.LAUNCHES` (family
 "kernels.launches"), `kernels.BUILDS` ("kernels.builds"), `qwalk.STATS`
 ("qwalk.queries"), `intersect.ALPHA_STATS` ("intersect.alpha"),
 `pallas_pt.PLANS` ("fused.plans": fused launches that built their launch
-plan, and that reused one).
+plan, and that reused one), `launch_graph.GRAPHS` ("engine.graphs": launches
+captured as a CUDA graph, and replayed).
 `counters(family, keys)` makes a family, `reset_counters(family)` zeroes
 one, and `COUNTERS` holds them all by family name.
 

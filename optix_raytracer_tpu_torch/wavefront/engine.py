@@ -40,7 +40,7 @@ import torch
 
 from .. import telemetry
 from ..accel import volume as vol
-from ..accel.clusters import coherence_key
+from ..accel.clusters import QUERIES as CLUSTER_QUERIES, coherence_key
 from ..accel.geometry import shading_frame
 from ..accel.micromap import TRANSPARENT, micro_index
 from ..accel.tlas import world_shading_normal
@@ -53,7 +53,9 @@ from ..scene.device_scene import DeviceScene
 from ..shade import materials as mats
 from ..shade.sampling import cosine_sample_hemisphere, ggx_sample_half_vector
 from ..shade.texture import sample_bilinear, sample_bundle
-from .intersect import certain_or, mask_hole, scene_any, scene_closest
+from . import launch_graph
+from .intersect import (_use_qwalk, certain_or, mask_hole, scene_any,
+                        scene_closest)
 
 # Shadow / secondary-ray epsilons at Cornell scale, as in the JAX engine.
 RAY_TMIN = 1e-2
@@ -498,14 +500,17 @@ def _bounce(scene: DeviceScene, state: dict, depth: int, chunk_size,
 def _sort_wavefront(scene: DeviceScene, state: dict) -> dict:
     """Coherence-sort the whole path state for the next bounce
     (engine.py:146-189): one stable sort by `coherence_key`, every per-ray
-    column permuted alike; dead rays go to the tail."""
-    rays = state["rays"]
-    perm = torch.argsort(coherence_key(scene.clusters, rays), stable=True)
-    out = {k: (v[perm] if v.ndim else v)
-           for k, v in state.items() if k != "rays"}
-    out["rays"] = Rays(origin=rays.origin[perm], direction=rays.direction[perm],
-                       tmin=rays.tmin[perm], tmax=rays.tmax[perm])
-    return out
+    column permuted alike; dead rays go to the tail. The `engine.sort`
+    span."""
+    with telemetry.span("engine.sort"):
+        rays = state["rays"]
+        perm = torch.argsort(coherence_key(scene.clusters, rays), stable=True)
+        out = {k: (v[perm] if v.ndim else v)
+               for k, v in state.items() if k != "rays"}
+        out["rays"] = Rays(origin=rays.origin[perm],
+                           direction=rays.direction[perm],
+                           tmin=rays.tmin[perm], tmax=rays.tmax[perm])
+        return out
 
 
 def trace_paths(scene: DeviceScene, rays: Rays, rng, max_depth: int = 4,
@@ -799,8 +804,12 @@ def render_sum_sample_major(scene: DeviceScene, cam_params, width: int,
                             group_walk=None):
     """`samples_per_launch` samples as sample-major strips of `rows` rows,
     each about _SPL_TILE_RAYS rays (engine.py:872-904) → (radiance SUM
-    [H, W, 3], rays_traced). group_walk: trace_paths'."""
+    [H, W, 3], rays_traced). group_walk: trace_paths'. Each strip is an
+    `engine.strip` span; on a cluster scene the launch counts in
+    `clusters.queries`."""
     with telemetry.span("engine.render_sum_sample_major"):
+        if scene.has_clusters:
+            CLUSTER_QUERIES["launches"] += 1
         rows = min(height, max(1, _SPL_TILE_RAYS
                                // max(width * samples_per_launch, 1)))
         n_strips = -(-height // rows)
@@ -808,15 +817,17 @@ def render_sum_sample_major(scene: DeviceScene, cam_params, width: int,
                               dtype=torch.float32, device=scene.device)
         count = torch.zeros((), dtype=torch.int64, device=scene.device)
         for i in range(n_strips):
-            r, c = render_sample_group(
-                scene, cam_params, width, rows, subframe, samples_per_launch,
-                max_depth=max_depth, chunk_size=chunk_size,
-                y0=y0 + i * rows,
-                full_width=width if full_width is None else full_width,
-                full_height=height if full_height is None else full_height,
-                group_walk=group_walk)
-            rad_sum[i * rows:(i + 1) * rows] = r
-            count = count + c
+            with telemetry.span("engine.strip"):
+                r, c = render_sample_group(
+                    scene, cam_params, width, rows, subframe,
+                    samples_per_launch, max_depth=max_depth,
+                    chunk_size=chunk_size, y0=y0 + i * rows,
+                    full_width=width if full_width is None else full_width,
+                    full_height=(height if full_height is None
+                                 else full_height),
+                    group_walk=group_walk)
+                rad_sum[i * rows:(i + 1) * rows] = r
+                count = count + c
         return rad_sum[:height], count
 
 
@@ -827,20 +838,36 @@ def render_sum_wavefront(scene: DeviceScene, cam_params, width: int,
                          y0=0, full_width=None, full_height=None,
                          group_walk=None):
     """`samples_per_launch` sequential `render_sample`s from `subframe` →
-    (radiance SUM [H, W, 3], rays_traced). group_walk: trace_paths'."""
-    with telemetry.span("engine.render_sum_wavefront"):
+    (radiance SUM [H, W, 3], rays_traced). group_walk: trace_paths'. On a
+    cluster scene the launch counts in `clusters.queries`, and on the card
+    it is captured as one CUDA graph after a launch of its shape that made
+    no sync, and replayed (`launch_graph`)."""
+    def launch(cam, sub):
         rad_sum = torch.zeros((height, width, 3), dtype=torch.float32,
                               device=scene.device)
         count = torch.zeros((), dtype=torch.int64, device=scene.device)
         for i in range(samples_per_launch):
             radiance, rays_traced = render_sample(
-                scene, cam_params, width, height, subframe + i,
+                scene, cam, width, height, sub + i,
                 max_depth=max_depth, chunk_size=chunk_size, y0=y0,
                 full_width=full_width, full_height=full_height,
                 group_walk=group_walk)
             rad_sum = rad_sum + radiance
             count = count + rays_traced
         return rad_sum, count
+
+    with telemetry.span("engine.render_sum_wavefront"):
+        if scene.has_clusters:
+            CLUSTER_QUERIES["launches"] += 1
+            if launch_graph.usable(scene, cam_params, subframe):
+                key = (width, height, samples_per_launch, max_depth,
+                       chunk_size, y0, full_width, full_height, group_walk,
+                       _use_qwalk(),
+                       tuple((k, v.shape, v.dtype)
+                             for k, v in cam_params.items()))
+                return launch_graph.run(scene, key, launch, cam_params,
+                                        subframe)
+        return launch(cam_params, subframe)
 
 
 def render_aovs(scene: DeviceScene, cam_params, width: int, height: int,

@@ -6,13 +6,14 @@ Marked `gpu`; every test skips when `torch.cuda.is_available()` is false
 occlusion equal, t within rtol 1e-5, uv 1e-4, normals 1e-5
 (test_pallas_intersect.py); the exact cull's tables bit-equal; ray counts
 equal and radiance within atol 2e-3 / rtol 1e-3 (test_fused_kernel.py)."""
+import dataclasses
 import types
 
 import numpy as np
 import pytest
 import torch
 
-from optix_raytracer_tpu_torch import kernels
+from optix_raytracer_tpu_torch import kernels, telemetry
 from optix_raytracer_tpu_torch.accel import clusters as C
 from optix_raytracer_tpu_torch.accel import pallas_bf, tlas
 from optix_raytracer_tpu_torch.accel.geometry import build_triangle_geometry
@@ -1520,3 +1521,112 @@ def test_small_apps_on_card(cuda, tmp_path):
     assert by["raycasting --model"]["launches"].get("cluster_closest", 0)
     assert by["console"]["plain_rays_equal"]
     assert by["dynamic_materials"]["launches"].get("pt_fused_cornell", 0)
+
+
+@pytest.mark.parametrize("spl", [8, 2])
+def test_spd_tetra_launch_on_card(cuda, spl):
+    """The SPD `tetra` at level 7 (65,538 triangles, 513 clusters) through
+    `auto` at 32 x 24, depth 3: spl 8 takes the sample-major strips, spl 2
+    the sorted sequential loop; either runs kernels 4 / 5 / 6 and never the
+    fused kernel, and matches the benchmark's plain reference at every
+    pixel: ray counts equal, film_rel_l1 under 1e-3 (read: 7e-08)."""
+    import json
+    from pathlib import Path
+
+    from benchmark import check, scenes
+
+    w, h, depth = 32, 24, 3
+    cfg = json.loads((Path(__file__).resolve().parents[1]
+                      / "benchmark/configs/spd_tetra.json").read_text())
+    cfg.update(width=w, height=h, max_depth=depth)
+    scene = B.spd_tetra_scene(cuda)
+    assert scene.has_clusters and scene.clusters.num_clusters == 513
+    cam = B.spd_tetra_camera(w, h).params(cuda)
+    kernels.reset_launches()
+    film, rays = engine.render_accumulate(
+        scene, cam, Film.create(h, w, cuda), w, h, samples_per_launch=spl,
+        max_depth=depth)
+    torch.cuda.synchronize()
+    launched = dict(kernels.LAUNCHES)
+    for k in ("cluster_cull_exact", "cluster_closest", "cluster_any"):
+        assert launched[k] > 0, k
+    assert not any(launched[k] for k in kernels.FUSED_INSTANTIATIONS)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    px, py = xx.reshape(1, -1), yy.reshape(1, -1)
+    ref_films, ref_rays = check.reference_films(
+        scenes.build(cfg["scene"]), cfg,
+        dict(samples_per_launch=spl, film="accumulate"),
+        [tuple(cfg["camera"]["eye"])], px, py, cuda)
+    values = check.numbers(film.accum.reshape(1, -1, 3).cpu().numpy(),
+                           ref_films, int(rays), ref_rays,
+                           np.ones_like(px, np.float64))
+    print(f"spd tetra spl {spl}: {values}, launches {launched}")
+    assert int(ref_rays.sum()) == int(rays)
+    assert values["film_rel_l1"] < 1e-3
+
+
+@pytest.mark.parametrize("spl", [8, 2])
+def test_spd_tetra_launch_makes_no_sync(cuda, spl):
+    """After two warm-up launches, a cluster launch of the SPD `tetra` (the
+    sample-major strips at spl 8, the sorted sequential loop at spl 2, then
+    replayed as a CUDA graph, whose capture at the second launch syncs)
+    makes no host-device sync (torch.cuda.set_sync_debug_mode("error")):
+    `Rays.make` fills the camera rays' tmin / tmax planes on the card."""
+    w, h = 64, 48
+    scene = B.spd_tetra_scene(cuda)
+    cam = B.spd_tetra_camera(w, h).params(cuda)
+    film = Film.create(h, w, cuda)
+    for _ in range(2):
+        film = engine.render_accumulate(scene, cam, film, w, h,
+                                        samples_per_launch=spl,
+                                        max_depth=3)[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            film, rays = engine.render_accumulate(scene, cam, film, w, h,
+                                                  samples_per_launch=spl,
+                                                  max_depth=3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(film.subframe) == 4 * spl and int(rays) > 0
+
+
+def test_launch_graph_replays_the_eager_loop(cuda, monkeypatch):
+    """The sorted sequential loop on the SPD `tetra` (spl 2, depth 3, the
+    camera turning each launch, the film kept) replayed as a CUDA graph
+    from its third launch (the first, probed, makes no sync): films and ray
+    counts bit-equal to the eager loop's (ORT_LAUNCH_GRAPH=0), and the
+    counters read the same."""
+    from optix_raytracer_tpu_torch.wavefront import launch_graph
+
+    w, h, spl, depth = 64, 48, 2, 3
+    base = B.spd_tetra_camera(w, h)
+
+    def launches(graphs):
+        monkeypatch.setenv("ORT_LAUNCH_GRAPH", "1" if graphs else "0")
+        scene = B.spd_tetra_scene(cuda)
+        kernels.reset_launches()
+        telemetry.reset_counters("clusters.queries")
+        telemetry.reset_counters("engine.graphs")
+        film, out = Film.create(h, w, cuda), []
+        for k in range(5):
+            eye = np.asarray(base.eye) + np.array([0.05 * k, 0.0, 0.0])
+            cam = dataclasses.replace(base, eye=tuple(eye)).params(cuda)
+            film, rays = engine.render_accumulate(
+                scene, cam, film, w, h, samples_per_launch=spl,
+                max_depth=depth)
+            out.append((film.accum.clone(), int(rays)))
+            if graphs and k == 0:
+                assert list(scene.launch_graphs.values()) == [
+                    launch_graph._SEEN]
+        return out, (dict(kernels.LAUNCHES), dict(C.QUERIES),
+                     dict(launch_graph.GRAPHS), len(scene.launch_graphs))
+
+    eager, (e_launches, e_queries, e_graphs, e_kept) = launches(False)
+    graphed, (g_launches, g_queries, g_graphs, g_kept) = launches(True)
+    for (a, ra), (b, rb) in zip(eager, graphed):
+        assert ra == rb and torch.equal(a, b)
+    assert g_launches == e_launches and g_queries == e_queries
+    assert e_graphs == dict(captured=0, replayed=0) and e_kept == 0
+    assert g_graphs == dict(captured=1, replayed=3) and g_kept == 1

@@ -16,7 +16,8 @@ from optix_raytracer_tpu_torch.accel import qwalk
 from optix_raytracer_tpu_torch.core.film import Film
 from optix_raytracer_tpu_torch.scene.builtins import (cornell_box,
                                                      cornell_camera)
-from optix_raytracer_tpu_torch.wavefront import engine, intersect, pallas_pt
+from optix_raytracer_tpu_torch.wavefront import (engine, intersect,
+                                                 launch_graph, pallas_pt)
 
 W = H = 8
 
@@ -160,6 +161,7 @@ LAUNCH_KEYS = ["bf_closest", "bf_any", *kernels.FUSED_INSTANTIATIONS,
      intersect.reset_alpha_stats),
     ("kernels.builds", kernels.BUILDS, ["libraries"], None),
     ("fused.plans", pallas_pt.PLANS, ["built", "reused"], None),
+    ("engine.graphs", launch_graph.GRAPHS, ["captured", "replayed"], None),
 ])
 def test_counter_families_keep_their_dicts(family, counts, keys, reset):
     """Each counter dict is its family in the registry, with its keys in
