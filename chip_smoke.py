@@ -31,7 +31,11 @@ groups, and phase m prints the group size and the culled tests a ray of the
 headlines it culls (through optix_raytracer_tpu_torch/tools/bench_fused.py),
 which give their bound; and phase l holds kernel 9, the texture-fetch
 study's row fetch, to its plain version and repeats the study's A/B against
-torch's row gather. Phases w1-w3 drive the Whitted integrator through its
+torch's row gather; phases r1-r2 hold the counter RNG's two kernels
+(csrc/rng.cu) to their plain versions bit for bit at the main path's shapes,
+time both beside the bytes bound, and count their launches on one SPD tetra
+launch (1920x1088, 16 samples, depth 4) whose film is bit-equal to the same
+launch through the plain RNG. Phases w1-w3 drive the Whitted integrator through its
 apps: the Whitted headline (768x576, 16 samples, depth 6; kernels 1-2), its
 first sample again through kernels 1-2's plain versions (bit-equal), and
 the meshviewer's headlight rig on the 25k knot (768x768, 8 samples, depth
@@ -117,7 +121,7 @@ try:
     # the knot configurations, probe sets, timing and work counts (the
     # card's peaks: FP32 outside the tensor cores, HBM3)
     from optix_raytracer_tpu_torch.tools.knot_probe import (
-        KNOT, KNOT_SC, KNOT_STREAM, PAIR_OPS, SLAB_OPS, bound,
+        HBM_RATE, KNOT, KNOT_SC, KNOT_STREAM, PAIR_OPS, SLAB_OPS, bound,
         cuda_ms, cull_fields, knot_ray_sets, listed_entries, listed_words,
         main_path_strip_sets, ptxas_report, queue_counts, sc_pair_counts,
         timed_launches, walk_bound, walk_pair_counts)
@@ -2974,6 +2978,175 @@ def texfetch_phase(dev, card, record):
     return {"texfetch": n}
 
 
+# Phase r: the counter RNG's shapes on the main path, a progressive strip of
+# the SPD tetra (16 samples x 136 rows x 1920: 4,177,920 lanes) and an
+# interactive sample (1088 x 1920: 2,088,960 lanes); calls a timing.
+RNG_STRIP = (16, 136, 1920)
+RNG_FRAME = (1088, 1920)
+RNG_REPS = 50
+
+
+def graph_ms(fn, reps):
+    """Mean device time of fn() over `reps` calls captured as one CUDA graph
+    (CUDA events around a replay, after a warm-up replay), so the host's
+    enqueue is not timed."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps):
+    """Mean host time of an eager fn() call, to the end of its enqueue."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
+def rng_phases(dev, card, record):
+    """Phases r1-r2, the counter RNG's kernels (csrc/rng.cu): (r1)
+    rng_uniform2_kernel on random states (0, 1 and 2**32 - 1 among them)
+    and rng_seed_kernel (the strip's [1, h, w] x [spl, 1, 1] broadcast; a
+    flat frame) from a 0-d device subframe, each bit-equal to its plain
+    version (core/rng.py's torch functions on the same tensors) at the
+    strip's and the sample's shapes, both sides timed (graph_ms) beside the
+    bound (the bytes a call must move, over the HBM rate: 24 a lane for a
+    uniform2, 8 a lane and the operands once for a seed) and the host's µs
+    a call; (r2) one main-path launch of the SPD tetra (1920x1088, 16
+    samples, depth 4, impl auto: eight sample-major strips) with LAUNCHES
+    reset just before it, its film and rays bit-equal to the same launch
+    through the plain RNG → the two kernels' launches on it (8 seeds, 144
+    draws). The record takes the strip's shape."""
+    import torch
+    from optix_raytracer_tpu_torch import kernels
+    from optix_raytracer_tpu_torch.core import rng
+    from optix_raytracer_tpu_torch.core.film import Film
+    from optix_raytracer_tpu_torch.scene import builtins as B
+    from optix_raytracer_tpu_torch.wavefront import engine
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    def row(name, shape, nbytes, fn, plain):
+        r = dict(lanes=int(np.prod(shape)), bytes=nbytes,
+                 bound_ms=1e3 * nbytes / HBM_RATE, bound_by="bytes",
+                 ms=graph_ms(fn, RNG_REPS), plain_ms=graph_ms(plain, RNG_REPS),
+                 host_us=host_us(fn, RNG_REPS),
+                 plain_host_us=host_us(plain, RNG_REPS))
+        phase(f"r1 {name} {list(shape)}", card=repr(card),
+              lanes=r["lanes"], ms=f"{r['ms']:.4f}",
+              plain_ms=f"{r['plain_ms']:.4f}",
+              bound_ms=f"{r['bound_ms']:.4f}(bytes)",
+              roofline_pct=f"{100 * r['bound_ms'] / r['ms']:.1f}",
+              host_us=f"{r['host_us']:.1f}",
+              plain_host_us=f"{r['plain_host_us']:.1f}", bit_equal=True)
+        return r
+
+    sub0 = torch.tensor(2 ** 32 - 5, dtype=torch.int64, device=dev)
+    res = {}
+    for shape in (RNG_STRIP, RNG_FRAME):
+        n = int(np.prod(shape))
+        g = torch.Generator(device=dev).manual_seed(n)
+        state = torch.randint(0, 2 ** 32, shape, generator=g,
+                              dtype=torch.int64, device=dev)
+        state.view(-1)[:3] = torch.tensor([0, 1, 2 ** 32 - 1], device=dev)
+        got, want = rng.uniform2(state), rng.uniform2_plain(state)
+        require(all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)),
+                f"r1: rng_uniform2 differs from its plain version at {shape}")
+        res["rng_uniform2", shape] = row(
+            "rng_uniform2", shape, 24 * n, lambda: rng.uniform2(state),
+            lambda: rng.uniform2_plain(state))
+        if len(shape) == 3:
+            spl, h, w = shape
+            pix = torch.arange(h * w, dtype=torch.int64,
+                               device=dev).reshape(1, h, w) + 952 * w
+            sub = sub0 + torch.arange(spl, dtype=torch.int64,
+                                      device=dev)[:, None, None]
+        else:
+            pix = torch.arange(n, dtype=torch.int64, device=dev)
+            sub = sub0
+        require(torch.equal(rng.seed(pix, sub), rng.seed_plain(pix, sub)),
+                f"r1: rng_seed differs from its plain version at {shape}")
+        res["rng_seed", shape] = row(
+            "rng_seed", shape, 8 * (n + pix.numel() + sub.numel()),
+            lambda: rng.seed(pix, sub), lambda: rng.seed_plain(pix, sub))
+        del state, got, want, pix, sub
+    log = kernels.build()[0].parent / "nvcc.log"
+    regs = {name: v for name in ("rng_seed", "rng_uniform2")    # one entry
+            for v in ptxas_report(log, (name,)).values()}      # each
+    phase("r1 registers", **regs)
+
+    # --- r2: a main-path launch of the SPD tetra, kernels against plain ---
+    W, H, spl, depth = HEADLINE["width"], HEADLINE["height"], 16, 4
+    scene = B.spd_tetra_scene(dev)
+    cam = B.spd_tetra_camera(W, H).params(dev)
+
+    def launch():
+        film, rays = engine.render_accumulate(
+            scene, cam, Film.create(H, W, dev), W, H,
+            samples_per_launch=spl, max_depth=depth, impl="auto")
+        torch.cuda.synchronize()
+        return film.accum, int(rays)
+
+    launch()                                # warm-up
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    film_k, rays_k = launch()
+    dt_k = time.perf_counter() - t0
+    counts = {k: kernels.LAUNCHES[k] for k in ("rng_seed", "rng_uniform2")}
+    saved = rng.seed, rng.uniform2
+    rng.seed, rng.uniform2 = rng.seed_plain, rng.uniform2_plain
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        film_p, rays_p = launch()
+        dt_p = time.perf_counter() - t0
+        plain_counts = {k: kernels.LAUNCHES[k]
+                        for k in ("rng_seed", "rng_uniform2")}
+    finally:
+        rng.seed, rng.uniform2 = saved
+    require(torch.equal(film_k, film_p) and rays_k == rays_p,
+            f"r2: the SPD tetra launch through the RNG kernels differs from "
+            f"the plain RNG's (rays {rays_k} / {rays_p})")
+    strips = -(-H // (engine._SPL_TILE_RAYS // (W * spl)))
+    want = dict(rng_seed=strips, rng_uniform2=strips * (2 + 4 * depth))
+    require(counts == want and not any(plain_counts.values()),
+            f"r2: launches {counts} (expected {want}), plain "
+            f"{plain_counts}")
+    phase("r2 spd-tetra launch", card=repr(card), width=W, height=H,
+          spl=spl, depth=depth, rays=rays_k, ms=f"{1e3 * dt_k:.1f}",
+          plain_rng_ms=f"{1e3 * dt_p:.1f}", film_bit_equal=True,
+          launches=counts)
+    del scene, film_k, film_p
+    for name in ("rng_seed", "rng_uniform2"):
+        strip, frame = res[name, RNG_STRIP], res[name, RNG_FRAME]
+        record[name] = dict(
+            max_abs_err=0.0, **strip, frame_ms=frame["ms"],
+            frame_plain_ms=frame["plain_ms"],
+            frame_bound_ms=frame["bound_ms"], plain_blocks="all",
+            main_path_launches=counts[name],
+            ptxas=regs[name])
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3254,6 +3427,10 @@ def main():
     launches.update(texfetch_phase(dev, card, record))
     torch.cuda.empty_cache()
 
+    # --- phases r1-r2: the counter RNG's kernels ---
+    launches.update(rng_phases(dev, card, record))
+    torch.cuda.empty_cache()
+
     # --- phases (a)-(d), (h)-(j): the large-mesh path (kernels 4-6) and
     # the queue (kernels 7-8) ---
     launches.update(knot_phases(dev, card, record))
@@ -3337,7 +3514,13 @@ def main():
         bvh_walk_closest=("optix_raytracer_tpu_torch/csrc/bvh.cu",
                           "optix_raytracer_tpu/accel/traverse.py:51"),
         bvh_walk_any=("optix_raytracer_tpu_torch/csrc/bvh.cu",
-                      "optix_raytracer_tpu/accel/traverse.py:51"))
+                      "optix_raytracer_tpu/accel/traverse.py:51"),
+        # no pallas_call: the JAX RNG is jnp code; these replace
+        # core/rng.py's torch ops on the card
+        rng_seed=("optix_raytracer_tpu_torch/csrc/rng.cu",
+                  "optix_raytracer_tpu_torch/core/rng.py::seed_plain"),
+        rng_uniform2=("optix_raytracer_tpu_torch/csrc/rng.cu",
+                      "optix_raytracer_tpu_torch/core/rng.py::uniform2_plain"))
     require(set(p_launches) <= set(meta),
             f"phases p1-p4 launched kernels outside the record: "
             f"{set(p_launches) - set(meta)}")

@@ -67,7 +67,7 @@ LAUNCHES = telemetry.counters("kernels.launches", (
     "bf_closest", "bf_any", *FUSED_INSTANTIATIONS, "cluster_cull_exact",
     "cluster_closest", "cluster_any", "cluster_sc_closest", "cluster_sc_any",
     "qwalk_oct_cull", "qwalk_closest", "qwalk_any", "texfetch",
-    "bvh_walk_closest", "bvh_walk_any"))
+    "bvh_walk_closest", "bvh_walk_any", "rng_seed", "rng_uniform2"))
 BUILDS = telemetry.counters("kernels.builds", ("libraries",))
 
 _P = ctypes.c_void_p
@@ -111,6 +111,12 @@ _SIGNATURES = {
                         _P, _P),
     # nodes, num_nodes, tri, org, dir, tmin, tmax, n, occ, stream
     "ort_bvh_any": (_P, _I, _P, _P, _P, _P, _P, _I, _P, _P),
+    # state, n, u1, u2, next, stream
+    "ort_rng_uniform2": (_P, _L, _P, _P, _P, _P),
+    # a, a_value, a strides (3), b, b_value, b strides (3), d0, d1, d2, out,
+    # stream
+    "ort_rng_seed": (_P, _L, _L, _L, _L, _P, _L, _L, _L, _L, _L, _L, _L, _P,
+                     _P),
 }
 
 

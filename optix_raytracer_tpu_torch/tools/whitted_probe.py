@@ -1,8 +1,8 @@
 """The Whitted path's configurations and probes, shared by chip_smoke.py and
 the tests: the two frames the apps render by default (the Whitted scene,
 and the meshviewer's headlight rig on the 25k knot), a context that swaps
-the query kernels (1-2, 4-6) for their plain versions, and a recorder of
-the rays the Whitted path hands them.
+the query kernels (1-2, 4-6) and the counter RNG's kernels for their plain
+versions, and a recorder of the rays the Whitted path hands them.
 """
 from __future__ import annotations
 
@@ -10,6 +10,7 @@ import contextlib
 
 from ..accel import clusters as C
 from ..accel import pallas_bf
+from ..core import rng
 
 # apps/whitted.py main()'s defaults: 768x576, 16 samples, depth 6
 WHITTED = dict(width=768, height=576, spl=16, depth=6)
@@ -21,15 +22,17 @@ KNOT_RIG = dict(segments=200, sides=63, width=768, height=768, spl=8,
 
 @contextlib.contextmanager
 def plain_queries():
-    """Within the context the wrappers of kernels 1-2 (brute force) and 4-6
-    (the exact cull and the resident walks) run their plain versions on
-    every device, with the same outputs bit for bit: a render through them
-    is the kernels' oracle."""
+    """Within the context the wrappers of kernels 1-2 (brute force), 4-6
+    (the exact cull and the resident walks) and the counter RNG (`rng.seed`
+    / `rng.uniform2`) run their plain versions on every device, with the
+    same outputs bit for bit: a render through them is the kernels' oracle
+    and launches nothing."""
     saved = {(pallas_bf, "closest_hit"): pallas_bf.closest_hit,
              (pallas_bf, "any_hit"): pallas_bf.any_hit,
              (C, "exact_cull"): C.exact_cull,
              (C, "walk_closest"): C.walk_closest,
-             (C, "walk_any"): C.walk_any}
+             (C, "walk_any"): C.walk_any,
+             (rng, "seed"): rng.seed, (rng, "uniform2"): rng.uniform2}
 
     def bf_closest(tri_consts, tri_mat, rays, chunk_size=65536, boxes=None):
         return pallas_bf.closest_hit_plain(tri_consts, tri_mat, rays,
@@ -42,6 +45,7 @@ def plain_queries():
         pallas_bf.closest_hit, pallas_bf.any_hit = bf_closest, bf_any
         C.exact_cull = C.exact_cull_plain
         C.walk_closest, C.walk_any = C.walk_closest_plain, C.walk_any_plain
+        rng.seed, rng.uniform2 = rng.seed_plain, rng.uniform2_plain
         yield
     finally:
         for (mod, name), fn in saved.items():

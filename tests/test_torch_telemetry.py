@@ -148,7 +148,7 @@ LAUNCH_KEYS = ["bf_closest", "bf_any", *kernels.FUSED_INSTANTIATIONS,
                "cluster_cull_exact", "cluster_closest", "cluster_any",
                "cluster_sc_closest", "cluster_sc_any", "qwalk_oct_cull",
                "qwalk_closest", "qwalk_any", "texfetch", "bvh_walk_closest",
-               "bvh_walk_any"]
+               "bvh_walk_any", "rng_seed", "rng_uniform2"]
 
 
 @pytest.mark.parametrize("family, counts, keys, reset", [
